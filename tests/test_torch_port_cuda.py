@@ -1,0 +1,146 @@
+"""The port's CUDA kernels against their plain versions on the card.
+
+Every test here needs an NVIDIA GPU and skips (deciding inside the test)
+where ``torch.cuda.is_available()`` is false.  On a machine with a card:
+
+    python -m pytest tests/test_torch_port_cuda.py -m cuda -q
+
+This file imports no JAX, so it also runs where JAX is not installed.
+"""
+
+import pytest
+import torch
+
+from theatergen_tpu_torch.models import layers as tl
+from theatergen_tpu_torch.ops import flash_attention as tfa
+from theatergen_tpu_torch.ops import geglu_matmul as tgg
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,d", [(4096, 40), (1024, 80)])
+def test_flash_kernel_matches_plain_on_card(s, d):
+    """Kernel vs plain (fp32 from the same bf16 inputs) at SD1.5's shapes
+    with CFG batch 2, 8 heads; bound 1e-2·max|ref| for the bf16 output."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(2, s, 8, d, device=dev, generator=g,
+                           dtype=torch.bfloat16) for _ in range(3))
+    out = tfa.flash_attention(q, k, v).float()
+    ref = tfa.flash_attention_plain(q.float(), k.float(), v.float())
+    assert (out - ref).abs().max() <= 1e-2 * ref.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d", [(8192, 320), (2048, 640), (512, 1280),
+                                 (128, 1280), (100, 320)])
+def test_ff_kernel_matches_plain_on_card(m, d):
+    """Kernel vs plain (fp32 from the same bf16 inputs); the M=100 case
+    checks the masked row tail.  Bound 1e-2·max|ref| for the bf16 output
+    and the bf16 rounding of h."""
+    dev = _card()
+    k = 4 * d
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, device=dev, generator=g) * scale).to(
+            torch.bfloat16)
+
+    x, w1, b1, w2 = (rnd(m, d), rnd(2 * k, d, scale=d ** -0.5),
+                     rnd(2 * k, scale=0.1), rnd(d, k, scale=k ** -0.5))
+    out = tgg.ff_matmul(x, w1, b1, w2).float()
+    ref = tgg.ff_matmul_plain(x.float(), w1.float(), b1.float(), w2.float())
+    assert (out - ref).abs().max() <= 1e-2 * ref.abs().max()
+
+
+@pytest.mark.cuda
+def test_ff_split_reduce_is_deterministic_and_resets_its_counters():
+    """At the mid block's shape (16 inner splits) repeated calls give
+    bit-identical outputs, and the per-row-block counters are zero after
+    each call, ready for the next."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(2)
+    m, d, k = 128, 1280, 5120
+    x = torch.randn(m, d, device=dev, generator=g).to(torch.bfloat16)
+    w1 = (torch.randn(2 * k, d, device=dev, generator=g) * d ** -0.5).to(
+        torch.bfloat16)
+    b1 = torch.zeros(2 * k, device=dev, dtype=torch.bfloat16)
+    w2 = (torch.randn(d, k, device=dev, generator=g) * k ** -0.5).to(
+        torch.bfloat16)
+    first = tgg.ff_matmul(x, w1, b1, w2)
+    for _ in range(5):
+        assert torch.equal(tgg.ff_matmul(x, w1, b1, w2), first)
+        assert not tgg._split_counters[x.device].any()
+
+
+@pytest.mark.cuda
+def test_flash_kernel_reads_strided_views_and_masks_the_tail():
+    """q, k, v as strided views of one QKV tensor, S = 1000 (not a multiple
+    of the 64-row tiles): same bound as above."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(1)
+    qkv = torch.randn(1, 1000, 3, 4, 40, device=dev, generator=g,
+                      dtype=torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    out = tfa.flash_attention(q, k, v).float()
+    ref = tfa.flash_attention_plain(q.float(), k.float(), v.float())
+    assert (out - ref).abs().max() <= 1e-2 * ref.abs().max()
+
+
+@pytest.mark.cuda
+def test_launch_counters_count_each_kernel_launch():
+    dev = _card()
+    fa0, ff0 = tfa.launches, tgg.launches
+    q = torch.randn(1, 1024, 2, 40, device=dev, dtype=torch.bfloat16)
+    tfa.flash_attention(q, q, q)
+    tfa.flash_attention_plain(q, q, q)
+    x = torch.randn(64, 320, device=dev, dtype=torch.bfloat16)
+    w1 = torch.randn(2560, 320, device=dev, dtype=torch.bfloat16)
+    b1 = torch.zeros(2560, device=dev, dtype=torch.bfloat16)
+    w2 = torch.randn(320, 1280, device=dev, dtype=torch.bfloat16)
+    tgg.ff_matmul(x, w1, b1, w2)
+    tgg.ff_matmul_plain(x, w1, b1, w2)
+    torch.cuda.synchronize()
+    assert (tfa.launches - fa0, tgg.launches - ff0) == (1, 1)
+
+
+@pytest.mark.cuda
+def test_layers_raise_in_the_domain_without_a_kernel_instance():
+    """A bf16 self-attention in the flash domain with a head dim the kernel
+    has no instance for, and a fused bf16 FF of an uncompiled width, raise
+    on the card instead of running the plain path."""
+    dev = _card()
+    attn = tl.CrossAttention(64, 1, 64).to(dev, torch.bfloat16)
+    with pytest.raises(ValueError):
+        attn(torch.randn(1, 1024, 64, device=dev, dtype=torch.bfloat16))
+    ff = tl.FeedForward(32, fused_ff=True).to(dev, torch.bfloat16)
+    with pytest.raises(ValueError):
+        ff(torch.randn(1, 16, 32, device=dev, dtype=torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    """No silent fallback or downcast on the card: fp32 and unsupported
+    shapes raise."""
+    dev = _card()
+    q = torch.randn(1, 1024, 2, 40, device=dev)
+    with pytest.raises(TypeError):
+        tfa.flash_attention(q, q, q)
+    with pytest.raises(TypeError):
+        tgg.ff_matmul(q[0, :, 0], torch.randn(2560, 40, device=dev),
+                      torch.zeros(2560, device=dev),
+                      torch.randn(40, 1280, device=dev))
+    qb = torch.randn(1, 1024, 2, 48, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        tfa.flash_attention(qb, qb, qb)
+    x = torch.randn(8, 32, device=dev, dtype=torch.bfloat16)
+    w = torch.randn(256, 32, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        tgg.ff_matmul(x, w, torch.zeros(256, device=dev,
+                                        dtype=torch.bfloat16),
+                      torch.randn(32, 128, device=dev, dtype=torch.bfloat16))

@@ -1,0 +1,107 @@
+"""Rules of the PyTorch port that hold whatever the numbers: it imports
+neither JAX nor the JAX package, its entry points default to the card and
+refuse to fall back to the CPU, and its kernels build from the repo's own
+sources."""
+
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from theatergen_tpu_torch import _build
+from theatergen_tpu_torch.config import tiny_config
+from theatergen_tpu_torch.pipelines.bundle import init_bundle
+
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "theatergen_tpu_torch"
+
+
+def _modules():
+    mods = []
+    for p in sorted(PKG.rglob("*.py")):
+        parts = p.relative_to(ROOT).with_suffix("").parts
+        mods.append(".".join(parts[:-1] if parts[-1] == "__init__" else parts))
+    return mods
+
+
+def test_port_imports_no_jax():
+    """A fresh interpreter imports every module of the port (and
+    chip_smoke.py's source compiles) with neither jax nor theatergen_tpu
+    in sys.modules."""
+    code = (
+        "import sys, importlib\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"compile(open({str(ROOT / 'chip_smoke.py')!r}).read(), 'chip_smoke.py', 'exec')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'theatergen_tpu'))\n"
+        "assert not bad, bad\n"
+        "print(len(sys.modules))\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in list(PKG.rglob("*.py"))
+    + [ROOT / "chip_smoke.py"]))
+def test_source_names_no_jax(path):
+    text = (ROOT / path).read_text()
+    for line in text.splitlines():
+        s = line.strip()
+        if s.startswith(("import ", "from ")):
+            head = s.split()[1].split(".")[0]
+            assert head not in ("jax", "jaxlib", "flax", "theatergen_tpu"), (
+                path, line)
+
+
+def test_init_bundle_needs_the_card_unless_asked():
+    if torch.cuda.is_available():
+        b = init_bundle(tiny_config(), 0)
+        assert b.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            init_bundle(tiny_config(), 0)
+    assert init_bundle(tiny_config(), 0, device="cpu").device.type == "cpu"
+
+
+def test_seeded_init_is_deterministic():
+    a = init_bundle(tiny_config(), 3, device="cpu")
+    b = init_bundle(tiny_config(), 3, device="cpu")
+    c = init_bundle(tiny_config(), 4, device="cpu")
+    for k, v in a.unet.state_dict().items():
+        assert torch.equal(v, b.unet.state_dict()[k]), k
+    assert not torch.equal(a.unet.conv_in.weight, c.unet.conv_in.weight)
+
+
+def test_kernel_sources_and_targets():
+    """Every kernel builds from csrc/ into build/torch_kernels/ under a
+    name that changes with its source."""
+    assert _build.kernel_names() == ["ff_geglu", "flash_attention"]
+    for name in _build.kernel_names():
+        t = _build._target(name)
+        assert t.parent == ROOT / "build" / "torch_kernels"
+        assert t.name.startswith(f"lib{name}-") and t.suffix == ".so"
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_wrappers_take_the_plain_version_only_on_cpu(monkeypatch):
+    """CPU tensors never reach the kernel library (nor nvcc)."""
+    from theatergen_tpu_torch.ops import flash_attention as fa
+    from theatergen_tpu_torch.ops import geglu_matmul as gg
+
+    def boom(*a, **k):
+        raise AssertionError("kernel library requested for CPU tensors")
+
+    monkeypatch.setattr(_build, "library", boom)
+    q = torch.randn(1, 1024, 2, 40, dtype=torch.bfloat16)
+    assert fa.flash_attention(q, q, q).shape == q.shape
+    x = torch.randn(4, 320, dtype=torch.bfloat16)
+    w1 = torch.randn(2560, 320, dtype=torch.bfloat16)
+    out = gg.ff_matmul(x, w1, torch.zeros(2560, dtype=torch.bfloat16),
+                       torch.randn(320, 1280, dtype=torch.bfloat16))
+    assert out.shape == x.shape

@@ -1,0 +1,100 @@
+"""Builds the port's CUDA kernels from ``csrc/`` and loads them with ctypes.
+
+Each ``csrc/<name>.cu`` compiles on first use, with ``nvcc`` for ``sm_90a``,
+into a shared library with a plain C interface under
+``<checkout>/build/torch_kernels/``.  The file name carries a hash of the
+sources and flags, so an edited kernel rebuilds and a stale one is never
+loaded.  :func:`build` starts one ``nvcc`` per source, all at once.
+Nothing here runs at import time: the CPU tests import every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
+)
+
+_libs: Dict[str, ctypes.CDLL] = {}
+# name -> {"seconds": float, "ptxas": str} for builds made by this process
+build_log: Dict[str, dict] = {}
+
+
+def kernel_names() -> list:
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME", ""), "/usr/local/cuda"):
+        path = Path(cand) / "bin" / "nvcc"
+        if cand and path.exists():
+            return str(path)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (CUDA_HOME or /usr/local/cuda)")
+    return found
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        if src.suffix == ".cuh" or src.stem == name:
+            h.update(src.name.encode())
+            h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
+    """Compile the named kernels (all by default) that are not built yet,
+    one ``nvcc`` process each, in parallel.  Raises on any failure."""
+    names = kernel_names() if names is None else list(names)
+    targets = {n: _target(n) for n in names}
+    todo = {n: p for n, p in targets.items() if not p.exists()}
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        procs = {}
+        t0 = time.perf_counter()
+        for n, out in todo.items():
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+            procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True),
+                        tmp, out)
+        failed = []
+        for n, (proc, tmp, out) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"--- {n}.cu (nvcc exit {proc.returncode})\n{log}")
+                continue
+            os.replace(tmp, out)
+            build_log[n] = {"seconds": time.perf_counter() - t0, "ptxas": log}
+        if failed:
+            raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return targets
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded shared library of ``csrc/<name>.cu``, built if needed."""
+    if name not in _libs:
+        path = build([name])[name]
+        _libs[name] = ctypes.CDLL(str(path))
+    return _libs[name]
+
+
+def check(status: int, what: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a C entry point."""
+    if status != 0:
+        raise RuntimeError(f"{what}: CUDA error {status} at launch")

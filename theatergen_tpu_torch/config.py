@@ -1,0 +1,179 @@
+"""Configuration dataclasses of the PyTorch port.
+
+The port's own copy of the SD1.5 slice of ``theatergen_tpu/config.py``:
+field names and defaults are identical, so a config written for one
+package reads the same in the other.  Only the dataclasses the txt2img
+path needs live here; the others join as their modules are ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class UNetConfig:
+    """SD-style UNet2DCondition architecture; defaults are SD1.5."""
+
+    in_channels: int = 4
+    out_channels: int = 4
+    sample_size: int = 64
+    block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
+    layers_per_block: int = 2
+    # levels that carry cross-attention transformers
+    attention_levels: Tuple[bool, ...] = (True, True, True, False)
+    # int, or one entry per level
+    transformer_layers_per_block: "int | Tuple[int, ...]" = 1
+    num_attention_heads: "int | Tuple[int, ...]" = 8
+    cross_attention_dim: int = 768
+    addition_embed_type: Optional[str] = None
+    addition_time_embed_dim: int = 256
+    projection_class_embeddings_input_dim: int = 2816
+    norm_num_groups: int = 32
+    time_embed_mult: int = 4  # time_embed_dim = block_out_channels[0] * 4
+    ip_num_tokens: int = 0
+    # self-attention at 1024..4096 tokens goes through the flash kernel
+    flash_attention: bool = True
+    quantized: bool = False
+    # GroupNorms in the model dtype instead of fp32
+    fast_norm: bool = True
+    # whole transformer FF in one kernel (ops/geglu_matmul.py) when the
+    # model runs in bf16; sd15_config turns it on
+    fused_ff: bool = False
+    remat: bool = False
+    dtype: str = "bfloat16"
+
+    def heads_at(self, level: int) -> int:
+        h = self.num_attention_heads
+        return h[level] if isinstance(h, tuple) else h
+
+    def depth_at(self, level: int) -> int:
+        d = self.transformer_layers_per_block
+        return d[level] if isinstance(d, tuple) else d
+
+
+@dataclasses.dataclass(frozen=True)
+class VAEConfig:
+    """AutoencoderKL; defaults are sd-vae-ft-mse."""
+
+    in_channels: int = 3
+    out_channels: int = 3
+    latent_channels: int = 4
+    block_out_channels: Tuple[int, ...] = (128, 256, 512, 512)
+    layers_per_block: int = 2
+    norm_num_groups: int = 32
+    scaling_factor: float = 0.18215
+    dtype: str = "bfloat16"
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPTextConfig:
+    """CLIP ViT-L/14 text tower (SD1.5 text encoder)."""
+
+    vocab_size: int = 49408
+    hidden_size: int = 768
+    intermediate_size: int = 3072
+    num_layers: int = 12
+    num_heads: int = 12
+    max_length: int = 77
+    layer_norm_eps: float = 1e-5
+    act: str = "quick_gelu"
+    projection_dim: int = 768
+    use_text_projection: bool = False
+    dtype: str = "float32"
+
+
+@dataclasses.dataclass(frozen=True)
+class SchedulerConfig:
+    """DDIM with SD1.5 betas."""
+
+    num_train_timesteps: int = 1000
+    beta_start: float = 0.00085
+    beta_end: float = 0.012
+    beta_schedule: str = "scaled_linear"
+    steps_offset: int = 1
+    set_alpha_to_one: bool = False
+    # "epsilon" | "v_prediction" | "sample"
+    prediction_type: str = "epsilon"
+    rescale_zero_terminal_snr: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    """One denoising run."""
+
+    height: int = 512
+    width: int = 512
+    num_steps: int = 50
+    guidance_scale: float = 7.5
+    frozen_step_ratio: float = 0.5
+    fg_blending_ratio: float = 0.1
+    ip_scale_hit: float = 0.4
+    ip_scale_final: float = 0.1
+    fast_after_steps: Optional[int] = None
+    fast_rate: int = 2
+    cfg_cutoff_fraction: Optional[float] = None
+    deepcache_interval: Optional[int] = None
+    controlnet_interval: Optional[int] = None
+    max_objects: int = 8
+    vae_scale: int = 8
+    scheduler_type: str = "ddim"
+
+    @property
+    def latent_height(self) -> int:
+        return self.height // self.vae_scale
+
+    @property
+    def latent_width(self) -> int:
+        return self.width // self.vae_scale
+
+
+@dataclasses.dataclass(frozen=True)
+class TheaterConfig:
+    """Top-level bundle of the configs the txt2img path reads."""
+
+    unet: UNetConfig = dataclasses.field(default_factory=UNetConfig)
+    vae: VAEConfig = dataclasses.field(default_factory=VAEConfig)
+    text: CLIPTextConfig = dataclasses.field(default_factory=CLIPTextConfig)
+    scheduler: SchedulerConfig = dataclasses.field(
+        default_factory=SchedulerConfig)
+    pipeline: PipelineConfig = dataclasses.field(
+        default_factory=PipelineConfig)
+
+
+def tiny_config(latent_size: int = 8) -> TheaterConfig:
+    """A miniature config for CPU tests: same topology, tiny widths."""
+    unet = UNetConfig(
+        sample_size=latent_size,
+        block_out_channels=(32, 64, 64),
+        layers_per_block=1,
+        attention_levels=(True, True, False),
+        num_attention_heads=2,
+        cross_attention_dim=32,
+        norm_num_groups=8,
+        dtype="float32",
+        flash_attention=False,
+    )
+    vae = VAEConfig(
+        block_out_channels=(16, 32),
+        layers_per_block=1,
+        norm_num_groups=8,
+        dtype="float32",
+    )
+    text = CLIPTextConfig(
+        vocab_size=1024, hidden_size=32, intermediate_size=64,
+        num_layers=2, num_heads=2, max_length=16, projection_dim=32,
+    )
+    pipe = PipelineConfig(
+        height=latent_size * 2, width=latent_size * 2, num_steps=4,
+        max_objects=3, vae_scale=2,
+    )
+    return TheaterConfig(unet=unet, vae=vae, text=text, pipeline=pipe)
+
+
+def sd15_config() -> TheaterConfig:
+    """Full-size SD1.5 stack (the main path), with the fused FF on."""
+    base = TheaterConfig()
+    return dataclasses.replace(
+        base, unet=dataclasses.replace(base.unet, fused_ff=True))

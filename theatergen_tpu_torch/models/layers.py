@@ -1,0 +1,260 @@
+"""Building blocks of the SD1.5 UNet, VAE and text tower (PyTorch).
+
+Port of the SD1.5 path of ``theatergen_tpu/models/layers.py``.  Modules
+are NCHW inside and use diffusers' parameter names (``to_q``,
+``to_out.0``, ``ff.net.0.proj``, ``time_emb_proj`` …), so
+``models/weights.py`` maps the JAX package's trees onto them by name.
+Normalisation epsilons follow the JAX package (GroupNorm 1e-5, the
+transformer LayerNorms flax's default 1e-6).
+
+Two layers reach a kernel: :class:`FeedForward` (``ops/geglu_matmul``,
+when the model's ``fused_ff`` is on and it runs in bf16) and
+:class:`CrossAttention` (``ops/flash_attention`` for self-attention at
+1024..4096 tokens).  Everything else is plain PyTorch.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops import attention as attn_ops
+from ..ops import flash_attention as fa_ops
+from ..ops import geglu_matmul as gg_ops
+
+# flax nn.LayerNorm's default epsilon, which the JAX package's transformer
+# blocks use
+LAYER_NORM_EPS = 1e-6
+
+
+def get_dtype(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32,
+            "float16": torch.float16}[name]
+
+
+def timestep_embedding(t: torch.Tensor, dim: int, max_period: int = 10000,
+                       flip_sin_to_cos: bool = True,
+                       downscale_freq_shift: float = 0.0) -> torch.Tensor:
+    """Sinusoidal timestep embedding ``[B] → [B, dim]`` (fp32), diffusers
+    convention."""
+    half = dim // 2
+    freqs = torch.exp(
+        -math.log(max_period)
+        * torch.arange(half, dtype=torch.float32, device=t.device)
+        / (half - downscale_freq_shift))
+    args = t.float()[:, None] * freqs[None, :]
+    sin, cos = torch.sin(args), torch.cos(args)
+    emb = torch.cat([cos, sin] if flip_sin_to_cos else [sin, cos], dim=-1)
+    if dim % 2 == 1:
+        emb = F.pad(emb, (0, 1))
+    return emb
+
+
+class TimestepEmbedding(nn.Module):
+    """MLP on the sinusoidal embedding: linear_1 → silu → linear_2."""
+
+    def __init__(self, in_dim: int, dim: int):
+        super().__init__()
+        self.linear_1 = nn.Linear(in_dim, dim)
+        self.linear_2 = nn.Linear(dim, dim)
+
+    def forward(self, emb: torch.Tensor) -> torch.Tensor:
+        return self.linear_2(F.silu(self.linear_1(emb)))
+
+
+class GroupNorm(nn.GroupNorm):
+    """GroupNorm over NCHW with an optional fused SiLU.
+
+    ``fp32=True`` normalises an fp32 copy and casts back (the JAX package's
+    ``dtype=None``); otherwise the norm runs in the input's dtype, as the
+    JAX package's ``fast_norm`` does."""
+
+    def __init__(self, num_groups: int, channels: int, eps: float = 1e-5,
+                 act: Optional[str] = None, fp32: bool = True):
+        super().__init__(num_groups, channels, eps=eps)
+        if act not in (None, "silu"):
+            raise ValueError(
+                f"unsupported act {act!r}; expected None or 'silu'")
+        self.act = act
+        self.fp32 = fp32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fp32:
+            out = F.group_norm(x.float(), self.num_groups,
+                               self.weight.float(), self.bias.float(),
+                               self.eps).to(x.dtype)
+        else:
+            out = F.group_norm(x, self.num_groups, self.weight.to(x.dtype),
+                               self.bias.to(x.dtype), self.eps)
+        return F.silu(out) if self.act == "silu" else out
+
+
+class ResnetBlock2D(nn.Module):
+    """GN → silu → conv → (+temb) → GN → silu → conv, with a 1×1 shortcut
+    on a channel change."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 temb_channels: Optional[int] = None, groups: int = 32,
+                 fast_norm: bool = False):
+        super().__init__()
+        self.norm1 = GroupNorm(groups, in_channels, act="silu",
+                               fp32=not fast_norm)
+        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.time_emb_proj = (nn.Linear(temb_channels, out_channels)
+                              if temb_channels is not None else None)
+        self.norm2 = GroupNorm(groups, out_channels, act="silu",
+                               fp32=not fast_norm)
+        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        self.conv_shortcut = (nn.Conv2d(in_channels, out_channels, 1)
+                              if in_channels != out_channels else None)
+
+    def forward(self, x: torch.Tensor,
+                temb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = self.conv1(self.norm1(x))
+        if temb is not None:
+            h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
+        h = self.conv2(self.norm2(h))
+        residual = x if self.conv_shortcut is None else self.conv_shortcut(x)
+        return residual + h
+
+
+class Downsample2D(nn.Module):
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x)
+
+
+class Upsample2D(nn.Module):
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+
+
+class GEGLU(nn.Module):
+    """``proj`` to ``[value ‖ gate]``, then ``value · gelu(gate)`` (erf)."""
+
+    def __init__(self, dim_in: int, dim_out: int):
+        super().__init__()
+        self.proj = nn.Linear(dim_in, dim_out * 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, gate = self.proj(x).chunk(2, dim=-1)
+        return h * F.gelu(gate)
+
+
+class FeedForward(nn.Module):
+    """GEGLU → down projection (``net.0`` / ``net.2``).
+
+    With ``fused_ff`` and bf16 activations the whole FF is one
+    ``ops.geglu_matmul.ff_matmul`` call — the gate of the JAX package's
+    ``layers.py:235-238``.  On the card a width without a kernel instance
+    raises there rather than running the plain path."""
+
+    def __init__(self, dim: int, mult: int = 4, fused_ff: bool = False):
+        super().__init__()
+        self.fused_ff = fused_ff
+        self.net = nn.ModuleList(
+            [GEGLU(dim, dim * mult), nn.Identity(), nn.Linear(dim * mult, dim)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        geglu, down = self.net[0], self.net[2]
+        if self.fused_ff and x.dtype == torch.bfloat16:
+            out = gg_ops.ff_matmul(x, geglu.proj.weight, geglu.proj.bias,
+                                   down.weight)
+            return out + down.bias
+        return down(geglu(x))
+
+
+class CrossAttention(nn.Module):
+    """Attention with diffusers' projections (no-bias q/k/v, biased out).
+
+    Self-attention (``context is None``) in bf16 in the flash domain
+    (``ops.flash_attention.supported``: the sequence length alone) takes
+    ``ops.flash_attention``, which raises on the card for a head dim it
+    has no kernel instance for; every other call takes
+    ``ops.attention.multi_head_attention``."""
+
+    def __init__(self, query_dim: int, heads: int, head_dim: int,
+                 context_dim: Optional[int] = None, use_flash: bool = True):
+        super().__init__()
+        inner = heads * head_dim
+        context_dim = query_dim if context_dim is None else context_dim
+        self.heads, self.head_dim, self.use_flash = heads, head_dim, use_flash
+        self.to_q = nn.Linear(query_dim, inner, bias=False)
+        self.to_k = nn.Linear(context_dim, inner, bias=False)
+        self.to_v = nn.Linear(context_dim, inner, bias=False)
+        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim),
+                                     nn.Identity()])
+
+    def forward(self, x: torch.Tensor,
+                context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b, lq, _ = x.shape
+        ctx = x if context is None else context
+        shape = (b, -1, self.heads, self.head_dim)
+        q = self.to_q(x).view(shape)
+        k = self.to_k(ctx).view(shape)
+        v = self.to_v(ctx).view(shape)
+        if (context is None and self.use_flash
+                and x.dtype == torch.bfloat16
+                and fa_ops.supported(lq, lq)):
+            out = fa_ops.flash_attention(q, k, v)
+        else:
+            out = attn_ops.multi_head_attention(q, k, v)
+        return self.to_out[0](out.reshape(b, lq, -1))
+
+
+class BasicTransformerBlock(nn.Module):
+    """self-attn → cross-attn → FF, each behind a pre-LayerNorm."""
+
+    def __init__(self, dim: int, heads: int, head_dim: int, context_dim: int,
+                 use_flash: bool = True, fused_ff: bool = False):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
+        self.attn1 = CrossAttention(dim, heads, head_dim, use_flash=use_flash)
+        self.norm2 = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
+        self.attn2 = CrossAttention(dim, heads, head_dim, context_dim,
+                                    use_flash=use_flash)
+        self.norm3 = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
+        self.ff = FeedForward(dim, fused_ff=fused_ff)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn1(self.norm1(x))
+        x = x + self.attn2(self.norm2(x), context)
+        return x + self.ff(self.norm3(x))
+
+
+class Transformer2D(nn.Module):
+    """GN → 1×1 proj_in → transformer blocks over flattened space →
+    1×1 proj_out, plus the residual."""
+
+    def __init__(self, channels: int, heads: int, head_dim: int,
+                 context_dim: int, depth: int = 1, groups: int = 32,
+                 fast_norm: bool = False, use_flash: bool = True,
+                 fused_ff: bool = False):
+        super().__init__()
+        self.norm = GroupNorm(groups, channels, fp32=not fast_norm)
+        self.proj_in = nn.Conv2d(channels, channels, 1)
+        self.transformer_blocks = nn.ModuleList([
+            BasicTransformerBlock(channels, heads, head_dim, context_dim,
+                                  use_flash=use_flash, fused_ff=fused_ff)
+            for _ in range(depth)])
+        self.proj_out = nn.Conv2d(channels, channels, 1)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        y = self.proj_in(self.norm(x))
+        y = y.permute(0, 2, 3, 1).reshape(b, h * w, c)
+        for block in self.transformer_blocks:
+            y = block(y, context)
+        y = y.reshape(b, h, w, c).permute(0, 3, 1, 2)
+        return self.proj_out(y) + x

@@ -1,0 +1,140 @@
+"""SD-style conditional UNet (PyTorch, NCHW), the port of
+``theatergen_tpu/models/unet.py::UNet2DCondition`` on the SD1.5 path.
+
+Parameter names are diffusers' (``down_blocks.0.attentions.1.
+transformer_blocks.0.attn1.to_q.weight`` …).  The forward takes
+``(sample [B, C, H, W], timesteps [B] or scalar, context [B, L, C_ctx])``
+and returns the eps prediction ``[B, out_channels, H, W]`` in the model
+dtype.  ControlNet residuals, attention capture, DeepCache and SDXL's
+``text_time`` conditioning come with later slices.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from ..config import UNetConfig
+from .layers import (
+    Downsample2D, GroupNorm, ResnetBlock2D, TimestepEmbedding, Transformer2D,
+    Upsample2D, timestep_embedding,
+)
+
+
+class UNetBlock(nn.Module):
+    """One level: resnets, optional attentions, optional down/upsampler."""
+
+    def __init__(self):
+        super().__init__()
+        self.resnets = nn.ModuleList()
+        self.attentions = nn.ModuleList()
+
+
+class UNet2DCondition(nn.Module):
+    def __init__(self, cfg: UNetConfig):
+        super().__init__()
+        if cfg.addition_embed_type is not None or cfg.ip_num_tokens:
+            raise NotImplementedError(
+                "text_time conditioning and IP tokens are not ported yet")
+        self.cfg = cfg
+        boc = cfg.block_out_channels
+        n = len(boc)
+        time_dim = boc[0] * cfg.time_embed_mult
+        groups = cfg.norm_num_groups
+
+        def resnet(cin, cout):
+            return ResnetBlock2D(cin, cout, time_dim, groups=groups,
+                                 fast_norm=cfg.fast_norm)
+
+        def transformer(level, ch):
+            heads = cfg.heads_at(level)
+            return Transformer2D(
+                ch, heads, ch // heads, cfg.cross_attention_dim,
+                depth=cfg.depth_at(level), groups=groups,
+                fast_norm=cfg.fast_norm, use_flash=cfg.flash_attention,
+                fused_ff=cfg.fused_ff)
+
+        self.conv_in = nn.Conv2d(cfg.in_channels, boc[0], 3, padding=1)
+        self.time_embedding = TimestepEmbedding(boc[0], time_dim)
+
+        skip_channels = [boc[0]]
+        h_ch = boc[0]
+        self.down_blocks = nn.ModuleList()
+        for i, ch in enumerate(boc):
+            blk = UNetBlock()
+            for _ in range(cfg.layers_per_block):
+                blk.resnets.append(resnet(h_ch, ch))
+                h_ch = ch
+                if cfg.attention_levels[i]:
+                    blk.attentions.append(transformer(i, ch))
+                skip_channels.append(ch)
+            if i < n - 1:
+                blk.downsamplers = nn.ModuleList([Downsample2D(ch)])
+                skip_channels.append(ch)
+            self.down_blocks.append(blk)
+
+        self.mid_block = UNetBlock()
+        self.mid_block.resnets.extend([resnet(boc[-1], boc[-1]),
+                                       resnet(boc[-1], boc[-1])])
+        self.mid_block.attentions.append(transformer(n - 1, boc[-1]))
+
+        self.up_blocks = nn.ModuleList()
+        for idx in range(n):
+            i = n - 1 - idx
+            ch = boc[i]
+            blk = UNetBlock()
+            for _ in range(cfg.layers_per_block + 1):
+                blk.resnets.append(resnet(h_ch + skip_channels.pop(), ch))
+                h_ch = ch
+                if cfg.attention_levels[i]:
+                    blk.attentions.append(transformer(i, ch))
+            if idx < n - 1:
+                blk.upsamplers = nn.ModuleList([Upsample2D(ch)])
+            self.up_blocks.append(blk)
+
+        self.conv_norm_out = GroupNorm(groups, boc[0], act="silu",
+                                       fp32=not cfg.fast_norm)
+        self.conv_out = nn.Conv2d(boc[0], cfg.out_channels, 3, padding=1)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.conv_in.weight.dtype
+
+    def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
+                context: torch.Tensor) -> torch.Tensor:
+        dtype = self.dtype
+        h = sample.to(dtype)
+        context = context.to(dtype)
+        if timesteps.ndim == 0:
+            timesteps = timesteps[None]
+        temb = timestep_embedding(timesteps, self.cfg.block_out_channels[0])
+        temb = self.time_embedding(temb.to(dtype))
+        if temb.shape[0] != h.shape[0]:
+            temb = temb.expand(h.shape[0], -1)
+
+        h = self.conv_in(h)
+        skips = [h]
+        for blk in self.down_blocks:
+            for j, res in enumerate(blk.resnets):
+                h = res(h, temb)
+                if len(blk.attentions):
+                    h = blk.attentions[j](h, context)
+                skips.append(h)
+            if hasattr(blk, "downsamplers"):
+                h = blk.downsamplers[0](h)
+                skips.append(h)
+
+        h = self.mid_block.resnets[0](h, temb)
+        h = self.mid_block.attentions[0](h, context)
+        h = self.mid_block.resnets[1](h, temb)
+
+        for blk in self.up_blocks:
+            for j, res in enumerate(blk.resnets):
+                h = res(torch.cat([h, skips.pop()], dim=1), temb)
+                if len(blk.attentions):
+                    h = blk.attentions[j](h, context)
+            if hasattr(blk, "upsamplers"):
+                h = blk.upsamplers[0](h)
+
+        return self.conv_out(self.conv_norm_out(h))
+

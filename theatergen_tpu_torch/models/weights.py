@@ -1,0 +1,91 @@
+"""Weight bridge from the JAX package's parameter trees to the port's
+state dicts.
+
+``from_flax(kind, params)`` takes a flax tree (nested dicts of arrays) of
+the JAX package's UNet, VAE or text tower and returns the port's state
+dict as numpy arrays.  It is written from the two packages' naming rules:
+
+- scopes: ``down_blocks_0_resnets_1`` → ``down_blocks.0.resnets.1``,
+  ``mid_block_attentions_0`` (UNet) and ``mid_attentions_0`` (VAE) →
+  ``mid_block.attentions.0``, ``transformer_blocks_0`` →
+  ``transformer_blocks.0``, ``to_out_0`` → ``to_out.0``, ``net_0`` →
+  ``net.0``, ``layers_3`` (CLIP) → ``encoder.layers.3``; the UNet's
+  ``encoder``/``mid`` wrapper scopes vanish, the VAE's ``post_quant_conv``
+  and ``quant_conv`` move out of its decoder/encoder, and the JAX
+  GroupNorm wrapper's inner ``norm`` scope is dropped;
+- leaves: a 4-D ``kernel`` is HWIO → OIHW, a 2-D ``kernel`` is
+  [in, out] → [out, in]; ``scale`` and ``embedding`` become ``weight``.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Mapping
+
+import numpy as np
+
+KINDS = ("unet", "vae", "text")
+
+_SCOPE_RULES = (
+    (re.compile(r"(down_blocks|up_blocks)_(\d+)_"
+                r"(resnets|attentions|downsamplers|upsamplers)_(\d+)"),
+     r"\1.\2.\3.\4"),
+    (re.compile(r"(?:mid_block|mid)_(resnets|attentions)_(\d+)"),
+     r"mid_block.\1.\2"),
+    (re.compile(r"transformer_blocks_(\d+)"), r"transformer_blocks.\1"),
+    (re.compile(r"(to_out|net)_(\d+)"), r"\1.\2"),
+    (re.compile(r"layers_(\d+)"), r"encoder.layers.\1"),
+    (re.compile(r"token_embedding"), r"embeddings.token_embedding"),
+)
+
+
+def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, prefix + (str(k),)))
+        else:
+            out[prefix + (str(k),)] = np.asarray(v)
+    return out
+
+
+def _scope(name: str) -> str:
+    for rx, repl in _SCOPE_RULES:
+        if rx.fullmatch(name):
+            return rx.sub(repl, name)
+    return name
+
+
+def _leaf(name: str, w: np.ndarray):
+    if name == "kernel":
+        if w.ndim == 4:
+            return "weight", np.ascontiguousarray(w.transpose(3, 2, 0, 1))
+        return "weight", np.ascontiguousarray(w.T)
+    if name in ("scale", "embedding"):
+        return "weight", w
+    return name, w
+
+
+def from_flax(kind: str, params: Mapping) -> Dict[str, np.ndarray]:
+    """Port state dict (numpy) of a JAX ``kind`` tree (unet, vae, text)."""
+    if kind not in KINDS:
+        raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
+    if "params" in params and len(params) == 1:
+        params = params["params"]
+    out = {}
+    for path, w in _flatten(params).items():
+        scopes, leaf = list(path[:-1]), path[-1]
+        if len(scopes) >= 2 and scopes[-1] == "norm" and leaf in (
+                "scale", "bias"):
+            scopes.pop()          # the GroupNorm wrapper's inner nn.GroupNorm
+        if kind == "unet" and scopes and scopes[0] in ("encoder", "mid"):
+            scopes.pop(0)
+        if kind == "vae" and scopes[-1:] in (["post_quant_conv"],
+                                             ["quant_conv"]):
+            scopes = scopes[-1:]
+        if kind == "text" and leaf == "position_embedding" and not scopes:
+            out["embeddings.position_embedding.weight"] = w
+            continue
+        name, value = _leaf(leaf, w)
+        out[".".join([_scope(s) for s in scopes] + [name])] = value
+    return out
