@@ -1,26 +1,30 @@
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py            # build, check, time, run 3 requests
-    python3 chip_smoke.py --profile  # also print a kernel-time breakdown
+    python3 chip_smoke.py            # build, check, time, run both paths
+    python3 chip_smoke.py --profile  # also print kernel-time breakdowns
 
 Phases, in order (any failure exits non-zero):
   1. the card's name and power limit;
-  2. build every kernel of ``theatergen_tpu_torch/csrc`` with nvcc (sm_90a);
+  2. build every kernel of ``theatergen_tpu_torch/csrc`` with nvcc (sm_90a),
+     one process per source, all at once;
   3. hold each kernel against its plain PyTorch version (fp32 from the same
-     bf16 inputs) at every shape the main path gives it;
+     bf16 inputs) at every shape either model's main path gives it;
   4. time kernel, plain version and a library yardstick at those shapes;
-  5. one full-size UNet evaluation with the kernels against the same UNet
-     on its plain path;
-  6. the main path: ``init_bundle(sd15_config())`` and
-     ``Text2Img(bundle, num_steps=50)`` on three prompts at 512 px, CFG 7.5,
-     with every launch counter set to 0 before and read after each request.
-Then one JSON line of kernel records and, last, the device line.
+  5. SD1.5: ``init_bundle(sd15_config())``, one full-size UNet evaluation
+     with the kernels against the same UNet under ``plain_path()``, then
+     ``Text2Img(bundle, num_steps=50)`` on three prompts at 512 px, CFG 7.5;
+  6. SDXL: the SD1.5 bundle freed, ``init_bundle(sdxl_config())``, the same
+     UNet check, then ``Text2ImgXL(bundle, num_steps=30)`` on two prompts at
+     1024 px, Euler-Ancestral, CFG 7.5.
+Every launch counter is set to 0 just before each request and read just
+after it.  Then one JSON line of kernel records and, last, the device line.
 Needs a CUDA device; without one it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -30,11 +34,11 @@ import torch
 import torch.nn.functional as F
 
 from theatergen_tpu_torch import _build
-from theatergen_tpu_torch.config import sd15_config
-from theatergen_tpu_torch.models.layers import CrossAttention, FeedForward
+from theatergen_tpu_torch.config import sd15_config, sdxl_config
+from theatergen_tpu_torch.models.layers import plain_path
 from theatergen_tpu_torch.ops import flash_attention as fa
 from theatergen_tpu_torch.ops import geglu_matmul as gg
-from theatergen_tpu_torch.pipelines import sd
+from theatergen_tpu_torch.pipelines import sd, sdxl
 from theatergen_tpu_torch.pipelines.bundle import init_bundle
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
@@ -42,18 +46,37 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 # the kernels' outputs are bf16: 8 mantissa bits round at ~4e-3 relative
 TOL = 1e-2
-# SD1.5 at 512 px, batch 1 with CFG (2 rows): (shape, calls per UNet eval)
-FLASH_SHAPES = [((2, 4096, 8, 40), 5), ((2, 1024, 8, 80), 5)]
-FF_SHAPES = [((8192, 320, 1280), 5), ((2048, 640, 2560), 5),
-             ((512, 1280, 5120), 5), ((128, 1280, 5120), 1)]
-STEPS = 50
+SD15, SDXL = "sd15_512", "sdxl_1024"
+# (model, shape, calls per UNet evaluation of that model); batch 1 with
+# CFG, so 2 rows.  SD1.5: 10 transformer blocks at 64²/32²/16²/8²;
+# SDXL: 10 blocks at 64² (4 down, 6 up) and 60 at 32² (20 down, 10 mid,
+# 30 up), head dim 64 throughout, FF split (geglu_matmul)
+FLASH_SHAPES = [(SD15, (2, 4096, 8, 40), 5), (SD15, (2, 1024, 8, 80), 5),
+                (SDXL, (2, 4096, 10, 64), 10), (SDXL, (2, 1024, 20, 64), 60)]
+FF_SHAPES = [(SD15, (8192, 320, 1280), 5), (SD15, (2048, 640, 2560), 5),
+             (SD15, (512, 1280, 5120), 5), (SD15, (128, 1280, 5120), 1)]
+GEGLU_SHAPES = [(SDXL, (8192, 2560, 640), 10), (SDXL, (2048, 5120, 1280), 60)]
+SD15_STEPS, SDXL_STEPS = 50, 30
 PROMPTS = ["a red knight rides through a dark forest",
            "a girl with a blue umbrella on a rainy street",
            "two cats asleep on a wooden table"]
+# kernel -> (module, its launch counter)
+COUNTERS = {"flash_attention": (fa, "launches"),
+            "ff_geglu": (gg, "ff_launches"),
+            "geglu_matmul": (gg, "geglu_launches")}
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def reset_counts() -> None:
+    for mod, attr in COUNTERS.values():
+        setattr(mod, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(mod, attr) for name, (mod, attr) in COUNTERS.items()}
 
 
 def bound(flops: float, nbytes: float):
@@ -88,30 +111,35 @@ def check(err: float, ref_max: float, what: str) -> None:
         raise SystemExit(f"{what}: kernel disagrees with its plain version")
 
 
+def _row(model, shape, calls, err, flops, nbytes, kernel, plain, library,
+         plain_iters):
+    bms, by = bound(flops, nbytes)
+    row = dict(model=model, shape=list(shape), calls_per_unet_eval=calls,
+               max_abs_err=err, bound_ms=bms, bound_by=by,
+               ms=time_ms(kernel, 20), plain_ms=time_ms(plain, plain_iters, 1),
+               library_ms=time_ms(library, 20))
+    log(f"  {model} {list(shape)} x{calls}: kernel {row['ms']:.5f} ms  plain "
+        f"{row['plain_ms']:.5f}  library {row['library_ms']:.5f}  bound "
+        f"{bms:.5f} ({by})")
+    return row
+
+
 def flash_phase(gen) -> dict:
     rows = []
-    for (b, s, h, d), calls in FLASH_SHAPES:
+    for model, (b, s, h, d), calls in FLASH_SHAPES:
         q, k, v = (randn(gen, b, s, h, d) for _ in range(3))
         out = fa.flash_attention(q, k, v)
         torch.cuda.synchronize()
         ref = fa.flash_attention_plain(q.float(), k.float(), v.float())
         err = (out.float() - ref).abs().max().item()
-        check(err, ref.abs().max().item(), f"flash S={s} d={d}")
-        row = dict(shape=[b, s, h, d], calls_per_unet_eval=calls,
-                   max_abs_err=err)
-        bms, by = bound(fa.flops(b, s, h, d), fa.min_bytes(b, s, h, d))
-        row.update(bound_ms=bms, bound_by=by)
+        check(err, ref.abs().max().item(), f"flash {model} S={s} H={h} d={d}")
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        row["ms"] = time_ms(lambda: fa.flash_attention(q, k, v), 20)
-        row["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(
-            q.float(), k.float(), v.float()), 3, 1)
-        row["library_ms"] = time_ms(
-            lambda: F.scaled_dot_product_attention(qt, kt, vt), 20)
-        log(f"  flash S={s} d={d}: kernel {row['ms']:.4f} ms  plain "
-            f"{row['plain_ms']:.4f}  sdpa {row['library_ms']:.4f}  "
-            f"bound {bms:.4f} ({by})")
-        rows.append(row)
-        del q, k, v, ref, out
+        rows.append(_row(
+            model, (b, s, h, d), calls, err, fa.flops(b, s, h, d),
+            fa.min_bytes(b, s, h, d), lambda: fa.flash_attention(q, k, v),
+            lambda: fa.flash_attention_plain(q.float(), k.float(), v.float()),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt), 3))
+        del q, k, v, qt, kt, vt, ref, out
     return _record("flash_attention", "csrc/flash_attention.cu",
                    "theatergen_tpu/ops/flash_attention.py:283",
                    "flash_attention_packed (_flat_call)", rows)
@@ -119,7 +147,7 @@ def flash_phase(gen) -> dict:
 
 def ff_phase(gen) -> dict:
     rows = []
-    for (m, d, k), calls in FF_SHAPES:
+    for model, (m, d, k), calls in FF_SHAPES:
         x = randn(gen, m, d)
         w1 = randn(gen, 2 * k, d, scale=d ** -0.5)
         b1 = randn(gen, 2 * k, scale=0.1)
@@ -129,145 +157,212 @@ def ff_phase(gen) -> dict:
         ref = gg.ff_matmul_plain(x.float(), w1.float(), b1.float(),
                                  w2.float())
         err = (out.float() - ref).abs().max().item()
-        check(err, ref.abs().max().item(), f"ff M={m} D={d} K={k}")
-        row = dict(shape=[m, d, k], calls_per_unet_eval=calls,
-                   max_abs_err=err)
-        bms, by = bound(gg.flops(m, d, k), gg.min_bytes(m, d, k))
-        row.update(bound_ms=bms, bound_by=by)
+        check(err, ref.abs().max().item(), f"ff {model} M={m} D={d} K={k}")
 
         def library():
             val, gate = F.linear(x, w1, b1).chunk(2, dim=-1)
             return torch.matmul(val * F.gelu(gate), w2.t())
 
-        row["ms"] = time_ms(lambda: gg.ff_matmul(x, w1, b1, w2), 20)
-        row["plain_ms"] = time_ms(lambda: gg.ff_matmul_plain(
-            x.float(), w1.float(), b1.float(), w2.float()), 5, 1)
-        row["library_ms"] = time_ms(library, 20)
-        log(f"  ff M={m} D={d} K={k}: kernel {row['ms']:.4f} ms  plain "
-            f"{row['plain_ms']:.4f}  torch {row['library_ms']:.4f}  "
-            f"bound {bms:.4f} ({by})")
-        rows.append(row)
+        rows.append(_row(
+            model, (m, d, k), calls, err, gg.ff_flops(m, d, k),
+            gg.ff_min_bytes(m, d, k), lambda: gg.ff_matmul(x, w1, b1, w2),
+            lambda: gg.ff_matmul_plain(x.float(), w1.float(), b1.float(),
+                                       w2.float()), library, 5))
     return _record("ff_geglu", "csrc/ff_geglu.cu",
                    "theatergen_tpu/ops/geglu_matmul.py:471",
                    "ff_matmul (_ff_matmul_2d)", rows)
 
 
-def _record(name, source, replaces, tpu_function, rows) -> dict:
-    """One kernel's record; times are summed over one UNet evaluation
-    (each shape times its calls per evaluation)."""
-    def per_eval(key):
-        return sum(r[key] * r["calls_per_unet_eval"] for r in rows)
+def geglu_phase(gen) -> dict:
+    rows = []
+    for model, (m, k, n), calls in GEGLU_SHAPES:
+        hg = randn(gen, m, 2 * k)
+        w = randn(gen, n, k, scale=k ** -0.5)
+        out = gg.geglu_matmul(hg, w)
+        torch.cuda.synchronize()
+        ref = gg.geglu_matmul_plain(hg.float(), w.float())
+        err = (out.float() - ref).abs().max().item()
+        check(err, ref.abs().max().item(),
+              f"geglu_matmul {model} M={m} K={k} N={n}")
+        val, gate = hg[:, :k], hg[:, k:]
+        rows.append(_row(
+            model, (m, k, n), calls, err, gg.geglu_flops(m, k, n),
+            gg.geglu_min_bytes(m, k, n), lambda: gg.geglu_matmul(hg, w),
+            lambda: gg.geglu_matmul_plain(hg.float(), w.float()),
+            lambda: torch.matmul(val * F.gelu(gate), w.t()), 5))
+        del hg, w, out, ref, val, gate
+    return _record("geglu_matmul", "csrc/geglu_matmul.cu",
+                   "theatergen_tpu/ops/geglu_matmul.py:222",
+                   "geglu_matmul (_geglu_matmul_2d)", rows)
 
-    b_ms = sum(r["bound_ms"] * r["calls_per_unet_eval"] for r in rows)
-    err = max(r["max_abs_err"] for r in rows)
+
+def _record(name, source, replaces, tpu_function, rows) -> dict:
+    """One kernel's record.  Times are summed over one UNet evaluation of
+    each model that calls the kernel (each shape times its calls), and per
+    model under ``per_model``; ``launches`` are added by the main paths."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    per_model = {}
+    for r in rows:
+        pm = per_model.setdefault(r["model"], dict.fromkeys(keys, 0.0))
+        for key in keys:
+            pm[key] += r[key] * r["calls_per_unet_eval"]
+        pm["launches"] = 0
+    total = {key: sum(pm[key] for pm in per_model.values()) for key in keys}
     return dict(
         name=name, route="cuda", source=f"theatergen_tpu_torch/{source}",
         replaces=replaces, tpu_function=tpu_function, launches=0,
-        max_abs_err=err, max_err=err,
-        ms=per_eval("ms"), kernel_ms=per_eval("ms"),
-        plain_ms=per_eval("plain_ms"), library_ms=per_eval("library_ms"),
-        bound_ms=b_ms, bound_us=b_ms * 1e3,
+        max_abs_err=max(r["max_abs_err"] for r in rows), **total,
         bound_by=max(rows, key=lambda r: r["bound_ms"])["bound_by"],
-        per="one UNet evaluation, SD1.5 512 px, batch 1 with CFG",
-        shapes=rows)
+        per="one UNet evaluation of each model that calls it (sd15_512: "
+            "SD1.5 512 px, sdxl_1024: SDXL 1024 px), batch 1 with CFG",
+        per_model=per_model, shapes=rows)
 
 
-def set_kernels(unet, on: bool) -> None:
-    for m in unet.modules():
-        if isinstance(m, CrossAttention):
-            m.use_flash = on
-        elif isinstance(m, FeedForward):
-            m.fused_ff = on
-
-
-def unet_reference_phase(bundle) -> float:
-    """One full-size UNet eval with the kernels vs the plain path."""
+def unet_inputs(bundle, seed: int, t_value: int):
+    """A full-size UNet call's inputs (CFG batch 2): sample, timesteps,
+    context and, for SDXL, pooled text and time ids."""
     cfg = bundle.cfg
-    g = torch.Generator(device="cuda").manual_seed(1)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     h, w = cfg.pipeline.latent_height, cfg.pipeline.latent_width
     x = torch.randn(2, 4, h, w, device="cuda", generator=g)
     ctx = torch.randn(2, cfg.text.max_length, cfg.unet.cross_attention_dim,
                       device="cuda", generator=g)
-    t = torch.full((2,), 981, device="cuda", dtype=torch.long)
+    t = torch.full((2,), t_value, device="cuda", dtype=torch.long)
+    cond = {}
+    if cfg.unet.addition_embed_type == "text_time":
+        cond = dict(
+            pooled_text=torch.randn(2, cfg.text2.projection_dim,
+                                    device="cuda", generator=g),
+            time_ids=sdxl.default_time_ids(cfg.pipeline.height,
+                                           cfg.pipeline.width, 2, "cuda"))
+    return x, t, ctx, cond
+
+
+def unet_reference_phase(bundle, rel_bound: float) -> float:
+    """One full-size UNet evaluation with the kernels vs plain_path()."""
+    x, t, ctx, cond = unet_inputs(bundle, 1, 981)
     with torch.no_grad():
-        fast = bundle.unet(x, t, ctx).float()
-        set_kernels(bundle.unet, False)
-        plain = bundle.unet(x, t, ctx).float()
-        set_kernels(bundle.unet, True)
+        fast = bundle.unet(x, t, ctx, **cond).float()
+        with plain_path():
+            plain = bundle.unet(x, t, ctx, **cond).float()
     rel = ((fast - plain).abs().max() / plain.abs().max()).item()
-    ok = torch.isfinite(fast).all().item() and rel <= 5e-2
-    # bf16 activations through 16 transformer blocks: the two paths round
-    # differently (fp32 vs bf16 GEGLU up-projection, fp32 logits)
+    ok = torch.isfinite(fast).all().item() and rel <= rel_bound
     log(f"  UNet eps, kernels vs plain path: max|diff|/max|ref| {rel:.3e} "
-        f"(bound 5e-2)  {'ok' if ok else 'FAIL'}")
+        f"(bound {rel_bound:g})  {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("UNet with kernels disagrees with its plain path")
     return rel
 
 
-def main_path(records) -> dict:
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    bundle = init_bundle(sd15_config(), seed=0, device="cuda")
-    torch.cuda.synchronize()
-    log(f"  init_bundle(sd15_config()): {time.perf_counter() - t0:.3f} s, "
-        f"UNet {sum(p.numel() for p in bundle.unet.parameters()) / 1e6:.1f} M "
-        f"params")
-    unet_rel = unet_reference_phase(bundle)
-    pipe = sd.Text2Img(bundle, num_steps=STEPS)
-    want = {"flash_attention": 10 * STEPS, "ff_geglu": 16 * STEPS}
+def run_requests(model, pipe, prompts, want, size, records) -> list:
+    """Each request with every counter set to 0 just before it and read
+    just after; images and launch counts checked."""
     seconds = []
-    for i, prompt in enumerate(PROMPTS):
+    for i, prompt in enumerate(prompts):
         gen = torch.Generator(device="cuda").manual_seed(100 + i)
-        fa.launches = 0
-        gg.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         img = pipe(gen, prompt)
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
-        got = {"flash_attention": fa.launches, "ff_geglu": gg.launches}
+        got = read_counts()
         for r in records:
             r["launches"] += got[r["name"]]
+            if model in r["per_model"]:
+                r["per_model"][model]["launches"] += got[r["name"]]
         finite = bool(torch.isfinite(img).all())
         in_range = bool(img.min() >= 0.0 and img.max() <= 1.0)
-        log(f"  request {i}: {seconds[-1]:.3f} s  launches {got}  shape "
-            f"{tuple(img.shape)}  finite {finite}  range [{img.min():.4f}, "
-            f"{img.max():.4f}]  std {img.std():.4f}")
-        if (tuple(img.shape) != (1, 512, 512, 3) or not finite
-                or not in_range):
-            raise SystemExit(f"request {i}: bad image")
+        log(f"  {model} request {i}: {seconds[-1]:.3f} s  launches {got}  "
+            f"shape {tuple(img.shape)}  finite {finite}  range "
+            f"[{img.min():.4f}, {img.max():.4f}]  std {img.std():.4f}")
+        if tuple(img.shape) != (1, size, size, 3) or not finite \
+                or not in_range:
+            raise SystemExit(f"{model} request {i}: bad image")
         if got != want:
-            raise SystemExit(f"request {i}: launches {got}, want {want}")
+            raise SystemExit(f"{model} request {i}: launches {got}, "
+                             f"want {want}")
+    return seconds
+
+
+def build_bundle(cfg, what: str):
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bundle = init_bundle(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  init_bundle({what}): {time.perf_counter() - t0:.3f} s, UNet "
+        f"{sum(p.numel() for p in bundle.unet.parameters()) / 1e6:.1f} M "
+        f"params, weights {torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB")
+    return bundle
+
+
+def sd15_path(records, profiling: bool) -> dict:
+    bundle = build_bundle(sd15_config(), "sd15_config()")
+    # bf16 activations through 16 transformer blocks: the two paths round
+    # differently (fp32 vs bf16 GEGLU up-projection, fp32 logits)
+    rel = unet_reference_phase(bundle, 5e-2)
+    pipe = sd.Text2Img(bundle, num_steps=SD15_STEPS)
+    want = {"flash_attention": 10 * SD15_STEPS,
+            "ff_geglu": 16 * SD15_STEPS, "geglu_matmul": 0}
+    seconds = run_requests(SD15, pipe, PROMPTS, want, 512, records)
     peak = torch.cuda.max_memory_allocated()
     log(f"  seconds per request {seconds}; peak memory "
         f"{peak / 2 ** 30:.3f} GiB")
+    if profiling:
+        profile(bundle, sd.encode_prompts)
     return dict(seconds_per_request=seconds, peak_bytes=peak,
-                unet_kernels_vs_plain_rel=unet_rel, bundle=bundle)
+                unet_kernels_vs_plain_rel=rel)
 
 
-def profile(bundle) -> None:
-    """Device time by kernel name over one UNet evaluation (batch 2)."""
+def sdxl_path(records, profiling: bool) -> dict:
+    bundle = build_bundle(sdxl_config(), "sdxl_config()")
+    # 70 transformer blocks against SD1.5's 16; the paths round
+    # differently (h from an fp32 gate vs bf16 gelu and product, fp32
+    # logits).  Measured 1.99e-2 on an H100 (PERF.md §6): the SD1.5
+    # bound, 2.5x above it, holds here too
+    rel = unet_reference_phase(bundle, 5e-2)
+    pipe = sdxl.Text2ImgXL(bundle, num_steps=SDXL_STEPS)
+    want = {"flash_attention": 70 * SDXL_STEPS, "ff_geglu": 0,
+            "geglu_matmul": 70 * SDXL_STEPS}
+    seconds = run_requests(SDXL, pipe, PROMPTS[:2], want, 1024, records)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  seconds per request {seconds}; peak memory "
+        f"{peak / 2 ** 30:.3f} GiB")
+    if profiling:
+        profile(bundle, sdxl.encode_prompts_xl)
+    return dict(seconds_per_request=seconds, peak_bytes=peak,
+                unet_kernels_vs_plain_rel=rel)
+
+
+def profile(bundle, encode) -> None:
+    """Device time by kernel name over one UNet evaluation (batch 2), and
+    the wall time of the request's parts: one UNet evaluation (CUDA events
+    around 5 back to back, the loop's pace), prompt encoding and VAE
+    decode."""
     from torch.profiler import ProfilerActivity, profile as prof
     cfg = bundle.cfg
-    x = torch.randn(2, 4, cfg.pipeline.latent_height,
-                    cfg.pipeline.latent_width, device="cuda")
-    ctx = torch.randn(2, cfg.text.max_length, cfg.unet.cross_attention_dim,
-                      device="cuda")
-    t = torch.full((2,), 501, device="cuda", dtype=torch.long)
+    x, t, ctx, cond = unet_inputs(bundle, 2, 501)
     with torch.no_grad():
-        bundle.unet(x, t, ctx)
+        bundle.unet(x, t, ctx, **cond)
         torch.cuda.synchronize()
         with prof(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as p:
-            bundle.unet(x, t, ctx)
+            bundle.unet(x, t, ctx, **cond)
             torch.cuda.synchronize()
-    log(p.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+        log(p.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+        lat = x[:1].permute(0, 2, 3, 1).contiguous()
+        parts = {
+            "unet_eval": time_ms(lambda: bundle.unet(x, t, ctx, **cond), 5, 1),
+            "encode_prompts": time_ms(lambda: encode(bundle, PROMPTS[0]), 5, 1),
+            "vae_decode": time_ms(lambda: sd.decode_with(
+                bundle.vae, cfg.vae.scaling_factor, lat), 3, 1)}
+    log(f"  wall ms per part: {json.dumps(parts)}")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
-                    help="print device time by kernel for one UNet eval")
+                    help="print device time by kernel for one UNet "
+                         "evaluation of each model")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -284,10 +379,10 @@ def main() -> int:
         f"cuda {torch.version.cuda}  python {sys.version.split()[0]}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
 
-    t0 = time.perf_counter()
     _build.build()
-    log(f"[build] {time.perf_counter() - t0:.2f} s for "
+    log(f"[build] {time.perf_counter() - t_start:.2f} s for "
         f"{_build.kernel_names()} into {_build.BUILD_DIR}")
     for name, info in sorted(_build.build_log.items()):
         log(f"  {name}.cu: nvcc {info['seconds']:.2f} s")
@@ -297,16 +392,20 @@ def main() -> int:
                 log(f"    {line.strip()}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    log("[check+time] kernels vs plain versions at the main path's shapes")
-    records = [flash_phase(gen), ff_phase(gen)]
+    log("[check+time] kernels vs plain versions at both models' shapes")
+    records = [flash_phase(gen), ff_phase(gen), geglu_phase(gen)]
     torch.cuda.synchronize()
 
-    log("[main path] SD1.5 Text2Img, 512 px, 50 DDIM steps, CFG 7.5, bf16")
-    result = main_path(records)
-    if args.profile:
-        profile(result["bundle"])
-    summary = {k: v for k, v in result.items() if k != "bundle"}
-    log(json.dumps({"main_path": summary, "card": card}))
+    log(f"[main path] SD1.5 Text2Img, 512 px, {SD15_STEPS} DDIM steps, "
+        f"CFG 7.5, bf16")
+    paths = {SD15: sd15_path(records, args.profile)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[main path] SDXL Text2ImgXL, 1024 px, {SDXL_STEPS} Euler-Ancestral "
+        f"steps, CFG 7.5, bf16 UNet, fp32 text towers")
+    paths[SDXL] = sdxl_path(records, args.profile)
+    log(f"[done] {time.perf_counter() - t_start:.1f} s after the build began")
+    log(json.dumps({"main_path": paths, "card": card}))
     log(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -37,6 +37,64 @@ def test_flash_kernel_matches_plain_on_card(s, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("s,h", [(4096, 10), (1024, 20)])
+def test_flash_kernel_d64_matches_plain_on_card(s, h):
+    """The d = 64 instance at SDXL's shapes (CFG batch 2); bound
+    1e-2·max|ref| for the bf16 output."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn(2, s, h, 64, device=dev, generator=g,
+                           dtype=torch.bfloat16) for _ in range(3))
+    out = tfa.flash_attention(q, k, v).float()
+    ref = tfa.flash_attention_plain(q.float(), k.float(), v.float())
+    assert (out - ref).abs().max() <= 1e-2 * ref.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(8192, 2560, 640), (2048, 5120, 1280),
+                                   (100, 2560, 640)])
+def test_geglu_kernel_matches_plain_on_card(m, k, n):
+    """geglu_matmul's kernel vs its plain version (fp32 from the same bf16
+    inputs) at SDXL's shapes; M = 100 checks the masked row tail.  Bound
+    1e-2·max|ref| for the bf16 output and the bf16 rounding of h."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(4)
+    hg = torch.randn(m, 2 * k, device=dev, generator=g).to(torch.bfloat16)
+    w = (torch.randn(n, k, device=dev, generator=g) * k ** -0.5).to(
+        torch.bfloat16)
+    out = tgg.geglu_matmul(hg, w).float()
+    ref = tgg.geglu_matmul_plain(hg.float(), w.float())
+    assert out.shape == (m, n)
+    assert (out - ref).abs().max() <= 1e-2 * ref.abs().max()
+
+
+@pytest.mark.cuda
+def test_plain_path_launches_nothing():
+    """An SDXL-shaped transformer block in bf16 on the card launches flash
+    and geglu_matmul once each, and inside plain_path() no kernel at all
+    (counters unchanged)."""
+    dev = _card()
+    block = tl.BasicTransformerBlock(640, 10, 64, 2048).to(dev, torch.bfloat16)
+    x = torch.randn(2, 4096, 640, device=dev, dtype=torch.bfloat16)
+    ctx = torch.randn(2, 77, 2048, device=dev, dtype=torch.bfloat16)
+
+    def counts():
+        return tfa.launches, tgg.ff_launches, tgg.geglu_launches
+
+    before = counts()
+    with torch.no_grad():
+        fast = block(x, ctx)
+        mid = counts()
+        with tl.plain_path():
+            plain = block(x, ctx)
+    torch.cuda.synchronize()
+    assert mid == (before[0] + 1, before[1], before[2] + 1)
+    assert counts() == mid
+    rel = (fast.float() - plain.float()).abs().max() / plain.float().abs().max()
+    assert rel <= 2e-2
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("m,d", [(8192, 320), (2048, 640), (512, 1280),
                                  (128, 1280), (100, 320)])
 def test_ff_kernel_matches_plain_on_card(m, d):
@@ -95,7 +153,7 @@ def test_flash_kernel_reads_strided_views_and_masks_the_tail():
 @pytest.mark.cuda
 def test_launch_counters_count_each_kernel_launch():
     dev = _card()
-    fa0, ff0 = tfa.launches, tgg.launches
+    fa0, ff0, gg0 = tfa.launches, tgg.ff_launches, tgg.geglu_launches
     q = torch.randn(1, 1024, 2, 40, device=dev, dtype=torch.bfloat16)
     tfa.flash_attention(q, q, q)
     tfa.flash_attention_plain(q, q, q)
@@ -105,22 +163,31 @@ def test_launch_counters_count_each_kernel_launch():
     w2 = torch.randn(320, 1280, device=dev, dtype=torch.bfloat16)
     tgg.ff_matmul(x, w1, b1, w2)
     tgg.ff_matmul_plain(x, w1, b1, w2)
+    hg = torch.randn(64, 2560, device=dev, dtype=torch.bfloat16)
+    w = torch.randn(640, 1280, device=dev, dtype=torch.bfloat16)
+    tgg.geglu_matmul(hg, w)
+    tgg.geglu_matmul_plain(hg, w)
     torch.cuda.synchronize()
-    assert (tfa.launches - fa0, tgg.launches - ff0) == (1, 1)
+    assert (tfa.launches - fa0, tgg.ff_launches - ff0,
+            tgg.geglu_launches - gg0) == (1, 1, 1)
 
 
 @pytest.mark.cuda
 def test_layers_raise_in_the_domain_without_a_kernel_instance():
     """A bf16 self-attention in the flash domain with a head dim the kernel
-    has no instance for, and a fused bf16 FF of an uncompiled width, raise
-    on the card instead of running the plain path."""
+    has no instance for (48), a fused bf16 FF of an uncompiled width, and
+    an unfused bf16 FF whose width the geglu_matmul tile does not divide
+    (192), raise on the card instead of running the plain path."""
     dev = _card()
-    attn = tl.CrossAttention(64, 1, 64).to(dev, torch.bfloat16)
+    attn = tl.CrossAttention(96, 2, 48).to(dev, torch.bfloat16)
     with pytest.raises(ValueError):
-        attn(torch.randn(1, 1024, 64, device=dev, dtype=torch.bfloat16))
+        attn(torch.randn(1, 1024, 96, device=dev, dtype=torch.bfloat16))
     ff = tl.FeedForward(32, fused_ff=True).to(dev, torch.bfloat16)
     with pytest.raises(ValueError):
         ff(torch.randn(1, 16, 32, device=dev, dtype=torch.bfloat16))
+    ff = tl.FeedForward(192, fused_ff=False).to(dev, torch.bfloat16)
+    with pytest.raises(ValueError):
+        ff(torch.randn(1, 16, 192, device=dev, dtype=torch.bfloat16))
 
 
 @pytest.mark.cuda
@@ -144,3 +211,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         tgg.ff_matmul(x, w, torch.zeros(256, device=dev,
                                         dtype=torch.bfloat16),
                       torch.randn(32, 128, device=dev, dtype=torch.bfloat16))
+    hg = torch.randn(8, 2560, device=dev)
+    with pytest.raises(TypeError):
+        tgg.geglu_matmul(hg, torch.randn(640, 1280, device=dev))
+    hg = hg.to(torch.bfloat16)
+    # N not a multiple of the tile, K % 32 != 0, hg width != 2K
+    for width, n, k in ((2560, 192, 1280), (2576, 640, 1288),
+                        (2560, 640, 1024)):
+        with pytest.raises(ValueError):
+            tgg.geglu_matmul(hg.new_zeros(8, width), hg.new_zeros(n, k))

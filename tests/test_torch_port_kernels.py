@@ -70,6 +70,32 @@ def test_ff_plain_matches_pallas(interpret):
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-4)
 
 
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
+def test_geglu_plain_matches_pallas(interpret, dtype):
+    """geglu_matmul (interpret) vs the port's geglu_matmul on CPU tensors
+    at M=256, K=256, N=128 (a block _plan accepts).  fp32: the Pallas
+    gate's erf (max error 1.5e-7) through a K=256 product with
+    0.05-scale weights stays below 1e-4 absolute.  bf16: both round h to
+    bf16 before the product and round the output; the erf difference can
+    flip an h rounding (2^-8 relative), so 1e-2·max|ref|."""
+    m, k, n = 256, 256, 128
+    rng = np.random.RandomState(2)
+    hg = rng.randn(m, 2 * k).astype(np.float32)
+    w = (rng.randn(k, n) * 0.05).astype(np.float32)
+    ref = np.asarray(gg.geglu_matmul(jnp.asarray(hg, dtype),
+                                     jnp.asarray(w, dtype))).astype(np.float32)
+    tdt = torch.float32 if dtype == np.float32 else torch.bfloat16
+    # the port takes the module's [out, in] weight as it is
+    got = tgg.geglu_matmul(torch.from_numpy(hg).to(tdt),
+                           torch.from_numpy(w.T.copy()).to(tdt))
+    assert got.dtype == tdt and got.shape == (m, n)
+    if dtype == np.float32:
+        np.testing.assert_allclose(got.numpy(), ref, atol=1e-4)
+    else:
+        assert np.abs(got.float().numpy() - ref).max() <= (
+            1e-2 * np.abs(ref).max())
+
+
 def test_gates_cover_the_sd15_shapes():
     """The flash gate is the TPU gate's domain, by sequence length alone;
     a head dim without a kernel instance raises on the card instead
@@ -105,7 +131,7 @@ def test_layers_route_to_the_kernels(monkeypatch):
                         lambda *a: calls.append("flash") or real_fa(*a))
     monkeypatch.setattr(tgg, "ff_matmul",
                         lambda *a: calls.append("ff") or real_ff(*a))
-    launches = (tfa.launches, tgg.launches)
+    launches = (tfa.launches, tgg.ff_launches, tgg.geglu_launches)
     torch.manual_seed(0)
     for heads, head_dim in ((2, 40), (1, 64)):
         attn = tl.CrossAttention(80, heads, head_dim).to(torch.bfloat16)
@@ -122,4 +148,52 @@ def test_layers_route_to_the_kernels(monkeypatch):
         assert (out.float() - ref).abs().max() <= 2e-2 * ref.abs().max()
         ff.float()(y.float())                  # fp32: the plain path
     assert calls == ["flash", "flash", "ff", "ff"]
-    assert (tfa.launches, tgg.launches) == launches
+    assert (tfa.launches, tgg.ff_launches, tgg.geglu_launches) == launches
+
+
+@pytest.mark.parametrize("fused_ff,dtype,plain,want", [
+    (False, torch.bfloat16, False, "geglu"),
+    (True, torch.bfloat16, False, "ff"),
+    (False, torch.float32, False, None),
+    (True, torch.float32, False, None),
+    (False, torch.bfloat16, True, None),
+    (True, torch.bfloat16, True, None)])
+def test_ff_layer_routes(monkeypatch, fused_ff, dtype, plain, want):
+    """FeedForward's routes, as the JAX package's layers.py:235-254 gates
+    them: fused_ff and bf16 → ff_matmul; bf16 without fused_ff → a plain
+    up-projection, then geglu_matmul on it and net.2's weight; fp32, and
+    anything inside plain_path(), → the plain modules.  Each route gives
+    the plain modules' answer within bf16 rounding (2e-2·max|ref|)."""
+    calls = []
+    real_ff, real_gg = tgg.ff_matmul, tgg.geglu_matmul
+    monkeypatch.setattr(tgg, "ff_matmul",
+                        lambda *a: calls.append("ff") or real_ff(*a))
+    monkeypatch.setattr(tgg, "geglu_matmul",
+                        lambda *a: calls.append("geglu") or real_gg(*a))
+    torch.manual_seed(1)
+    ff = tl.FeedForward(64, fused_ff=fused_ff).to(dtype)
+    x = torch.randn(2, 16, 64, dtype=dtype)
+    if plain:
+        with tl.plain_path():
+            out = ff(x)
+        assert tl._use_kernels
+    else:
+        out = ff(x)
+    assert calls == ([want] if want else [])
+    ref = ff.float().net[2](ff.net[0](x.float()))
+    assert (out.float() - ref).abs().max() <= 2e-2 * ref.abs().max()
+
+
+def test_plain_path_keeps_flash_off(monkeypatch):
+    """A bf16 self-attention in the flash domain at SDXL's head dim 64
+    reaches the flash wrapper, and inside plain_path() does not."""
+    calls = []
+    real = tfa.flash_attention
+    monkeypatch.setattr(tfa, "flash_attention",
+                        lambda *a: calls.append("flash") or real(*a))
+    attn = tl.CrossAttention(128, 2, 64).to(torch.bfloat16)
+    x = torch.randn(1, 1024, 128, dtype=torch.bfloat16)
+    attn(x)
+    with tl.plain_path():
+        attn(x)
+    assert calls == ["flash"]

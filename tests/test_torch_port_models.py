@@ -26,11 +26,11 @@ from theatergen_tpu_torch.pipelines.bundle import init_bundle
 torch.set_num_threads(1)
 
 
-def random_params(module, seed, *args):
+def random_params(module, seed, *args, **kwargs):
     """The module's flax tree with seeded numpy leaves: kernels
     N(0, 1/fan_in), norm scales 1 + N(0, 0.1²), all else N(0, 0.1²)."""
     shapes = jax.eval_shape(
-        lambda: module.init(jax.random.key(0), *args))["params"]
+        lambda: module.init(jax.random.key(0), *args, **kwargs))["params"]
     rng = np.random.RandomState(seed)
 
     def leaf(path, s):

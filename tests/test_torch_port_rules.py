@@ -81,7 +81,8 @@ def test_seeded_init_is_deterministic():
 def test_kernel_sources_and_targets():
     """Every kernel builds from csrc/ into build/torch_kernels/ under a
     name that changes with its source."""
-    assert _build.kernel_names() == ["ff_geglu", "flash_attention"]
+    assert _build.kernel_names() == ["ff_geglu", "flash_attention",
+                                     "geglu_matmul"]
     for name in _build.kernel_names():
         t = _build._target(name)
         assert t.parent == ROOT / "build" / "torch_kernels"
@@ -105,3 +106,6 @@ def test_wrappers_take_the_plain_version_only_on_cpu(monkeypatch):
     out = gg.ff_matmul(x, w1, torch.zeros(2560, dtype=torch.bfloat16),
                        torch.randn(320, 1280, dtype=torch.bfloat16))
     assert out.shape == x.shape
+    hg = torch.randn(2, 4, 2560, dtype=torch.bfloat16)
+    out = gg.geglu_matmul(hg, torch.randn(640, 1280, dtype=torch.bfloat16))
+    assert out.shape == (2, 4, 640)

@@ -1,9 +1,10 @@
 """Configuration dataclasses of the PyTorch port.
 
-The port's own copy of the SD1.5 slice of ``theatergen_tpu/config.py``:
-field names and defaults are identical, so a config written for one
-package reads the same in the other.  Only the dataclasses the txt2img
-path needs live here; the others join as their modules are ported.
+The port's own copy of the SD1.5 and SDXL txt2img slices of
+``theatergen_tpu/config.py``: field names and defaults are identical, so a
+config written for one package reads the same in the other.  Only the
+dataclasses the txt2img paths need live here; the others join as their
+modules are ported.
 """
 
 from __future__ import annotations
@@ -38,8 +39,9 @@ class UNetConfig:
     quantized: bool = False
     # GroupNorms in the model dtype instead of fp32
     fast_norm: bool = True
-    # whole transformer FF in one kernel (ops/geglu_matmul.py) when the
-    # model runs in bf16; sd15_config turns it on
+    # in bf16: on, the whole transformer FF is one ff_matmul kernel
+    # (sd15_config); off, the up-projection is a plain linear and the
+    # gate + down-projection one geglu_matmul kernel (sdxl_config)
     fused_ff: bool = False
     remat: bool = False
     dtype: str = "bfloat16"
@@ -136,6 +138,8 @@ class TheaterConfig:
     unet: UNetConfig = dataclasses.field(default_factory=UNetConfig)
     vae: VAEConfig = dataclasses.field(default_factory=VAEConfig)
     text: CLIPTextConfig = dataclasses.field(default_factory=CLIPTextConfig)
+    # SDXL's second text tower (OpenCLIP bigG); None for SD1.5
+    text2: Optional[CLIPTextConfig] = None
     scheduler: SchedulerConfig = dataclasses.field(
         default_factory=SchedulerConfig)
     pipeline: PipelineConfig = dataclasses.field(
@@ -177,3 +181,61 @@ def sd15_config() -> TheaterConfig:
     base = TheaterConfig()
     return dataclasses.replace(
         base, unet=dataclasses.replace(base.unet, fused_ff=True))
+
+
+def tiny_xl_config(latent_size: int = 8) -> TheaterConfig:
+    """Miniature SDXL-shaped config: per-level depths/heads, text_time
+    micro-conditioning, dual text towers, EulerAncestral.  The JAX
+    package's twin also carries IP-Adapter, guidance and ControlNet
+    parts, which join with their slices."""
+    base = tiny_config(latent_size)
+    text2 = dataclasses.replace(
+        base.text, hidden_size=48, num_heads=2, intermediate_size=96,
+        act="gelu", projection_dim=32, use_text_projection=True,
+    )
+    ctx_dim = base.text.hidden_size + 48   # concat of both towers
+    unet = dataclasses.replace(
+        base.unet,
+        block_out_channels=(32, 64),
+        attention_levels=(False, True),
+        transformer_layers_per_block=(0, 2),
+        num_attention_heads=(2, 4),
+        cross_attention_dim=ctx_dim,
+        addition_embed_type="text_time",
+        addition_time_embed_dim=8,
+        projection_class_embeddings_input_dim=32 + 6 * 8,
+    )
+    pipe = dataclasses.replace(base.pipeline,
+                               scheduler_type="euler_ancestral")
+    return dataclasses.replace(base, unet=unet, text2=text2, pipeline=pipe)
+
+
+def sdxl_config() -> TheaterConfig:
+    """SDXL base stack: 1024×1024, EulerAncestral 30 steps, two text
+    towers, ``text_time`` micro-conditioning, head dim 64 at every level,
+    and the split FF (``fused_ff=False``: GEGLU up-projection, then the
+    ``geglu_matmul`` kernel).  The JAX package's twin also sets an
+    IP-Adapter XL config; it joins with the IP-Adapter slice."""
+    unet = UNetConfig(
+        sample_size=128,
+        block_out_channels=(320, 640, 1280),
+        layers_per_block=2,
+        attention_levels=(False, True, True),
+        transformer_layers_per_block=(0, 2, 10),
+        num_attention_heads=(5, 10, 20),   # head_dim 64 at every level
+        cross_attention_dim=2048,
+        addition_embed_type="text_time",
+        projection_class_embeddings_input_dim=2816,
+        fused_ff=False,
+    )
+    # text encoder 2 (OpenCLIP bigG): hidden 1280, 32 layers, gelu
+    text2 = CLIPTextConfig(
+        hidden_size=1280, intermediate_size=5120, num_layers=32,
+        num_heads=20, act="gelu", projection_dim=1280,
+        use_text_projection=True,
+    )
+    pipe = PipelineConfig(
+        height=1024, width=1024, num_steps=30,
+        scheduler_type="euler_ancestral",
+    )
+    return TheaterConfig(unet=unet, text2=text2, pipeline=pipe)

@@ -6,13 +6,15 @@
 // fp32 logits, 1/l applied to the output.
 //
 // Bound on the H100: at SD1.5's shapes (S = 4096, d = 40 and S = 1024,
-// d = 80) the 4·S²·d operations per head dwarf the 4·S·d bytes, so the
-// kernel is bound by tensor-core throughput and by the exp2 of the S² logits.
+// d = 80) and SDXL's (S = 4096 and 1024, d = 64) the 4·S²·d operations per
+// head dwarf the 4·S·d bytes, so the kernel is bound by tensor-core
+// throughput and by the exp2 of the S² logits.
 // The design keeps the logits out of device memory: one block per
 // (batch·head, 64 query rows), one warp per 16 query rows, K/V tiles of 64
 // keys in shared memory, online softmax in fp32 registers, QK^T and PV on
 // mma.sync m16n8k16 (bf16 -> fp32).  d = 40 is not a multiple of the MMA
-// depth 16: Q and K are zero-padded to 48 in shared memory only.  The output
+// depth 16: Q and K are zero-padded to 48 in shared memory only (d = 64 and
+// 80 need no pad).  The output
 // MMA covers ceil(d/8) column tiles, so V needs no pad.  q, k and v may be
 // strided views (e.g. of one QKV projection); the output is contiguous.
 
@@ -217,6 +219,7 @@ extern "C" int tg_flash_attention_fwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 40: return launch<40>(q, k, v, o, B, S, H, qs, ks, vs, scale_log2, st);
+    case 64: return launch<64>(q, k, v, o, B, S, H, qs, ks, vs, scale_log2, st);
     case 80: return launch<80>(q, k, v, o, B, S, H, qs, ks, vs, scale_log2, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,6 +1,7 @@
 """CLIP text tower (PyTorch), the port of
-``theatergen_tpu/models/clip.py::CLIPTextEncoder``: quick_gelu MLPs, a
-causal mask, fp32 by default.  Parameter names follow the HF
+``theatergen_tpu/models/clip.py::CLIPTextEncoder``: quick_gelu (SD1.5,
+SDXL tower 1) or exact gelu (SDXL tower 2, OpenCLIP bigG) MLPs, a causal
+mask, fp32 by default.  Parameter names follow the HF
 ``CLIPTextModel`` layout (``embeddings.token_embedding``,
 ``encoder.layers.0.self_attn.q_proj`` …).
 """
@@ -80,7 +81,10 @@ class _Encoder(nn.Module):
 
 class CLIPTextEncoder(nn.Module):
     """``input_ids [B, L]`` → ``(last_hidden_state [B, L, C], pooled [B, P])``;
-    pooled is the final-LN state at each row's EOT (highest id) token."""
+    pooled is the final-LN state at each row's EOT (highest id) token,
+    through ``text_projection`` where the tower has one.  With
+    ``return_penultimate`` a third output is the input of the last layer
+    (not final-LN'd), which SDXL conditions on."""
 
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
@@ -94,17 +98,23 @@ class CLIPTextEncoder(nn.Module):
             if cfg.use_text_projection
             or cfg.projection_dim != cfg.hidden_size else None)
 
-    def forward(self, input_ids: torch.Tensor):
+    def forward(self, input_ids: torch.Tensor,
+                return_penultimate: bool = False):
         b, l = input_ids.shape
         emb = self.embeddings
         x = (emb.token_embedding(input_ids)
              + emb.position_embedding.weight[None, :l])
         causal = torch.ones((l, l), dtype=torch.bool,
                             device=input_ids.device).tril()[None, None]
-        for layer in self.encoder.layers:
+        penultimate = None
+        for i, layer in enumerate(self.encoder.layers):
+            if i == len(self.encoder.layers) - 1:
+                penultimate = x
             x = layer(x, causal)
         x = self.final_layer_norm(x)
         pooled = x[torch.arange(b, device=x.device), input_ids.argmax(-1)]
         if self.text_projection is not None:
             pooled = self.text_projection(pooled)
+        if return_penultimate:
+            return x, pooled, penultimate
         return x, pooled

@@ -1,22 +1,26 @@
-"""Building blocks of the SD1.5 UNet, VAE and text tower (PyTorch).
+"""Building blocks of the SD1.5 and SDXL UNets, VAE and text towers
+(PyTorch).
 
-Port of the SD1.5 path of ``theatergen_tpu/models/layers.py``.  Modules
+Port of the txt2img paths of ``theatergen_tpu/models/layers.py``.  Modules
 are NCHW inside and use diffusers' parameter names (``to_q``,
 ``to_out.0``, ``ff.net.0.proj``, ``time_emb_proj`` …), so
 ``models/weights.py`` maps the JAX package's trees onto them by name.
 Normalisation epsilons follow the JAX package (GroupNorm 1e-5, the
 transformer LayerNorms flax's default 1e-6).
 
-Two layers reach a kernel: :class:`FeedForward` (``ops/geglu_matmul``,
-when the model's ``fused_ff`` is on and it runs in bf16) and
-:class:`CrossAttention` (``ops/flash_attention`` for self-attention at
-1024..4096 tokens).  Everything else is plain PyTorch.
+Two layers reach a kernel: :class:`FeedForward` (``ops/geglu_matmul``:
+``ff_matmul`` when the model's ``fused_ff`` is on and it runs in bf16,
+``geglu_matmul`` when it is off) and :class:`CrossAttention`
+(``ops/flash_attention`` for self-attention at 1024..4096 tokens).
+Everything else is plain PyTorch.  Inside :func:`plain_path` both take
+their plain PyTorch route whatever the model's config says.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional
+from typing import Iterator, Optional
 
 import torch
 import torch.nn as nn
@@ -29,6 +33,22 @@ from ..ops import geglu_matmul as gg_ops
 # flax nn.LayerNorm's default epsilon, which the JAX package's transformer
 # blocks use
 LAYER_NORM_EPS = 1e-6
+
+# False inside plain_path(): the layers reach no kernel
+_use_kernels = True
+
+
+@contextlib.contextmanager
+def plain_path() -> Iterator[None]:
+    """Within the block every layer takes its plain PyTorch route (no
+    kernel is launched), whatever ``fused_ff``/``flash_attention`` say —
+    the reference a model's kernel path is held against."""
+    global _use_kernels
+    prev, _use_kernels = _use_kernels, False
+    try:
+        yield
+    finally:
+        _use_kernels = prev
 
 
 def get_dtype(name: str) -> torch.dtype:
@@ -155,10 +175,13 @@ class GEGLU(nn.Module):
 class FeedForward(nn.Module):
     """GEGLU → down projection (``net.0`` / ``net.2``).
 
-    With ``fused_ff`` and bf16 activations the whole FF is one
-    ``ops.geglu_matmul.ff_matmul`` call — the gate of the JAX package's
-    ``layers.py:235-238``.  On the card a width without a kernel instance
-    raises there rather than running the plain path."""
+    With bf16 activations, as the JAX package's ``layers.py:235-254`` gates
+    it: with ``fused_ff`` the whole FF is one ``ops.geglu_matmul.ff_matmul``
+    call; without, the up-projection is a plain linear and the gate and
+    down-projection one ``ops.geglu_matmul.geglu_matmul`` call.  On the
+    card a width without a kernel instance raises there rather than
+    running the plain path.  fp32 and :func:`plain_path` take the plain
+    path."""
 
     def __init__(self, dim: int, mult: int = 4, fused_ff: bool = False):
         super().__init__()
@@ -168,11 +191,14 @@ class FeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         geglu, down = self.net[0], self.net[2]
-        if self.fused_ff and x.dtype == torch.bfloat16:
+        if not _use_kernels or x.dtype != torch.bfloat16:
+            return down(geglu(x))
+        if self.fused_ff:
             out = gg_ops.ff_matmul(x, geglu.proj.weight, geglu.proj.bias,
                                    down.weight)
-            return out + down.bias
-        return down(geglu(x))
+        else:
+            out = gg_ops.geglu_matmul(geglu.proj(x), down.weight)
+        return out + down.bias
 
 
 class CrossAttention(nn.Module):
@@ -181,8 +207,8 @@ class CrossAttention(nn.Module):
     Self-attention (``context is None``) in bf16 in the flash domain
     (``ops.flash_attention.supported``: the sequence length alone) takes
     ``ops.flash_attention``, which raises on the card for a head dim it
-    has no kernel instance for; every other call takes
-    ``ops.attention.multi_head_attention``."""
+    has no kernel instance for; every other call, and every call inside
+    :func:`plain_path`, takes ``ops.attention.multi_head_attention``."""
 
     def __init__(self, query_dim: int, heads: int, head_dim: int,
                  context_dim: Optional[int] = None, use_flash: bool = True):
@@ -204,7 +230,7 @@ class CrossAttention(nn.Module):
         q = self.to_q(x).view(shape)
         k = self.to_k(ctx).view(shape)
         v = self.to_v(ctx).view(shape)
-        if (context is None and self.use_flash
+        if (context is None and self.use_flash and _use_kernels
                 and x.dtype == torch.bfloat16
                 and fa_ops.supported(lq, lq)):
             out = fa_ops.flash_attention(q, k, v)

@@ -1,15 +1,20 @@
 """SD-style conditional UNet (PyTorch, NCHW), the port of
-``theatergen_tpu/models/unet.py::UNet2DCondition`` on the SD1.5 path.
+``theatergen_tpu/models/unet.py::UNet2DCondition`` on the SD1.5 and SDXL
+txt2img paths.
 
 Parameter names are diffusers' (``down_blocks.0.attentions.1.
 transformer_blocks.0.attn1.to_q.weight`` …).  The forward takes
-``(sample [B, C, H, W], timesteps [B] or scalar, context [B, L, C_ctx])``
-and returns the eps prediction ``[B, out_channels, H, W]`` in the model
-dtype.  ControlNet residuals, attention capture, DeepCache and SDXL's
-``text_time`` conditioning come with later slices.
+``(sample [B, C, H, W], timesteps [B] or scalar, context [B, L, C_ctx])``,
+plus SDXL's ``pooled_text [B, P]`` and ``time_ids [B, 6]`` where the config
+has ``addition_embed_type="text_time"``, and returns the eps prediction
+``[B, out_channels, H, W]`` in the model dtype.  ControlNet residuals,
+attention capture, DeepCache, IP tokens and T2I-Adapter residuals come
+with later slices.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -33,9 +38,11 @@ class UNetBlock(nn.Module):
 class UNet2DCondition(nn.Module):
     def __init__(self, cfg: UNetConfig):
         super().__init__()
-        if cfg.addition_embed_type is not None or cfg.ip_num_tokens:
-            raise NotImplementedError(
-                "text_time conditioning and IP tokens are not ported yet")
+        if cfg.ip_num_tokens:
+            raise NotImplementedError("IP tokens are not ported yet")
+        if cfg.addition_embed_type not in (None, "text_time"):
+            raise ValueError(f"unknown addition_embed_type "
+                             f"{cfg.addition_embed_type!r}")
         self.cfg = cfg
         boc = cfg.block_out_channels
         n = len(boc)
@@ -56,6 +63,10 @@ class UNet2DCondition(nn.Module):
 
         self.conv_in = nn.Conv2d(cfg.in_channels, boc[0], 3, padding=1)
         self.time_embedding = TimestepEmbedding(boc[0], time_dim)
+        if cfg.addition_embed_type == "text_time":
+            # SDXL micro-conditioning over [pooled ++ sinusoids(time_ids)]
+            self.add_embedding = TimestepEmbedding(
+                cfg.projection_class_embeddings_input_dim, time_dim)
 
         skip_channels = [boc[0]]
         h_ch = boc[0]
@@ -101,16 +112,29 @@ class UNet2DCondition(nn.Module):
         return self.conv_in.weight.dtype
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
-                context: torch.Tensor) -> torch.Tensor:
+                context: torch.Tensor, *,
+                pooled_text: Optional[torch.Tensor] = None,
+                time_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        cfg = self.cfg
         dtype = self.dtype
         h = sample.to(dtype)
         context = context.to(dtype)
         if timesteps.ndim == 0:
             timesteps = timesteps[None]
-        temb = timestep_embedding(timesteps, self.cfg.block_out_channels[0])
+        temb = timestep_embedding(timesteps, cfg.block_out_channels[0])
         temb = self.time_embedding(temb.to(dtype))
         if temb.shape[0] != h.shape[0]:
             temb = temb.expand(h.shape[0], -1)
+        if cfg.addition_embed_type == "text_time":
+            if pooled_text is None or time_ids is None:
+                raise ValueError("text_time conditioning needs pooled_text "
+                                 "and time_ids")
+            b = time_ids.shape[0]
+            tid = timestep_embedding(time_ids.reshape(-1),
+                                     cfg.addition_time_embed_dim).reshape(b, -1)
+            add = self.add_embedding(
+                torch.cat([pooled_text.to(dtype), tid.to(dtype)], dim=-1))
+            temb = temb + add.expand_as(temb)
 
         h = self.conv_in(h)
         skips = [h]

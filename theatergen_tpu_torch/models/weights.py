@@ -2,8 +2,10 @@
 state dicts.
 
 ``from_flax(kind, params)`` takes a flax tree (nested dicts of arrays) of
-the JAX package's UNet, VAE or text tower and returns the port's state
-dict as numpy arrays.  It is written from the two packages' naming rules:
+the JAX package's UNet (SDXL's ``add_embedding`` included), VAE or text
+tower (either of SDXL's two, ``text_projection`` included) and returns
+the port's state dict as numpy arrays.  It is written from the two
+packages' naming rules:
 
 - scopes: ``down_blocks_0_resnets_1`` → ``down_blocks.0.resnets.1``,
   ``mid_block_attentions_0`` (UNet) and ``mid_attentions_0`` (VAE) →

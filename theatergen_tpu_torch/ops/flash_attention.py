@@ -5,9 +5,9 @@
 projection are fine) and returns ``[B, S, H, D]``.  On a CUDA tensor it
 launches the hand-written kernel of ``csrc/flash_attention.cu`` (see the
 note there: one block per (batch·head, 64 query rows), online softmax in
-fp32 registers, QK^T and PV on bf16 tensor cores, d = 40 padded to 48 in
-shared memory) or raises.  On a CPU tensor it runs :func:`flash_attention_plain`,
-the same function in plain PyTorch.
+fp32 registers, QK^T and PV on bf16 tensor cores, head dims 40 (padded to
+48 in shared memory), 64 and 80) or raises.  On a CPU tensor it runs
+:func:`flash_attention_plain`, the same function in plain PyTorch.
 
 The TPU package folds the 1/sqrt(d) scale, the base-2 exponent and a lane
 pad into packed projection weights (a Mosaic layout device); the kernel
@@ -29,7 +29,7 @@ LOG2E = 1.4426950408889634
 MIN_SEQ = 1024
 MAX_SEQ = 4096
 # head dims with a compiled kernel instance (csrc/flash_attention.cu)
-KERNEL_HEAD_DIMS = (40, 80)
+KERNEL_HEAD_DIMS = (40, 64, 80)
 
 # kernel launches made by flash_attention (reset and read by callers)
 launches = 0

@@ -1,16 +1,20 @@
-"""Fused transformer feed-forward: the Hopper counterpart of
-``theatergen_tpu/ops/geglu_matmul.py::ff_matmul``.
+"""Transformer feed-forward kernels: the Hopper counterparts of
+``theatergen_tpu/ops/geglu_matmul.py::ff_matmul`` and ``::geglu_matmul``.
 
-``ff_matmul(x, w1, b1, w2) = geglu(x @ w1.T + b1) @ w2.T`` with the value
-half first (``[:K]``) and exact-erf gelu on the gate half, as in the TPU
-package's ``_ff_reference``.  Weights are the modules' own ``[out, in]``
-tensors (``w1 [2K, D]``, ``b1 [2K]``, ``w2 [D, K]``), read in place.  The
-net.2 bias is added by the caller.
+``ff_matmul(x, w1, b1, w2) = geglu(x @ w1.T + b1) @ w2.T`` is the whole FF
+(``UNetConfig.fused_ff``, SD1.5); ``geglu_matmul(hg, w) = geglu(hg) @ w.T``
+is its tail, over an up-projection ``hg = [value ‖ gate]`` already in
+device memory (``fused_ff=False``, SDXL).  In both the value half comes
+first and the gate half takes exact-erf gelu, as in the TPU package's
+``_ff_reference`` / ``_reference``.  Weights are the modules' own
+``[out, in]`` tensors (``w1 [2K, D]``, ``b1 [2K]``, ``w2``/``w [N, K]``),
+read in place.  The net.2 bias is added by the caller.
 
-On a CUDA tensor :func:`ff_matmul` launches the kernel of
-``csrc/ff_geglu.cu`` (the ``[M, 2K]`` intermediate never reaches device
-memory; see the note there) or raises.  On a CPU tensor it runs
-:func:`ff_matmul_plain`.
+On a CUDA tensor each wrapper launches its kernel (``csrc/ff_geglu.cu``:
+the ``[M, 2K]`` intermediate never reaches device memory;
+``csrc/geglu_matmul.cu``: 64x320 output tiles, the gate computed per
+tile; see the notes there) or raises.  On a CPU tensor it runs its plain
+version (:func:`ff_matmul_plain`, :func:`geglu_matmul_plain`).
 """
 
 from __future__ import annotations
@@ -29,8 +33,15 @@ K_CHUNK = 64
 # rows x width a kernel block owns (BM = 64, 32, 16 at D = 320, 640, 1280)
 BLOCK_ELEMS = 20480
 
-# kernel launches made by ff_matmul (reset and read by callers)
-launches = 0
+# geglu_matmul's kernel tile (csrc/geglu_matmul.cu): N and K must be
+# multiples of these; M is masked
+GEGLU_BLOCK_N = 320
+GEGLU_BLOCK_K = 32
+
+# kernel launches made by ff_matmul and geglu_matmul (reset and read by
+# callers)
+ff_launches = 0
+geglu_launches = 0
 
 
 def ff_matmul_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -66,7 +77,7 @@ def _counters(device: torch.device, sms: int) -> torch.Tensor:
     return _split_counters[device]
 
 
-def _lib():
+def _ff_lib():
     fn = _build.library("ff_geglu").tg_ff_geglu_fwd
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
@@ -107,23 +118,91 @@ def ff_matmul(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         work = torch.empty((splits, m, d), dtype=torch.float32,
                            device=x.device)
         counters = _counters(x.device, sms)
-    fn = _lib()
+    fn = _ff_lib()
     _build.check(fn(
         x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         out.data_ptr(), None if work is None else work.data_ptr(),
         None if counters is None else counters.data_ptr(), m, d, k, splits,
         torch.cuda.current_stream(x.device).cuda_stream,
     ), "ff_matmul")
-    global launches
-    launches += 1
+    global ff_launches
+    ff_launches += 1
     return out.reshape(x.shape)
 
 
-def flops(m: int, d: int, k: int) -> float:
-    """Operations of one call: up-projection 2·M·D·2K, down 2·M·K·D."""
+def ff_flops(m: int, d: int, k: int) -> float:
+    """Operations of one ff_matmul call: up-projection 2·M·D·2K, down
+    2·M·K·D."""
     return 6.0 * m * d * k
 
 
-def min_bytes(m: int, d: int, k: int, itemsize: int = 2) -> float:
-    """Bytes of one call: x, w1, b1, w2 read once, the output written once."""
+def ff_min_bytes(m: int, d: int, k: int, itemsize: int = 2) -> float:
+    """Bytes of one ff_matmul call: x, w1, b1, w2 read once, the output
+    written once."""
     return itemsize * (2.0 * m * d + 3.0 * d * k + 2.0 * k)
+
+
+def geglu_matmul_plain(hg: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Same function in plain PyTorch: ``value·gelu(gate)`` in fp32,
+    rounded to hg's dtype before the product, as the TPU kernel and its
+    ``_reference`` round it."""
+    k = w.shape[1]
+    h = (hg[..., :k].float() * F.gelu(hg[..., k:].float())).to(hg.dtype)
+    return h @ w.t()
+
+
+def _geglu_lib():
+    fn = _build.library("geglu_matmul").tg_geglu_matmul_fwd
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+    return fn
+
+
+def geglu_matmul(hg: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``[..., 2K]`` × ``w [N, K]`` → ``[..., N]``; leading dims of ``hg``
+    flatten into M."""
+    if not hg.is_cuda:
+        return geglu_matmul_plain(hg, w)
+    n, k = w.shape
+    if hg.dtype != torch.bfloat16:
+        raise TypeError(f"geglu_matmul: hg must be bfloat16, got {hg.dtype}")
+    if hg.shape[-1] != 2 * k:
+        raise ValueError(f"geglu_matmul: hg width {hg.shape[-1]} != 2 * "
+                         f"{k} (w is [N, K] = {tuple(w.shape)})")
+    if n % GEGLU_BLOCK_N or k % GEGLU_BLOCK_K:
+        raise ValueError(f"geglu_matmul: no kernel instance for N={n}, "
+                         f"K={k} (N % {GEGLU_BLOCK_N} == 0, "
+                         f"K % {GEGLU_BLOCK_K} == 0)")
+    if (w.dtype != torch.bfloat16 or not w.is_contiguous()
+            or w.device != hg.device or w.data_ptr() % 16):
+        raise ValueError(f"geglu_matmul: w must be a contiguous, 16-byte "
+                         f"aligned bf16 tensor on {hg.device}, got "
+                         f"{w.dtype} on {w.device}")
+    hg2 = hg.reshape(-1, 2 * k)
+    # 16-byte loads of both halves: the gate half starts K columns in
+    if (not hg2.is_contiguous() or hg2.data_ptr() % 16
+            or (k * hg.element_size()) % 16):
+        raise ValueError("geglu_matmul: hg must be contiguous with 16-byte "
+                         "aligned rows and gate half")
+    m = hg2.shape[0]
+    out = torch.empty((m, n), dtype=hg.dtype, device=hg.device)
+    _build.check(_geglu_lib()(
+        hg2.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k,
+        torch.cuda.current_stream(hg.device).cuda_stream,
+    ), "geglu_matmul")
+    global geglu_launches
+    geglu_launches += 1
+    return out.reshape(*hg.shape[:-1], n)
+
+
+def geglu_flops(m: int, k: int, n: int) -> float:
+    """Operations of one geglu_matmul call: the product, 2·M·K·N."""
+    return 2.0 * m * k * n
+
+
+def geglu_min_bytes(m: int, k: int, n: int, itemsize: int = 2) -> float:
+    """Bytes of one geglu_matmul call: hg [M, 2K] and w [N, K] read once,
+    the output [M, N] written once."""
+    return itemsize * (2.0 * m * k + 1.0 * n * k + 1.0 * m * n)

@@ -1,6 +1,7 @@
-"""DDIM scheduler: the port of ``theatergen_tpu/ops/scheduler.py``'s DDIM
-part.  The tables are built in numpy exactly as there, so timesteps and
-alphas match bit for bit; the step runs on tensors of any device.
+"""DDIM and Euler-Ancestral schedulers: the port of those parts of
+``theatergen_tpu/ops/scheduler.py``.  The tables are built in numpy exactly
+as there, so timesteps, alphas and sigmas match bit for bit; the steps run
+on tensors of any device and take their noise explicitly.
 """
 
 from __future__ import annotations
@@ -136,3 +137,82 @@ def ddim_step(sched: DDIMSchedule, model_output: torch.Tensor, i: int,
             raise ValueError("eta > 0 requires noise")
         prev = prev + sigma * noise
     return prev
+
+
+# ---------------------------------------------------------------------------
+# Euler-Ancestral (SDXL's sampler)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class EulerAncestralSchedule:
+    """Sigma-parameterized ancestral Euler tables (host numpy).
+
+    ``timesteps`` [S] int32 descending; ``sigmas`` [S+1] float32 with the
+    terminal 0 appended.  Latents start at ``init_noise_sigma = sigmas[0]``
+    and model inputs are scaled by ``1/sqrt(sigma^2+1)`` each step
+    (diffusers ``EulerAncestralDiscreteScheduler`` semantics)."""
+
+    timesteps: np.ndarray
+    sigmas: np.ndarray
+    num_train_timesteps: int
+    prediction_type: str = "epsilon"
+
+    @property
+    def num_steps(self) -> int:
+        return int(self.timesteps.shape[0])
+
+    @property
+    def init_noise_sigma(self) -> float:
+        return float(self.sigmas[0])
+
+
+def make_euler_ancestral_schedule(cfg: SchedulerConfig,
+                                  num_steps: int) -> EulerAncestralSchedule:
+    acp = alphas_cumprod_for(cfg).astype(np.float64)
+    # zero-SNR rescale drives acp[-1] to exactly 0; leading-spaced timesteps
+    # never index it, but keep the table finite
+    all_sigmas = np.sqrt((1.0 - acp) / np.maximum(acp, 1e-24))
+    ts = uniform_timesteps(cfg, num_steps)
+    sigmas = np.concatenate([all_sigmas[ts], [0.0]]).astype(np.float32)
+    return EulerAncestralSchedule(
+        timesteps=ts, sigmas=sigmas,
+        num_train_timesteps=cfg.num_train_timesteps,
+        prediction_type=cfg.prediction_type,
+    )
+
+
+def _sigma(sched: EulerAncestralSchedule, i: int,
+           like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(float(sched.sigmas[i]), dtype=like.dtype,
+                        device=like.device)
+
+
+def ea_scale_model_input(sched: EulerAncestralSchedule, sample: torch.Tensor,
+                         i: int) -> torch.Tensor:
+    sigma = _sigma(sched, i, sample)
+    return sample / torch.sqrt(sigma ** 2 + 1.0)
+
+
+def ea_step(sched: EulerAncestralSchedule, model_output: torch.Tensor,
+            i: int, sample: torch.Tensor,
+            noise: torch.Tensor) -> torch.Tensor:
+    """One ancestral Euler update of the raw (unscaled) latent ``sample``
+    at loop position ``i``; ``noise`` is the step's unit-normal draw."""
+    s_from = _sigma(sched, i, sample)
+    s_to = _sigma(sched, i + 1, sample)
+    if sched.prediction_type == "epsilon":
+        x0 = sample - s_from * model_output
+    elif sched.prediction_type == "v_prediction":
+        x0 = (sample / (s_from ** 2 + 1.0)
+              - model_output * s_from / torch.sqrt(s_from ** 2 + 1.0))
+    elif sched.prediction_type == "sample":
+        x0 = model_output
+    else:
+        raise ValueError(
+            f"unknown prediction_type {sched.prediction_type!r}")
+    var = torch.clamp(s_from ** 2 - s_to ** 2, min=0.0)
+    s_up = torch.sqrt(s_to ** 2 * var / torch.clamp(s_from ** 2, min=1e-12))
+    s_down = torch.sqrt(torch.clamp(s_to ** 2 - s_up ** 2, min=0.0))
+    derivative = (sample - x0) / torch.clamp(s_from, min=1e-12)
+    return sample + derivative * (s_down - s_from) + noise * s_up

@@ -1,6 +1,7 @@
-"""Model bundle: UNet, VAE, text tower and tokenizer in one object.
+"""Model bundle: UNet, VAE, text tower(s) and tokenizer in one object.
 
-Port of ``theatergen_tpu/pipelines/bundle.py`` for the txt2img slice.
+Port of ``theatergen_tpu/pipelines/bundle.py`` for the txt2img slices
+(SD1.5; SDXL adds the second text tower ``text2``).
 :func:`init_bundle` builds the modules on the target device with seeded
 random weights (no checkpoint ships with the repo); :meth:`Bundle.load_flax`
 loads the JAX package's parameter trees through ``models/weights.py``.
@@ -33,6 +34,8 @@ class Bundle:
     unet: UNet2DCondition
     vae: AutoencoderKL
     text: CLIPTextEncoder
+    # SDXL's second tower (OpenCLIP bigG), built where cfg.text2 is set
+    text2: Optional[CLIPTextEncoder] = None
 
     @property
     def device(self) -> torch.device:
@@ -47,14 +50,19 @@ class Bundle:
     @torch.no_grad()
     def load_flax(self, *, unet: Optional[Mapping] = None,
                   vae: Optional[Mapping] = None,
-                  text: Optional[Mapping] = None) -> "Bundle":
+                  text: Optional[Mapping] = None,
+                  text2: Optional[Mapping] = None) -> "Bundle":
         """Load JAX-package param trees (nested dicts of arrays); every key
         must match (``load_state_dict(strict=True)``)."""
         for kind, module, tree in (("unet", self.unet, unet),
                                    ("vae", self.vae, vae),
-                                   ("text", self.text, text)):
+                                   ("text", self.text, text),
+                                   ("text", self.text2, text2)):
             if tree is None:
                 continue
+            if module is None:
+                raise ValueError("load_flax: text2 given, but the bundle's "
+                                 "config has no second text tower")
             ref = module.state_dict()
             sd = {k: torch.from_numpy(np.asarray(v, np.float32)).to(
                       dtype=ref[k].dtype if k in ref else torch.float32,
@@ -110,4 +118,7 @@ def init_bundle(cfg: TheaterConfig, seed: int = 0, *,
                    device, gen),
         text=_build(CLIPTextEncoder, cfg.text, get_dtype(cfg.text.dtype),
                     device, gen),
+        text2=(None if cfg.text2 is None else _build(
+            CLIPTextEncoder, cfg.text2, get_dtype(cfg.text2.dtype), device,
+            gen)),
     )

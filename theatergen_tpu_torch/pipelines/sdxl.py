@@ -1,0 +1,169 @@
+"""SDXL txt2img: dual text towers, ``text_time`` micro-conditioning and a
+Python loop of Euler-Ancestral/CFG steps.
+
+Port of ``theatergen_tpu/pipelines/sdxl.py`` (``encode_prompts_xl``,
+``default_time_ids``, ``denoise_xl``, ``Text2ImgXL``).  As in
+``pipelines/sd.py``, latents ``[B, h, w, 4]`` and images ``[B, H, W, 3]``
+are NHWC at the boundary and every random draw comes from an explicit
+``torch.Generator`` (or, in tests, from injected noise).  The LCM route and
+T2I-Adapter conditioning join with their slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..ops import scheduler as sched_ops
+from ..ops.scheduler import EulerAncestralSchedule
+from . import sd
+from .bundle import Bundle
+
+
+@torch.no_grad()
+def encode_prompts_xl(bundle: Bundle, prompts, negative_prompts=None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Tokenize, encode with both towers and concatenate their penultimate
+    hidden states (768 + 1280 → 2048 at full size); the pooled output is
+    tower 2's projected one (diffusers SDXL ``encode_prompt`` semantics).
+
+    Returns ``(context [2B, L, C], pooled [2B, P])``, uncond rows first."""
+    if bundle.text2 is None:
+        raise ValueError("encode_prompts_xl: the bundle has no text2 tower")
+    if isinstance(prompts, str):
+        prompts = [prompts]
+    if negative_prompts is None:
+        negative_prompts = [""] * len(prompts)
+    elif isinstance(negative_prompts, str):
+        negative_prompts = [negative_prompts] * len(prompts)
+    if len(negative_prompts) != len(prompts):
+        raise ValueError(
+            f"got {len(prompts)} prompts but {len(negative_prompts)} negative"
+            " prompts; pass one per prompt or a single string")
+    texts = list(negative_prompts) + list(prompts)
+    length = bundle.cfg.text.max_length
+
+    def ids(**kw):
+        return torch.as_tensor(
+            np.asarray(bundle.tokenizer(texts, max_length=length, **kw)),
+            dtype=torch.long, device=bundle.device)
+
+    _, _, pen1 = bundle.text(ids(), return_penultimate=True)
+    # tower 2 (OpenCLIP bigG) pads with token 0, not the first tokenizer's
+    # eos: the padded context rows feed every cross-attention
+    _, pooled2, pen2 = bundle.text2(ids(pad_token_id=0),
+                                    return_penultimate=True)
+    return torch.cat([pen1, pen2], dim=-1), pooled2
+
+
+def default_time_ids(height: int, width: int, batch: int,
+                     device=None) -> torch.Tensor:
+    """``(orig_h, orig_w, crop_top, crop_left, target_h, target_w)``, the
+    SDXL micro-conditioning vector, full-frame: ``[batch, 6]`` fp32."""
+    ids = torch.tensor([[height, width, 0, 0, height, width]],
+                       dtype=torch.float32, device=device)
+    return ids.expand(batch, 6)
+
+
+@torch.no_grad()
+def denoise_xl(unet, sched: EulerAncestralSchedule,
+               generator: Optional[torch.Generator], latents: torch.Tensor,
+               context: torch.Tensor, pooled: torch.Tensor,
+               time_ids: torch.Tensor, guidance_scale: float, *,
+               noise: Optional[torch.Tensor] = None,
+               collect_trajectory: bool = False
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Euler-Ancestral CFG loop.  ``latents`` is NHWC fp32, already scaled
+    by ``init_noise_sigma``; ``unet(sample NCHW, t [2B], context,
+    pooled_text=, time_ids=)`` gives eps.  Step i's ancestral noise is
+    ``noise[i]`` (``[S, B, h, w, C]``) where given, else a unit-normal NHWC
+    draw from ``generator`` on its device.  Returns ``(final,
+    trajectory or None)`` as ``sd.denoise`` does."""
+    s_total = sched.num_steps
+    if noise is None and generator is None:
+        raise ValueError("denoise_xl: pass a generator or the noise")
+    if noise is not None and tuple(noise.shape) != (s_total,) + tuple(
+            latents.shape):
+        raise ValueError(f"denoise_xl: noise shape {tuple(noise.shape)}, "
+                         f"want {(s_total,) + tuple(latents.shape)}")
+    lat = latents.permute(0, 3, 1, 2).float()
+    traj = None
+    if collect_trajectory:
+        traj = torch.empty((s_total + 1,) + tuple(latents.shape),
+                           dtype=lat.dtype, device=lat.device)
+    for i in range(s_total):
+        if traj is not None:
+            traj[i] = lat.permute(0, 2, 3, 1)
+        scaled = sched_ops.ea_scale_model_input(sched, lat, i)
+        t = torch.full((2 * lat.shape[0],), int(sched.timesteps[i]),
+                       dtype=torch.long, device=lat.device)
+        eps = unet(torch.cat([scaled, scaled], dim=0), t, context,
+                   pooled_text=pooled, time_ids=time_ids)
+        eps = sd.cfg_combine(eps.float(), guidance_scale)
+        if noise is not None:
+            n = noise[i]
+        else:
+            n = torch.randn(tuple(latents.shape), generator=generator,
+                            device=generator.device, dtype=lat.dtype)
+        n = n.to(lat.device, lat.dtype).permute(0, 3, 1, 2)
+        lat = sched_ops.ea_step(sched, eps, i, lat, n)
+    final = lat.permute(0, 2, 3, 1)
+    if traj is not None:
+        traj[s_total] = final
+    return final, traj
+
+
+class Text2ImgXL:
+    """SDXL txt2img runner.
+
+    >>> pipe = Text2ImgXL(bundle, num_steps=30)
+    >>> img = pipe(torch.Generator("cuda").manual_seed(0), "a cat")
+
+    ``denoising_end`` truncates the sampling loop at a fraction of the
+    schedule (base/refiner-style splits); ``output_type="latent"`` then
+    also returns the final latent.
+    """
+
+    def __init__(self, bundle: Bundle, num_steps: int = 30,
+                 guidance_scale: Optional[float] = None,
+                 denoising_end: Optional[float] = None):
+        cfg = bundle.cfg
+        if cfg.pipeline.scheduler_type == "lcm":
+            raise NotImplementedError("the LCM sampler is not ported yet")
+        self.bundle = bundle
+        run = (num_steps if denoising_end is None
+               else max(1, int(round(num_steps * denoising_end))))
+        full = sched_ops.make_euler_ancestral_schedule(cfg.scheduler,
+                                                       num_steps)
+        self.sched = dataclasses.replace(
+            full, timesteps=full.timesteps[:run],
+            sigmas=full.sigmas[:run + 1])
+        self.guidance_scale = (cfg.pipeline.guidance_scale
+                               if guidance_scale is None else guidance_scale)
+
+    def __call__(self, generator: torch.Generator, prompt,
+                 negative_prompt=None, hint=None,
+                 output_type: str = "image"):
+        if hint is not None:
+            raise NotImplementedError("T2I-Adapter hints are not ported yet")
+        if output_type not in ("image", "latent"):
+            raise ValueError(f"output_type must be 'image' or 'latent', got "
+                             f"{output_type!r}")
+        b = self.bundle
+        cfg = b.cfg
+        context, pooled = encode_prompts_xl(b, prompt, negative_prompt)
+        lat = sd.seeded_latents(generator, context.shape[0] // 2,
+                                cfg.pipeline.latent_height,
+                                cfg.pipeline.latent_width, device=b.device)
+        lat = lat * self.sched.init_noise_sigma
+        time_ids = default_time_ids(cfg.pipeline.height, cfg.pipeline.width,
+                                    context.shape[0], device=b.device)
+        final, _ = denoise_xl(b.unet, self.sched, generator, lat, context,
+                              pooled, time_ids, self.guidance_scale)
+        img = sd.decode_with(b.vae, cfg.vae.scaling_factor, final)
+        if output_type == "latent":
+            return img, final
+        return img
