@@ -1,6 +1,6 @@
 """Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py            # build, check, time, run both paths
+    python3 chip_smoke.py            # build, check, time, run all paths
     python3 chip_smoke.py --profile  # also print kernel-time breakdowns
 
 Phases, in order (any failure exits non-zero):
@@ -8,22 +8,33 @@ Phases, in order (any failure exits non-zero):
   2. build every kernel of ``theatergen_tpu_torch/csrc`` with nvcc (sm_90a),
      one process per source, all at once;
   3. hold each kernel against its plain PyTorch version (fp32 from the same
-     bf16 inputs) at every shape either model's main path gives it;
+     bf16 inputs) at every shape its main paths give it (GroupNorm also with
+     and without SiLU and with a large-mean input);
   4. time kernel, plain version and a library yardstick at those shapes;
   5. SD1.5: ``init_bundle(sd15_config())``, one full-size UNet evaluation
      with the kernels against the same UNet under ``plain_path()``, then
      ``Text2Img(bundle, num_steps=50)`` on three prompts at 512 px, CFG 7.5;
   6. SDXL: the SD1.5 bundle freed, ``init_bundle(sdxl_config())``, the same
      UNet check, then ``Text2ImgXL(bundle, num_steps=30)`` on two prompts at
-     1024 px, Euler-Ancestral, CFG 7.5.
+     1024 px, Euler-Ancestral, CFG 7.5;
+  7. the IP-Adapter character pass with ``THEATERGEN_FUSED_GN`` at "1":
+     ``init_bundle(sd15_config(), with_ip=True, with_vision=True)``, the IP
+     UNet with the kernels against ``plain_path()``, ``encode_ip_image`` of
+     a seeded 512² image, ``ip_context``, then
+     ``make_character_pipeline(bundle, 50, use_ip=True,
+     capture_ref_attn=True)`` requests at ip_scale 0.4 and 0.0 with the
+     switch at "0", "1", "1", "0", "0", "1", then the wall time of UNet
+     evaluations and of one norm layer under each (the GroupNorm A/B).
 Every launch counter is set to 0 just before each request and read just
-after it.  Then one JSON line of kernel records and, last, the device line.
+after it, and must equal the launches the path's layers route to each
+kernel.  Then one JSON line of kernel records and, last, the device line.
 Needs a CUDA device; without one it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import gc
 import json
 import subprocess
@@ -35,10 +46,12 @@ import torch.nn.functional as F
 
 from theatergen_tpu_torch import _build
 from theatergen_tpu_torch.config import sd15_config, sdxl_config
-from theatergen_tpu_torch.models.layers import plain_path
+from theatergen_tpu_torch.models.layers import GroupNorm, plain_path
+from theatergen_tpu_torch.models.unet import UNet2DCondition
 from theatergen_tpu_torch.ops import flash_attention as fa
 from theatergen_tpu_torch.ops import geglu_matmul as gg
-from theatergen_tpu_torch.pipelines import sd, sdxl
+from theatergen_tpu_torch.ops import groupnorm as gn
+from theatergen_tpu_torch.pipelines import character, sd, sdxl
 from theatergen_tpu_torch.pipelines.bundle import init_bundle
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
@@ -46,7 +59,7 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 # the kernels' outputs are bf16: 8 mantissa bits round at ~4e-3 relative
 TOL = 1e-2
-SD15, SDXL = "sd15_512", "sdxl_1024"
+SD15, SDXL, CHAR = "sd15_512", "sdxl_1024", "sd15_512_ip"
 # (model, shape, calls per UNet evaluation of that model); batch 1 with
 # CFG, so 2 rows.  SD1.5: 10 transformer blocks at 64²/32²/16²/8²;
 # SDXL: 10 blocks at 64² (4 down, 6 up) and 60 at 32² (20 down, 10 mid,
@@ -56,14 +69,32 @@ FLASH_SHAPES = [(SD15, (2, 4096, 8, 40), 5), (SD15, (2, 1024, 8, 80), 5),
 FF_SHAPES = [(SD15, (8192, 320, 1280), 5), (SD15, (2048, 640, 2560), 5),
              (SD15, (512, 1280, 5120), 5), (SD15, (128, 1280, 5120), 1)]
 GEGLU_SHAPES = [(SDXL, (8192, 2560, 640), 10), (SDXL, (2048, 5120, 1280), 60)]
+# GroupNorm sites that reach the kernel under THEATERGEN_FUSED_GN=1, CFG
+# batch 2, 32 groups: (B, C, H·W) and calls per evaluation.  The SD1.5
+# UNet (the IP UNet's are the same) at 512 px: 61, 45 with SiLU.  SDXL at
+# 1024 px: 42 of its 46; 128²×640, 128²×960 and 64²×1920 fail the TPU
+# gate's size limit and stay on F.group_norm
+GN_SHAPES = [(CHAR, (2, c, hw), n) for (c, hw), n in (
+    ((320, 4096), 13), ((640, 4096), 2), ((960, 4096), 1),
+    ((320, 1024), 1), ((640, 1024), 11), ((960, 1024), 1), ((1280, 1024), 1),
+    ((1920, 1024), 1), ((640, 256), 1), ((1280, 256), 11), ((1920, 256), 1),
+    ((2560, 256), 2), ((1280, 64), 12), ((2560, 64), 3))] + [
+    (SDXL, (2, c, hw), n) for (c, hw), n in (
+        ((320, 16384), 8), ((320, 4096), 1), ((640, 4096), 11),
+        ((960, 4096), 1), ((1280, 4096), 1), ((640, 1024), 1),
+        ((1280, 1024), 16), ((1920, 1024), 1), ((2560, 1024), 2))]
 SD15_STEPS, SDXL_STEPS = 50, 30
+# the character requests' (THEATERGEN_FUSED_GN, ip_scale), in turns
+AB_REQUESTS = (("0", 0.4), ("1", 0.4), ("1", 0.0), ("0", 0.0), ("0", 0.4),
+               ("1", 0.0))
 PROMPTS = ["a red knight rides through a dark forest",
            "a girl with a blue umbrella on a rainy street",
            "two cats asleep on a wooden table"]
 # kernel -> (module, its launch counter)
 COUNTERS = {"flash_attention": (fa, "launches"),
             "ff_geglu": (gg, "ff_launches"),
-            "geglu_matmul": (gg, "geglu_launches")}
+            "geglu_matmul": (gg, "geglu_launches"),
+            "group_norm": (gn, "launches")}
 
 
 def log(*a):
@@ -98,6 +129,24 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 20) -> float:
+    """Device time of one call: ``iters`` calls captured in a CUDA graph,
+    replayed and timed with CUDA events, so the host's launch cost (which
+    exceeds a small kernel's run) drops out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    return time_ms(graph.replay, 5, 1) / iters
+
+
 def randn(gen, *shape, scale=1.0):
     return (torch.randn(*shape, device="cuda", generator=gen) * scale).to(
         torch.bfloat16)
@@ -112,15 +161,25 @@ def check(err: float, ref_max: float, what: str) -> None:
 
 
 def _row(model, shape, calls, err, flops, nbytes, kernel, plain, library,
-         plain_iters):
+         plain_iters, graphs=False):
+    """Times by CUDA events over back-to-back eager calls; with ``graphs``
+    by CUDA-graph replay (device time, graph_ms), the eager kernel time
+    kept as ``eager_ms``."""
     bms, by = bound(flops, nbytes)
     row = dict(model=model, shape=list(shape), calls_per_unet_eval=calls,
-               max_abs_err=err, bound_ms=bms, bound_by=by,
-               ms=time_ms(kernel, 20), plain_ms=time_ms(plain, plain_iters, 1),
-               library_ms=time_ms(library, 20))
+               max_abs_err=err, bound_ms=bms, bound_by=by)
+    if graphs:
+        row.update(ms=graph_ms(kernel), plain_ms=graph_ms(plain, plain_iters),
+                   library_ms=graph_ms(library),
+                   eager_ms=time_ms(kernel, 20), timed="cuda_graph")
+    else:
+        row.update(ms=time_ms(kernel, 20),
+                   plain_ms=time_ms(plain, plain_iters, 1),
+                   library_ms=time_ms(library, 20), timed="eager")
     log(f"  {model} {list(shape)} x{calls}: kernel {row['ms']:.5f} ms  plain "
         f"{row['plain_ms']:.5f}  library {row['library_ms']:.5f}  bound "
-        f"{bms:.5f} ({by})")
+        f"{bms:.5f} ({by})"
+        + (f"  eager kernel {row['eager_ms']:.5f}" if graphs else ""))
     return row
 
 
@@ -196,11 +255,47 @@ def geglu_phase(gen) -> dict:
                    "geglu_matmul (_geglu_matmul_2d)", rows)
 
 
+def gn_phase(gen) -> dict:
+    """fused_group_norm at every site shape of both UNets: checked with and without
+    SiLU and with a large-mean input (mean 64, std 1), timed with SiLU
+    against the library pair F.group_norm + F.silu in bf16, as CUDA-graph
+    replays (the eager launch outlasts these kernels)."""
+    rows = []
+    for model, (b, c, hw), calls in GN_SHAPES:
+        side = int(hw ** 0.5)
+        w = (1.0 + 0.2 * torch.randn(c, device="cuda", generator=gen)).to(
+            torch.bfloat16)
+        bias = randn(gen, c, scale=0.1)
+        err = 0.0
+        for act, offset in ((None, 0.0), ("silu", 0.0), ("silu", 64.0)):
+            x = (torch.randn(b, c, side, side, device="cuda", generator=gen)
+                 + offset).to(torch.bfloat16)
+            out = gn.fused_group_norm(x, w, bias, act=act)
+            torch.cuda.synchronize()
+            ref = gn.fused_group_norm_plain(x.float(), w.float(),
+                                            bias.float(), act=act)
+            e = (out.float() - ref).abs().max().item()
+            check(e, ref.abs().max().item(),
+                  f"group_norm C={c} HW={hw} act={act} mean={offset:g}")
+            err = max(err, e)
+        x = randn(gen, b, c, side, side)
+        rows.append(_row(
+            model, (b, c, hw), calls, err, 0.0, gn.min_bytes(b, c, hw),
+            lambda: gn.fused_group_norm(x, w, bias, act="silu"),
+            lambda: gn.fused_group_norm_plain(x, w, bias, act="silu"),
+            lambda: F.silu(F.group_norm(x, 32, w, bias, 1e-5)), 5,
+            graphs=True))
+    return _record("group_norm", "csrc/group_norm.cu",
+                   "theatergen_tpu/ops/groupnorm.py:140",
+                   "fused_group_norm (_gn_fused)", rows)
+
+
 def _record(name, source, replaces, tpu_function, rows) -> dict:
     """One kernel's record.  Times are summed over one UNet evaluation of
     each model that calls the kernel (each shape times its calls), and per
     model under ``per_model``; ``launches`` are added by the main paths."""
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    keys = [k for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                        "eager_ms") if k in rows[0]]
     per_model = {}
     for r in rows:
         pm = per_model.setdefault(r["model"], dict.fromkeys(keys, 0.0))
@@ -214,19 +309,52 @@ def _record(name, source, replaces, tpu_function, rows) -> dict:
         max_abs_err=max(r["max_abs_err"] for r in rows), **total,
         bound_by=max(rows, key=lambda r: r["bound_ms"])["bound_by"],
         per="one UNet evaluation of each model that calls it (sd15_512: "
-            "SD1.5 512 px, sdxl_1024: SDXL 1024 px), batch 1 with CFG",
+            "SD1.5 512 px, sdxl_1024: SDXL 1024 px, sd15_512_ip: the SD1.5 "
+            "IP UNet of the character pass), batch 1 with CFG",
         per_model=per_model, shapes=rows)
 
 
-def unet_inputs(bundle, seed: int, t_value: int):
+def gn_launches_per_eval(unet_cfg, h: int, w: int) -> int:
+    """GroupNorm kernel launches one UNet evaluation (CFG batch 2) makes
+    under the current THEATERGEN_FUSED_GN mode: the layers' routes counted
+    on a meta-device copy of the UNet (no memory, no kernel)."""
+    count = [0]
+    real = gn.fused_group_norm
+
+    def spy(*a, **k):
+        count[0] += 1
+        return real(*a, **k)
+
+    gn.fused_group_norm = spy
+    try:
+        with torch.device("meta"), torch.no_grad():
+            unet = UNet2DCondition(unet_cfg).to(torch.bfloat16)
+            cond = {}
+            if unet_cfg.addition_embed_type == "text_time":
+                cond = dict(pooled_text=torch.empty(
+                    2, unet_cfg.projection_class_embeddings_input_dim
+                    - 6 * unet_cfg.addition_time_embed_dim),
+                    time_ids=torch.empty(2, 6))
+            unet(torch.empty(2, unet_cfg.in_channels, h, w),
+                 torch.empty(2, dtype=torch.long),
+                 torch.empty(2, 77 + unet_cfg.ip_num_tokens,
+                             unet_cfg.cross_attention_dim), **cond)
+    finally:
+        gn.fused_group_norm = real
+    return count[0]
+
+
+def unet_inputs(bundle, seed: int, t_value: int, ctx_len: int = None):
     """A full-size UNet call's inputs (CFG batch 2): sample, timesteps,
-    context and, for SDXL, pooled text and time ids."""
+    context (``ctx_len`` rows, the text length by default) and, for SDXL,
+    pooled text and time ids."""
     cfg = bundle.cfg
     g = torch.Generator(device="cuda").manual_seed(seed)
     h, w = cfg.pipeline.latent_height, cfg.pipeline.latent_width
     x = torch.randn(2, 4, h, w, device="cuda", generator=g)
-    ctx = torch.randn(2, cfg.text.max_length, cfg.unet.cross_attention_dim,
-                      device="cuda", generator=g)
+    ctx = torch.randn(2, ctx_len or cfg.text.max_length,
+                      cfg.unet.cross_attention_dim, device="cuda",
+                      generator=g)
     t = torch.full((2,), t_value, device="cuda", dtype=torch.long)
     cond = {}
     if cfg.unet.addition_embed_type == "text_time":
@@ -238,13 +366,17 @@ def unet_inputs(bundle, seed: int, t_value: int):
     return x, t, ctx, cond
 
 
-def unet_reference_phase(bundle, rel_bound: float) -> float:
-    """One full-size UNet evaluation with the kernels vs plain_path()."""
-    x, t, ctx, cond = unet_inputs(bundle, 1, 981)
+def unet_reference_phase(bundle, rel_bound: float, unet=None,
+                         **kw) -> float:
+    """One full-size UNet evaluation with the kernels vs plain_path();
+    ``unet`` defaults to the bundle's, ``kw`` go to its call."""
+    unet = bundle.unet if unet is None else unet
+    x, t, ctx, cond = unet_inputs(bundle, 1, 981,
+                                  77 + unet.cfg.ip_num_tokens)
     with torch.no_grad():
-        fast = bundle.unet(x, t, ctx, **cond).float()
+        fast = unet(x, t, ctx, **cond, **kw).float()
         with plain_path():
-            plain = bundle.unet(x, t, ctx, **cond).float()
+            plain = unet(x, t, ctx, **cond, **kw).float()
     rel = ((fast - plain).abs().max() / plain.abs().max()).item()
     ok = torch.isfinite(fast).all().item() and rel <= rel_bound
     log(f"  UNet eps, kernels vs plain path: max|diff|/max|ref| {rel:.3e} "
@@ -302,7 +434,9 @@ def sd15_path(records, profiling: bool) -> dict:
     rel = unet_reference_phase(bundle, 5e-2)
     pipe = sd.Text2Img(bundle, num_steps=SD15_STEPS)
     want = {"flash_attention": 10 * SD15_STEPS,
-            "ff_geglu": 16 * SD15_STEPS, "geglu_matmul": 0}
+            "ff_geglu": 16 * SD15_STEPS, "geglu_matmul": 0,
+            "group_norm": SD15_STEPS * gn_launches_per_eval(
+                bundle.cfg.unet, 64, 64)}
     seconds = run_requests(SD15, pipe, PROMPTS, want, 512, records)
     peak = torch.cuda.max_memory_allocated()
     log(f"  seconds per request {seconds}; peak memory "
@@ -322,15 +456,175 @@ def sdxl_path(records, profiling: bool) -> dict:
     rel = unet_reference_phase(bundle, 5e-2)
     pipe = sdxl.Text2ImgXL(bundle, num_steps=SDXL_STEPS)
     want = {"flash_attention": 70 * SDXL_STEPS, "ff_geglu": 0,
-            "geglu_matmul": 70 * SDXL_STEPS}
+            "geglu_matmul": 70 * SDXL_STEPS,
+            "group_norm": SDXL_STEPS * gn_launches_per_eval(
+                bundle.cfg.unet, 128, 128)}
     seconds = run_requests(SDXL, pipe, PROMPTS[:2], want, 1024, records)
     peak = torch.cuda.max_memory_allocated()
     log(f"  seconds per request {seconds}; peak memory "
         f"{peak / 2 ** 30:.3f} GiB")
+    out = dict(seconds_per_request=seconds, peak_bytes=peak,
+               unet_kernels_vs_plain_rel=rel)
     if profiling:
         profile(bundle, sdxl.encode_prompts_xl)
-    return dict(seconds_per_request=seconds, peak_bytes=peak,
-                unet_kernels_vs_plain_rel=rel)
+        out["gn_ab_device_ms"] = gn_ab_profile(bundle, bundle.unet)
+    return out
+
+
+def character_path(records, profiling: bool) -> dict:
+    """The IP-Adapter character pass (switch at "1" unless stated): the IP
+    UNet check, encode_ip_image, ip_context, then six 50-step requests with
+    the switch and ip_scale of AB_REQUESTS, then the A/B of wall time per
+    UNet evaluation and per norm-layer call.  A request is prompt
+    encoding, image encoding, the IP context and the run."""
+    prev_mode, gn.FUSED_MODE = gn.FUSED_MODE, "1"
+    cfg = sd15_config()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bundle = init_bundle(cfg, seed=0, device="cuda", with_ip=True,
+                         with_vision=True)
+    torch.cuda.synchronize()
+    n_unet = sum(p.numel() for p in bundle.unet_ip.parameters()) / 1e6
+    n_vis = sum(p.numel() for p in bundle.vision.parameters()) / 1e6
+    log(f"  init_bundle(sd15_config(), with_ip=True, with_vision=True): "
+        f"{time.perf_counter() - t0:.3f} s, IP UNet {n_unet:.1f} M params, "
+        f"vision {n_vis:.1f} M, weights "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB")
+    ip_scale = torch.tensor(0.4, device="cuda")
+    # as the SD1.5 check: bf16 through 16 blocks, plus the kernel's single
+    # rounding after the SiLU at 61 norms
+    rel = unet_reference_phase(bundle, 5e-2, bundle.unet_ip,
+                               ip_scale=ip_scale)
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    image = torch.rand(1, 512, 512, 3, device="cuda", generator=g)
+    embeds = character.encode_ip_image(bundle, image)
+    torch.cuda.synchronize()
+    ok = (tuple(embeds.shape) == (1, cfg.vision.projection_dim)
+          and bool(torch.isfinite(embeds).all()))
+    log(f"  encode_ip_image(512² image): {tuple(embeds.shape)} finite "
+        f"{ok}  std {embeds.std():.4f}")
+    if not ok:
+        raise SystemExit("encode_ip_image: bad features")
+
+    run, sched = character.make_character_pipeline(
+        bundle, SD15_STEPS, use_ip=True, capture_ref_attn=True)
+    h, w = cfg.pipeline.latent_height, cfg.pipeline.latent_width
+    keys = cfg.guidance.attn_keys
+    hw_of = {"mid": h * w // 64, "up": h * w // 16}
+    per_eval = {"0": 0, "1": gn_launches_per_eval(bundle.unet_ip.cfg, h, w)}
+    if per_eval["1"] != 61:
+        raise SystemExit(f"IP UNet routes {per_eval['1']} GroupNorms, "
+                         f"want 61")
+    seconds = collections.defaultdict(list)
+    for i, (mode, scale) in enumerate(AB_REQUESTS):
+        gn.FUSED_MODE = mode
+        want = {"flash_attention": 10 * SD15_STEPS,
+                "ff_geglu": 16 * SD15_STEPS, "geglu_matmul": 0,
+                "group_norm": per_eval[mode] * SD15_STEPS}
+        g = torch.Generator(device="cuda").manual_seed(200 + i)
+        lat = torch.randn(1, h, w, 4, device="cuda", generator=g)
+        reset_counts()
+        t0 = time.perf_counter()
+        text = sd.encode_prompts(bundle, PROMPTS[i % len(PROMPTS)])
+        ctx = character.ip_context(
+            bundle, text, character.encode_ip_image(bundle, image))
+        res = run(lat, ctx, scale)
+        torch.cuda.synchronize()
+        seconds[mode].append(time.perf_counter() - t0)
+        got = read_counts()
+        for r in records:
+            r["launches"] += got[r["name"]]
+            if CHAR in r["per_model"]:
+                r["per_model"][CHAR]["launches"] += got[r["name"]]
+        finite = bool(torch.isfinite(res.trajectory).all()) and all(
+            bool(torch.isfinite(m).all()) for m in res.ref_attn)
+        shapes = [tuple(m.shape) for m in res.ref_attn]
+        want_shapes = [(SD15_STEPS, 8, hw_of[k[0]]) for k in keys]
+        log(f"  character request {i} (switch {mode}, ip_scale {scale}): "
+            f"{seconds[mode][-1]:.3f} s  launches {got}  trajectory "
+            f"{tuple(res.trajectory.shape)}  ref_attn {shapes}  finite "
+            f"{finite}  latent std {res.latents.std():.4f}")
+        if (tuple(res.trajectory.shape) != (SD15_STEPS + 1, 1, h, w, 4)
+                or shapes != want_shapes or not finite):
+            raise SystemExit(f"character request {i}: bad result")
+        if got != want:
+            raise SystemExit(f"character request {i}: launches {got}, "
+                             f"want {want}")
+    peak = torch.cuda.max_memory_allocated()
+    mean = {m: sum(v) / len(v) for m, v in seconds.items()}
+    log(f"  seconds per request by switch {dict(seconds)}; means {mean}; "
+        f"peak memory {peak / 2 ** 30:.3f} GiB")
+    out = dict(seconds_per_request=dict(seconds), peak_bytes=peak,
+               unet_kernels_vs_plain_rel=rel,
+               **host_ab(bundle, ip_scale=ip_scale))
+    if profiling:
+        out["gn_ab_device_ms"] = gn_ab_profile(bundle, bundle.unet_ip,
+                                               ip_scale=ip_scale)
+    gn.FUSED_MODE = prev_mode
+    return out
+
+
+def host_ab(bundle, **kw) -> dict:
+    """Wall ms per IP UNet evaluation (10 back to back, CUDA events: the
+    loop's pace, which the host sets) and per call of one bf16
+    GroupNorm+SiLU layer at the 8²×1280 shape (200 back to back: its host
+    cost, the kernel being ~3 µs), switch "0" and "1" in turns."""
+    x, t, ctx, _ = unet_inputs(bundle, 4, 501, 81)
+    norm = GroupNorm(32, 1280, act="silu", fp32=False).to(
+        "cuda", torch.bfloat16)
+    xs = torch.randn(2, 1280, 8, 8, device="cuda", dtype=torch.bfloat16)
+    prev_mode = gn.FUSED_MODE
+    evals, layer = collections.defaultdict(list), collections.defaultdict(
+        list)
+    with torch.no_grad():
+        for mode in ("0", "1", "1", "0", "0", "1"):
+            gn.FUSED_MODE = mode
+            evals[mode].append(time_ms(
+                lambda: bundle.unet_ip(x, t, ctx, **kw), 10, 2))
+            layer[mode].append(time_ms(lambda: norm(xs), 200, 10))
+    gn.FUSED_MODE = prev_mode
+    log(f"  wall ms per IP UNet evaluation by switch {dict(evals)}; per "
+        f"norm-layer call {dict(layer)}")
+    return dict(unet_eval_wall_ms=dict(evals), norm_layer_call_ms=dict(layer))
+
+
+def gn_ab_profile(bundle, unet, **kw) -> dict:
+    """Device time of one evaluation of ``unet`` (batch 2) with the switch
+    at "0" and at "1", in turns: in all, in GroupNorm kernels, and in SiLU
+    kernels (the separate activation the kernel folds in), by
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile as prof
+    prev_mode = gn.FUSED_MODE
+    x, t, ctx, cond = unet_inputs(bundle, 3, 501,
+                                  77 + unet.cfg.ip_num_tokens)
+    out = {}
+    for mode in ("0", "1", "1", "0"):
+        gn.FUSED_MODE = mode
+        with torch.no_grad():
+            unet(x, t, ctx, **cond, **kw)
+            torch.cuda.synchronize()
+            with prof(activities=[ProfilerActivity.CUDA]) as p:
+                unet(x, t, ctx, **cond, **kw)
+                torch.cuda.synchronize()
+        parts = collections.Counter()
+        for e in p.key_averages():
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+            if e.key.startswith("aten::") or us <= 0:
+                continue
+            name = e.key.lower()
+            parts["total"] += us / 1e3
+            if any(k in name for k in ("group_norm", "groupnorm",
+                                       "rowwisemoments", "computefusedparams")):
+                parts["group_norm"] += us / 1e3
+            elif "silu" in name:
+                parts["silu"] += us / 1e3
+        out.setdefault(mode, []).append(dict(parts))
+        log(f"  UNet evaluation, switch {mode}: device ms "
+            f"{json.dumps(dict(parts))}")
+    gn.FUSED_MODE = prev_mode
+    return out
 
 
 def profile(bundle, encode) -> None:
@@ -393,7 +687,8 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     log("[check+time] kernels vs plain versions at both models' shapes")
-    records = [flash_phase(gen), ff_phase(gen), geglu_phase(gen)]
+    records = [flash_phase(gen), ff_phase(gen), geglu_phase(gen),
+               gn_phase(gen)]
     torch.cuda.synchronize()
 
     log(f"[main path] SD1.5 Text2Img, 512 px, {SD15_STEPS} DDIM steps, "
@@ -404,6 +699,11 @@ def main() -> int:
     log(f"[main path] SDXL Text2ImgXL, 1024 px, {SDXL_STEPS} Euler-Ancestral "
         f"steps, CFG 7.5, bf16 UNet, fp32 text towers")
     paths[SDXL] = sdxl_path(records, args.profile)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[main path] IP-Adapter character pass, SD1.5 512 px, "
+        f"{SD15_STEPS} DDIM steps, CFG 7.5, bf16 UNet, fp32 ViT-H/14 tower")
+    paths[CHAR] = character_path(records, args.profile)
     log(f"[done] {time.perf_counter() - t_start:.1f} s after the build began")
     log(json.dumps({"main_path": paths, "card": card}))
     log(json.dumps({"kernels": records}))

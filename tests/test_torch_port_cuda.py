@@ -14,6 +14,7 @@ import torch
 from theatergen_tpu_torch.models import layers as tl
 from theatergen_tpu_torch.ops import flash_attention as tfa
 from theatergen_tpu_torch.ops import geglu_matmul as tgg
+from theatergen_tpu_torch.ops import groupnorm as tgn
 
 
 def _card():
@@ -220,3 +221,75 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
                         (2560, 640, 1024)):
         with pytest.raises(ValueError):
             tgg.geglu_matmul(hg.new_zeros(8, width), hg.new_zeros(n, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cpg,hw", [(10, 4096), (30, 4096), (80, 64)])
+@pytest.mark.parametrize("act", [None, "silu"])
+@pytest.mark.parametrize("offset", [0.0, 64.0])
+def test_group_norm_kernel_matches_plain_on_card(cpg, hw, act, offset):
+    """Kernel vs plain (fp32 from the same bf16 inputs) at C/G = 10, 30, 80
+    (SD1.5's 320/960/2560 channels, 32 groups, CFG batch 2), with and
+    without SiLU, and with a group mean of 64 (std 1: the centred
+    variance); bound 1e-2·max|ref| for the bf16 output."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(cpg)
+    c = 32 * cpg
+    side = int(hw ** 0.5)
+    x = (torch.randn(2, c, side, side, device=dev, generator=g)
+         + offset).to(torch.bfloat16)
+    w = (1.0 + 0.2 * torch.randn(c, device=dev, generator=g)).to(
+        torch.bfloat16)
+    b = (0.1 * torch.randn(c, device=dev, generator=g)).to(torch.bfloat16)
+    out = tgn.fused_group_norm(x, w, b, act=act).float()
+    ref = tgn.fused_group_norm_plain(x.float(), w.float(), b.float(), act=act)
+    assert out.shape == x.shape
+    assert (out - ref).abs().max() <= 1e-2 * ref.abs().max()
+
+
+@pytest.mark.cuda
+def test_group_norm_wrapper_refuses_what_the_kernel_does_not_take():
+    """fp32 input, a non-contiguous view, fp32 weights and a shape outside
+    the gate raise on the card; one launch is counted per kernel call and
+    none for the plain version."""
+    dev = _card()
+    x = torch.randn(2, 320, 64, 64, device=dev)
+    w = torch.ones(320, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        tgn.fused_group_norm(x, w, w)
+    xb = x.to(torch.bfloat16)
+    with pytest.raises(ValueError):
+        tgn.fused_group_norm(xb.transpose(2, 3), w, w)
+    with pytest.raises(ValueError):
+        tgn.fused_group_norm(xb, w.float(), w.float())
+    with pytest.raises(ValueError):
+        tgn.fused_group_norm(xb[:, :, :3, :3].contiguous(), w, w)
+    n0 = tgn.launches
+    tgn.fused_group_norm(xb, w, w, act="silu")
+    tgn.fused_group_norm_plain(xb, w, w, act="silu")
+    torch.cuda.synchronize()
+    assert tgn.launches - n0 == 1
+
+
+@pytest.mark.cuda
+def test_plain_path_launches_no_group_norm(monkeypatch):
+    """With the switch at "1" a bf16 ResnetBlock2D at SD1.5's 64² shape
+    launches the GroupNorm kernel twice, and inside plain_path() not at
+    all; the two agree within 2e-2 relative (the kernel rounds once,
+    after the SiLU)."""
+    dev = _card()
+    monkeypatch.setattr(tgn, "FUSED_MODE", "1")
+    block = tl.ResnetBlock2D(320, 320, 1280, fast_norm=True).to(
+        dev, torch.bfloat16)
+    x = torch.randn(2, 320, 64, 64, device=dev, dtype=torch.bfloat16)
+    temb = torch.randn(2, 1280, device=dev, dtype=torch.bfloat16)
+    n0 = tgn.launches
+    with torch.no_grad():
+        fast = block(x, temb)
+        mid = tgn.launches
+        with tl.plain_path():
+            plain = block(x, temb)
+    torch.cuda.synchronize()
+    assert (mid - n0, tgn.launches - mid) == (2, 0)
+    rel = (fast.float() - plain.float()).abs().max() / plain.float().abs().max()
+    assert rel <= 2e-2

@@ -6,16 +6,28 @@ the TPU kernels' semantics.  ``test_torch_port_cuda.py`` holds the CUDA
 kernels to the plain versions on the card.
 """
 
+import collections
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from theatergen_tpu import config as jcfg
+from theatergen_tpu.models.unet import UNet2DCondition as JUNet
 from theatergen_tpu.ops import flash_attention as fa
 from theatergen_tpu.ops import geglu_matmul as gg
+from theatergen_tpu.ops import groupnorm as gn
+from theatergen_tpu_torch import config as tcfg
 from theatergen_tpu_torch.models import layers as tl
+from theatergen_tpu_torch.models.unet import UNet2DCondition as TUNet
 from theatergen_tpu_torch.ops import flash_attention as tfa
 from theatergen_tpu_torch.ops import geglu_matmul as tgg
+from theatergen_tpu_torch.ops import groupnorm as tgn
+from theatergen_tpu_torch.pipelines.bundle import init_bundle
+
+from test_torch_port_models import random_params
 
 torch.set_num_threads(1)
 
@@ -197,3 +209,190 @@ def test_plain_path_keeps_flash_off(monkeypatch):
     with tl.plain_path():
         attn(x)
     assert calls == ["flash"]
+
+
+# ---------------------------------------------------------------------------
+# GroupNorm (+SiLU): ops/groupnorm.py against the Pallas kernel
+# ---------------------------------------------------------------------------
+
+# SD1.5 512 px with CFG: (C, H·W) of the UNet's GroupNorms and the calls of
+# each per evaluation (61 in all, 45 with SiLU)
+SD15_GN_SITES = {
+    (320, 4096): 13, (640, 4096): 2, (960, 4096): 1,
+    (320, 1024): 1, (640, 1024): 11, (960, 1024): 1, (1280, 1024): 1,
+    (1920, 1024): 1,
+    (640, 256): 1, (1280, 256): 11, (1920, 256): 1, (2560, 256): 2,
+    (1280, 64): 12, (2560, 64): 3,
+}
+
+
+@pytest.mark.parametrize("cpg", [10, 30])
+@pytest.mark.parametrize("act", [None, "silu"])
+@pytest.mark.parametrize("offset", [0.0, 100.0])
+def test_group_norm_plain_matches_pallas(monkeypatch, cpg, act, offset):
+    """_gn_fused (Pallas, interpret) vs the port's fused_group_norm on CPU
+    tensors, 4 groups of 10 or 30 channels over 8x8, fp32.  With offset 0
+    (O(1) outputs) both agree to 2e-5 absolute; with a group mean of 100
+    against a std of 0.1 (the centred variance matters: E[x²] - mean²
+    would lose the variance to cancellation), the two fp32 sums of
+    100-magnitude values round differently, 1e-3 absolute."""
+    monkeypatch.setattr(gn, "INTERPRET", True)
+    b, g, h, w = 2, 4, 8, 8
+    c = g * cpg
+    rng = np.random.RandomState(cpg)
+    x = (rng.randn(b, h, w, c) * (0.1 if offset else 1.0) + offset).astype(
+        np.float32)
+    scale = (1.0 + 0.2 * rng.randn(c)).astype(np.float32)
+    bias = (0.1 * rng.randn(c)).astype(np.float32)
+    ref = np.asarray(gn._gn_fused(jnp.asarray(x), jnp.asarray(scale),
+                                  jnp.asarray(bias), g, 1e-5, act))
+    got = tgn.fused_group_norm(
+        torch.from_numpy(x).permute(0, 3, 1, 2).contiguous(),
+        torch.from_numpy(scale), torch.from_numpy(bias), num_groups=g,
+        act=act)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), ref,
+                               atol=1e-3 if offset else 2e-5)
+
+
+def test_group_norm_plain_rounds_once_after_silu():
+    """In bf16 the plain version rounds once, after the SiLU, as the kernel
+    does: it equals the fp32 result rounded to bf16 exactly."""
+    torch.manual_seed(0)
+    x = torch.randn(2, 64, 8, 8).to(torch.bfloat16)
+    w, b = torch.rand(64) + 0.5, torch.randn(64) * 0.1
+    got = tgn.fused_group_norm(x, w.to(torch.bfloat16), b.to(torch.bfloat16),
+                               act="silu")
+    ref = tgn.fused_group_norm_plain(x.float(), w.to(torch.bfloat16).float(),
+                                     b.to(torch.bfloat16).float(), act="silu")
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, ref.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="swish"):
+        tgn.fused_group_norm(x, w, b, act="swish")
+
+
+@pytest.mark.parametrize("hwc", [
+    (64, 64, 320), (64, 64, 960), (32, 32, 640), (16, 16, 1280),
+    (8, 8, 2560), (128, 128, 320), (128, 128, 640), (3, 3, 64),
+    (4, 4, 48), (64, 64, 1920)])
+def test_group_norm_gates_equal_the_tpu_gates(hwc):
+    """supported() and profitable() on NCHW give the TPU gates' answers on
+    the same NHWC shape, so one configuration routes the same sites in
+    both packages (SDXL's 128²×320 is just inside the size limit,
+    128²×640 outside)."""
+    h, w, c = hwc
+    for dt, jdt in ((torch.bfloat16, jnp.bfloat16),
+                    (torch.float32, jnp.float32)):
+        assert tgn.supported((2, c, h, w), dt) == gn.supported(
+            (2, h, w, c), jdt)
+    assert tgn.profitable((2, c, h, w)) == gn.profitable((2, h, w, c))
+
+
+@pytest.mark.parametrize("mode,layer_fp32,plain,hw,want", [
+    ("0", False, False, 64, 0), ("1", False, False, 64, 1),
+    ("1", False, False, 16, 1), ("auto", False, False, 64, 1),
+    ("auto", False, False, 16, 0), ("1", True, False, 64, 0),
+    ("1", False, True, 64, 0), ("1", False, False, 3, 0)])
+def test_group_norm_layer_routes(monkeypatch, mode, layer_fp32, plain, hw,
+                                 want):
+    """GroupNorm's route, as the JAX gate (layers.py:116-122) takes it: the
+    switch on ("1", or "auto" where profitable: 64² yes, 16² at C = 64
+    no), the norm in the model dtype (fp32=False, i.e. fast_norm), a
+    supported shape (3x3: H·W % 8 != 0 is not), and never inside
+    plain_path().  Each route gives the fp32 norm + SiLU within bf16
+    rounding (2e-2·max|ref|)."""
+    monkeypatch.setattr(tgn, "FUSED_MODE", mode)
+    calls = []
+    real = tgn.fused_group_norm
+    monkeypatch.setattr(tgn, "fused_group_norm",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    torch.manual_seed(2)
+    norm = tl.GroupNorm(32, 64, act="silu", fp32=layer_fp32)
+    with torch.no_grad():
+        norm.weight.uniform_(0.5, 1.5)
+        norm.bias.normal_(0.0, 0.1)
+    norm = norm.to(torch.bfloat16)
+    x = torch.randn(1, 64, hw, hw, dtype=torch.bfloat16)
+    if plain:
+        with tl.plain_path():
+            out = norm(x)
+    else:
+        out = norm(x)
+    assert len(calls) == want
+    ref = torch.nn.functional.silu(torch.nn.functional.group_norm(
+        x.float(), 32, norm.weight.float(), norm.bias.float(), 1e-5))
+    assert (out.float() - ref).abs().max() <= 2e-2 * ref.abs().max()
+
+
+def test_sd15_unet_group_norm_sites(monkeypatch):
+    """The full-size SD1.5 UNet, run on the meta device with bf16 weights
+    at 512 px with CFG (B = 2): under "1" all 61 GroupNorms reach
+    fused_group_norm at the shapes of SD15_GN_SITES, 45 of them with SiLU
+    (3050 per 50-step request); under "auto" the profitable ones (H·W ≥
+    4096, or C ≥ 1280 at H·W ≤ 256)."""
+    sites = []
+    real = tgn.fused_group_norm
+
+    def spy(x, *a, **k):
+        sites.append((x.shape[1], x.shape[2] * x.shape[3], k["act"]))
+        return real(x, *a, **k)
+
+    monkeypatch.setattr(tgn, "fused_group_norm", spy)
+    with torch.device("meta"):
+        unet = TUNet(tcfg.sd15_config().unet).to(torch.bfloat16)
+        x = torch.empty(2, 4, 64, 64)
+        t = torch.empty(2, dtype=torch.long)
+        ctx = torch.empty(2, 77, 768)
+    with torch.no_grad():
+        for mode in ("1", "auto"):
+            monkeypatch.setattr(tgn, "FUSED_MODE", mode)
+            sites.clear()
+            unet(x, t, ctx)
+            got = collections.Counter((c, n) for c, n, _ in sites)
+            want = {k: v for k, v in SD15_GN_SITES.items()
+                    if mode == "1" or k[1] >= 4096
+                    or (k[0] >= 1280 and k[1] <= 256)}
+            assert dict(got) == want
+    monkeypatch.setattr(tgn, "FUSED_MODE", "1")
+    sites.clear()
+    unet(x, t, ctx)
+    assert len(sites) == 61
+    assert sum(act == "silu" for _, _, act in sites) == 45
+
+
+def test_ip_unet_with_fused_gn_matches_jax(monkeypatch):
+    """The tiny IP UNet with the switch at "1" on both sides (the JAX
+    package's Pallas GroupNorm in interpret mode), fp32: the same norm
+    sites take the kernel route (H·W = 64 and 16; 2x2 fails the gate in
+    both), and eps agrees to 1e-4 absolute (fp32 through 5 transformer
+    blocks, O(1) outputs)."""
+    monkeypatch.setattr(gn, "FUSED", True)
+    monkeypatch.setattr(gn, "FUSED_MODE", "1")
+    monkeypatch.setattr(gn, "INTERPRET", True)
+    monkeypatch.setattr(tgn, "FUSED_MODE", "1")
+    j_calls, t_calls = [], []
+    real_j, real_t = gn._gn_fused, tgn.fused_group_norm
+    monkeypatch.setattr(gn, "_gn_fused",
+                        lambda *a: j_calls.append(1) or real_j(*a))
+    monkeypatch.setattr(tgn, "fused_group_norm",
+                        lambda *a, **k: t_calls.append(1) or real_t(*a, **k))
+    cfg = jcfg.tiny_config()
+    unet = JUNet(dataclasses.replace(cfg.unet, ip_num_tokens=4))
+    up = random_params(unet, 7, jnp.zeros((1, 8, 8, 4)),
+                       jnp.zeros((1,), jnp.int32), jnp.zeros((1, 20, 32)))
+    rng = np.random.RandomState(8)
+    x = rng.randn(2, 8, 8, 4).astype(np.float32)
+    ctx = rng.randn(2, 20, 32).astype(np.float32)
+    t = np.array([501, 501], np.int32)
+    j_calls.clear()    # random_params traced the UNet once
+    ref = unet.apply({"params": up}, jnp.asarray(x), jnp.asarray(t),
+                     jnp.asarray(ctx), ip_scale=0.4)
+    tb = init_bundle(tcfg.tiny_config(), 0, device="cpu",
+                     with_ip=True).load_flax(unet_ip=up)
+    with torch.no_grad():
+        got = tb.unet_ip(torch.from_numpy(x).permute(0, 3, 1, 2),
+                         torch.from_numpy(t).long(), torch.from_numpy(ctx),
+                         ip_scale=0.4)
+    assert len(t_calls) == len(j_calls) > 0
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(),
+                               np.asarray(ref), atol=1e-4)

@@ -82,7 +82,7 @@ def test_kernel_sources_and_targets():
     """Every kernel builds from csrc/ into build/torch_kernels/ under a
     name that changes with its source."""
     assert _build.kernel_names() == ["ff_geglu", "flash_attention",
-                                     "geglu_matmul"]
+                                     "geglu_matmul", "group_norm"]
     for name in _build.kernel_names():
         t = _build._target(name)
         assert t.parent == ROOT / "build" / "torch_kernels"
@@ -94,6 +94,7 @@ def test_wrappers_take_the_plain_version_only_on_cpu(monkeypatch):
     """CPU tensors never reach the kernel library (nor nvcc)."""
     from theatergen_tpu_torch.ops import flash_attention as fa
     from theatergen_tpu_torch.ops import geglu_matmul as gg
+    from theatergen_tpu_torch.ops import groupnorm as gn
 
     def boom(*a, **k):
         raise AssertionError("kernel library requested for CPU tensors")
@@ -109,3 +110,18 @@ def test_wrappers_take_the_plain_version_only_on_cpu(monkeypatch):
     hg = torch.randn(2, 4, 2560, dtype=torch.bfloat16)
     out = gg.geglu_matmul(hg, torch.randn(640, 1280, dtype=torch.bfloat16))
     assert out.shape == (2, 4, 640)
+    x = torch.randn(2, 320, 8, 8, dtype=torch.bfloat16)
+    w = torch.ones(320, dtype=torch.bfloat16)
+    assert gn.fused_group_norm(x, w, w, act="silu").shape == x.shape
+
+
+def test_port_modules_of_the_character_slice():
+    """The character slice's modules are among those the import rule above
+    covers, and the IP bundle's entry points default to the card too."""
+    mods = _modules()
+    for m in ("ops.groupnorm", "ops.guidance", "models.ip_adapter",
+              "pipelines.character"):
+        assert f"theatergen_tpu_torch.{m}" in mods
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            init_bundle(tiny_config(), 0, with_ip=True, with_vision=True)

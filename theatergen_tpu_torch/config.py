@@ -1,10 +1,10 @@
 """Configuration dataclasses of the PyTorch port.
 
-The port's own copy of the SD1.5 and SDXL txt2img slices of
-``theatergen_tpu/config.py``: field names and defaults are identical, so a
-config written for one package reads the same in the other.  Only the
-dataclasses the txt2img paths need live here; the others join as their
-modules are ported.
+The port's own copy of the SD1.5 and SDXL txt2img and IP-Adapter character
+slices of ``theatergen_tpu/config.py``: field names and defaults are
+identical, so a config written for one package reads the same in the
+other.  Only the dataclasses the ported paths need live here; the others
+join as their modules are ported.
 """
 
 from __future__ import annotations
@@ -87,6 +87,44 @@ class CLIPTextConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class CLIPVisionConfig:
+    """CLIP vision tower; defaults are ViT-H/14 (the IP-Adapter image
+    encoder), ``vit_b32()`` gives the eval encoder."""
+
+    image_size: int = 224
+    patch_size: int = 14
+    hidden_size: int = 1280
+    intermediate_size: int = 5120
+    num_layers: int = 32
+    num_heads: int = 16
+    projection_dim: int = 1024
+    layer_norm_eps: float = 1e-5
+    dtype: str = "float32"
+
+    @staticmethod
+    def vit_b32() -> "CLIPVisionConfig":
+        return CLIPVisionConfig(
+            image_size=224, patch_size=32, hidden_size=768,
+            intermediate_size=3072, num_layers=12, num_heads=12,
+            projection_dim=512,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class IPAdapterConfig:
+    """IP-Adapter image projection (ImageProj; MLPProj and the Resampler
+    of the full and plus variants)."""
+
+    clip_embeddings_dim: int = 1024     # CLIP ViT-H projected embed dim
+    cross_attention_dim: int = 768
+    num_tokens: int = 4
+    resampler_depth: int = 4
+    resampler_dim: int = 768
+    resampler_heads: int = 12
+    resampler_queries: int = 16
+
+
+@dataclasses.dataclass(frozen=True)
 class SchedulerConfig:
     """DDIM with SD1.5 betas."""
 
@@ -99,6 +137,26 @@ class SchedulerConfig:
     # "epsilon" | "v_prediction" | "sample"
     prediction_type: str = "epsilon"
     rescale_zero_terminal_snr: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class GuidanceConfig:
+    """Latent cross-attention guidance.  Only ``attn_keys`` is read by the
+    ported paths: the layers whose maps the character pass captures."""
+
+    # (place, block_index, transformer_index, layer)
+    attn_keys: Tuple[Tuple[str, int, int, int], ...] = (
+        ("mid", 0, 0, 0), ("up", 1, 0, 0), ("up", 1, 1, 0), ("up", 1, 2, 0),
+    )
+    fg_top_p: float = 0.2
+    bg_top_p: float = 0.2
+    fg_weight: float = 1.0
+    bg_weight: float = 4.0
+    ref_ca_loss_weight: float = 2.0
+    loss_scale: float = 30.0
+    loss_threshold: float = 0.2
+    max_iter: Tuple[int, ...] = (4,) * 10 + (3,) * 40   # per-step iteration cap
+    guidance_steps: int = 25                            # apply in first half
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,15 +191,21 @@ class PipelineConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TheaterConfig:
-    """Top-level bundle of the configs the txt2img path reads."""
+    """Top-level bundle of the configs the ported paths read."""
 
     unet: UNetConfig = dataclasses.field(default_factory=UNetConfig)
     vae: VAEConfig = dataclasses.field(default_factory=VAEConfig)
     text: CLIPTextConfig = dataclasses.field(default_factory=CLIPTextConfig)
     # SDXL's second text tower (OpenCLIP bigG); None for SD1.5
     text2: Optional[CLIPTextConfig] = None
+    vision: CLIPVisionConfig = dataclasses.field(
+        default_factory=CLIPVisionConfig)
+    ip_adapter: IPAdapterConfig = dataclasses.field(
+        default_factory=IPAdapterConfig)
     scheduler: SchedulerConfig = dataclasses.field(
         default_factory=SchedulerConfig)
+    guidance: GuidanceConfig = dataclasses.field(
+        default_factory=GuidanceConfig)
     pipeline: PipelineConfig = dataclasses.field(
         default_factory=PipelineConfig)
 
@@ -169,11 +233,27 @@ def tiny_config(latent_size: int = 8) -> TheaterConfig:
         vocab_size=1024, hidden_size=32, intermediate_size=64,
         num_layers=2, num_heads=2, max_length=16, projection_dim=32,
     )
+    vision = CLIPVisionConfig(
+        image_size=32, patch_size=16, hidden_size=32, intermediate_size=64,
+        num_layers=2, num_heads=2, projection_dim=32,
+    )
+    ip = IPAdapterConfig(
+        clip_embeddings_dim=32, cross_attention_dim=32, num_tokens=4,
+        resampler_depth=1, resampler_dim=32, resampler_heads=2,
+        resampler_queries=4,
+    )
     pipe = PipelineConfig(
         height=latent_size * 2, width=latent_size * 2, num_steps=4,
         max_objects=3, vae_scale=2,
     )
-    return TheaterConfig(unet=unet, vae=vae, text=text, pipeline=pipe)
+    guidance = GuidanceConfig(
+        # tiny UNet has layers_per_block=1 → up blocks carry 2 attentions
+        attn_keys=(("mid", 0, 0, 0), ("up", 1, 0, 0), ("up", 1, 1, 0)),
+        max_iter=(2, 2, 2, 2),
+        guidance_steps=2,
+    )
+    return TheaterConfig(unet=unet, vae=vae, text=text, vision=vision,
+                         ip_adapter=ip, pipeline=pipe, guidance=guidance)
 
 
 def sd15_config() -> TheaterConfig:
@@ -186,8 +266,8 @@ def sd15_config() -> TheaterConfig:
 def tiny_xl_config(latent_size: int = 8) -> TheaterConfig:
     """Miniature SDXL-shaped config: per-level depths/heads, text_time
     micro-conditioning, dual text towers, EulerAncestral.  The JAX
-    package's twin also carries IP-Adapter, guidance and ControlNet
-    parts, which join with their slices."""
+    package's twin also carries IP-Adapter XL and ControlNet parts, which
+    join with their slices."""
     base = tiny_config(latent_size)
     text2 = dataclasses.replace(
         base.text, hidden_size=48, num_heads=2, intermediate_size=96,

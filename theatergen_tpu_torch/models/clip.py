@@ -1,9 +1,15 @@
-"""CLIP text tower (PyTorch), the port of
-``theatergen_tpu/models/clip.py::CLIPTextEncoder``: quick_gelu (SD1.5,
-SDXL tower 1) or exact gelu (SDXL tower 2, OpenCLIP bigG) MLPs, a causal
-mask, fp32 by default.  Parameter names follow the HF
-``CLIPTextModel`` layout (``embeddings.token_embedding``,
-``encoder.layers.0.self_attn.q_proj`` …).
+"""CLIP towers (PyTorch), the port of
+``theatergen_tpu/models/clip.py::{CLIPTextEncoder, CLIPVisionEncoder}``.
+
+The text tower: quick_gelu (SD1.5, SDXL tower 1) or exact gelu (SDXL
+tower 2, OpenCLIP bigG) MLPs, a causal mask, fp32 by default.  The vision
+tower (ViT-H/14 for IP-Adapter): a bias-free patch convolution, class and
+position embeddings, ``pre_layrnorm``, quick_gelu layers, fp32.  Parameter
+names follow HF's ``CLIPTextModel`` / ``CLIPVisionModelWithProjection``
+layouts (``embeddings.token_embedding``, ``embeddings.patch_embedding``,
+``encoder.layers.0.self_attn.q_proj`` …).  Attention goes through
+``ops.attention.multi_head_attention``, as the JAX package leaves it to
+XLA.
 """
 
 from __future__ import annotations
@@ -12,7 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..config import CLIPTextConfig
+from ..config import CLIPTextConfig, CLIPVisionConfig
 from ..ops.attention import multi_head_attention
 
 
@@ -51,13 +57,13 @@ class CLIPAttention(nn.Module):
 
 
 class CLIPEncoderLayer(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig):
+    def __init__(self, cfg, act: str = "quick_gelu"):
         super().__init__()
         dim = cfg.hidden_size
         self.layer_norm1 = nn.LayerNorm(dim, eps=cfg.layer_norm_eps)
         self.self_attn = CLIPAttention(dim, cfg.num_heads)
         self.layer_norm2 = nn.LayerNorm(dim, eps=cfg.layer_norm_eps)
-        self.mlp = CLIPMLP(dim, cfg.intermediate_size, cfg.act)
+        self.mlp = CLIPMLP(dim, cfg.intermediate_size, act)
 
     def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
         x = x + self.self_attn(self.layer_norm1(x), mask)
@@ -73,10 +79,10 @@ class _Embeddings(nn.Module):
 
 
 class _Encoder(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig):
+    def __init__(self, cfg, act: str = "quick_gelu"):
         super().__init__()
         self.layers = nn.ModuleList(
-            [CLIPEncoderLayer(cfg) for _ in range(cfg.num_layers)])
+            [CLIPEncoderLayer(cfg, act) for _ in range(cfg.num_layers)])
 
 
 class CLIPTextEncoder(nn.Module):
@@ -90,7 +96,7 @@ class CLIPTextEncoder(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.embeddings = _Embeddings(cfg)
-        self.encoder = _Encoder(cfg)
+        self.encoder = _Encoder(cfg, cfg.act)
         self.final_layer_norm = nn.LayerNorm(cfg.hidden_size,
                                              eps=cfg.layer_norm_eps)
         self.text_projection = (
@@ -118,3 +124,53 @@ class CLIPTextEncoder(nn.Module):
         if return_penultimate:
             return x, pooled, penultimate
         return x, pooled
+
+
+class _VisionEmbeddings(nn.Module):
+    def __init__(self, cfg: CLIPVisionConfig):
+        super().__init__()
+        n = (cfg.image_size // cfg.patch_size) ** 2
+        self.patch_embedding = nn.Conv2d(3, cfg.hidden_size, cfg.patch_size,
+                                         stride=cfg.patch_size, bias=False)
+        self.class_embedding = nn.Parameter(torch.empty(cfg.hidden_size))
+        self.position_embedding = nn.Embedding(n + 1, cfg.hidden_size)
+
+
+class CLIPVisionEncoder(nn.Module):
+    """``pixels [B, 3, S, S]`` (CLIP-normalised) → ``(image_embeds [B, P],
+    pooled [B, C], penultimate [B, N+1, C])``: ``visual_projection`` of the
+    post-LN CLS token (what IP-Adapter's ImageProj takes), that token, and
+    the input of the last layer (the plus variant's Resampler input).  With
+    ``return_tokens`` a fourth output is ``post_layernorm`` over the whole
+    sequence."""
+
+    def __init__(self, cfg: CLIPVisionConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.embeddings = _VisionEmbeddings(cfg)
+        self.pre_layrnorm = nn.LayerNorm(cfg.hidden_size,
+                                         eps=cfg.layer_norm_eps)
+        self.encoder = _Encoder(cfg)
+        self.post_layernorm = nn.LayerNorm(cfg.hidden_size,
+                                           eps=cfg.layer_norm_eps)
+        self.visual_projection = nn.Linear(cfg.hidden_size,
+                                           cfg.projection_dim, bias=False)
+
+    def forward(self, pixels: torch.Tensor, return_tokens: bool = False):
+        emb = self.embeddings
+        x = emb.patch_embedding(pixels.to(emb.class_embedding.dtype))
+        x = x.flatten(2).transpose(1, 2)                  # [B, N, C]
+        cls = emb.class_embedding.expand(x.shape[0], 1, -1)
+        x = torch.cat([cls, x], dim=1) + emb.position_embedding.weight[None]
+        x = self.pre_layrnorm(x)
+        penultimate = None
+        for i, layer in enumerate(self.encoder.layers):
+            if i == len(self.encoder.layers) - 1:
+                penultimate = x
+            x = layer(x)
+        normed = self.post_layernorm(x)
+        pooled = normed[:, 0]
+        embeds = self.visual_projection(pooled)
+        if return_tokens:
+            return embeds, pooled, penultimate, normed
+        return embeds, pooled, penultimate

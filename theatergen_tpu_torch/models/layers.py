@@ -8,19 +8,21 @@ are NCHW inside and use diffusers' parameter names (``to_q``,
 Normalisation epsilons follow the JAX package (GroupNorm 1e-5, the
 transformer LayerNorms flax's default 1e-6).
 
-Two layers reach a kernel: :class:`FeedForward` (``ops/geglu_matmul``:
+Three layers reach a kernel: :class:`FeedForward` (``ops/geglu_matmul``:
 ``ff_matmul`` when the model's ``fused_ff`` is on and it runs in bf16,
-``geglu_matmul`` when it is off) and :class:`CrossAttention`
-(``ops/flash_attention`` for self-attention at 1024..4096 tokens).
-Everything else is plain PyTorch.  Inside :func:`plain_path` both take
-their plain PyTorch route whatever the model's config says.
+``geglu_matmul`` when it is off), :class:`CrossAttention`
+(``ops/flash_attention`` for self-attention at 1024..4096 tokens) and
+:class:`GroupNorm` (``ops/groupnorm`` where ``THEATERGEN_FUSED_GN`` routes
+the shape).  Everything else is plain PyTorch.  Inside :func:`plain_path`
+all three take their plain PyTorch route whatever the model's config and
+the switch say.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -29,6 +31,7 @@ import torch.nn.functional as F
 from ..ops import attention as attn_ops
 from ..ops import flash_attention as fa_ops
 from ..ops import geglu_matmul as gg_ops
+from ..ops import groupnorm as gn_ops
 
 # flax nn.LayerNorm's default epsilon, which the JAX package's transformer
 # blocks use
@@ -41,8 +44,9 @@ _use_kernels = True
 @contextlib.contextmanager
 def plain_path() -> Iterator[None]:
     """Within the block every layer takes its plain PyTorch route (no
-    kernel is launched), whatever ``fused_ff``/``flash_attention`` say —
-    the reference a model's kernel path is held against."""
+    kernel is launched), whatever ``fused_ff``/``flash_attention`` and
+    ``THEATERGEN_FUSED_GN`` say — the reference a model's kernel path is
+    held against."""
     global _use_kernels
     prev, _use_kernels = _use_kernels, False
     try:
@@ -91,7 +95,11 @@ class GroupNorm(nn.GroupNorm):
 
     ``fp32=True`` normalises an fp32 copy and casts back (the JAX package's
     ``dtype=None``); otherwise the norm runs in the input's dtype, as the
-    JAX package's ``fast_norm`` does."""
+    JAX package's ``fast_norm`` does.  In the model dtype, where the
+    ``THEATERGEN_FUSED_GN`` switch routes the shape
+    (``ops.groupnorm.routes``: the JAX gate of ``layers.py:116-122``), the
+    norm and its SiLU are one ``ops.groupnorm.fused_group_norm`` call,
+    which rounds once, after the SiLU."""
 
     def __init__(self, num_groups: int, channels: int, eps: float = 1e-5,
                  act: Optional[str] = None, fp32: bool = True):
@@ -103,6 +111,11 @@ class GroupNorm(nn.GroupNorm):
         self.fp32 = fp32
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if (_use_kernels and not self.fp32 and x.dtype == self.weight.dtype
+                and gn_ops.routes(x.shape, x.dtype, self.num_groups)):
+            return gn_ops.fused_group_norm(
+                x, self.weight, self.bias, num_groups=self.num_groups,
+                eps=self.eps, act=self.act)
         if self.fp32:
             out = F.group_norm(x.float(), self.num_groups,
                                self.weight.float(), self.bias.float(),
@@ -208,79 +221,123 @@ class CrossAttention(nn.Module):
     (``ops.flash_attention.supported``: the sequence length alone) takes
     ``ops.flash_attention``, which raises on the card for a head dim it
     has no kernel instance for; every other call, and every call inside
-    :func:`plain_path`, takes ``ops.attention.multi_head_attention``."""
+    :func:`plain_path`, takes ``ops.attention.multi_head_attention``.
+
+    With ``ip_tokens > 0`` the last ``ip_tokens`` rows of a context are
+    image tokens with their own ``to_k_ip``/``to_v_ip`` projections, and
+    the call is ``ops.attention.decoupled_attention`` scaled by
+    ``ip_scale`` (the JAX package's ``layers.py:346-362``).  With
+    ``return_probs`` the call returns ``(out, probs [B, H, Lq, Lk])``, the
+    probabilities of the (text) context, and never takes the flash
+    kernel."""
 
     def __init__(self, query_dim: int, heads: int, head_dim: int,
-                 context_dim: Optional[int] = None, use_flash: bool = True):
+                 context_dim: Optional[int] = None, use_flash: bool = True,
+                 ip_tokens: int = 0):
         super().__init__()
         inner = heads * head_dim
         context_dim = query_dim if context_dim is None else context_dim
         self.heads, self.head_dim, self.use_flash = heads, head_dim, use_flash
+        self.ip_tokens = ip_tokens
         self.to_q = nn.Linear(query_dim, inner, bias=False)
         self.to_k = nn.Linear(context_dim, inner, bias=False)
         self.to_v = nn.Linear(context_dim, inner, bias=False)
+        if ip_tokens:
+            self.to_k_ip = nn.Linear(context_dim, inner, bias=False)
+            self.to_v_ip = nn.Linear(context_dim, inner, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim),
                                      nn.Identity()])
 
     def forward(self, x: torch.Tensor,
-                context: Optional[torch.Tensor] = None) -> torch.Tensor:
+                context: Optional[torch.Tensor] = None, *,
+                ip_scale=1.0, return_probs: bool = False):
         b, lq, _ = x.shape
         ctx = x if context is None else context
         shape = (b, -1, self.heads, self.head_dim)
         q = self.to_q(x).view(shape)
-        k = self.to_k(ctx).view(shape)
-        v = self.to_v(ctx).view(shape)
-        if (context is None and self.use_flash and _use_kernels
-                and x.dtype == torch.bfloat16
-                and fa_ops.supported(lq, lq)):
-            out = fa_ops.flash_attention(q, k, v)
+        if self.ip_tokens and context is not None:
+            text_len = ctx.shape[1] - self.ip_tokens
+            text, image = ctx[:, :text_len], ctx[:, text_len:]
+            res = attn_ops.decoupled_attention(
+                q, self.to_k(text).view(shape), self.to_v(text).view(shape),
+                self.to_k_ip(image).view(shape),
+                self.to_v_ip(image).view(shape), ip_scale,
+                return_probs=return_probs)
         else:
-            out = attn_ops.multi_head_attention(q, k, v)
-        return self.to_out[0](out.reshape(b, lq, -1))
+            k = self.to_k(ctx).view(shape)
+            v = self.to_v(ctx).view(shape)
+            if (context is None and self.use_flash and _use_kernels
+                    and not return_probs and x.dtype == torch.bfloat16
+                    and fa_ops.supported(lq, lq)):
+                res = fa_ops.flash_attention(q, k, v)
+            else:
+                res = attn_ops.multi_head_attention(
+                    q, k, v, return_probs=return_probs)
+        out, probs = res if return_probs else (res, None)
+        out = self.to_out[0](out.reshape(b, lq, -1))
+        return (out, probs) if return_probs else out
 
 
 class BasicTransformerBlock(nn.Module):
-    """self-attn → cross-attn → FF, each behind a pre-LayerNorm."""
+    """self-attn → cross-attn → FF, each behind a pre-LayerNorm.  With
+    ``capture_probs`` returns ``(x, probs)``, the cross-attention's
+    probabilities (the JAX package's sown ``cross_attn_probs``)."""
 
     def __init__(self, dim: int, heads: int, head_dim: int, context_dim: int,
-                 use_flash: bool = True, fused_ff: bool = False):
+                 use_flash: bool = True, fused_ff: bool = False,
+                 ip_tokens: int = 0):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
         self.attn1 = CrossAttention(dim, heads, head_dim, use_flash=use_flash)
         self.norm2 = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
         self.attn2 = CrossAttention(dim, heads, head_dim, context_dim,
-                                    use_flash=use_flash)
+                                    use_flash=use_flash, ip_tokens=ip_tokens)
         self.norm3 = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
         self.ff = FeedForward(dim, fused_ff=fused_ff)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor, *,
+                ip_scale=1.0, capture_probs: bool = False):
         x = x + self.attn1(self.norm1(x))
-        x = x + self.attn2(self.norm2(x), context)
-        return x + self.ff(self.norm3(x))
+        h = self.attn2(self.norm2(x), context, ip_scale=ip_scale,
+                       return_probs=capture_probs)
+        h, probs = h if capture_probs else (h, None)
+        x = x + h
+        x = x + self.ff(self.norm3(x))
+        return (x, probs) if capture_probs else x
 
 
 class Transformer2D(nn.Module):
     """GN → 1×1 proj_in → transformer blocks over flattened space →
-    1×1 proj_out, plus the residual."""
+    1×1 proj_out, plus the residual.  With ``capture_layers`` (block
+    indices) returns ``(out, {index: probs [B, heads, HW, Lk]})``; the
+    other blocks' probabilities are never kept."""
 
     def __init__(self, channels: int, heads: int, head_dim: int,
                  context_dim: int, depth: int = 1, groups: int = 32,
                  fast_norm: bool = False, use_flash: bool = True,
-                 fused_ff: bool = False):
+                 fused_ff: bool = False, ip_tokens: int = 0):
         super().__init__()
         self.norm = GroupNorm(groups, channels, fp32=not fast_norm)
         self.proj_in = nn.Conv2d(channels, channels, 1)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(channels, heads, head_dim, context_dim,
-                                  use_flash=use_flash, fused_ff=fused_ff)
+                                  use_flash=use_flash, fused_ff=fused_ff,
+                                  ip_tokens=ip_tokens)
             for _ in range(depth)])
         self.proj_out = nn.Conv2d(channels, channels, 1)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor, *,
+                ip_scale=1.0, capture_layers: Tuple[int, ...] = ()):
         b, c, h, w = x.shape
         y = self.proj_in(self.norm(x))
         y = y.permute(0, 2, 3, 1).reshape(b, h * w, c)
-        for block in self.transformer_blocks:
-            y = block(y, context)
+        captured = {}
+        for i, block in enumerate(self.transformer_blocks):
+            if i in capture_layers:
+                y, captured[i] = block(y, context, ip_scale=ip_scale,
+                                       capture_probs=True)
+            else:
+                y = block(y, context, ip_scale=ip_scale)
         y = y.reshape(b, h, w, c).permute(0, 3, 1, 2)
-        return self.proj_out(y) + x
+        out = self.proj_out(y) + x
+        return (out, captured) if capture_layers else out

@@ -1,20 +1,27 @@
 """SD-style conditional UNet (PyTorch, NCHW), the port of
 ``theatergen_tpu/models/unet.py::UNet2DCondition`` on the SD1.5 and SDXL
-txt2img paths.
+txt2img paths and the IP-Adapter character pass.
 
 Parameter names are diffusers' (``down_blocks.0.attentions.1.
 transformer_blocks.0.attn1.to_q.weight`` …).  The forward takes
 ``(sample [B, C, H, W], timesteps [B] or scalar, context [B, L, C_ctx])``,
 plus SDXL's ``pooled_text [B, P]`` and ``time_ids [B, 6]`` where the config
 has ``addition_embed_type="text_time"``, and returns the eps prediction
-``[B, out_channels, H, W]`` in the model dtype.  ControlNet residuals,
-attention capture, DeepCache, IP tokens and T2I-Adapter residuals come
-with later slices.
+``[B, out_channels, H, W]`` in the model dtype.
+
+With ``cfg.ip_num_tokens > 0`` every cross-attention splits the last
+``ip_num_tokens`` context rows off as IP-Adapter image tokens, weighted by
+``ip_scale`` (a float or a 0-dim tensor).  ``capture_keys`` names
+cross-attention layers in the JAX package's 4-tuple form
+``(place, block_index, attention_index, layer)``; with any given the
+forward returns ``(eps, {key: probs [B, heads, HW, Lk]})`` and keeps no
+other layer's probabilities.  ControlNet residuals, DeepCache and
+T2I-Adapter residuals come with later slices.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -24,6 +31,16 @@ from .layers import (
     Downsample2D, GroupNorm, ResnetBlock2D, TimestepEmbedding, Transformer2D,
     Upsample2D, timestep_embedding,
 )
+
+AttnKey = Tuple[str, int, int, int]
+
+
+def _captures(capture_keys: Sequence[AttnKey], place: str, block: int,
+              attn_idx: int) -> Tuple[int, ...]:
+    """Transformer-block layer indices to capture at this attention module
+    (the keys' 4th field)."""
+    return tuple(k[3] for k in capture_keys
+                 if k[0] == place and k[1] == block and k[2] == attn_idx)
 
 
 class UNetBlock(nn.Module):
@@ -38,8 +55,6 @@ class UNetBlock(nn.Module):
 class UNet2DCondition(nn.Module):
     def __init__(self, cfg: UNetConfig):
         super().__init__()
-        if cfg.ip_num_tokens:
-            raise NotImplementedError("IP tokens are not ported yet")
         if cfg.addition_embed_type not in (None, "text_time"):
             raise ValueError(f"unknown addition_embed_type "
                              f"{cfg.addition_embed_type!r}")
@@ -59,7 +74,7 @@ class UNet2DCondition(nn.Module):
                 ch, heads, ch // heads, cfg.cross_attention_dim,
                 depth=cfg.depth_at(level), groups=groups,
                 fast_norm=cfg.fast_norm, use_flash=cfg.flash_attention,
-                fused_ff=cfg.fused_ff)
+                fused_ff=cfg.fused_ff, ip_tokens=cfg.ip_num_tokens)
 
         self.conv_in = nn.Conv2d(cfg.in_channels, boc[0], 3, padding=1)
         self.time_embedding = TimestepEmbedding(boc[0], time_dim)
@@ -112,12 +127,16 @@ class UNet2DCondition(nn.Module):
         return self.conv_in.weight.dtype
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
-                context: torch.Tensor, *,
+                context: torch.Tensor, *, ip_scale=1.0,
+                capture_keys: Sequence[AttnKey] = (),
                 pooled_text: Optional[torch.Tensor] = None,
-                time_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                time_ids: Optional[torch.Tensor] = None):
         cfg = self.cfg
         dtype = self.dtype
-        h = sample.to(dtype)
+        # NCHW-contiguous from here on, whatever the caller's layout: a
+        # permuted NHWC latent would carry channels-last strides through
+        # the convolutions, and the GroupNorm kernel takes contiguous NCHW
+        h = sample.to(dtype).contiguous()
         context = context.to(dtype)
         if timesteps.ndim == 0:
             timesteps = timesteps[None]
@@ -136,29 +155,48 @@ class UNet2DCondition(nn.Module):
                 torch.cat([pooled_text.to(dtype), tid.to(dtype)], dim=-1))
             temb = temb + add.expand_as(temb)
 
+        captured: Dict[AttnKey, torch.Tensor] = {}
+
+        def attend(module, h, place, block, idx):
+            layers = _captures(capture_keys, place, block, idx)
+            if not layers:
+                return module(h, context, ip_scale=ip_scale)
+            h, probs = module(h, context, ip_scale=ip_scale,
+                              capture_layers=layers)
+            for key in capture_keys:
+                if tuple(key[:3]) == (place, block, idx):
+                    captured[tuple(key)] = probs[key[3]]
+            return h
+
         h = self.conv_in(h)
         skips = [h]
-        for blk in self.down_blocks:
+        for i, blk in enumerate(self.down_blocks):
             for j, res in enumerate(blk.resnets):
                 h = res(h, temb)
                 if len(blk.attentions):
-                    h = blk.attentions[j](h, context)
+                    h = attend(blk.attentions[j], h, "down", i, j)
                 skips.append(h)
             if hasattr(blk, "downsamplers"):
                 h = blk.downsamplers[0](h)
                 skips.append(h)
 
         h = self.mid_block.resnets[0](h, temb)
-        h = self.mid_block.attentions[0](h, context)
+        h = attend(self.mid_block.attentions[0], h, "mid", 0, 0)
         h = self.mid_block.resnets[1](h, temb)
 
-        for blk in self.up_blocks:
+        for idx, blk in enumerate(self.up_blocks):
             for j, res in enumerate(blk.resnets):
                 h = res(torch.cat([h, skips.pop()], dim=1), temb)
                 if len(blk.attentions):
-                    h = blk.attentions[j](h, context)
+                    h = attend(blk.attentions[j], h, "up", idx, j)
             if hasattr(blk, "upsamplers"):
                 h = blk.upsamplers[0](h)
 
-        return self.conv_out(self.conv_norm_out(h))
-
+        eps = self.conv_out(self.conv_norm_out(h))
+        if capture_keys:
+            missing = [k for k in capture_keys if tuple(k) not in captured]
+            if missing:
+                raise ValueError(f"capture_keys name no cross-attention "
+                                 f"layer of this UNet: {missing}")
+            return eps, captured
+        return eps

@@ -2,19 +2,24 @@
 state dicts.
 
 ``from_flax(kind, params)`` takes a flax tree (nested dicts of arrays) of
-the JAX package's UNet (SDXL's ``add_embedding`` included), VAE or text
-tower (either of SDXL's two, ``text_projection`` included) and returns
-the port's state dict as numpy arrays.  It is written from the two
-packages' naming rules:
+the JAX package's UNet (SDXL's ``add_embedding`` and the IP UNet's
+``attn2.to_k_ip``/``to_v_ip`` included), VAE, text tower (either of
+SDXL's two, ``text_projection`` included), CLIP vision tower or IP-Adapter
+projector (``image_proj``, ``mlp_proj``, ``resampler``) and returns the
+port's state dict as numpy arrays.  It is written from the two packages'
+naming rules:
 
 - scopes: ``down_blocks_0_resnets_1`` → ``down_blocks.0.resnets.1``,
   ``mid_block_attentions_0`` (UNet) and ``mid_attentions_0`` (VAE) →
   ``mid_block.attentions.0``, ``transformer_blocks_0`` →
   ``transformer_blocks.0``, ``to_out_0`` → ``to_out.0``, ``net_0`` →
-  ``net.0``, ``layers_3`` (CLIP) → ``encoder.layers.3``; the UNet's
+  ``net.0``, ``layers_3`` (CLIP) → ``encoder.layers.3``,
+  ``layers_0_attn`` (Resampler) → ``layers.0.attn``; the UNet's
   ``encoder``/``mid`` wrapper scopes vanish, the VAE's ``post_quant_conv``
-  and ``quant_conv`` move out of its decoder/encoder, and the JAX
-  GroupNorm wrapper's inner ``norm`` scope is dropped;
+  and ``quant_conv`` move out of its decoder/encoder, the JAX GroupNorm
+  wrapper's inner ``norm`` scope is dropped, and the vision tower's
+  ``patch_embedding``, ``class_embedding`` and ``position_embedding`` move
+  into ``embeddings``;
 - leaves: a 4-D ``kernel`` is HWIO → OIHW, a 2-D ``kernel`` is
   [in, out] → [out, in]; ``scale`` and ``embedding`` become ``weight``.
 """
@@ -26,7 +31,8 @@ from typing import Dict, Mapping
 
 import numpy as np
 
-KINDS = ("unet", "vae", "text")
+KINDS = ("unet", "vae", "text", "vision", "image_proj", "mlp_proj",
+         "resampler")
 
 _SCOPE_RULES = (
     (re.compile(r"(down_blocks|up_blocks)_(\d+)_"
@@ -37,6 +43,7 @@ _SCOPE_RULES = (
     (re.compile(r"transformer_blocks_(\d+)"), r"transformer_blocks.\1"),
     (re.compile(r"(to_out|net)_(\d+)"), r"\1.\2"),
     (re.compile(r"layers_(\d+)"), r"encoder.layers.\1"),
+    (re.compile(r"layers_(\d+)_(attn|ff_norm|ff_1|ff_2)"), r"layers.\1.\2"),
     (re.compile(r"token_embedding"), r"embeddings.token_embedding"),
 )
 
@@ -69,7 +76,7 @@ def _leaf(name: str, w: np.ndarray):
 
 
 def from_flax(kind: str, params: Mapping) -> Dict[str, np.ndarray]:
-    """Port state dict (numpy) of a JAX ``kind`` tree (unet, vae, text)."""
+    """Port state dict (numpy) of a JAX ``kind`` tree (one of KINDS)."""
     if kind not in KINDS:
         raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
     if "params" in params and len(params) == 1:
@@ -85,9 +92,15 @@ def from_flax(kind: str, params: Mapping) -> Dict[str, np.ndarray]:
         if kind == "vae" and scopes[-1:] in (["post_quant_conv"],
                                              ["quant_conv"]):
             scopes = scopes[-1:]
-        if kind == "text" and leaf == "position_embedding" and not scopes:
+        if (kind in ("text", "vision") and leaf == "position_embedding"
+                and not scopes):
             out["embeddings.position_embedding.weight"] = w
             continue
+        if kind == "vision" and leaf == "class_embedding" and not scopes:
+            out["embeddings.class_embedding"] = w
+            continue
+        if kind == "vision" and scopes == ["patch_embedding"]:
+            scopes = ["embeddings", "patch_embedding"]
         name, value = _leaf(leaf, w)
         out[".".join([_scope(s) for s in scopes] + [name])] = value
     return out

@@ -95,6 +95,26 @@ def make_schedule(cfg: SchedulerConfig, num_steps: int, *,
     )
 
 
+@dataclasses.dataclass(frozen=True)
+class DeviceTables:
+    """A schedule's per-step tables as tensors on one device, made once per
+    run, so a loop reads its step's values by indexing and copies nothing
+    from the host (a host-to-device copy waits for the stream)."""
+
+    timesteps: torch.Tensor        # [S] int64
+    alpha_prod: torch.Tensor       # [S] float32
+    alpha_prod_prev: torch.Tensor  # [S] float32
+
+
+def device_tables(sched: DDIMSchedule, device) -> DeviceTables:
+    def put(a, dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    return DeviceTables(put(sched.timesteps, torch.long),
+                        put(sched.alpha_prod, torch.float32),
+                        put(sched.alpha_prod_prev, torch.float32))
+
+
 def x0_eps_from_pred(prediction_type: str, a_t: torch.Tensor,
                      model_output: torch.Tensor, sample: torch.Tensor):
     """(x0, eps) from the model output under a given parameterization."""
@@ -116,27 +136,30 @@ def x0_eps_from_pred(prediction_type: str, a_t: torch.Tensor,
 
 def ddim_step(sched: DDIMSchedule, model_output: torch.Tensor, i: int,
               sample: torch.Tensor, *, eta: float = 0.0,
-              noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+              noise: Optional[torch.Tensor] = None,
+              tables: Optional[DeviceTables] = None) -> torch.Tensor:
     """One DDIM update x_t → x_{t_prev} at loop position ``i`` (diffusers
-    ``DDIMScheduler.step`` with ``clip_sample=False``)."""
+    ``DDIMScheduler.step`` with ``clip_sample=False``); with ``tables``
+    (:func:`device_tables` of ``sched``) the alphas come from them."""
     def scalar(x):
         return torch.tensor(float(x), dtype=sample.dtype, device=sample.device)
 
-    a_t = scalar(sched.alpha_prod[i])
-    a_prev = scalar(sched.alpha_prod_prev[i])
+    if tables is not None:
+        a_t = tables.alpha_prod[i].to(sample.dtype)
+        a_prev = tables.alpha_prod_prev[i].to(sample.dtype)
+    else:
+        a_t = scalar(sched.alpha_prod[i])
+        a_prev = scalar(sched.alpha_prod_prev[i])
     x0, eps = x0_eps_from_pred(sched.prediction_type, a_t, model_output,
                                sample)
-    if eta > 0.0:
-        sigma = eta * torch.sqrt(
-            (1.0 - a_prev) / (1.0 - a_t) * (1.0 - a_t / a_prev))
-    else:
-        sigma = scalar(0.0)
+    if eta <= 0.0:
+        return torch.sqrt(a_prev) * x0 + torch.sqrt(1.0 - a_prev) * eps
+    if noise is None:
+        raise ValueError("eta > 0 requires noise")
+    sigma = eta * torch.sqrt(
+        (1.0 - a_prev) / (1.0 - a_t) * (1.0 - a_t / a_prev))
     prev = torch.sqrt(a_prev) * x0 + torch.sqrt(1.0 - a_prev - sigma ** 2) * eps
-    if eta > 0.0:
-        if noise is None:
-            raise ValueError("eta > 0 requires noise")
-        prev = prev + sigma * noise
-    return prev
+    return prev + sigma * noise
 
 
 # ---------------------------------------------------------------------------

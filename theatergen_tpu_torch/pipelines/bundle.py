@@ -1,7 +1,8 @@
 """Model bundle: UNet, VAE, text tower(s) and tokenizer in one object.
 
 Port of ``theatergen_tpu/pipelines/bundle.py`` for the txt2img slices
-(SD1.5; SDXL adds the second text tower ``text2``).
+(SD1.5; SDXL adds the second text tower ``text2``) and the IP-Adapter
+character pass (``unet_ip``, ``image_proj`` and the CLIP vision tower).
 :func:`init_bundle` builds the modules on the target device with seeded
 random weights (no checkpoint ships with the repo); :meth:`Bundle.load_flax`
 loads the JAX package's parameter trees through ``models/weights.py``.
@@ -17,7 +18,8 @@ import torch
 import torch.nn as nn
 
 from ..config import TheaterConfig
-from ..models.clip import CLIPTextEncoder
+from ..models.clip import CLIPTextEncoder, CLIPVisionEncoder
+from ..models.ip_adapter import ImageProjModel, MLPProjModel, Resampler
 from ..models.layers import get_dtype
 from ..models.unet import UNet2DCondition
 from ..models.vae import AutoencoderKL
@@ -36,6 +38,11 @@ class Bundle:
     text: CLIPTextEncoder
     # SDXL's second tower (OpenCLIP bigG), built where cfg.text2 is set
     text2: Optional[CLIPTextEncoder] = None
+    # the IP-Adapter UNet: its own weights, with to_k_ip/to_v_ip
+    unet_ip: Optional[UNet2DCondition] = None
+    image_proj: Optional[nn.Module] = None  # ImageProj / MLPProj / Resampler
+    ip_variant: str = "base"                # "base" | "plus" | "full"
+    vision: Optional[CLIPVisionEncoder] = None
 
     @property
     def device(self) -> torch.device:
@@ -51,18 +58,24 @@ class Bundle:
     def load_flax(self, *, unet: Optional[Mapping] = None,
                   vae: Optional[Mapping] = None,
                   text: Optional[Mapping] = None,
-                  text2: Optional[Mapping] = None) -> "Bundle":
+                  text2: Optional[Mapping] = None,
+                  unet_ip: Optional[Mapping] = None,
+                  image_proj: Optional[Mapping] = None,
+                  vision: Optional[Mapping] = None) -> "Bundle":
         """Load JAX-package param trees (nested dicts of arrays); every key
         must match (``load_state_dict(strict=True)``)."""
-        for kind, module, tree in (("unet", self.unet, unet),
-                                   ("vae", self.vae, vae),
-                                   ("text", self.text, text),
-                                   ("text", self.text2, text2)):
+        for name, kind, tree in (
+                ("unet", "unet", unet), ("vae", "vae", vae),
+                ("text", "text", text), ("text2", "text", text2),
+                ("unet_ip", "unet", unet_ip),
+                ("image_proj", PROJ_KINDS[self.ip_variant], image_proj),
+                ("vision", "vision", vision)):
             if tree is None:
                 continue
+            module = getattr(self, name)
             if module is None:
-                raise ValueError("load_flax: text2 given, but the bundle's "
-                                 "config has no second text tower")
+                raise ValueError(f"load_flax: {name} given, but the bundle "
+                                 f"has no {name} (see init_bundle)")
             ref = module.state_dict()
             sd = {k: torch.from_numpy(np.asarray(v, np.float32)).to(
                       dtype=ref[k].dtype if k in ref else torch.float32,
@@ -72,10 +85,16 @@ class Bundle:
         return self
 
 
+# from_flax kind of each IP-Adapter variant's projector
+PROJ_KINDS = {"base": "image_proj", "full": "mlp_proj", "plus": "resampler"}
+
+
 def _seeded_init(module: nn.Module, gen: torch.Generator) -> None:
     """Fill every parameter from ``gen``: Linear/Conv weights N(0, 1/fan_in)
     (lecun normal, as flax's default), embeddings N(0, 0.02²), norm scales
-    one, biases zero."""
+    one, biases zero; a module's own parameters (the vision tower's class
+    embedding, the Resampler's queries) N(0, init_std²), init_std 0.02
+    unless the module sets it."""
     for m in module.modules():
         if isinstance(m, (nn.Linear, nn.Conv2d)):
             fan_in = m.weight[0].numel()
@@ -87,12 +106,15 @@ def _seeded_init(module: nn.Module, gen: torch.Generator) -> None:
         elif isinstance(m, (nn.GroupNorm, nn.LayerNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()
+        else:
+            for p in m.parameters(recurse=False):
+                p.normal_(0.0, getattr(m, "init_std", 0.02), generator=gen)
 
 
 def _build(cls, cfg, dtype: torch.dtype, device: torch.device,
-           gen: torch.Generator) -> nn.Module:
+           gen: torch.Generator, **kwargs) -> nn.Module:
     with torch.device("meta"):
-        module = cls(cfg)
+        module = cls(cfg, **kwargs)
     module = module.to(dtype=dtype).to_empty(device=device)
     with torch.no_grad():
         _seeded_init(module, gen)
@@ -100,16 +122,25 @@ def _build(cls, cfg, dtype: torch.dtype, device: torch.device,
 
 
 def init_bundle(cfg: TheaterConfig, seed: int = 0, *,
-                device="cuda", tokenizer_assets: Optional[str] = None
-                ) -> Bundle:
+                device="cuda", tokenizer_assets: Optional[str] = None,
+                with_ip: bool = False, with_vision: bool = False,
+                ip_variant: str = "base") -> Bundle:
     """Random-weight bundle built directly on ``device`` (default the card;
-    there is no fallback to the CPU: pass ``device="cpu"`` to ask for it)."""
+    there is no fallback to the CPU: pass ``device="cpu"`` to ask for it).
+
+    ``with_ip`` adds the IP-Adapter UNet (``unet_ip``, its own weights,
+    ``ip_num_tokens`` = ``num_tokens``, ``resampler_queries`` or 1 for the
+    base, plus and full variants) and the variant's projector;
+    ``with_vision`` adds the CLIP vision tower."""
+    if ip_variant not in PROJ_KINDS:
+        raise ValueError(f"ip_variant must be one of {tuple(PROJ_KINDS)}, "
+                         f"got {ip_variant!r}")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("init_bundle: no CUDA device; pass device='cpu' "
                            "to build the bundle on the CPU")
     gen = torch.Generator(device=device).manual_seed(seed)
-    return Bundle(
+    b = Bundle(
         cfg=cfg,
         tokenizer=load_tokenizer(tokenizer_assets, cfg.text.vocab_size),
         unet=_build(UNet2DCondition, cfg.unet, get_dtype(cfg.unet.dtype),
@@ -122,3 +153,23 @@ def init_bundle(cfg: TheaterConfig, seed: int = 0, *,
             CLIPTextEncoder, cfg.text2, get_dtype(cfg.text2.dtype), device,
             gen)),
     )
+    if with_ip:
+        ip = cfg.ip_adapter
+        if ip_variant == "plus":
+            n_tokens, proj, kw = ip.resampler_queries, Resampler, dict(
+                embedding_dim=cfg.vision.hidden_size,
+                output_dim=cfg.unet.cross_attention_dim)
+        elif ip_variant == "full":
+            n_tokens, proj, kw = 1, MLPProjModel, {}
+        else:
+            n_tokens, proj, kw = ip.num_tokens, ImageProjModel, {}
+        b.ip_variant = ip_variant
+        b.unet_ip = _build(
+            UNet2DCondition,
+            dataclasses.replace(cfg.unet, ip_num_tokens=n_tokens),
+            get_dtype(cfg.unet.dtype), device, gen)
+        b.image_proj = _build(proj, ip, torch.float32, device, gen, **kw)
+    if with_vision:
+        b.vision = _build(CLIPVisionEncoder, cfg.vision,
+                          get_dtype(cfg.vision.dtype), device, gen)
+    return b
