@@ -1,7 +1,8 @@
 """Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # build, check, time, run all paths
-    python3 chip_smoke.py --profile  # also print kernel-time breakdowns
+    python3 chip_smoke.py --profile  # also kernel-time breakdowns and the
+                                     # GroupNorm A/B
 
 Phases, in order (any failure exits non-zero):
   1. the card's name and power limit;
@@ -17,17 +18,20 @@ Phases, in order (any failure exits non-zero):
   6. SDXL: the SD1.5 bundle freed, ``init_bundle(sdxl_config())``, the same
      UNet check, then ``Text2ImgXL(bundle, num_steps=30)`` on two prompts at
      1024 px, Euler-Ancestral, CFG 7.5;
-  7. the IP-Adapter character pass with ``THEATERGEN_FUSED_GN`` at "1":
+  7. the IP-Adapter character pass:
      ``init_bundle(sd15_config(), with_ip=True, with_vision=True)``, the IP
-     UNet with the kernels against ``plain_path()``, ``encode_ip_image`` of
-     a seeded 512² image, ``ip_context``, then
-     ``make_character_pipeline(bundle, 50, use_ip=True,
+     UNet with the kernels against ``plain_path()`` (``THEATERGEN_FUSED_GN``
+     at "1"), ``encode_ip_image`` of a seeded 512² image, ``ip_context``,
+     then ``make_character_pipeline(bundle, 50, use_ip=True,
      capture_ref_attn=True)`` requests at ip_scale 0.4 and 0.0 with the
-     switch at "0", "1", "1", "0", "0", "1", then the wall time of UNet
-     evaluations and of one norm layer under each (the GroupNorm A/B).
+     switch at "1", and one at 0.4 with the switch at "0".
 Every launch counter is set to 0 just before each request and read just
-after it, and must equal the launches the path's layers route to each
-kernel.  Then one JSON line of kernel records and, last, the device line.
+after it, and must equal the constant launches per request of each kernel
+(SD1.5 and SDXL under the switch's default).  Then one JSON line of kernel
+records and, last, the device line.  ``--profile`` adds the device time by
+kernel of one UNet evaluation of each model and the GroupNorm A/B: device
+ms per evaluation of both UNets, request pairs of the character pass and
+SDXL, and host ms per evaluation and per norm layer.
 Needs a CUDA device; without one it exits non-zero and prints no result.
 """
 
@@ -47,7 +51,6 @@ import torch.nn.functional as F
 from theatergen_tpu_torch import _build
 from theatergen_tpu_torch.config import sd15_config, sdxl_config
 from theatergen_tpu_torch.models.layers import GroupNorm, plain_path
-from theatergen_tpu_torch.models.unet import UNet2DCondition
 from theatergen_tpu_torch.ops import flash_attention as fa
 from theatergen_tpu_torch.ops import geglu_matmul as gg
 from theatergen_tpu_torch.ops import groupnorm as gn
@@ -83,10 +86,19 @@ GN_SHAPES = [(CHAR, (2, c, hw), n) for (c, hw), n in (
         ((320, 16384), 8), ((320, 4096), 1), ((640, 4096), 11),
         ((960, 4096), 1), ((1280, 4096), 1), ((640, 1024), 1),
         ((1280, 1024), 16), ((1920, 1024), 1), ((2560, 1024), 2))]
+# GroupNorm kernel launches per UNet evaluation under THEATERGEN_FUSED_GN=1
+GN_PER_EVAL = {SD15: 61, SDXL: 42, CHAR: 61}
+# the large-mean GroupNorm input: mean 1024, std 1.5 before the rounding to
+# bf16 (whose step there is 4 to 8), so mean/std ~ 700 and E[x²] - mean²
+# in fp32 would lose the variance (tests/test_torch_port_cuda.py shows
+# such a variant failing the bound that the kernel meets)
+GN_LARGE_MEAN, GN_LARGE_STD = 1024.0, 1.5
 SD15_STEPS, SDXL_STEPS = 50, 30
-# the character requests' (THEATERGEN_FUSED_GN, ip_scale), in turns
-AB_REQUESTS = (("0", 0.4), ("1", 0.4), ("1", 0.0), ("0", 0.0), ("0", 0.4),
-               ("1", 0.0))
+# the character requests' (THEATERGEN_FUSED_GN, ip_scale)
+CHAR_REQUESTS = (("1", 0.4), ("1", 0.0), ("0", 0.4))
+# --profile: request pairs of the GroupNorm A/B ("0" and "1" in turns,
+# ABBA order) for the character pass and SDXL
+AB_PAIRS = {CHAR: 12, SDXL: 8}
 PROMPTS = ["a red knight rides through a dark forest",
            "a girl with a blue umbrella on a rainy street",
            "two cats asleep on a wooden table"]
@@ -257,7 +269,7 @@ def geglu_phase(gen) -> dict:
 
 def gn_phase(gen) -> dict:
     """fused_group_norm at every site shape of both UNets: checked with and without
-    SiLU and with a large-mean input (mean 64, std 1), timed with SiLU
+    SiLU and with a large-mean input (GN_LARGE_MEAN), timed with SiLU
     against the library pair F.group_norm + F.silu in bf16, as CUDA-graph
     replays (the eager launch outlasts these kernels)."""
     rows = []
@@ -267,16 +279,16 @@ def gn_phase(gen) -> dict:
             torch.bfloat16)
         bias = randn(gen, c, scale=0.1)
         err = 0.0
-        for act, offset in ((None, 0.0), ("silu", 0.0), ("silu", 64.0)):
-            x = (torch.randn(b, c, side, side, device="cuda", generator=gen)
-                 + offset).to(torch.bfloat16)
+        for act, mean, std in ((None, 0.0, 1.0), ("silu", 0.0, 1.0),
+                               ("silu", GN_LARGE_MEAN, GN_LARGE_STD)):
+            x = randn(gen, b, c, side, side, scale=std) + mean
             out = gn.fused_group_norm(x, w, bias, act=act)
             torch.cuda.synchronize()
             ref = gn.fused_group_norm_plain(x.float(), w.float(),
                                             bias.float(), act=act)
             e = (out.float() - ref).abs().max().item()
             check(e, ref.abs().max().item(),
-                  f"group_norm C={c} HW={hw} act={act} mean={offset:g}")
+                  f"group_norm C={c} HW={hw} act={act} mean={mean:g}")
             err = max(err, e)
         x = randn(gen, b, c, side, side)
         rows.append(_row(
@@ -314,34 +326,9 @@ def _record(name, source, replaces, tpu_function, rows) -> dict:
         per_model=per_model, shapes=rows)
 
 
-def gn_launches_per_eval(unet_cfg, h: int, w: int) -> int:
-    """GroupNorm kernel launches one UNet evaluation (CFG batch 2) makes
-    under the current THEATERGEN_FUSED_GN mode: the layers' routes counted
-    on a meta-device copy of the UNet (no memory, no kernel)."""
-    count = [0]
-    real = gn.fused_group_norm
-
-    def spy(*a, **k):
-        count[0] += 1
-        return real(*a, **k)
-
-    gn.fused_group_norm = spy
-    try:
-        with torch.device("meta"), torch.no_grad():
-            unet = UNet2DCondition(unet_cfg).to(torch.bfloat16)
-            cond = {}
-            if unet_cfg.addition_embed_type == "text_time":
-                cond = dict(pooled_text=torch.empty(
-                    2, unet_cfg.projection_class_embeddings_input_dim
-                    - 6 * unet_cfg.addition_time_embed_dim),
-                    time_ids=torch.empty(2, 6))
-            unet(torch.empty(2, unet_cfg.in_channels, h, w),
-                 torch.empty(2, dtype=torch.long),
-                 torch.empty(2, 77 + unet_cfg.ip_num_tokens,
-                             unet_cfg.cross_attention_dim), **cond)
-    finally:
-        gn.fused_group_norm = real
-    return count[0]
+def gn_want(model: str, steps: int) -> int:
+    """GroupNorm kernel launches of one request under the current switch."""
+    return GN_PER_EVAL[model] * steps if gn.FUSED_MODE == "1" else 0
 
 
 def unet_inputs(bundle, seed: int, t_value: int, ctx_len: int = None):
@@ -435,8 +422,7 @@ def sd15_path(records, profiling: bool) -> dict:
     pipe = sd.Text2Img(bundle, num_steps=SD15_STEPS)
     want = {"flash_attention": 10 * SD15_STEPS,
             "ff_geglu": 16 * SD15_STEPS, "geglu_matmul": 0,
-            "group_norm": SD15_STEPS * gn_launches_per_eval(
-                bundle.cfg.unet, 64, 64)}
+            "group_norm": gn_want(SD15, SD15_STEPS)}
     seconds = run_requests(SD15, pipe, PROMPTS, want, 512, records)
     peak = torch.cuda.max_memory_allocated()
     log(f"  seconds per request {seconds}; peak memory "
@@ -455,11 +441,13 @@ def sdxl_path(records, profiling: bool) -> dict:
     # bound, 2.5x above it, holds here too
     rel = unet_reference_phase(bundle, 5e-2)
     pipe = sdxl.Text2ImgXL(bundle, num_steps=SDXL_STEPS)
-    want = {"flash_attention": 70 * SDXL_STEPS, "ff_geglu": 0,
-            "geglu_matmul": 70 * SDXL_STEPS,
-            "group_norm": SDXL_STEPS * gn_launches_per_eval(
-                bundle.cfg.unet, 128, 128)}
-    seconds = run_requests(SDXL, pipe, PROMPTS[:2], want, 1024, records)
+
+    def want():
+        return {"flash_attention": 70 * SDXL_STEPS, "ff_geglu": 0,
+                "geglu_matmul": 70 * SDXL_STEPS,
+                "group_norm": gn_want(SDXL, SDXL_STEPS)}
+
+    seconds = run_requests(SDXL, pipe, PROMPTS[:2], want(), 1024, records)
     peak = torch.cuda.max_memory_allocated()
     log(f"  seconds per request {seconds}; peak memory "
         f"{peak / 2 ** 30:.3f} GiB")
@@ -468,15 +456,61 @@ def sdxl_path(records, profiling: bool) -> dict:
     if profiling:
         profile(bundle, sdxl.encode_prompts_xl)
         out["gn_ab_device_ms"] = gn_ab_profile(bundle, bundle.unet)
+        out["gn_ab_requests"] = request_ab(
+            SDXL, lambda p: run_requests(SDXL, pipe, [PROMPTS[p % 2]],
+                                         want(), 1024, [])[0])
     return out
 
 
+def character_request(bundle, run, image, i: int, scale: float,
+                      records) -> float:
+    """One 50-step character request under the current switch, counters
+    set to 0 just before it and read just after (added to ``records``):
+    prompt encoding, image encoding, the IP context and the run.  Checks
+    the result's shapes, finiteness and launches; returns its seconds."""
+    cfg = bundle.cfg
+    h, w = cfg.pipeline.latent_height, cfg.pipeline.latent_width
+    hw_of = {"mid": h * w // 64, "up": h * w // 16}
+    want = {"flash_attention": 10 * SD15_STEPS, "ff_geglu": 16 * SD15_STEPS,
+            "geglu_matmul": 0, "group_norm": gn_want(CHAR, SD15_STEPS)}
+    g = torch.Generator(device="cuda").manual_seed(200 + i)
+    lat = torch.randn(1, h, w, 4, device="cuda", generator=g)
+    reset_counts()
+    t0 = time.perf_counter()
+    text = sd.encode_prompts(bundle, PROMPTS[i % len(PROMPTS)])
+    ctx = character.ip_context(bundle, text,
+                               character.encode_ip_image(bundle, image))
+    res = run(lat, ctx, scale)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = read_counts()
+    for r in records:
+        r["launches"] += got[r["name"]]
+        if CHAR in r["per_model"]:
+            r["per_model"][CHAR]["launches"] += got[r["name"]]
+    finite = bool(torch.isfinite(res.trajectory).all()) and all(
+        bool(torch.isfinite(m).all()) for m in res.ref_attn)
+    shapes = [tuple(m.shape) for m in res.ref_attn]
+    want_shapes = [(SD15_STEPS, 8, hw_of[k[0]])
+                   for k in cfg.guidance.attn_keys]
+    log(f"  character request {i} (switch {gn.FUSED_MODE}, ip_scale "
+        f"{scale}): {seconds:.3f} s  launches {got}  trajectory "
+        f"{tuple(res.trajectory.shape)}  ref_attn {shapes}  finite {finite}"
+        f"  latent std {res.latents.std():.4f}")
+    if (tuple(res.trajectory.shape) != (SD15_STEPS + 1, 1, h, w, 4)
+            or shapes != want_shapes or not finite):
+        raise SystemExit(f"character request {i}: bad result")
+    if got != want:
+        raise SystemExit(f"character request {i}: launches {got}, "
+                         f"want {want}")
+    return seconds
+
+
 def character_path(records, profiling: bool) -> dict:
-    """The IP-Adapter character pass (switch at "1" unless stated): the IP
-    UNet check, encode_ip_image, ip_context, then six 50-step requests with
-    the switch and ip_scale of AB_REQUESTS, then the A/B of wall time per
-    UNet evaluation and per norm-layer call.  A request is prompt
-    encoding, image encoding, the IP context and the run."""
+    """The IP-Adapter character pass: the IP UNet check with the switch at
+    "1", encode_ip_image, then the 50-step requests of CHAR_REQUESTS (two
+    at "1", one at "0"); with ``profiling`` also the GroupNorm A/B (device
+    ms, request pairs, host ms)."""
     prev_mode, gn.FUSED_MODE = gn.FUSED_MODE, "1"
     cfg = sd15_config()
     torch.cuda.reset_peak_memory_stats()
@@ -507,61 +541,50 @@ def character_path(records, profiling: bool) -> dict:
     if not ok:
         raise SystemExit("encode_ip_image: bad features")
 
-    run, sched = character.make_character_pipeline(
+    run, _ = character.make_character_pipeline(
         bundle, SD15_STEPS, use_ip=True, capture_ref_attn=True)
-    h, w = cfg.pipeline.latent_height, cfg.pipeline.latent_width
-    keys = cfg.guidance.attn_keys
-    hw_of = {"mid": h * w // 64, "up": h * w // 16}
-    per_eval = {"0": 0, "1": gn_launches_per_eval(bundle.unet_ip.cfg, h, w)}
-    if per_eval["1"] != 61:
-        raise SystemExit(f"IP UNet routes {per_eval['1']} GroupNorms, "
-                         f"want 61")
     seconds = collections.defaultdict(list)
-    for i, (mode, scale) in enumerate(AB_REQUESTS):
+    for i, (mode, scale) in enumerate(CHAR_REQUESTS):
         gn.FUSED_MODE = mode
-        want = {"flash_attention": 10 * SD15_STEPS,
-                "ff_geglu": 16 * SD15_STEPS, "geglu_matmul": 0,
-                "group_norm": per_eval[mode] * SD15_STEPS}
-        g = torch.Generator(device="cuda").manual_seed(200 + i)
-        lat = torch.randn(1, h, w, 4, device="cuda", generator=g)
-        reset_counts()
-        t0 = time.perf_counter()
-        text = sd.encode_prompts(bundle, PROMPTS[i % len(PROMPTS)])
-        ctx = character.ip_context(
-            bundle, text, character.encode_ip_image(bundle, image))
-        res = run(lat, ctx, scale)
-        torch.cuda.synchronize()
-        seconds[mode].append(time.perf_counter() - t0)
-        got = read_counts()
-        for r in records:
-            r["launches"] += got[r["name"]]
-            if CHAR in r["per_model"]:
-                r["per_model"][CHAR]["launches"] += got[r["name"]]
-        finite = bool(torch.isfinite(res.trajectory).all()) and all(
-            bool(torch.isfinite(m).all()) for m in res.ref_attn)
-        shapes = [tuple(m.shape) for m in res.ref_attn]
-        want_shapes = [(SD15_STEPS, 8, hw_of[k[0]]) for k in keys]
-        log(f"  character request {i} (switch {mode}, ip_scale {scale}): "
-            f"{seconds[mode][-1]:.3f} s  launches {got}  trajectory "
-            f"{tuple(res.trajectory.shape)}  ref_attn {shapes}  finite "
-            f"{finite}  latent std {res.latents.std():.4f}")
-        if (tuple(res.trajectory.shape) != (SD15_STEPS + 1, 1, h, w, 4)
-                or shapes != want_shapes or not finite):
-            raise SystemExit(f"character request {i}: bad result")
-        if got != want:
-            raise SystemExit(f"character request {i}: launches {got}, "
-                             f"want {want}")
+        seconds[mode].append(character_request(bundle, run, image, i, scale,
+                                               records))
     peak = torch.cuda.max_memory_allocated()
-    mean = {m: sum(v) / len(v) for m, v in seconds.items()}
-    log(f"  seconds per request by switch {dict(seconds)}; means {mean}; "
-        f"peak memory {peak / 2 ** 30:.3f} GiB")
+    log(f"  seconds per request by switch {dict(seconds)}; peak memory "
+        f"{peak / 2 ** 30:.3f} GiB")
     out = dict(seconds_per_request=dict(seconds), peak_bytes=peak,
-               unet_kernels_vs_plain_rel=rel,
-               **host_ab(bundle, ip_scale=ip_scale))
+               unet_kernels_vs_plain_rel=rel)
     if profiling:
         out["gn_ab_device_ms"] = gn_ab_profile(bundle, bundle.unet_ip,
                                                ip_scale=ip_scale)
+        out["gn_ab_requests"] = request_ab(
+            CHAR, lambda p: character_request(bundle, run, image, 10 + p,
+                                              0.4, []))
+        out.update(host_ab(bundle, ip_scale=ip_scale))
     gn.FUSED_MODE = prev_mode
+    return out
+
+
+def request_ab(model: str, one_request) -> dict:
+    """Seconds per request with the GroupNorm switch at "0" and "1" in
+    turns: AB_PAIRS[model] pairs in ABBA order (0 1, 1 0, 0 1, ...), so a
+    drift of the shared host's pace falls on both sides; ``one_request(p)``
+    runs pair p's request under the current switch.  Reports the paired
+    differences "1" - "0", their mean, standard deviation and standard
+    error."""
+    pairs, prev_mode = AB_PAIRS[model], gn.FUSED_MODE
+    secs = {"0": [], "1": []}
+    for p in range(pairs):
+        for mode in ("0", "1") if p % 2 == 0 else ("1", "0"):
+            gn.FUSED_MODE = mode
+            secs[mode].append(one_request(p))
+    gn.FUSED_MODE = prev_mode
+    diffs = [b - a for a, b in zip(secs["0"], secs["1"])]
+    mean = sum(diffs) / pairs
+    sd_ = (sum((d - mean) ** 2 for d in diffs) / (pairs - 1)) ** 0.5
+    out = dict(seconds=secs, diffs=diffs, mean_diff=mean, sd_diff=sd_,
+               se_diff=sd_ / pairs ** 0.5,
+               mean_seconds={m: sum(v) / pairs for m, v in secs.items()})
+    log(f"  {model} request A/B over {pairs} pairs: {json.dumps(out)}")
     return out
 
 
@@ -655,11 +678,16 @@ def profile(bundle, encode) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
-                    help="print device time by kernel for one UNet "
-                         "evaluation of each model")
+                    help="also print device time by kernel for one UNet "
+                         "evaluation of each model, and run the GroupNorm "
+                         "A/B")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if gn.FUSED_MODE not in ("0", "1"):
+        print(f"chip_smoke: THEATERGEN_FUSED_GN={gn.FUSED_MODE!r}; the launch "
+              f"counts are set for \"0\" or \"1\"", file=sys.stderr)
         return 1
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -670,7 +698,8 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     log(card)
     log(f"device: {torch.cuda.get_device_name(0)}  torch {torch.__version__} "
-        f"cuda {torch.version.cuda}  python {sys.version.split()[0]}")
+        f"cuda {torch.version.cuda}  python {sys.version.split()[0]}  "
+        f"THEATERGEN_FUSED_GN {gn.FUSED_MODE}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()

@@ -271,6 +271,37 @@ def test_group_norm_plain_rounds_once_after_silu():
         tgn.fused_group_norm(x, w, b, act="swish")
 
 
+@pytest.mark.parametrize("cpg", [10, 30, 80])
+def test_group_norm_plain_keeps_the_variance_centred(cpg):
+    """The large-mean input of the card checks (mean 1024, std 1.5, in
+    bf16: a few distinct values, mean/std ~ 700), 32 groups over 16x16:
+    the plain version stays within 1e-3·max|ref| of an fp64 GroupNorm+SiLU,
+    while the variance taken as E[x²] - mean² in fp32 misses even the
+    kernels' 1e-2·max|ref|, so that input can tell the two apart."""
+    g, c = 32, 32 * cpg
+    rng = np.random.RandomState(cpg)
+    x = torch.from_numpy(rng.randn(2, c, 16, 16) * 1.5 + 1024.0).to(
+        torch.bfloat16)
+    w = torch.from_numpy(1.0 + 0.2 * rng.randn(c)).float()
+    b = torch.from_numpy(0.1 * rng.randn(c)).float()
+    xd = x.double().reshape(2, g, -1)
+    mean = xd.mean(-1, keepdim=True)
+    var = (xd - mean).square().mean(-1, keepdim=True)
+    ref = ((xd - mean) / torch.sqrt(var + 1e-5)).reshape(2, c, -1)
+    ref = torch.nn.functional.silu(ref * w.double()[:, None]
+                                   + b.double()[:, None]).reshape(x.shape)
+    got = tgn.fused_group_norm_plain(x.float(), w, b, act="silu")
+    assert x.unique().numel() >= 3
+    assert (got.double() - ref).abs().max() <= 1e-3 * ref.abs().max()
+    xf = x.float().reshape(2, g, -1)
+    m32 = xf.mean(-1, keepdim=True)
+    var32 = (xf.square().mean(-1, keepdim=True) - m32.square()).clamp_min(0)
+    unc = ((xf - m32) * torch.rsqrt(var32 + 1e-5)).reshape(2, c, -1)
+    unc = torch.nn.functional.silu(unc * w[:, None] + b[:, None])
+    assert (unc.reshape(x.shape).double() - ref).abs().max() \
+        > 1e-2 * ref.abs().max()
+
+
 @pytest.mark.parametrize("hwc", [
     (64, 64, 320), (64, 64, 960), (32, 32, 640), (16, 16, 1280),
     (8, 8, 2560), (128, 128, 320), (128, 128, 640), (3, 3, 64),

@@ -67,19 +67,21 @@ def test_ddim_tables_equal(steps, fast, kw):
                                       ("v_prediction", 0.0),
                                       ("sample", 0.0)])
 def test_ddim_step_matches(pred, eta):
-    """One step at every loop position, with injected noise where eta > 0;
-    fp32 elementwise: bound 2e-6 relative to O(1) latents."""
+    """One step at every loop position (the port reading its device
+    tables), with injected noise where eta > 0; fp32 elementwise: bound
+    2e-6 relative to O(1) latents."""
     sched_j = jsched.make_schedule(
         jcfg.SchedulerConfig(prediction_type=pred), 10)
-    sched_t = tsched.make_schedule(
-        tcfg.SchedulerConfig(prediction_type=pred), 10)
+    tables = tsched.device_tables(tsched.make_schedule(
+        tcfg.SchedulerConfig(prediction_type=pred), 10), "cpu")
+    assert tables.prediction_type == pred
     rng = np.random.RandomState(3)
     x, eps, noise = (rng.randn(2, 4, 4, 4).astype(np.float32)
                      for _ in range(3))
     for i in range(10):
         ref = jsched.ddim_step(sched_j, jnp.asarray(eps), i, jnp.asarray(x),
                                eta=eta, noise=jnp.asarray(noise))
-        got = tsched.ddim_step(sched_t, torch.from_numpy(eps), i,
+        got = tsched.ddim_step(tables, torch.from_numpy(eps), i,
                                torch.from_numpy(x), eta=eta,
                                noise=torch.from_numpy(noise))
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-6,

@@ -31,9 +31,11 @@ import torch.nn.functional as F
 from .. import _build
 
 # the port's default when THEATERGEN_FUSED_GN is unset.  The JAX package's
-# is "0"; on the H100 the kernel won the device time per evaluation of
-# both UNets and showed no loss in seconds per request (chip_smoke.py's
-# A/B; PERF.md §6)
+# is "0".  On an H100 (chip_smoke.py --profile; PERF.md §6) the kernel won
+# the device time per evaluation of both UNets, and in request pairs the
+# mean seconds per request under "1" were not above "0", for the
+# character pass or for SDXL; those request-time differences lie within
+# one standard error of zero
 DEFAULT_MODE = "1"
 FUSED_MODE = os.environ.get("THEATERGEN_FUSED_GN", DEFAULT_MODE)
 

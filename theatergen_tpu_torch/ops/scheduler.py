@@ -104,6 +104,7 @@ class DeviceTables:
     timesteps: torch.Tensor        # [S] int64
     alpha_prod: torch.Tensor       # [S] float32
     alpha_prod_prev: torch.Tensor  # [S] float32
+    prediction_type: str = "epsilon"
 
 
 def device_tables(sched: DDIMSchedule, device) -> DeviceTables:
@@ -112,7 +113,8 @@ def device_tables(sched: DDIMSchedule, device) -> DeviceTables:
 
     return DeviceTables(put(sched.timesteps, torch.long),
                         put(sched.alpha_prod, torch.float32),
-                        put(sched.alpha_prod_prev, torch.float32))
+                        put(sched.alpha_prod_prev, torch.float32),
+                        sched.prediction_type)
 
 
 def x0_eps_from_pred(prediction_type: str, a_t: torch.Tensor,
@@ -134,23 +136,15 @@ def x0_eps_from_pred(prediction_type: str, a_t: torch.Tensor,
     return x0, eps
 
 
-def ddim_step(sched: DDIMSchedule, model_output: torch.Tensor, i: int,
+def ddim_step(tables: DeviceTables, model_output: torch.Tensor, i: int,
               sample: torch.Tensor, *, eta: float = 0.0,
-              noise: Optional[torch.Tensor] = None,
-              tables: Optional[DeviceTables] = None) -> torch.Tensor:
+              noise: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One DDIM update x_t → x_{t_prev} at loop position ``i`` (diffusers
-    ``DDIMScheduler.step`` with ``clip_sample=False``); with ``tables``
-    (:func:`device_tables` of ``sched``) the alphas come from them."""
-    def scalar(x):
-        return torch.tensor(float(x), dtype=sample.dtype, device=sample.device)
-
-    if tables is not None:
-        a_t = tables.alpha_prod[i].to(sample.dtype)
-        a_prev = tables.alpha_prod_prev[i].to(sample.dtype)
-    else:
-        a_t = scalar(sched.alpha_prod[i])
-        a_prev = scalar(sched.alpha_prod_prev[i])
-    x0, eps = x0_eps_from_pred(sched.prediction_type, a_t, model_output,
+    ``DDIMScheduler.step`` with ``clip_sample=False``), the alphas indexed
+    from ``tables`` (:func:`device_tables`, on ``sample``'s device)."""
+    a_t = tables.alpha_prod[i].to(sample.dtype)
+    a_prev = tables.alpha_prod_prev[i].to(sample.dtype)
+    x0, eps = x0_eps_from_pred(tables.prediction_type, a_t, model_output,
                                sample)
     if eta <= 0.0:
         return torch.sqrt(a_prev) * x0 + torch.sqrt(1.0 - a_prev) * eps

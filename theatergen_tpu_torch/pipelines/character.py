@@ -160,7 +160,7 @@ def make_character_pipeline(bundle: Bundle, num_steps: int, *,
             else:
                 eps = out
             eps = cfg_combine(eps.float(), gs)
-            lat = sched_ops.ddim_step(sched, eps, i, lat, tables=tables)
+            lat = sched_ops.ddim_step(tables, eps, i, lat)
         final = lat.permute(0, 2, 3, 1)
         traj[s_total] = final
         return CharacterResult(final, traj, refs)

@@ -41,9 +41,12 @@ def denoise(unet, sched: DDIMSchedule, latents: torch.Tensor,
     """Run the DDIM/CFG loop.  ``unet(sample NCHW, t [2B], context)`` gives
     eps; ``latents`` is NHWC fp32.  Returns ``(final, trajectory or None)``,
     where ``trajectory[s]`` is the latent entering step s and the last entry
-    the final latent (``[S+1, B, h, w, C]``, preallocated)."""
+    the final latent (``[S+1, B, h, w, C]``, preallocated).  The timesteps
+    and alphas are indexed from tables on the device: no host copy per
+    step."""
     s_total = sched.num_steps
     lat = latents.permute(0, 3, 1, 2).float()
+    tables = sched_ops.device_tables(sched, lat.device)
     traj = None
     if collect_trajectory:
         traj = torch.empty((s_total + 1,) + tuple(latents.shape),
@@ -51,11 +54,10 @@ def denoise(unet, sched: DDIMSchedule, latents: torch.Tensor,
     for i in range(s_total):
         if traj is not None:
             traj[i] = lat.permute(0, 2, 3, 1)
-        t = torch.full((2 * lat.shape[0],), int(sched.timesteps[i]),
-                       dtype=torch.long, device=lat.device)
+        t = tables.timesteps[i].expand(2 * lat.shape[0])
         eps = unet(torch.cat([lat, lat], dim=0), t, context)
         eps = cfg_combine(eps.float(), guidance_scale)
-        lat = sched_ops.ddim_step(sched, eps, i, lat)
+        lat = sched_ops.ddim_step(tables, eps, i, lat)
     final = lat.permute(0, 2, 3, 1)
     if traj is not None:
         traj[s_total] = final
