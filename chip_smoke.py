@@ -15,10 +15,16 @@ Phases, in order (any failure exits non-zero):
   5. SD1.5: ``init_bundle(sd15_config())``, one full-size UNet evaluation
      with the kernels against the same UNet under ``plain_path()``, then
      ``Text2Img(bundle, num_steps=50)`` on three prompts at 512 px, CFG 7.5;
-  6. SDXL: the SD1.5 bundle freed, ``init_bundle(sdxl_config())``, the same
+  6. W8A8 SD1.5: the SD1.5 bundle freed, ``init_bundle`` of
+     ``sd15_config()`` with ``quantized=True`` (the seeded float weights
+     quantized), the same UNet check at ``THEATERGEN_FUSED_INT8`` "1" and
+     its error against the float SD1.5 UNet of the same seed, then
+     ``Text2Img(bundle, num_steps=50)`` on three prompts with the switch at
+     "1" (every quantized linear through ``quant_matmul``) and one at "0";
+  7. SDXL: the W8A8 bundle freed, ``init_bundle(sdxl_config())``, the same
      UNet check, then ``Text2ImgXL(bundle, num_steps=30)`` on two prompts at
      1024 px, Euler-Ancestral, CFG 7.5;
-  7. the IP-Adapter character pass:
+  8. the IP-Adapter character pass:
      ``init_bundle(sd15_config(), with_ip=True, with_vision=True)``, the IP
      UNet with the kernels against ``plain_path()`` (``THEATERGEN_FUSED_GN``
      at "1"), ``encode_ip_image`` of a seeded 512² image, ``ip_context``,
@@ -27,11 +33,12 @@ Phases, in order (any failure exits non-zero):
      switch at "1", and one at 0.4 with the switch at "0".
 Every launch counter is set to 0 just before each request and read just
 after it, and must equal the constant launches per request of each kernel
-(SD1.5 and SDXL under the switch's default).  Then one JSON line of kernel
-records and, last, the device line.  ``--profile`` adds the device time by
-kernel of one UNet evaluation of each model and the GroupNorm A/B: device
-ms per evaluation of both UNets, request pairs of the character pass and
-SDXL, and host ms per evaluation and per norm layer.
+(SD1.5, W8A8 and SDXL under the GroupNorm switch's default).  Then one
+JSON line of kernel records and, last, the device line.  ``--profile``
+adds the device time by kernel of one UNet evaluation of each model (the
+W8A8 UNet at "1" too) and the GroupNorm A/B: device ms per evaluation of
+both UNets, request pairs of the character pass and SDXL, and host ms per
+evaluation and per norm layer.
 Needs a CUDA device; without one it exits non-zero and prints no result.
 """
 
@@ -45,6 +52,8 @@ import subprocess
 import sys
 import time
 
+import dataclasses
+
 import torch
 import torch.nn.functional as F
 
@@ -54,15 +63,19 @@ from theatergen_tpu_torch.models.layers import GroupNorm, plain_path
 from theatergen_tpu_torch.ops import flash_attention as fa
 from theatergen_tpu_torch.ops import geglu_matmul as gg
 from theatergen_tpu_torch.ops import groupnorm as gn
+from theatergen_tpu_torch.ops import quant as qz
+from theatergen_tpu_torch.ops import quant_matmul as qm
 from theatergen_tpu_torch.pipelines import character, sd, sdxl
 from theatergen_tpu_torch.pipelines.bundle import init_bundle
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 # the kernels' outputs are bf16: 8 mantissa bits round at ~4e-3 relative
 TOL = 1e-2
 SD15, SDXL, CHAR = "sd15_512", "sdxl_1024", "sd15_512_ip"
+W8A8 = "sd15_512_w8a8"
 # (model, shape, calls per UNet evaluation of that model); batch 1 with
 # CFG, so 2 rows.  SD1.5: 10 transformer blocks at 64²/32²/16²/8²;
 # SDXL: 10 blocks at 64² (4 down, 6 up) and 60 at 32² (20 down, 10 mid,
@@ -72,6 +85,21 @@ FLASH_SHAPES = [(SD15, (2, 4096, 8, 40), 5), (SD15, (2, 1024, 8, 80), 5),
 FF_SHAPES = [(SD15, (8192, 320, 1280), 5), (SD15, (2048, 640, 2560), 5),
              (SD15, (512, 1280, 5120), 5), (SD15, (128, 1280, 5120), 1)]
 GEGLU_SHAPES = [(SDXL, (8192, 2560, 640), 10), (SDXL, (2048, 5120, 1280), 60)]
+# quant_matmul's (M, K, N) in one W8A8 SD1.5 UNet evaluation (CFG batch 2)
+# and calls per evaluation (184): per transformer block the six (M, C, C)
+# projections, to_k/to_v of the 77-token context (M = 154, K = 768),
+# ff.net.0.proj (N = 8C) and ff.net.2 (K = 4C), at 64², 32², 16² (5 blocks
+# each) and 8² (the mid block); 22 time_emb_proj and 2 time_embedding
+# linears at M = 2.  Then a ragged shape the path does not run (calls 0)
+QMM_SHAPES = [(W8A8, mkn, n) for mkn, n in (
+    ((8192, 320, 320), 30), ((154, 768, 320), 10), ((8192, 320, 2560), 5),
+    ((8192, 1280, 320), 5), ((2048, 640, 640), 30), ((154, 768, 640), 10),
+    ((2048, 640, 5120), 5), ((2048, 2560, 640), 5), ((512, 1280, 1280), 30),
+    ((154, 768, 1280), 12), ((512, 1280, 10240), 5), ((512, 5120, 1280), 5),
+    ((128, 1280, 1280), 6), ((128, 1280, 10240), 1), ((128, 5120, 1280), 1),
+    ((2, 320, 1280), 1), ((2, 1280, 1280), 13), ((2, 1280, 640), 5),
+    ((2, 1280, 320), 5), ((40, 128, 130), 0))]
+QMM_PER_EVAL = 184
 # GroupNorm sites that reach the kernel under THEATERGEN_FUSED_GN=1, CFG
 # batch 2, 32 groups: (B, C, H·W) and calls per evaluation.  The SD1.5
 # UNet (the IP UNet's are the same) at 512 px: 61, 45 with SiLU.  SDXL at
@@ -106,7 +134,8 @@ PROMPTS = ["a red knight rides through a dark forest",
 COUNTERS = {"flash_attention": (fa, "launches"),
             "ff_geglu": (gg, "ff_launches"),
             "geglu_matmul": (gg, "geglu_launches"),
-            "group_norm": (gn, "launches")}
+            "group_norm": (gn, "launches"),
+            "quant_matmul": (qm, "launches")}
 
 
 def log(*a):
@@ -122,8 +151,8 @@ def read_counts() -> dict:
     return {name: getattr(mod, attr) for name, (mod, attr) in COUNTERS.items()}
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, peak_ops: float = PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak_ops, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -173,11 +202,11 @@ def check(err: float, ref_max: float, what: str) -> None:
 
 
 def _row(model, shape, calls, err, flops, nbytes, kernel, plain, library,
-         plain_iters, graphs=False):
+         plain_iters, graphs=False, peak_ops=PEAK_BF16_FLOPS):
     """Times by CUDA events over back-to-back eager calls; with ``graphs``
     by CUDA-graph replay (device time, graph_ms), the eager kernel time
     kept as ``eager_ms``."""
-    bms, by = bound(flops, nbytes)
+    bms, by = bound(flops, nbytes, peak_ops)
     row = dict(model=model, shape=list(shape), calls_per_unet_eval=calls,
                max_abs_err=err, bound_ms=bms, bound_by=by)
     if graphs:
@@ -302,6 +331,40 @@ def gn_phase(gen) -> dict:
                    "fused_group_norm (_gn_fused)", rows)
 
 
+def qmm_phase(gen) -> dict:
+    """quant_matmul at every shape of the W8A8 UNet and a ragged one,
+    with a bias (every call of the path but to_q/to_k/to_v has one):
+    checked against the plain version from the same bf16 inputs (the two
+    are designed to agree bit for bit; the count of differing outputs is
+    printed), timed as CUDA-graph replays (the M = 2 calls are shorter than
+    an eager launch) against the library layer W8A8 replaces, ``F.linear``
+    in bf16 with the dequantized weight.  The bound takes the int8 peak."""
+    rows = []
+    for model, (m, k, n), calls in QMM_SHAPES:
+        x = randn(gen, m, k)
+        w = torch.randn(n, k, device="cuda", generator=gen) * k ** -0.5
+        wq, ws = qz.quantize_linear_weight(w)
+        bias = randn(gen, n, scale=0.1)
+        w_deq = (wq.float() * ws[:, None]).to(torch.bfloat16)
+        out = qm.quant_matmul(x, wq, ws, bias)
+        torch.cuda.synchronize()
+        ref = qm.quant_matmul_plain(x, wq, ws, bias)
+        err = (out.float() - ref.float()).abs().max().item()
+        check(err, ref.float().abs().max().item(),
+              f"quant_matmul M={m} K={k} N={n} "
+              f"({int((out != ref).sum())} of {m * n} outputs differ)")
+        rows.append(_row(
+            model, (m, k, n), calls, err, qm.flops(m, k, n),
+            qm.min_bytes(m, k, n), lambda: qm.quant_matmul(x, wq, ws, bias),
+            lambda: qm.quant_matmul_plain(x, wq, ws, bias),
+            lambda: F.linear(x, w_deq, bias), 5, graphs=True,
+            peak_ops=PEAK_INT8_OPS))
+        del x, w, wq, ws, bias, w_deq, out, ref
+    return _record("quant_matmul", "csrc/quant_matmul.cu",
+                   "theatergen_tpu/ops/quant_matmul.py:92",
+                   "quant_matmul (_qmm_kernel)", rows)
+
+
 def _record(name, source, replaces, tpu_function, rows) -> dict:
     """One kernel's record.  Times are summed over one UNet evaluation of
     each model that calls the kernel (each shape times its calls), and per
@@ -322,7 +385,8 @@ def _record(name, source, replaces, tpu_function, rows) -> dict:
         bound_by=max(rows, key=lambda r: r["bound_ms"])["bound_by"],
         per="one UNet evaluation of each model that calls it (sd15_512: "
             "SD1.5 512 px, sdxl_1024: SDXL 1024 px, sd15_512_ip: the SD1.5 "
-            "IP UNet of the character pass), batch 1 with CFG",
+            "IP UNet of the character pass, sd15_512_w8a8: the SD1.5 W8A8 "
+            "UNet), batch 1 with CFG",
         per_model=per_model, shapes=rows)
 
 
@@ -353,10 +417,10 @@ def unet_inputs(bundle, seed: int, t_value: int, ctx_len: int = None):
     return x, t, ctx, cond
 
 
-def unet_reference_phase(bundle, rel_bound: float, unet=None,
-                         **kw) -> float:
+def unet_reference_phase(bundle, rel_bound: float, unet=None, **kw):
     """One full-size UNet evaluation with the kernels vs plain_path();
-    ``unet`` defaults to the bundle's, ``kw`` go to its call."""
+    ``unet`` defaults to the bundle's, ``kw`` go to its call.  Returns the
+    relative difference and the kernels' eps (fp32)."""
     unet = bundle.unet if unet is None else unet
     x, t, ctx, cond = unet_inputs(bundle, 1, 981,
                                   77 + unet.cfg.ip_num_tokens)
@@ -370,7 +434,7 @@ def unet_reference_phase(bundle, rel_bound: float, unet=None,
         f"(bound {rel_bound:g})  {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("UNet with kernels disagrees with its plain path")
-    return rel
+    return rel, fast
 
 
 def run_requests(model, pipe, prompts, want, size, records) -> list:
@@ -418,11 +482,11 @@ def sd15_path(records, profiling: bool) -> dict:
     bundle = build_bundle(sd15_config(), "sd15_config()")
     # bf16 activations through 16 transformer blocks: the two paths round
     # differently (fp32 vs bf16 GEGLU up-projection, fp32 logits)
-    rel = unet_reference_phase(bundle, 5e-2)
+    rel, eps = unet_reference_phase(bundle, 5e-2)
     pipe = sd.Text2Img(bundle, num_steps=SD15_STEPS)
     want = {"flash_attention": 10 * SD15_STEPS,
             "ff_geglu": 16 * SD15_STEPS, "geglu_matmul": 0,
-            "group_norm": gn_want(SD15, SD15_STEPS)}
+            "group_norm": gn_want(SD15, SD15_STEPS), "quant_matmul": 0}
     seconds = run_requests(SD15, pipe, PROMPTS, want, 512, records)
     peak = torch.cuda.max_memory_allocated()
     log(f"  seconds per request {seconds}; peak memory "
@@ -430,7 +494,48 @@ def sd15_path(records, profiling: bool) -> dict:
     if profiling:
         profile(bundle, sd.encode_prompts)
     return dict(seconds_per_request=seconds, peak_bytes=peak,
-                unet_kernels_vs_plain_rel=rel)
+                unet_kernels_vs_plain_rel=rel), eps
+
+
+def w8a8_path(records, profiling: bool, float_eps, sd15: dict) -> dict:
+    """The SD1.5 W8A8 UNet: built from the SD1.5 seed (the float weights
+    quantized), checked with the kernels against plain_path() and compared
+    with the float UNet's eps (``float_eps``, same seed and inputs); three
+    50-step requests with THEATERGEN_FUSED_INT8 at "1", one at "0"."""
+    prev_mode, qz.FUSED_MODE = qz.FUSED_MODE, "1"
+    cfg = sd15_config()
+    cfg = dataclasses.replace(cfg, unet=dataclasses.replace(
+        cfg.unet, quantized=True))
+    bundle = build_bundle(cfg, "sd15_config(), quantized=True")
+    # as the SD1.5 check (bf16 flash and GroupNorm paths round
+    # differently); a value the two paths round apart can cross an int8
+    # tie, so the difference spreads to later layers as int8 steps
+    rel, eps = unet_reference_phase(bundle, 5e-2)
+    rel_float = ((eps - float_eps).abs().max()
+                 / float_eps.abs().max()).item()
+    log(f"  W8A8 UNet eps vs the float SD1.5 UNet of the same seed: "
+        f"max|diff|/max|ref| {rel_float:.3e}")
+    pipe = sd.Text2Img(bundle, num_steps=SD15_STEPS)
+    seconds = {}
+    for mode, prompts in (("1", PROMPTS), ("0", PROMPTS[:1])):
+        qz.FUSED_MODE = mode
+        want = {"flash_attention": 10 * SD15_STEPS, "ff_geglu": 0,
+                "geglu_matmul": 0, "group_norm": gn_want(SD15, SD15_STEPS),
+                "quant_matmul": QMM_PER_EVAL * SD15_STEPS if mode == "1"
+                else 0}
+        seconds[mode] = run_requests(W8A8, pipe, prompts, want, 512,
+                                     records)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  seconds per request by THEATERGEN_FUSED_INT8 {seconds}; peak "
+        f"memory {peak / 2 ** 30:.3f} GiB (bf16 SD1.5 in this call: "
+        f"{sd15['seconds_per_request']} s, "
+        f"{sd15['peak_bytes'] / 2 ** 30:.3f} GiB)")
+    if profiling:
+        qz.FUSED_MODE = "1"
+        profile(bundle, sd.encode_prompts)
+    qz.FUSED_MODE = prev_mode
+    return dict(seconds_per_request=seconds, peak_bytes=peak,
+                unet_kernels_vs_plain_rel=rel, unet_vs_float_rel=rel_float)
 
 
 def sdxl_path(records, profiling: bool) -> dict:
@@ -439,13 +544,13 @@ def sdxl_path(records, profiling: bool) -> dict:
     # differently (h from an fp32 gate vs bf16 gelu and product, fp32
     # logits).  Measured 1.99e-2 on an H100 (PERF.md §6): the SD1.5
     # bound, 2.5x above it, holds here too
-    rel = unet_reference_phase(bundle, 5e-2)
+    rel, _ = unet_reference_phase(bundle, 5e-2)
     pipe = sdxl.Text2ImgXL(bundle, num_steps=SDXL_STEPS)
 
     def want():
         return {"flash_attention": 70 * SDXL_STEPS, "ff_geglu": 0,
                 "geglu_matmul": 70 * SDXL_STEPS,
-                "group_norm": gn_want(SDXL, SDXL_STEPS)}
+                "group_norm": gn_want(SDXL, SDXL_STEPS), "quant_matmul": 0}
 
     seconds = run_requests(SDXL, pipe, PROMPTS[:2], want(), 1024, records)
     peak = torch.cuda.max_memory_allocated()
@@ -472,7 +577,8 @@ def character_request(bundle, run, image, i: int, scale: float,
     h, w = cfg.pipeline.latent_height, cfg.pipeline.latent_width
     hw_of = {"mid": h * w // 64, "up": h * w // 16}
     want = {"flash_attention": 10 * SD15_STEPS, "ff_geglu": 16 * SD15_STEPS,
-            "geglu_matmul": 0, "group_norm": gn_want(CHAR, SD15_STEPS)}
+            "geglu_matmul": 0, "group_norm": gn_want(CHAR, SD15_STEPS),
+            "quant_matmul": 0}
     g = torch.Generator(device="cuda").manual_seed(200 + i)
     lat = torch.randn(1, h, w, 4, device="cuda", generator=g)
     reset_counts()
@@ -527,8 +633,8 @@ def character_path(records, profiling: bool) -> dict:
     ip_scale = torch.tensor(0.4, device="cuda")
     # as the SD1.5 check: bf16 through 16 blocks, plus the kernel's single
     # rounding after the SiLU at 61 norms
-    rel = unet_reference_phase(bundle, 5e-2, bundle.unet_ip,
-                               ip_scale=ip_scale)
+    rel, _ = unet_reference_phase(bundle, 5e-2, bundle.unet_ip,
+                                  ip_scale=ip_scale)
 
     g = torch.Generator(device="cuda").manual_seed(7)
     image = torch.rand(1, 512, 512, 3, device="cuda", generator=g)
@@ -689,6 +795,11 @@ def main() -> int:
         print(f"chip_smoke: THEATERGEN_FUSED_GN={gn.FUSED_MODE!r}; the launch "
               f"counts are set for \"0\" or \"1\"", file=sys.stderr)
         return 1
+    if qz.FUSED_MODE != "0":
+        print(f"chip_smoke: THEATERGEN_FUSED_INT8={qz.FUSED_MODE!r}; the "
+              f"script sets the switch itself for the W8A8 requests and "
+              f"keeps the port's default \"0\" elsewhere", file=sys.stderr)
+        return 1
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
@@ -699,7 +810,8 @@ def main() -> int:
     log(card)
     log(f"device: {torch.cuda.get_device_name(0)}  torch {torch.__version__} "
         f"cuda {torch.version.cuda}  python {sys.version.split()[0]}  "
-        f"THEATERGEN_FUSED_GN {gn.FUSED_MODE}")
+        f"THEATERGEN_FUSED_GN {gn.FUSED_MODE}  THEATERGEN_FUSED_INT8 "
+        f"{qz.FUSED_MODE}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -717,12 +829,20 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     log("[check+time] kernels vs plain versions at both models' shapes")
     records = [flash_phase(gen), ff_phase(gen), geglu_phase(gen),
-               gn_phase(gen)]
+               gn_phase(gen), qmm_phase(gen)]
     torch.cuda.synchronize()
 
     log(f"[main path] SD1.5 Text2Img, 512 px, {SD15_STEPS} DDIM steps, "
         f"CFG 7.5, bf16")
-    paths = {SD15: sd15_path(records, args.profile)}
+    paths = {}
+    paths[SD15], float_eps = sd15_path(records, args.profile)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[main path] W8A8 SD1.5 Text2Img, 512 px, {SD15_STEPS} DDIM steps, "
+        f"CFG 7.5, bf16 activations, int8 weights at the {QMM_PER_EVAL} "
+        f"quantized linears")
+    paths[W8A8] = w8a8_path(records, args.profile, float_eps, paths[SD15])
+    del float_eps
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[main path] SDXL Text2ImgXL, 1024 px, {SDXL_STEPS} Euler-Ancestral "

@@ -15,6 +15,8 @@ from theatergen_tpu_torch.models import layers as tl
 from theatergen_tpu_torch.ops import flash_attention as tfa
 from theatergen_tpu_torch.ops import geglu_matmul as tgg
 from theatergen_tpu_torch.ops import groupnorm as tgn
+from theatergen_tpu_torch.ops import quant as tq
+from theatergen_tpu_torch.ops import quant_matmul as tqm
 
 
 def _card():
@@ -313,3 +315,131 @@ def test_plain_path_launches_no_group_norm(monkeypatch):
     assert (mid - n0, tgn.launches - mid) == (2, 0)
     rel = (fast.float() - plain.float()).abs().max() / plain.float().abs().max()
     assert rel <= 2e-2
+
+
+# (M, K, N) of the SD1.5 W8A8 UNet's quant_matmul calls (CFG batch 2)
+QMM_PATH_SHAPES = [
+    (8192, 320, 320), (154, 768, 320), (8192, 320, 2560), (8192, 1280, 320),
+    (2048, 640, 640), (154, 768, 640), (2048, 640, 5120), (2048, 2560, 640),
+    (512, 1280, 1280), (154, 768, 1280), (512, 1280, 10240),
+    (512, 5120, 1280), (128, 1280, 1280), (128, 1280, 10240),
+    (128, 5120, 1280), (2, 320, 1280), (2, 1280, 1280), (2, 1280, 640),
+    (2, 1280, 320)]
+
+
+def _qmm_inputs(dev, m, k, n, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(m, k, device=dev, generator=g).to(torch.bfloat16)
+    w = torch.randn(n, k, device=dev, generator=g) * k ** -0.5
+    wq, ws = tq.quantize_linear_weight(w)
+    bias = (0.1 * torch.randn(n, device=dev, generator=g)).to(torch.bfloat16)
+    return x, wq, ws, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", QMM_PATH_SHAPES + [(40, 128, 130),
+                                                    (100, 320, 2560)])
+def test_quant_matmul_kernel_matches_plain_on_card(m, k, n):
+    """The kernel vs its plain version from the same bf16 inputs, at every
+    shape of the path and two ragged ones (M = 40 and 100, N = 130), with
+    and without bias.  Each step is the same IEEE fp32 operation in the
+    same order and the int32 sum is exact, so the outputs are equal bit
+    for bit (the chip_smoke.py gate, 1e-2·max|ref|, is far looser)."""
+    dev = _card()
+    x, wq, ws, bias = _qmm_inputs(dev, m, k, n, m + n)
+    for b in (bias, None):
+        out = tqm.quant_matmul(x, wq, ws, b)
+        ref = tqm.quant_matmul_plain(x, wq, ws, b)
+        torch.cuda.synchronize()
+        assert out.shape == (m, n) and out.dtype == torch.bfloat16
+        assert torch.equal(out, ref), (out.float() - ref.float()).abs().max()
+
+
+@pytest.mark.cuda
+def test_quant_matmul_wrapper_refuses_what_the_kernel_does_not_take():
+    """K % 32 != 0, a weight that is not int8 or not contiguous, fp32
+    scales in the wrong shape and fp32 activations raise on the card; one
+    launch is counted per kernel call and none for the plain version."""
+    dev = _card()
+    x, wq, ws, bias = _qmm_inputs(dev, 64, 320, 256, 0)
+    with pytest.raises(ValueError):
+        tqm.quant_matmul(x[:, :304], wq[:, :304].contiguous(), ws)
+    with pytest.raises(ValueError):
+        tqm.quant_matmul(x, wq.float(), ws)
+    with pytest.raises(ValueError):
+        tqm.quant_matmul(x, wq.t().contiguous().t(), ws)
+    with pytest.raises(ValueError):
+        tqm.quant_matmul(x, wq, ws[:128])
+    with pytest.raises(TypeError):
+        tqm.quant_matmul(x.float(), wq, ws)
+    n0 = tqm.launches
+    tqm.quant_matmul(x, wq, ws, bias)
+    tqm.quant_matmul_plain(x, wq, ws, bias)
+    torch.cuda.synchronize()
+    assert tqm.launches - n0 == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(2, 1280, 320), (154, 768, 640),
+                                   (8192, 320, 2560), (512, 5120, 1280)])
+def test_per_tensor_int8_product_exact_on_card(m, k, n):
+    """The "0" route's int8 product (torch._int_mm, zero rows padding
+    M <= 16) equals the float64 product of the same int8 values exactly."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(m)
+    xq = torch.randint(-127, 128, (m, k), device=dev, generator=g,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (n, k), device=dev, generator=g,
+                       dtype=torch.int8)
+    got = tq.int8_matmul(xq, wq)
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got.double(), xq.double() @ wq.double().t())
+
+
+@pytest.mark.cuda
+def test_quantized_block_launches_quant_matmul_and_plain_path_none(
+        monkeypatch):
+    """A quantized SD1.5 transformer block (64², 320 channels, CFG batch
+    2) in bf16 at "1" launches quant_matmul 10 times and flash once, and
+    inside plain_path() neither; at "0" no quant_matmul.  Kernels vs plain
+    within 2e-2 relative (bf16 activations between the layers)."""
+    dev = _card()
+    monkeypatch.setattr(tq, "FUSED_MODE", "1")
+    block = tl.BasicTransformerBlock(320, 8, 40, 768, quantized=True).to(
+        dev, torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(5)
+    for mod in block.modules():
+        if isinstance(mod, tq.QuantLinear):
+            mod.set_float_weight(torch.randn(
+                mod.weight.shape, device=dev, generator=g)
+                * mod.in_features ** -0.5)
+    x = torch.randn(2, 4096, 320, device=dev, dtype=torch.bfloat16)
+    ctx = torch.randn(2, 77, 768, device=dev, dtype=torch.bfloat16)
+
+    def counts():
+        return tqm.launches, tfa.launches
+
+    n0 = counts()
+    with torch.no_grad():
+        fast = block(x, ctx)
+        mid = counts()
+        with tl.plain_path():
+            plain = block(x, ctx)
+        assert counts() == mid
+        monkeypatch.setattr(tq, "FUSED_MODE", "0")
+        block(x, ctx)
+    torch.cuda.synchronize()
+    assert (mid[0] - n0[0], mid[1] - n0[1]) == (10, 1)
+    assert counts()[0] == mid[0]
+    rel = (fast.float() - plain.float()).abs().max() / plain.float().abs().max()
+    assert rel <= 2e-2
+
+
+@pytest.mark.cuda
+def test_division_by_127_is_ieee_on_card():
+    """div127 rounds t / 127 correctly on the card (as the kernel's
+    __fdiv_rn and jnp do): equal to the float64 quotient rounded to fp32."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.rand(1 << 20, device=dev, generator=g) * 100.0
+    assert torch.equal(tqm.div127(x), (x.double() / 127.0).float())

@@ -82,7 +82,8 @@ def test_kernel_sources_and_targets():
     """Every kernel builds from csrc/ into build/torch_kernels/ under a
     name that changes with its source."""
     assert _build.kernel_names() == ["ff_geglu", "flash_attention",
-                                     "geglu_matmul", "group_norm"]
+                                     "geglu_matmul", "group_norm",
+                                     "quant_matmul"]
     for name in _build.kernel_names():
         t = _build._target(name)
         assert t.parent == ROOT / "build" / "torch_kernels"
@@ -95,6 +96,8 @@ def test_wrappers_take_the_plain_version_only_on_cpu(monkeypatch):
     from theatergen_tpu_torch.ops import flash_attention as fa
     from theatergen_tpu_torch.ops import geglu_matmul as gg
     from theatergen_tpu_torch.ops import groupnorm as gn
+    from theatergen_tpu_torch.ops import quant as qops
+    from theatergen_tpu_torch.ops import quant_matmul as qm
 
     def boom(*a, **k):
         raise AssertionError("kernel library requested for CPU tensors")
@@ -113,6 +116,15 @@ def test_wrappers_take_the_plain_version_only_on_cpu(monkeypatch):
     x = torch.randn(2, 320, 8, 8, dtype=torch.bfloat16)
     w = torch.ones(320, dtype=torch.bfloat16)
     assert gn.fused_group_norm(x, w, w, act="silu").shape == x.shape
+    x = torch.randn(2, 77, 320, dtype=torch.bfloat16)
+    wq = torch.randint(-127, 128, (640, 320), dtype=torch.int8)
+    out = qm.quant_matmul(x, wq, torch.rand(640), torch.zeros(
+        640, dtype=torch.bfloat16))
+    assert out.shape == (2, 77, 640) and out.dtype == x.dtype
+    lin = qops.QuantLinear(320, 640).to(torch.bfloat16)
+    for mode in ("0", "1"):
+        monkeypatch.setattr(qops, "FUSED_MODE", mode)
+        assert lin(x).shape == (2, 77, 640)
 
 
 def test_port_modules_of_the_character_slice():
@@ -125,3 +137,26 @@ def test_port_modules_of_the_character_slice():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             init_bundle(tiny_config(), 0, with_ip=True, with_vision=True)
+
+
+def test_port_modules_of_the_w8a8_slice():
+    """The W8A8 slice's modules are among those the import rule above
+    covers, a quantized bundle defaults to the card too, and the port
+    keeps the JAX package's default route ("0") for THEATERGEN_FUSED_INT8."""
+    import dataclasses
+
+    mods = _modules()
+    for m in ("ops.quant", "ops.quant_matmul"):
+        assert f"theatergen_tpu_torch.{m}" in mods
+    code = ("import os; os.environ.pop('THEATERGEN_FUSED_INT8', None); "
+            "from theatergen_tpu_torch.ops import quant; "
+            "print(quant.FUSED_MODE)")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip() == "0", r.stderr
+    cfg = tiny_config()
+    cfg = dataclasses.replace(cfg, unet=dataclasses.replace(
+        cfg.unet, quantized=True))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            init_bundle(cfg, 0)

@@ -8,14 +8,17 @@ are NCHW inside and use diffusers' parameter names (``to_q``,
 Normalisation epsilons follow the JAX package (GroupNorm 1e-5, the
 transformer LayerNorms flax's default 1e-6).
 
-Three layers reach a kernel: :class:`FeedForward` (``ops/geglu_matmul``:
+Four layers reach a kernel: :class:`FeedForward` (``ops/geglu_matmul``:
 ``ff_matmul`` when the model's ``fused_ff`` is on and it runs in bf16,
 ``geglu_matmul`` when it is off), :class:`CrossAttention`
-(``ops/flash_attention`` for self-attention at 1024..4096 tokens) and
+(``ops/flash_attention`` for self-attention at 1024..4096 tokens),
 :class:`GroupNorm` (``ops/groupnorm`` where ``THEATERGEN_FUSED_GN`` routes
-the shape).  Everything else is plain PyTorch.  Inside :func:`plain_path`
-all three take their plain PyTorch route whatever the model's config and
-the switch say.
+the shape) and, in a model configured ``quantized``, the
+``ops.quant.QuantLinear`` that :func:`make_linear` builds at the JAX
+package's quantized sites (``ops/quant_matmul`` where
+``THEATERGEN_FUSED_INT8`` is ``"1"``).  Everything else is plain PyTorch.
+Inside :func:`plain_path` all four take their plain PyTorch route whatever
+the model's config and the switches say.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from ..ops import attention as attn_ops
 from ..ops import flash_attention as fa_ops
 from ..ops import geglu_matmul as gg_ops
 from ..ops import groupnorm as gn_ops
+from ..ops import quant as q_ops
 
 # flax nn.LayerNorm's default epsilon, which the JAX package's transformer
 # blocks use
@@ -44,15 +48,28 @@ _use_kernels = True
 @contextlib.contextmanager
 def plain_path() -> Iterator[None]:
     """Within the block every layer takes its plain PyTorch route (no
-    kernel is launched), whatever ``fused_ff``/``flash_attention`` and
-    ``THEATERGEN_FUSED_GN`` say — the reference a model's kernel path is
-    held against."""
+    kernel is launched), whatever ``fused_ff``/``flash_attention``,
+    ``THEATERGEN_FUSED_GN`` and ``THEATERGEN_FUSED_INT8`` say — the
+    reference a model's kernel path is held against.  A ``QuantLinear``
+    keeps its route: at ``"1"`` the kernel's plain version, at ``"0"`` the
+    per-tensor route, which reaches no kernel of the repo anyway."""
     global _use_kernels
-    prev, _use_kernels = _use_kernels, False
+    prev = _use_kernels, q_ops.use_kernel
+    _use_kernels = q_ops.use_kernel = False
     try:
         yield
     finally:
-        _use_kernels = prev
+        _use_kernels, q_ops.use_kernel = prev
+
+
+def make_linear(quantized: bool, in_features: int, out_features: int, *,
+                bias: bool = True) -> nn.Module:
+    """``nn.Linear`` or its W8A8 twin ``ops.quant.QuantLinear`` (the JAX
+    package's ``make_dense``): same name in the state dict, so a model's
+    quantized sites are its ``quantized=True`` call sites."""
+    if quantized:
+        return q_ops.QuantLinear(in_features, out_features, bias=bias)
+    return nn.Linear(in_features, out_features, bias=bias)
 
 
 def get_dtype(name: str) -> torch.dtype:
@@ -81,10 +98,10 @@ def timestep_embedding(t: torch.Tensor, dim: int, max_period: int = 10000,
 class TimestepEmbedding(nn.Module):
     """MLP on the sinusoidal embedding: linear_1 → silu → linear_2."""
 
-    def __init__(self, in_dim: int, dim: int):
+    def __init__(self, in_dim: int, dim: int, quantized: bool = False):
         super().__init__()
-        self.linear_1 = nn.Linear(in_dim, dim)
-        self.linear_2 = nn.Linear(dim, dim)
+        self.linear_1 = make_linear(quantized, in_dim, dim)
+        self.linear_2 = make_linear(quantized, dim, dim)
 
     def forward(self, emb: torch.Tensor) -> torch.Tensor:
         return self.linear_2(F.silu(self.linear_1(emb)))
@@ -132,13 +149,14 @@ class ResnetBlock2D(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int,
                  temb_channels: Optional[int] = None, groups: int = 32,
-                 fast_norm: bool = False):
+                 fast_norm: bool = False, quantized: bool = False):
         super().__init__()
         self.norm1 = GroupNorm(groups, in_channels, act="silu",
                                fp32=not fast_norm)
         self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
-        self.time_emb_proj = (nn.Linear(temb_channels, out_channels)
-                              if temb_channels is not None else None)
+        self.time_emb_proj = (
+            make_linear(quantized, temb_channels, out_channels)
+            if temb_channels is not None else None)
         self.norm2 = GroupNorm(groups, out_channels, act="silu",
                                fp32=not fast_norm)
         self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
@@ -176,9 +194,9 @@ class Upsample2D(nn.Module):
 class GEGLU(nn.Module):
     """``proj`` to ``[value ‖ gate]``, then ``value · gelu(gate)`` (erf)."""
 
-    def __init__(self, dim_in: int, dim_out: int):
+    def __init__(self, dim_in: int, dim_out: int, quantized: bool = False):
         super().__init__()
-        self.proj = nn.Linear(dim_in, dim_out * 2)
+        self.proj = make_linear(quantized, dim_in, dim_out * 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, gate = self.proj(x).chunk(2, dim=-1)
@@ -194,17 +212,21 @@ class FeedForward(nn.Module):
     down-projection one ``ops.geglu_matmul.geglu_matmul`` call.  On the
     card a width without a kernel instance raises there rather than
     running the plain path.  fp32 and :func:`plain_path` take the plain
-    path."""
+    path.  A ``quantized`` FF is never fused (JAX ``layers.py:235-258``):
+    ``net.2(GEGLU(x))`` with both layers ``QuantLinear``."""
 
-    def __init__(self, dim: int, mult: int = 4, fused_ff: bool = False):
+    def __init__(self, dim: int, mult: int = 4, fused_ff: bool = False,
+                 quantized: bool = False):
         super().__init__()
-        self.fused_ff = fused_ff
+        self.fused_ff, self.quantized = fused_ff, quantized
         self.net = nn.ModuleList(
-            [GEGLU(dim, dim * mult), nn.Identity(), nn.Linear(dim * mult, dim)])
+            [GEGLU(dim, dim * mult, quantized), nn.Identity(),
+             make_linear(quantized, dim * mult, dim)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         geglu, down = self.net[0], self.net[2]
-        if not _use_kernels or x.dtype != torch.bfloat16:
+        if (self.quantized or not _use_kernels
+                or x.dtype != torch.bfloat16):
             return down(geglu(x))
         if self.fused_ff:
             out = gg_ops.ff_matmul(x, geglu.proj.weight, geglu.proj.bias,
@@ -233,19 +255,23 @@ class CrossAttention(nn.Module):
 
     def __init__(self, query_dim: int, heads: int, head_dim: int,
                  context_dim: Optional[int] = None, use_flash: bool = True,
-                 ip_tokens: int = 0):
+                 ip_tokens: int = 0, quantized: bool = False):
         super().__init__()
         inner = heads * head_dim
         context_dim = query_dim if context_dim is None else context_dim
         self.heads, self.head_dim, self.use_flash = heads, head_dim, use_flash
         self.ip_tokens = ip_tokens
-        self.to_q = nn.Linear(query_dim, inner, bias=False)
-        self.to_k = nn.Linear(context_dim, inner, bias=False)
-        self.to_v = nn.Linear(context_dim, inner, bias=False)
+
+        def proj(din, dout):
+            return make_linear(quantized, din, dout, bias=False)
+
+        self.to_q = proj(query_dim, inner)
+        self.to_k = proj(context_dim, inner)
+        self.to_v = proj(context_dim, inner)
         if ip_tokens:
-            self.to_k_ip = nn.Linear(context_dim, inner, bias=False)
-            self.to_v_ip = nn.Linear(context_dim, inner, bias=False)
-        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim),
+            self.to_k_ip = proj(context_dim, inner)
+            self.to_v_ip = proj(context_dim, inner)
+        self.to_out = nn.ModuleList([make_linear(quantized, inner, query_dim),
                                      nn.Identity()])
 
     def forward(self, x: torch.Tensor,
@@ -285,15 +311,17 @@ class BasicTransformerBlock(nn.Module):
 
     def __init__(self, dim: int, heads: int, head_dim: int, context_dim: int,
                  use_flash: bool = True, fused_ff: bool = False,
-                 ip_tokens: int = 0):
+                 ip_tokens: int = 0, quantized: bool = False):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
-        self.attn1 = CrossAttention(dim, heads, head_dim, use_flash=use_flash)
+        self.attn1 = CrossAttention(dim, heads, head_dim, use_flash=use_flash,
+                                    quantized=quantized)
         self.norm2 = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
         self.attn2 = CrossAttention(dim, heads, head_dim, context_dim,
-                                    use_flash=use_flash, ip_tokens=ip_tokens)
+                                    use_flash=use_flash, ip_tokens=ip_tokens,
+                                    quantized=quantized)
         self.norm3 = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
-        self.ff = FeedForward(dim, fused_ff=fused_ff)
+        self.ff = FeedForward(dim, fused_ff=fused_ff, quantized=quantized)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor, *,
                 ip_scale=1.0, capture_probs: bool = False):
@@ -315,14 +343,15 @@ class Transformer2D(nn.Module):
     def __init__(self, channels: int, heads: int, head_dim: int,
                  context_dim: int, depth: int = 1, groups: int = 32,
                  fast_norm: bool = False, use_flash: bool = True,
-                 fused_ff: bool = False, ip_tokens: int = 0):
+                 fused_ff: bool = False, ip_tokens: int = 0,
+                 quantized: bool = False):
         super().__init__()
         self.norm = GroupNorm(groups, channels, fp32=not fast_norm)
         self.proj_in = nn.Conv2d(channels, channels, 1)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(channels, heads, head_dim, context_dim,
                                   use_flash=use_flash, fused_ff=fused_ff,
-                                  ip_tokens=ip_tokens)
+                                  ip_tokens=ip_tokens, quantized=quantized)
             for _ in range(depth)])
         self.proj_out = nn.Conv2d(channels, channels, 1)
 

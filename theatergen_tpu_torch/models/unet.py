@@ -15,7 +15,10 @@ With ``cfg.ip_num_tokens > 0`` every cross-attention splits the last
 cross-attention layers in the JAX package's 4-tuple form
 ``(place, block_index, attention_index, layer)``; with any given the
 forward returns ``(eps, {key: probs [B, heads, HW, Lk]})`` and keeps no
-other layer's probabilities.  ControlNet residuals, DeepCache and
+other layer's probabilities.  With ``cfg.quantized`` the linears the JAX
+package quantizes (attention projections, the FF, ``time_emb_proj`` and
+``time_embedding``; not SDXL's ``add_embedding``) are W8A8
+``ops.quant.QuantLinear``s.  ControlNet residuals, DeepCache and
 T2I-Adapter residuals come with later slices.
 """
 
@@ -66,7 +69,8 @@ class UNet2DCondition(nn.Module):
 
         def resnet(cin, cout):
             return ResnetBlock2D(cin, cout, time_dim, groups=groups,
-                                 fast_norm=cfg.fast_norm)
+                                 fast_norm=cfg.fast_norm,
+                                 quantized=cfg.quantized)
 
         def transformer(level, ch):
             heads = cfg.heads_at(level)
@@ -74,12 +78,15 @@ class UNet2DCondition(nn.Module):
                 ch, heads, ch // heads, cfg.cross_attention_dim,
                 depth=cfg.depth_at(level), groups=groups,
                 fast_norm=cfg.fast_norm, use_flash=cfg.flash_attention,
-                fused_ff=cfg.fused_ff, ip_tokens=cfg.ip_num_tokens)
+                fused_ff=cfg.fused_ff, ip_tokens=cfg.ip_num_tokens,
+                quantized=cfg.quantized)
 
         self.conv_in = nn.Conv2d(cfg.in_channels, boc[0], 3, padding=1)
-        self.time_embedding = TimestepEmbedding(boc[0], time_dim)
+        self.time_embedding = TimestepEmbedding(boc[0], time_dim,
+                                                quantized=cfg.quantized)
         if cfg.addition_embed_type == "text_time":
             # SDXL micro-conditioning over [pooled ++ sinusoids(time_ids)]
+            # (never quantized, as in the JAX package)
             self.add_embedding = TimestepEmbedding(
                 cfg.projection_class_embeddings_input_dim, time_dim)
 

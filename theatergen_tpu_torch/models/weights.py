@@ -22,6 +22,9 @@ naming rules:
   into ``embeddings``;
 - leaves: a 4-D ``kernel`` is HWIO → OIHW, a 2-D ``kernel`` is
   [in, out] → [out, in]; ``scale`` and ``embedding`` become ``weight``.
+  In a W8A8 subtree of ``quantize_params`` (``{kernel_q, scale, bias}``)
+  the int8 ``kernel_q`` [in, out] becomes ``weight`` [out, in] and
+  ``scale`` stays ``scale``, as ``ops.quant.QuantLinear`` names them.
 """
 
 from __future__ import annotations
@@ -65,12 +68,12 @@ def _scope(name: str) -> str:
     return name
 
 
-def _leaf(name: str, w: np.ndarray):
-    if name == "kernel":
+def _leaf(name: str, w: np.ndarray, quantized: bool):
+    if name in ("kernel", "kernel_q"):
         if w.ndim == 4:
             return "weight", np.ascontiguousarray(w.transpose(3, 2, 0, 1))
         return "weight", np.ascontiguousarray(w.T)
-    if name in ("scale", "embedding"):
+    if name == "embedding" or (name == "scale" and not quantized):
         return "weight", w
     return name, w
 
@@ -81,8 +84,11 @@ def from_flax(kind: str, params: Mapping) -> Dict[str, np.ndarray]:
         raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
     if "params" in params and len(params) == 1:
         params = params["params"]
+    flat = _flatten(params)
+    # scopes of W8A8 subtrees, whose scale is not a norm's
+    quant_scopes = {path[:-1] for path in flat if path[-1] == "kernel_q"}
     out = {}
-    for path, w in _flatten(params).items():
+    for path, w in flat.items():
         scopes, leaf = list(path[:-1]), path[-1]
         if len(scopes) >= 2 and scopes[-1] == "norm" and leaf in (
                 "scale", "bias"):
@@ -101,6 +107,6 @@ def from_flax(kind: str, params: Mapping) -> Dict[str, np.ndarray]:
             continue
         if kind == "vision" and scopes == ["patch_embedding"]:
             scopes = ["embeddings", "patch_embedding"]
-        name, value = _leaf(leaf, w)
+        name, value = _leaf(leaf, w, path[:-1] in quant_scopes)
         out[".".join([_scope(s) for s in scopes] + [name])] = value
     return out

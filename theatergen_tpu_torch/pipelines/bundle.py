@@ -5,7 +5,10 @@ Port of ``theatergen_tpu/pipelines/bundle.py`` for the txt2img slices
 character pass (``unet_ip``, ``image_proj`` and the CLIP vision tower).
 :func:`init_bundle` builds the modules on the target device with seeded
 random weights (no checkpoint ships with the repo); :meth:`Bundle.load_flax`
-loads the JAX package's parameter trees through ``models/weights.py``.
+loads the JAX package's parameter trees through ``models/weights.py``.  A
+config with ``unet.quantized`` builds W8A8 UNets: their int8 weights are
+the float bundle's of the same seed, quantized, and ``load_flax`` takes a
+``quantize_params`` tree.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from ..models.layers import get_dtype
 from ..models.unet import UNet2DCondition
 from ..models.vae import AutoencoderKL
 from ..models.weights import from_flax
+from ..ops.quant import QuantLinear
 from ..utils.tokenizer import load_tokenizer
 
 
@@ -89,16 +93,27 @@ class Bundle:
 PROJ_KINDS = {"base": "image_proj", "full": "mlp_proj", "plus": "resampler"}
 
 
-def _seeded_init(module: nn.Module, gen: torch.Generator) -> None:
+def _seeded_init(module: nn.Module, gen: torch.Generator,
+                 dtype: torch.dtype) -> None:
     """Fill every parameter from ``gen``: Linear/Conv weights N(0, 1/fan_in)
     (lecun normal, as flax's default), embeddings N(0, 0.02²), norm scales
     one, biases zero; a module's own parameters (the vision tower's class
     embedding, the Resampler's queries) N(0, init_std²), init_std 0.02
-    unless the module sets it."""
+    unless the module sets it.  A ``QuantLinear`` draws the ``dtype``
+    weight of the ``nn.Linear`` it replaces, from the same place in the
+    stream, and quantizes it: a quantized model's int8 weights are its
+    float twin's quantized."""
     for m in module.modules():
         if isinstance(m, (nn.Linear, nn.Conv2d)):
             fan_in = m.weight[0].numel()
             m.weight.normal_(0.0, fan_in ** -0.5, generator=gen)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, QuantLinear):
+            w = torch.empty(m.weight.shape, dtype=dtype,
+                            device=m.weight.device)
+            m.set_float_weight(w.normal_(0.0, m.in_features ** -0.5,
+                                         generator=gen))
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, nn.Embedding):
@@ -117,7 +132,7 @@ def _build(cls, cfg, dtype: torch.dtype, device: torch.device,
         module = cls(cfg, **kwargs)
     module = module.to(dtype=dtype).to_empty(device=device)
     with torch.no_grad():
-        _seeded_init(module, gen)
+        _seeded_init(module, gen, dtype)
     return module.eval().requires_grad_(False)
 
 
