@@ -17,8 +17,10 @@ Phases, in order (any failure exits non-zero):
      ``Text2Img(bundle, num_steps=50)`` on three prompts at 512 px, CFG 7.5;
   6. W8A8 SD1.5: the SD1.5 bundle freed, ``init_bundle`` of
      ``sd15_config()`` with ``quantized=True`` (the seeded float weights
-     quantized), the same UNet check at ``THEATERGEN_FUSED_INT8`` "1" and
-     its error against the float SD1.5 UNet of the same seed, then
+     quantized), the same UNet check at ``THEATERGEN_FUSED_INT8`` "1",
+     every quantized site of one evaluation bit for bit against the
+     kernel's plain version, the error against the float SD1.5 UNet of the
+     same seed, then
      ``Text2Img(bundle, num_steps=50)`` on three prompts with the switch at
      "1" (every quantized linear through ``quant_matmul``) and one at "0";
   7. SDXL: the W8A8 bundle freed, ``init_bundle(sdxl_config())``, the same
@@ -59,7 +61,8 @@ import torch.nn.functional as F
 
 from theatergen_tpu_torch import _build
 from theatergen_tpu_torch.config import sd15_config, sdxl_config
-from theatergen_tpu_torch.models.layers import GroupNorm, plain_path
+from theatergen_tpu_torch.models.layers import (GroupNorm, QuantLinear,
+                                                 plain_path)
 from theatergen_tpu_torch.ops import flash_attention as fa
 from theatergen_tpu_torch.ops import geglu_matmul as gg
 from theatergen_tpu_torch.ops import groupnorm as gn
@@ -334,11 +337,13 @@ def gn_phase(gen) -> dict:
 def qmm_phase(gen) -> dict:
     """quant_matmul at every shape of the W8A8 UNet and a ragged one,
     with a bias (every call of the path but to_q/to_k/to_v has one):
-    checked against the plain version from the same bf16 inputs (the two
-    are designed to agree bit for bit; the count of differing outputs is
-    printed), timed as CUDA-graph replays (the M = 2 calls are shorter than
-    an eager launch) against the library layer W8A8 replaces, ``F.linear``
-    in bf16 with the dequantized weight.  The bound takes the int8 peak."""
+    checked against the plain version from the same bf16 inputs: the two
+    are built to agree bit for bit, so one differing output fails (the
+    1e-2·max|ref| bound of the other kernels is far wider than the error
+    of a kernel that skipped the per-row quantization); timed as
+    CUDA-graph replays (the M = 2 calls are shorter than an eager launch)
+    against the library layer W8A8 replaces, ``F.linear`` in bf16 with the
+    dequantized weight.  The bound takes the int8 peak."""
     rows = []
     for model, (m, k, n), calls in QMM_SHAPES:
         x = randn(gen, m, k)
@@ -350,9 +355,13 @@ def qmm_phase(gen) -> dict:
         torch.cuda.synchronize()
         ref = qm.quant_matmul_plain(x, wq, ws, bias)
         err = (out.float() - ref.float()).abs().max().item()
+        differ = int((out != ref).sum())
         check(err, ref.float().abs().max().item(),
               f"quant_matmul M={m} K={k} N={n} "
-              f"({int((out != ref).sum())} of {m * n} outputs differ)")
+              f"({differ} of {m * n} outputs differ)")
+        if differ:
+            raise SystemExit(f"quant_matmul M={m} K={k} N={n}: {differ} "
+                             f"outputs differ from the plain version")
         rows.append(_row(
             model, (m, k, n), calls, err, qm.flops(m, k, n),
             qm.min_bytes(m, k, n), lambda: qm.quant_matmul(x, wq, ws, bias),
@@ -497,10 +506,51 @@ def sd15_path(records, profiling: bool) -> dict:
                 unet_kernels_vs_plain_rel=rel), eps
 
 
+def w8a8_sites_phase(bundle) -> None:
+    """One W8A8 UNet evaluation with the kernels, each QuantLinear's output
+    held bit for bit to ``quant_matmul_plain`` on the input it met there
+    (the kernel is built to match it exactly): a linear that ran in float,
+    skipped the per-row quantization or missed the kernel fails here,
+    where the whole-UNet check against plain_path() (as wide as the
+    quantization error itself) cannot tell."""
+    sites, bad = [], []
+
+    def hook(name):
+        def check_site(mod, args, out):
+            ref = qm.quant_matmul_plain(args[0], mod.weight, mod.scale,
+                                        mod.bias)
+            sites.append(name)
+            if not torch.equal(out, ref):
+                bad.append((name, int((out != ref).sum())))
+        return check_site
+
+    unet = bundle.unet
+    handles = [mod.register_forward_hook(hook(name))
+               for name, mod in unet.named_modules()
+               if isinstance(mod, QuantLinear)]
+    x, t, ctx, _ = unet_inputs(bundle, 2, 501)
+    reset_counts()
+    try:
+        with torch.no_grad():
+            unet(x, t, ctx)
+    finally:
+        for h in handles:
+            h.remove()
+    launched = read_counts()["quant_matmul"]
+    ok = not bad and len(sites) == launched == QMM_PER_EVAL
+    log(f"  W8A8 UNet sites: {len(sites)} QuantLinear calls, {launched} "
+        f"quant_matmul launches, {len(bad)} differ from the plain version "
+        f"{bad[:3]}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("W8A8 UNet: a quantized site disagrees with "
+                         "quant_matmul_plain or missed the kernel")
+
+
 def w8a8_path(records, profiling: bool, float_eps, sd15: dict) -> dict:
     """The SD1.5 W8A8 UNet: built from the SD1.5 seed (the float weights
-    quantized), checked with the kernels against plain_path() and compared
-    with the float UNet's eps (``float_eps``, same seed and inputs); three
+    quantized), checked with the kernels against plain_path(), each
+    quantized site against the kernel's plain version, and compared with
+    the float UNet's eps (``float_eps``, same seed and inputs); three
     50-step requests with THEATERGEN_FUSED_INT8 at "1", one at "0"."""
     prev_mode, qz.FUSED_MODE = qz.FUSED_MODE, "1"
     cfg = sd15_config()
@@ -511,6 +561,7 @@ def w8a8_path(records, profiling: bool, float_eps, sd15: dict) -> dict:
     # differently); a value the two paths round apart can cross an int8
     # tie, so the difference spreads to later layers as int8 steps
     rel, eps = unet_reference_phase(bundle, 5e-2)
+    w8a8_sites_phase(bundle)
     rel_float = ((eps - float_eps).abs().max()
                  / float_eps.abs().max()).item()
     log(f"  W8A8 UNet eps vs the float SD1.5 UNet of the same seed: "

@@ -409,7 +409,7 @@ def test_quantized_block_launches_quant_matmul_and_plain_path_none(
         dev, torch.bfloat16)
     g = torch.Generator(device=dev).manual_seed(5)
     for mod in block.modules():
-        if isinstance(mod, tq.QuantLinear):
+        if isinstance(mod, tl.QuantLinear):
             mod.set_float_weight(torch.randn(
                 mod.weight.shape, device=dev, generator=g)
                 * mod.in_features ** -0.5)

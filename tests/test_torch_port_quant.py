@@ -75,16 +75,12 @@ def _jax_unet_params(cfg, seed):
 
 @pytest.mark.parametrize("shape", [(64, 32), (320, 1280), (7, 3)])
 def test_quantize_weight_equals_jax(shape):
-    """Both the numpy copy and the torch form on a [out, in] weight give
-    the JAX package's int8 weights and fp32 scales bit for bit (a zero
-    column takes the 1e-8 floor)."""
+    """The port's quantizer on a [out, in] weight gives the JAX package's
+    int8 weights and fp32 scales of the [in, out] kernel bit for bit (a
+    zero column takes the 1e-8 floor)."""
     w = np.random.RandomState(0).randn(*shape).astype(np.float32) * 0.3
     w[:, 0] = 0.0
     q_ref, s_ref = JQ.quantize_weight(w)
-    q, s = TQ.quantize_weight(w)
-    np.testing.assert_array_equal(q, q_ref)
-    np.testing.assert_array_equal(s, s_ref)
-    assert q.dtype == np.int8 and s.dtype == np.float32
     qt, st = TQ.quantize_linear_weight(torch.from_numpy(w.T.copy()))
     assert qt.dtype == torch.int8 and st.dtype == torch.float32
     np.testing.assert_array_equal(qt.numpy().T, q_ref)
@@ -110,7 +106,7 @@ def test_quantized_sites_match_jax(ip_tokens):
         q_unet = TUNet(dataclasses.replace(ucfg, quantized=True))
         f_unet = TUNet(ucfg)
     port = {n for n, m in q_unet.named_modules()
-            if isinstance(m, TQ.QuantLinear)}
+            if isinstance(m, tl.QuantLinear)}
     by_pattern = {n for n, m in f_unet.named_modules()
                   if isinstance(m, torch.nn.Linear) and TQ.is_quant_path(n)}
     assert port == from_jax == by_pattern
@@ -124,7 +120,7 @@ def test_sd15_quantized_unet_has_184_quant_linears():
     with torch.device("meta"):
         unet = TUNet(_quantized(tcfg.sd15_config()).unet)
     names = [n for n, m in unet.named_modules()
-             if isinstance(m, TQ.QuantLinear)]
+             if isinstance(m, tl.QuantLinear)]
     assert len(names) == 184
     assert sum(n.endswith("time_emb_proj") for n in names) == 22
     assert sum(n.startswith("time_embedding.") for n in names) == 2
@@ -170,14 +166,14 @@ def test_quantized_init_bundle_is_the_float_bundle_quantized(with_ip):
     if with_ip:
         assert isinstance(q.unet_ip.mid_block.attentions[0]
                           .transformer_blocks[0].attn2.to_k_ip,
-                          TQ.QuantLinear)
+                          tl.QuantLinear)
 
 
 def test_scale_stays_fp32_through_dtype_casts():
     """A bf16 model casts the bias but never the fp32 scale (the JAX
     package keeps scale fp32): a cast module, and a bundle built in bf16,
     hold the exact fp32 scales."""
-    lin = TQ.QuantLinear(64, 16)
+    lin = tl.QuantLinear(64, 16)
     w = torch.from_numpy(np.random.RandomState(1).randn(16, 64)
                          .astype(np.float32)) * 0.123
     lin.set_float_weight(w)
@@ -240,17 +236,40 @@ def test_quant_matmul_plain_matches_jax(monkeypatch, m, k, n, dtype):
     assert not got[0].any()
 
 
+def _per_row_reference(x, wq, ws, bias, dtype):
+    """The "1" route in JAX: reference_quant_matmul on fp32 ``x`` (the
+    Pallas kernel's arithmetic, plain XLA), plus the fp32 bias, one
+    rounding to ``dtype`` (QuantDense's fused route); and the product
+    without the bias."""
+    prod = JQM.reference_quant_matmul(jnp.asarray(x, jnp.float32),
+                                      jnp.asarray(wq), jnp.asarray(ws))
+    y = prod if bias is None else prod + jnp.asarray(bias, jnp.float32)
+    return (np.asarray(y.astype(dtype), np.float32),
+            np.asarray(prod, np.float32))
+
+
+def _assert_per_row_close(got, ref, prod, step):
+    """The port takes acc·(s·w_scale), the reference (acc·s)·w_scale: two
+    fp32 roundings each, so the products lie within 2⁻²²·|prod|; the bias
+    sum rounds once more on each side, and a bf16 output can round the two
+    to neighbouring values.  So |got - ref| ≤ 2⁻²²·|prod| + step·|ref|,
+    step 2⁻²² in fp32 and one bf16 ulp (2⁻⁷) in bf16.  No int8 tie may
+    flip: both sides divide x / s exactly."""
+    bound = 2.0 ** -22 * np.abs(prod) + step * np.abs(ref)
+    assert (np.abs(got - ref) <= bound).all(), np.abs(got - ref).max()
+
+
 @pytest.mark.parametrize("mode", ["0", "1"])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_quant_linear_matches_quant_dense(route, mode, dtype):
-    """QuantLinear vs JAX QuantDense on the same int8 weights, scales and
+    """QuantLinear vs the JAX package on the same int8 weights, scales and
     bias, on a [2, 77, 320] input (a CFG batch: the per-tensor scale of
     "0" spans both halves), in each route.  The port holds its bias in the
-    model dtype (bf16-valued here) and JAX in fp32, same values.  "0": the
-    same fp32 operations in the same order, bit for bit.  "1": the
-    interpreted Pallas kernel's division can flip an int8 tie
-    (test_quant_matmul_plain_matches_jax): two flips per row, each at most
-    max|x_row|·max|w|, plus one step of the output type."""
+    model dtype (bf16-valued here) and JAX in fp32, same values.  "0":
+    against QuantDense, the same fp32 operations in the same order, bit for
+    bit.  "1": against reference_quant_matmul plus the bias
+    (_assert_per_row_close); the interpreted Pallas kernel is held in
+    test_quant_matmul_plain_matches_jax."""
     route(mode)
     rng = np.random.RandomState(5)
     x = (rng.randn(2, 77, 320) * np.linspace(0.1, 3, 320)).astype(np.float32)
@@ -261,10 +280,7 @@ def test_quant_linear_matches_quant_dense(route, mode, dtype):
         getattr(torch, dtype)).float().numpy()
     jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
     xj = jnp.asarray(x, jdt)
-    ref = np.asarray(JQ.QuantDense(640, dtype=jdt).apply(
-        {"params": {"kernel_q": jnp.asarray(wq), "scale": jnp.asarray(ws),
-                    "bias": jnp.asarray(b)}}, xj), np.float32)
-    lin = TQ.QuantLinear(320, 640).to(getattr(torch, dtype))
+    lin = tl.QuantLinear(320, 640).to(getattr(torch, dtype))
     lin.load_state_dict({"weight": torch.from_numpy(wq.T.copy()),
                          "scale": torch.from_numpy(ws),
                          "bias": torch.from_numpy(b)})
@@ -274,11 +290,15 @@ def test_quant_linear_matches_quant_dense(route, mode, dtype):
     assert got.dtype == getattr(torch, dtype)
     got = got.float().numpy()
     if mode == "0":
+        ref = np.asarray(JQ.QuantDense(640, dtype=jdt).apply(
+            {"params": {"kernel_q": jnp.asarray(wq),
+                        "scale": jnp.asarray(ws), "bias": jnp.asarray(b)}},
+            xj), np.float32)
         np.testing.assert_array_equal(got, ref)
         return
+    ref, prod = _per_row_reference(xf, wq, ws, b, jdt)
     step = 2.0 ** -7 if dtype == "bfloat16" else 2.0 ** -22
-    flips = 2 * np.abs(xf).max(-1, keepdims=True) * np.abs(w).max()
-    assert (np.abs(got - ref) <= flips + step * np.abs(ref)).all()
+    _assert_per_row_close(got, ref, prod, step)
 
 
 def test_per_tensor_int8_product_is_exact():
@@ -330,13 +350,12 @@ def _jax_eps(model, x, t, ctx):
 
 @pytest.mark.parametrize("mode", ["0", "1"])
 def test_quantized_unet_sites_match_quant_dense(route, tiny_w8a8, mode):
-    """Every QuantLinear of one quantized UNet evaluation against JAX
-    QuantDense on the same weights and the same input (the activation it
-    met in the port's evaluation), all 83 sites.  "0": the same fp32
-    operations in the same order, bit for bit.  "1": the interpreted
-    Pallas kernel's division can flip an int8 tie
-    (test_quant_matmul_plain_matches_jax): two flips per row, each at most
-    max|x_row|·max|w|, plus two fp32 ulps."""
+    """Every QuantLinear of one quantized UNet evaluation against the JAX
+    package on the same weights and the same input (the activation it met
+    in the port's evaluation), all 83 sites.  "0": against QuantDense, the
+    same fp32 operations in the same order, bit for bit.  "1": against
+    reference_quant_matmul plus the bias, within the epilogue's fp32
+    roundings (_assert_per_row_close)."""
     route(mode)
     seen = []
 
@@ -348,7 +367,7 @@ def test_quantized_unet_sites_match_quant_dense(route, tiny_w8a8, mode):
 
     unet = tiny_w8a8["port_q"]
     handles = [m.register_forward_hook(hook(n)) for n, m in
-               unet.named_modules() if isinstance(m, TQ.QuantLinear)]
+               unet.named_modules() if isinstance(m, tl.QuantLinear)]
     try:
         _port_eps(unet, *tiny_w8a8["inputs"])
     finally:
@@ -356,20 +375,19 @@ def test_quantized_unet_sites_match_quant_dense(route, tiny_w8a8, mode):
             h.remove()
     assert len({n for n, *_ in seen}) == 83
     for name, mod, x, got in seen:
-        p = {"kernel_q": jnp.asarray(mod.weight.numpy().T),
-             "scale": jnp.asarray(mod.scale.numpy())}
-        if mod.bias is not None:
-            p["bias"] = jnp.asarray(mod.bias.detach().numpy())
-        ref = np.asarray(JQ.QuantDense(
-            mod.out_features, use_bias=mod.bias is not None,
-            dtype=jnp.float32).apply({"params": p}, jnp.asarray(x)))
-        if mode == "0":
-            np.testing.assert_array_equal(got, ref, err_msg=name)
+        wq, ws = mod.weight.numpy().T, mod.scale.numpy()
+        bias = None if mod.bias is None else mod.bias.detach().numpy()
+        if mode == "1":
+            ref, prod = _per_row_reference(x, wq, ws, bias, jnp.float32)
+            _assert_per_row_close(got, ref, prod, 2.0 ** -22)
             continue
-        w = mod.weight.float() * mod.scale[:, None]
-        flips = 2 * np.abs(x).max(-1, keepdims=True) * float(w.abs().max())
-        assert (np.abs(got - ref) <= flips + 2.0 ** -22 * np.abs(ref)).all(), \
-            name
+        p = {"kernel_q": jnp.asarray(wq), "scale": jnp.asarray(ws)}
+        if bias is not None:
+            p["bias"] = jnp.asarray(bias)
+        ref = np.asarray(JQ.QuantDense(
+            mod.out_features, use_bias=bias is not None,
+            dtype=jnp.float32).apply({"params": p}, jnp.asarray(x)))
+        np.testing.assert_array_equal(got, ref, err_msg=name)
 
 
 @pytest.mark.parametrize("mode", ["0", "1"])
@@ -410,13 +428,13 @@ def test_plain_path_sends_quant_linear_to_the_plain_version(monkeypatch):
     real_plain = TQM.quant_matmul_plain
     monkeypatch.setattr(TQM, "quant_matmul_plain",
                         lambda *a: calls.append("plain") or real_plain(*a))
-    lin = TQ.QuantLinear(64, 32)
+    lin = tl.QuantLinear(64, 32)
     x = torch.randn(4, 64)
     monkeypatch.setattr(TQ, "FUSED_MODE", "1")
     lin(x)
     with tl.plain_path():
         lin(x)
-    assert TQ.use_kernel and calls == ["kernel", "plain", "plain"]
+    assert tl._use_kernels and calls == ["kernel", "plain", "plain"]
     monkeypatch.setattr(TQ, "FUSED_MODE", "0")
     calls.clear()
     lin(x)
@@ -439,7 +457,7 @@ def test_quantized_feed_forward_never_fused(monkeypatch, route):
     for fused in (True, False):
         ff = tl.FeedForward(32, fused_ff=fused, quantized=True).to(
             torch.bfloat16)
-        assert isinstance(ff.net[0].proj, TQ.QuantLinear)
+        assert isinstance(ff.net[0].proj, tl.QuantLinear)
         want = ff.net[2](ff.net[0](x))
         assert torch.equal(ff(x), want)
 

@@ -93,6 +93,7 @@ def test_kernel_sources_and_targets():
 
 def test_wrappers_take_the_plain_version_only_on_cpu(monkeypatch):
     """CPU tensors never reach the kernel library (nor nvcc)."""
+    from theatergen_tpu_torch.models.layers import QuantLinear
     from theatergen_tpu_torch.ops import flash_attention as fa
     from theatergen_tpu_torch.ops import geglu_matmul as gg
     from theatergen_tpu_torch.ops import groupnorm as gn
@@ -121,7 +122,7 @@ def test_wrappers_take_the_plain_version_only_on_cpu(monkeypatch):
     out = qm.quant_matmul(x, wq, torch.rand(640), torch.zeros(
         640, dtype=torch.bfloat16))
     assert out.shape == (2, 77, 640) and out.dtype == x.dtype
-    lin = qops.QuantLinear(320, 640).to(torch.bfloat16)
+    lin = QuantLinear(320, 640).to(torch.bfloat16)
     for mode in ("0", "1"):
         monkeypatch.setattr(qops, "FUSED_MODE", mode)
         assert lin(x).shape == (2, 77, 640)

@@ -14,8 +14,8 @@ Four layers reach a kernel: :class:`FeedForward` (``ops/geglu_matmul``:
 (``ops/flash_attention`` for self-attention at 1024..4096 tokens),
 :class:`GroupNorm` (``ops/groupnorm`` where ``THEATERGEN_FUSED_GN`` routes
 the shape) and, in a model configured ``quantized``, the
-``ops.quant.QuantLinear`` that :func:`make_linear` builds at the JAX
-package's quantized sites (``ops/quant_matmul`` where
+:class:`QuantLinear` that :func:`make_linear` builds at the JAX package's
+quantized sites (``ops/quant_matmul`` where
 ``THEATERGEN_FUSED_INT8`` is ``"1"``).  Everything else is plain PyTorch.
 Inside :func:`plain_path` all four take their plain PyTorch route whatever
 the model's config and the switches say.
@@ -36,6 +36,7 @@ from ..ops import flash_attention as fa_ops
 from ..ops import geglu_matmul as gg_ops
 from ..ops import groupnorm as gn_ops
 from ..ops import quant as q_ops
+from ..ops import quant_matmul as qm_ops
 
 # flax nn.LayerNorm's default epsilon, which the JAX package's transformer
 # blocks use
@@ -54,21 +55,65 @@ def plain_path() -> Iterator[None]:
     keeps its route: at ``"1"`` the kernel's plain version, at ``"0"`` the
     per-tensor route, which reaches no kernel of the repo anyway."""
     global _use_kernels
-    prev = _use_kernels, q_ops.use_kernel
-    _use_kernels = q_ops.use_kernel = False
+    prev, _use_kernels = _use_kernels, False
     try:
         yield
     finally:
-        _use_kernels, q_ops.use_kernel = prev
+        _use_kernels = prev
+
+
+class QuantLinear(nn.Module):
+    """W8A8 linear, the JAX package's ``QuantDense``: an int8 ``weight
+    [out, in]`` and an fp32 ``scale [out]`` (buffers), a bias in the model
+    dtype.  ``.to(dtype)`` and the like cast the bias but never the scale,
+    which stays fp32 as in the JAX package.  ``THEATERGEN_FUSED_INT8``
+    (``ops.quant.FUSED_MODE``) picks the route: ``"1"``
+    ``ops.quant_matmul.quant_matmul`` (per-row scales), ``"0"``
+    ``ops.quant.per_tensor_linear``."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.register_buffer("weight", torch.zeros(
+            out_features, in_features, dtype=torch.int8))
+        self.register_buffer("scale", torch.ones(out_features))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
+
+    def _apply(self, fn, recurse=True):
+        scale = self.scale
+        super()._apply(fn, recurse)
+        if self.scale.dtype != torch.float32:
+            # a floating cast reached the scale: keep its fp32 values
+            self.scale = scale.to(device=self.scale.device)
+        return self
+
+    @torch.no_grad()
+    def set_float_weight(self, weight: torch.Tensor) -> None:
+        """Quantize a float ``[out, in]`` weight into this layer."""
+        q, s = q_ops.quantize_linear_weight(weight)
+        self.weight.copy_(q)
+        self.scale.copy_(s)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if q_ops.FUSED_MODE == "1":
+            fn = qm_ops.quant_matmul if _use_kernels else \
+                qm_ops.quant_matmul_plain
+            return fn(x, self.weight, self.scale, self.bias)
+        return q_ops.per_tensor_linear(x, self.weight, self.scale, self.bias)
+
+    def extra_repr(self) -> str:
+        return (f"in_features={self.in_features}, out_features="
+                f"{self.out_features}, bias={self.bias is not None}")
 
 
 def make_linear(quantized: bool, in_features: int, out_features: int, *,
                 bias: bool = True) -> nn.Module:
-    """``nn.Linear`` or its W8A8 twin ``ops.quant.QuantLinear`` (the JAX
+    """``nn.Linear`` or its W8A8 twin :class:`QuantLinear` (the JAX
     package's ``make_dense``): same name in the state dict, so a model's
     quantized sites are its ``quantized=True`` call sites."""
     if quantized:
-        return q_ops.QuantLinear(in_features, out_features, bias=bias)
+        return QuantLinear(in_features, out_features, bias=bias)
     return nn.Linear(in_features, out_features, bias=bias)
 
 

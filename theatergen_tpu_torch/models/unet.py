@@ -18,7 +18,7 @@ forward returns ``(eps, {key: probs [B, heads, HW, Lk]})`` and keeps no
 other layer's probabilities.  With ``cfg.quantized`` the linears the JAX
 package quantizes (attention projections, the FF, ``time_emb_proj`` and
 ``time_embedding``; not SDXL's ``add_embedding``) are W8A8
-``ops.quant.QuantLinear``s.  ControlNet residuals, DeepCache and
+``layers.QuantLinear``s.  ControlNet residuals, DeepCache and
 T2I-Adapter residuals come with later slices.
 """
 

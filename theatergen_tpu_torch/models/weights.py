@@ -24,7 +24,7 @@ naming rules:
   [in, out] → [out, in]; ``scale`` and ``embedding`` become ``weight``.
   In a W8A8 subtree of ``quantize_params`` (``{kernel_q, scale, bias}``)
   the int8 ``kernel_q`` [in, out] becomes ``weight`` [out, in] and
-  ``scale`` stays ``scale``, as ``ops.quant.QuantLinear`` names them.
+  ``scale`` stays ``scale``, as ``models.layers.QuantLinear`` names them.
 """
 
 from __future__ import annotations

@@ -3,18 +3,18 @@
 Static per-output-channel weight scales and dynamic activation scales,
 with an exact int32 sum, in the layers the JAX package quantizes
 (attention projections, the FF, the time embeddings: ``QUANT_DENSE_PATTERNS``
-over the port's diffusers names).  :class:`QuantLinear` is the counterpart
-of ``QuantDense``; ``models/layers.make_linear`` builds it where a model is
-configured ``quantized``.
+over the port's diffusers names).  ``models.layers.QuantLinear``, the
+counterpart of ``QuantDense``, holds the int8 weights; ``make_linear``
+builds it where a model is configured ``quantized``.
 
 Two routes, chosen by ``THEATERGEN_FUSED_INT8`` with the JAX package's
 name, values and default: ``"0"`` (the default) quantizes the activations
 with one per-tensor scale and takes the int8 product outside any kernel of
-the repo (``torch._int_mm``, as the JAX package leaves its
-``dot_general(preferred_element_type=int32)`` to XLA); ``"1"`` runs
-``ops.quant_matmul.quant_matmul`` (per-row scales inside the kernel).  It
-is read once, at import, into :data:`FUSED_MODE`, which tests and scripts
-may set.
+the repo (:func:`per_tensor_linear`: ``torch._int_mm``, as the JAX package
+leaves its ``dot_general(preferred_element_type=int32)`` to XLA); ``"1"``
+runs ``ops.quant_matmul.quant_matmul`` (per-row scales inside the kernel).
+It is read once, at import, into :data:`FUSED_MODE`, which tests and
+scripts may set.
 """
 
 from __future__ import annotations
@@ -23,17 +23,11 @@ import os
 import re
 from typing import Dict, Mapping
 
-import numpy as np
 import torch
-import torch.nn as nn
 
 from . import quant_matmul as qm_ops
 
 FUSED_MODE = os.environ.get("THEATERGEN_FUSED_INT8", "0")
-
-# False inside models.layers.plain_path(): the "1" route runs the plain
-# version of the kernel
-use_kernel = True
 
 # Linear layers worth quantizing inside the UNet (matmul-shaped, large K/N)
 QUANT_DENSE_PATTERNS = [
@@ -49,19 +43,10 @@ def is_quant_path(name: str) -> bool:
     return any(re.match(p, name) for p in QUANT_DENSE_PATTERNS)
 
 
-def quantize_weight(kernel: np.ndarray):
-    """fp [in, out] → (int8 [in, out], fp32 scale [out])."""
-    k = np.asarray(kernel, np.float32)
-    scale = np.abs(k).max(axis=0) / 127.0
-    scale = np.maximum(scale, 1e-8)
-    q = np.clip(np.round(k / scale[None, :]), -127, 127).astype(np.int8)
-    return q, scale.astype(np.float32)
-
-
 def quantize_linear_weight(weight: torch.Tensor):
     """A linear's fp ``[out, in]`` weight → (int8 ``[out, in]``, fp32 scale
-    ``[out]``): :func:`quantize_weight`'s arithmetic in torch, on the
-    weight's device."""
+    ``[out]``): the JAX package's ``quantize_weight`` on the transposed
+    weight, in torch, on the weight's device."""
     w = weight.float()
     scale = torch.clamp_min(qm_ops.div127(w.abs().amax(dim=1)), 1e-8)
     q = torch.clamp(torch.round(w / scale[:, None]), -127, 127)
@@ -107,45 +92,3 @@ def per_tensor_linear(x: torch.Tensor, w_q: torch.Tensor,
     if bias is not None:
         y = y + bias.float()
     return y.to(x.dtype).reshape(*x.shape[:-1], n)
-
-
-class QuantLinear(nn.Module):
-    """W8A8 linear: an int8 ``weight [out, in]`` and an fp32 ``scale
-    [out]`` (buffers), a bias in the model dtype.  ``.to(dtype)`` and the
-    like cast the bias but never the scale, which stays fp32 as in the JAX
-    package."""
-
-    def __init__(self, in_features: int, out_features: int,
-                 bias: bool = True):
-        super().__init__()
-        self.in_features, self.out_features = in_features, out_features
-        self.register_buffer("weight", torch.zeros(
-            out_features, in_features, dtype=torch.int8))
-        self.register_buffer("scale", torch.ones(out_features))
-        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
-
-    def _apply(self, fn, recurse=True):
-        scale = self.scale
-        super()._apply(fn, recurse)
-        if self.scale.dtype != torch.float32:
-            # a floating cast reached the scale: keep its fp32 values
-            self.scale = scale.to(device=self.scale.device)
-        return self
-
-    @torch.no_grad()
-    def set_float_weight(self, weight: torch.Tensor) -> None:
-        """Quantize a float ``[out, in]`` weight into this layer."""
-        q, s = quantize_linear_weight(weight)
-        self.weight.copy_(q)
-        self.scale.copy_(s)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if FUSED_MODE == "1":
-            fn = qm_ops.quant_matmul if use_kernel else \
-                qm_ops.quant_matmul_plain
-            return fn(x, self.weight, self.scale, self.bias)
-        return per_tensor_linear(x, self.weight, self.scale, self.bias)
-
-    def extra_repr(self) -> str:
-        return (f"in_features={self.in_features}, out_features="
-                f"{self.out_features}, bias={self.bias is not None}")

@@ -23,11 +23,10 @@ import torch.nn as nn
 from ..config import TheaterConfig
 from ..models.clip import CLIPTextEncoder, CLIPVisionEncoder
 from ..models.ip_adapter import ImageProjModel, MLPProjModel, Resampler
-from ..models.layers import get_dtype
+from ..models.layers import QuantLinear, get_dtype
 from ..models.unet import UNet2DCondition
 from ..models.vae import AutoencoderKL
 from ..models.weights import from_flax
-from ..ops.quant import QuantLinear
 from ..utils.tokenizer import load_tokenizer
 
 
