@@ -32,7 +32,20 @@ Phases, in order (any failure exits non-zero):
      at "1"), ``encode_ip_image`` of a seeded 512² image, ``ip_context``,
      then ``make_character_pipeline(bundle, 50, use_ip=True,
      capture_ref_attn=True)`` requests at ip_scale 0.4 and 0.0 with the
-     switch at "1", and one at 0.4 with the switch at "0".
+     switch at "1", and one at 0.4 with the switch at "0";
+  9. the back half of a turn at 512 px:
+     ``init_bundle(sd15_config(), with_ip=True, with_vision=True,
+     with_controlnet=True)``, the ControlNet and the IP UNet with its
+     residuals each against ``plain_path()``, two character requests
+     (ip_scale 0.4 and 0.0), their masks by ``theater._attn_mask_fallback``
+     from the step-mean reference maps, ``theater._compose_program``
+     (alignment, composition, collage, DoG lineart), then a final request:
+     the overall prompt, ``ip_context`` with the first character's image,
+     ``make_final_pipeline(bundle, 50)`` at ``frozen_steps`` 25 and
+     ip_scale 0.1, and the decode;
+ 10. the same at 768 px (the bundle's config with ``pipeline.height`` and
+     ``width`` replaced, one character), where level-0 self-attention runs
+     9216 tokens: the flash kernel's long route.
 Every launch counter is set to 0 just before each request and read just
 after it, and must equal the constant launches per request of each kernel
 (SD1.5, W8A8 and SDXL under the GroupNorm switch's default).  Then one
@@ -60,15 +73,17 @@ import torch
 import torch.nn.functional as F
 
 from theatergen_tpu_torch import _build
+from theatergen_tpu_torch import theater
 from theatergen_tpu_torch.config import sd15_config, sdxl_config
 from theatergen_tpu_torch.models.layers import (GroupNorm, QuantLinear,
                                                  plain_path)
 from theatergen_tpu_torch.ops import flash_attention as fa
+from theatergen_tpu_torch.ops import geometry
 from theatergen_tpu_torch.ops import geglu_matmul as gg
 from theatergen_tpu_torch.ops import groupnorm as gn
 from theatergen_tpu_torch.ops import quant as qz
 from theatergen_tpu_torch.ops import quant_matmul as qm
-from theatergen_tpu_torch.pipelines import character, sd, sdxl
+from theatergen_tpu_torch.pipelines import character, final, sd, sdxl
 from theatergen_tpu_torch.pipelines.bundle import init_bundle
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
@@ -79,12 +94,18 @@ PEAK_BYTES = 3.35e12
 TOL = 1e-2
 SD15, SDXL, CHAR = "sd15_512", "sdxl_1024", "sd15_512_ip"
 W8A8 = "sd15_512_w8a8"
+# the back half of a turn: the final pass (IP UNet + ControlNet) at 512 and
+# 768 px, and the character pass at 768 px
+FINAL, FINAL_768, CHAR_768 = "sd15_512_final", "sd15_768_final", "sd15_768_ip"
 # (model, shape, calls per UNet evaluation of that model); batch 1 with
 # CFG, so 2 rows.  SD1.5: 10 transformer blocks at 64²/32²/16²/8²;
 # SDXL: 10 blocks at 64² (4 down, 6 up) and 60 at 32² (20 down, 10 mid,
 # 30 up), head dim 64 throughout, FF split (geglu_matmul)
 FLASH_SHAPES = [(SD15, (2, 4096, 8, 40), 5), (SD15, (2, 1024, 8, 80), 5),
                 (SDXL, (2, 4096, 10, 64), 10), (SDXL, (2, 1024, 20, 64), 60)]
+# the long route (past 4096 tokens): SD1.5 at 768 px, level 0 (96²), 5 calls
+# in the IP UNet and 2 in the ControlNet per final-pass evaluation
+FLASH_LONG_SHAPES = [(FINAL_768, (2, 9216, 8, 40), 7)]
 FF_SHAPES = [(SD15, (8192, 320, 1280), 5), (SD15, (2048, 640, 2560), 5),
              (SD15, (512, 1280, 5120), 5), (SD15, (128, 1280, 5120), 1)]
 GEGLU_SHAPES = [(SDXL, (8192, 2560, 640), 10), (SDXL, (2048, 5120, 1280), 60)]
@@ -118,7 +139,18 @@ GN_SHAPES = [(CHAR, (2, c, hw), n) for (c, hw), n in (
         ((960, 4096), 1), ((1280, 4096), 1), ((640, 1024), 1),
         ((1280, 1024), 16), ((1920, 1024), 1), ((2560, 1024), 2))]
 # GroupNorm kernel launches per UNet evaluation under THEATERGEN_FUSED_GN=1
-GN_PER_EVAL = {SD15: 61, SDXL: 42, CHAR: 61}
+# (the final pass: IP UNet + ControlNet; at 768 px the UNet's three norms
+# at 96²×640 and 96²×960 fail the TPU gate's size limit)
+GN_PER_EVAL = {SD15: 61, SDXL: 42, CHAR: 61, FINAL: 61 + 27,
+               CHAR_768: 58, FINAL_768: 58 + 27}
+# flash (by route) and ff_geglu launches per evaluation of the back half's
+# paths (tests/test_torch_port_final.py::FINAL_SITES counts them on the
+# meta device): at 768 px level 1 (2304 tokens) takes no flash kernel and
+# the mid block's FF (288 rows) neither FF kernel, as in the JAX package
+PER_EVAL = {CHAR: dict(flash_attention=10, ff_geglu=16),
+            FINAL: dict(flash_attention=10 + 4, ff_geglu=16 + 7),
+            CHAR_768: dict(flash_attention_long=5, ff_geglu=15),
+            FINAL_768: dict(flash_attention_long=5 + 2, ff_geglu=15 + 6)}
 # the large-mean GroupNorm input: mean 1024, std 1.5 before the rounding to
 # bf16 (whose step there is 4 to 8), so mean/std ~ 700 and E[x²] - mean²
 # in fp32 would lose the variance (tests/test_torch_port_cuda.py shows
@@ -127,6 +159,14 @@ GN_LARGE_MEAN, GN_LARGE_STD = 1024.0, 1.5
 SD15_STEPS, SDXL_STEPS = 50, 30
 # the character requests' (THEATERGEN_FUSED_GN, ip_scale)
 CHAR_REQUESTS = (("1", 0.4), ("1", 0.0), ("0", 0.4))
+# the back half's characters: (ip_scale, layout box) at 512 px and 768 px;
+# the final pass's frozen steps and IP scale (frozen_step_ratio 0.5,
+# ip_scale_final 0.1)
+FINAL_CHARS = {512: ((0.4, (0.05, 0.2, 0.45, 0.95)),
+                     (0.0, (0.55, 0.35, 0.95, 0.9))),
+               768: ((0.4, (0.3, 0.15, 0.75, 0.95)),)}
+FROZEN_STEPS, IP_SCALE_FINAL = 25, 0.1
+OVERALL_PROMPT = "a red knight and a girl with a blue umbrella in a forest"
 # --profile: request pairs of the GroupNorm A/B ("0" and "1" in turns,
 # ABBA order) for the character pass and SDXL
 AB_PAIRS = {CHAR: 12, SDXL: 8}
@@ -135,6 +175,7 @@ PROMPTS = ["a red knight rides through a dark forest",
            "two cats asleep on a wooden table"]
 # kernel -> (module, its launch counter)
 COUNTERS = {"flash_attention": (fa, "launches"),
+            "flash_attention_long": (fa, "launches_long"),
             "ff_geglu": (gg, "ff_launches"),
             "geglu_matmul": (gg, "geglu_launches"),
             "group_norm": (gn, "launches"),
@@ -152,6 +193,18 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     return {name: getattr(mod, attr) for name, (mod, attr) in COUNTERS.items()}
+
+
+def counts(**kw) -> dict:
+    """Launches per request of every counted kernel: 0 unless given."""
+    return {name: kw.get(name, 0) for name in COUNTERS}
+
+
+def add_launches(records, model: str, got: dict) -> None:
+    for r in records:
+        r["launches"] += got[r["name"]]
+        if model in r["per_model"]:
+            r["per_model"][model]["launches"] += got[r["name"]]
 
 
 def bound(flops: float, nbytes: float, peak_ops: float = PEAK_BF16_FLOPS):
@@ -227,9 +280,9 @@ def _row(model, shape, calls, err, flops, nbytes, kernel, plain, library,
     return row
 
 
-def flash_phase(gen) -> dict:
+def flash_phase(gen, shapes=FLASH_SHAPES) -> list:
     rows = []
-    for model, (b, s, h, d), calls in FLASH_SHAPES:
+    for model, (b, s, h, d), calls in shapes:
         q, k, v = (randn(gen, b, s, h, d) for _ in range(3))
         out = fa.flash_attention(q, k, v)
         torch.cuda.synchronize()
@@ -243,9 +296,8 @@ def flash_phase(gen) -> dict:
             lambda: fa.flash_attention_plain(q.float(), k.float(), v.float()),
             lambda: F.scaled_dot_product_attention(qt, kt, vt), 3))
         del q, k, v, qt, kt, vt, ref, out
-    return _record("flash_attention", "csrc/flash_attention.cu",
-                   "theatergen_tpu/ops/flash_attention.py:283",
-                   "flash_attention_packed (_flat_call)", rows)
+        torch.cuda.empty_cache()
+    return rows
 
 
 def ff_phase(gen) -> dict:
@@ -376,8 +428,9 @@ def qmm_phase(gen) -> dict:
 
 def _record(name, source, replaces, tpu_function, rows) -> dict:
     """One kernel's record.  Times are summed over one UNet evaluation of
-    each model that calls the kernel (each shape times its calls), and per
-    model under ``per_model``; ``launches`` are added by the main paths."""
+    each model that calls the kernel (each shape times its calls; for the
+    final pass one IP UNet and one ControlNet evaluation), and per model
+    under ``per_model``; ``launches`` are added by the main paths."""
     keys = [k for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                         "eager_ms") if k in rows[0]]
     per_model = {}
@@ -395,7 +448,8 @@ def _record(name, source, replaces, tpu_function, rows) -> dict:
         per="one UNet evaluation of each model that calls it (sd15_512: "
             "SD1.5 512 px, sdxl_1024: SDXL 1024 px, sd15_512_ip: the SD1.5 "
             "IP UNet of the character pass, sd15_512_w8a8: the SD1.5 W8A8 "
-            "UNet), batch 1 with CFG",
+            "UNet, sd15_768_final: the IP UNet and the ControlNet of the "
+            "768-px final pass), batch 1 with CFG",
         per_model=per_model, shapes=rows)
 
 
@@ -458,10 +512,7 @@ def run_requests(model, pipe, prompts, want, size, records) -> list:
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         got = read_counts()
-        for r in records:
-            r["launches"] += got[r["name"]]
-            if model in r["per_model"]:
-                r["per_model"][model]["launches"] += got[r["name"]]
+        add_launches(records, model, got)
         finite = bool(torch.isfinite(img).all())
         in_range = bool(img.min() >= 0.0 and img.max() <= 1.0)
         log(f"  {model} request {i}: {seconds[-1]:.3f} s  launches {got}  "
@@ -493,9 +544,9 @@ def sd15_path(records, profiling: bool) -> dict:
     # differently (fp32 vs bf16 GEGLU up-projection, fp32 logits)
     rel, eps = unet_reference_phase(bundle, 5e-2)
     pipe = sd.Text2Img(bundle, num_steps=SD15_STEPS)
-    want = {"flash_attention": 10 * SD15_STEPS,
-            "ff_geglu": 16 * SD15_STEPS, "geglu_matmul": 0,
-            "group_norm": gn_want(SD15, SD15_STEPS), "quant_matmul": 0}
+    want = counts(flash_attention=10 * SD15_STEPS,
+                  ff_geglu=16 * SD15_STEPS,
+                  group_norm=gn_want(SD15, SD15_STEPS))
     seconds = run_requests(SD15, pipe, PROMPTS, want, 512, records)
     peak = torch.cuda.max_memory_allocated()
     log(f"  seconds per request {seconds}; peak memory "
@@ -570,10 +621,10 @@ def w8a8_path(records, profiling: bool, float_eps, sd15: dict) -> dict:
     seconds = {}
     for mode, prompts in (("1", PROMPTS), ("0", PROMPTS[:1])):
         qz.FUSED_MODE = mode
-        want = {"flash_attention": 10 * SD15_STEPS, "ff_geglu": 0,
-                "geglu_matmul": 0, "group_norm": gn_want(SD15, SD15_STEPS),
-                "quant_matmul": QMM_PER_EVAL * SD15_STEPS if mode == "1"
-                else 0}
+        want = counts(flash_attention=10 * SD15_STEPS,
+                      group_norm=gn_want(SD15, SD15_STEPS),
+                      quant_matmul=QMM_PER_EVAL * SD15_STEPS if mode == "1"
+                      else 0)
         seconds[mode] = run_requests(W8A8, pipe, prompts, want, 512,
                                      records)
     peak = torch.cuda.max_memory_allocated()
@@ -599,9 +650,9 @@ def sdxl_path(records, profiling: bool) -> dict:
     pipe = sdxl.Text2ImgXL(bundle, num_steps=SDXL_STEPS)
 
     def want():
-        return {"flash_attention": 70 * SDXL_STEPS, "ff_geglu": 0,
-                "geglu_matmul": 70 * SDXL_STEPS,
-                "group_norm": gn_want(SDXL, SDXL_STEPS), "quant_matmul": 0}
+        return counts(flash_attention=70 * SDXL_STEPS,
+                      geglu_matmul=70 * SDXL_STEPS,
+                      group_norm=gn_want(SDXL, SDXL_STEPS))
 
     seconds = run_requests(SDXL, pipe, PROMPTS[:2], want(), 1024, records)
     peak = torch.cuda.max_memory_allocated()
@@ -618,18 +669,23 @@ def sdxl_path(records, profiling: bool) -> dict:
     return out
 
 
+def path_want(model: str, steps: int = SD15_STEPS) -> dict:
+    """Launches of one request of a character or final path."""
+    return counts(**{k: v * steps for k, v in PER_EVAL[model].items()},
+                  group_norm=gn_want(model, steps))
+
+
 def character_request(bundle, run, image, i: int, scale: float,
-                      records) -> float:
+                      records, model: str = CHAR):
     """One 50-step character request under the current switch, counters
     set to 0 just before it and read just after (added to ``records``):
     prompt encoding, image encoding, the IP context and the run.  Checks
-    the result's shapes, finiteness and launches; returns its seconds."""
+    the result's shapes, finiteness and launches; returns its seconds and
+    the result."""
     cfg = bundle.cfg
     h, w = cfg.pipeline.latent_height, cfg.pipeline.latent_width
     hw_of = {"mid": h * w // 64, "up": h * w // 16}
-    want = {"flash_attention": 10 * SD15_STEPS, "ff_geglu": 16 * SD15_STEPS,
-            "geglu_matmul": 0, "group_norm": gn_want(CHAR, SD15_STEPS),
-            "quant_matmul": 0}
+    want = path_want(model)
     g = torch.Generator(device="cuda").manual_seed(200 + i)
     lat = torch.randn(1, h, w, 4, device="cuda", generator=g)
     reset_counts()
@@ -641,17 +697,14 @@ def character_request(bundle, run, image, i: int, scale: float,
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     got = read_counts()
-    for r in records:
-        r["launches"] += got[r["name"]]
-        if CHAR in r["per_model"]:
-            r["per_model"][CHAR]["launches"] += got[r["name"]]
+    add_launches(records, model, got)
     finite = bool(torch.isfinite(res.trajectory).all()) and all(
         bool(torch.isfinite(m).all()) for m in res.ref_attn)
     shapes = [tuple(m.shape) for m in res.ref_attn]
     want_shapes = [(SD15_STEPS, 8, hw_of[k[0]])
                    for k in cfg.guidance.attn_keys]
-    log(f"  character request {i} (switch {gn.FUSED_MODE}, ip_scale "
-        f"{scale}): {seconds:.3f} s  launches {got}  trajectory "
+    log(f"  {model} character request {i} (switch {gn.FUSED_MODE}, "
+        f"ip_scale {scale}): {seconds:.3f} s  launches {got}  trajectory "
         f"{tuple(res.trajectory.shape)}  ref_attn {shapes}  finite {finite}"
         f"  latent std {res.latents.std():.4f}")
     if (tuple(res.trajectory.shape) != (SD15_STEPS + 1, 1, h, w, 4)
@@ -660,7 +713,7 @@ def character_request(bundle, run, image, i: int, scale: float,
     if got != want:
         raise SystemExit(f"character request {i}: launches {got}, "
                          f"want {want}")
-    return seconds
+    return seconds, res
 
 
 def character_path(records, profiling: bool) -> dict:
@@ -704,7 +757,7 @@ def character_path(records, profiling: bool) -> dict:
     for i, (mode, scale) in enumerate(CHAR_REQUESTS):
         gn.FUSED_MODE = mode
         seconds[mode].append(character_request(bundle, run, image, i, scale,
-                                               records))
+                                               records)[0])
     peak = torch.cuda.max_memory_allocated()
     log(f"  seconds per request by switch {dict(seconds)}; peak memory "
         f"{peak / 2 ** 30:.3f} GiB")
@@ -715,9 +768,229 @@ def character_path(records, profiling: bool) -> dict:
                                                ip_scale=ip_scale)
         out["gn_ab_requests"] = request_ab(
             CHAR, lambda p: character_request(bundle, run, image, 10 + p,
-                                              0.4, []))
+                                              0.4, [])[0])
         out.update(host_ab(bundle, ip_scale=ip_scale))
     gn.FUSED_MODE = prev_mode
+    return out
+
+
+def final_inputs(bundle, seed: int):
+    """Inputs of one final-pass evaluation at the bundle's canvas (CFG
+    batch 2): latents, timesteps 981, the IP context (text + IP tokens)
+    and a hint image in [0, 1], NCHW."""
+    cfg = bundle.cfg
+    px, h = cfg.pipeline.height, cfg.pipeline.latent_height
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(2, 4, h, h, device="cuda", generator=g)
+    t = torch.full((2,), 981, device="cuda", dtype=torch.long)
+    ctx = torch.randn(2, cfg.text.max_length + bundle.unet_ip.cfg.ip_num_tokens,
+                      cfg.unet.cross_attention_dim, device="cuda",
+                      generator=g)
+    cond = torch.rand(2, 3, px, px, device="cuda", generator=g)
+    return x, t, ctx, cond
+
+
+def final_reference_phase(bundle) -> dict:
+    """One full-size ControlNet evaluation and one IP UNet evaluation with
+    its residuals, each with the kernels against plain_path() (the UNet
+    given the kernel path's residuals in both runs)."""
+    px, text_len = bundle.cfg.pipeline.height, bundle.cfg.text.max_length
+    x, t, ctx, cond = final_inputs(bundle, px)
+    ip_scale = torch.tensor(IP_SCALE_FINAL, device="cuda")
+    out = {}
+    with torch.no_grad():
+        down, mid = bundle.controlnet(x, t, ctx[:, :text_len], cond)
+        with plain_path():
+            down_p, mid_p = bundle.controlnet(x, t, ctx[:, :text_len], cond)
+        fast = torch.cat([r.float().flatten() for r in down + (mid,)])
+        plain = torch.cat([r.float().flatten() for r in down_p + (mid_p,)])
+        out["controlnet"] = (fast, plain)
+        eps = bundle.unet_ip(x, t, ctx, ip_scale=ip_scale,
+                             down_residuals=down, mid_residual=mid).float()
+        with plain_path():
+            eps_p = bundle.unet_ip(x, t, ctx, ip_scale=ip_scale,
+                                   down_residuals=down,
+                                   mid_residual=mid).float()
+        out["unet_with_residuals"] = (eps, eps_p)
+    rels = {}
+    for what, (a, b) in out.items():
+        rels[what] = ((a - b).abs().max() / b.abs().max()).item()
+        ok = bool(torch.isfinite(a).all()) and rels[what] <= 5e-2
+        log(f"  {px} px {what}, kernels vs plain path: max|diff|/max|ref| "
+            f"{rels[what]:.3e} (bound 5e-2)  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"{px} px {what}: kernels disagree with the "
+                             f"plain path")
+    return rels
+
+
+def final_eval_times(bundle) -> dict:
+    """Wall ms per final-pass evaluation (ControlNet + IP UNet, batch 2;
+    CUDA events over 5 back to back: the loop's pace, which the host sets)
+    and its device ms (torch.profiler, one evaluation: the sum of the
+    kernels' self device time)."""
+    from torch.profiler import ProfilerActivity, profile as prof
+    px, text_len = bundle.cfg.pipeline.height, bundle.cfg.text.max_length
+    x, t, ctx, cond = final_inputs(bundle, px + 1)
+    emb = bundle.controlnet.embed_hint(cond[:1])
+    ip_scale = torch.tensor(IP_SCALE_FINAL, device="cuda")
+
+    def one():
+        down, mid = bundle.controlnet(x, t, ctx[:, :text_len],
+                                      cond_embed=emb)
+        return bundle.unet_ip(x, t, ctx, ip_scale=ip_scale,
+                              down_residuals=down, mid_residual=mid)
+
+    with torch.no_grad():
+        wall = time_ms(one, 5, 1)
+        with prof(activities=[ProfilerActivity.CUDA]) as p:
+            one()
+            torch.cuda.synchronize()
+    device = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+                 for e in p.key_averages()
+                 if not e.key.startswith("aten::")) / 1e3
+    log(f"  {px} px final-pass evaluation (ControlNet + IP UNet): wall "
+        f"{wall:.3f} ms, device {device:.3f} ms")
+    return dict(wall_ms=wall, device_ms=device)
+
+
+def final_request(bundle, run, composed, frozen_mask, cond_img, ip_image,
+                  model: str, records) -> dict:
+    """One final request, counters set to 0 just before it and read just
+    after: the overall prompt's context, ``ip_context`` with the first
+    character's image, the 50-step runner and the decode.  Checks the
+    image, the trajectory's shape, the frozen region of every step below
+    FROZEN_STEPS bit for bit against the composed trajectory, and the
+    launches."""
+    cfg = bundle.cfg
+    h, w, px = (cfg.pipeline.latent_height, cfg.pipeline.latent_width,
+                cfg.pipeline.height)
+    want = path_want(model)
+    reset_counts()
+    t0 = time.perf_counter()
+    neg = "incohesive, edge shadow, blurry"
+    text = sd.encode_prompts(bundle, OVERALL_PROMPT, neg)
+    ctx = character.ip_context(bundle, text,
+                               character.encode_ip_image(bundle, ip_image))
+    latents, traj = run(composed, frozen_mask, FROZEN_STEPS, ctx, text,
+                        cond_img, IP_SCALE_FINAL)
+    img = sd.decode_with(bundle.vae, cfg.vae.scaling_factor, latents)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = read_counts()
+    add_launches(records, model, got)
+    on = frozen_mask > 0
+    frozen_equal = all(
+        torch.equal(traj[j, 0].permute(2, 0, 1)[:, on],
+                    composed[j, 0].permute(2, 0, 1)[:, on])
+        for j in range(FROZEN_STEPS + 1))
+    finite = bool(torch.isfinite(img).all())
+    in_range = bool(img.min() >= 0.0 and img.max() <= 1.0)
+    log(f"  {model} final request: {seconds:.3f} s  launches {got}  image "
+        f"{tuple(img.shape)} finite {finite} range [{img.min():.4f}, "
+        f"{img.max():.4f}] std {img.std():.4f}  trajectory "
+        f"{tuple(traj.shape)}  frozen region ({int(on.sum())} of {h * w} "
+        f"latent pixels) equal to the composition for steps 0..{FROZEN_STEPS}"
+        f": {frozen_equal}")
+    if (tuple(img.shape) != (1, px, px, 3) or not finite or not in_range
+            or tuple(traj.shape) != (SD15_STEPS + 1, 1, h, w, 4)
+            or not bool(torch.isfinite(traj).all())):
+        raise SystemExit(f"{model} final request: bad result")
+    if not frozen_equal:
+        raise SystemExit(f"{model} final request: the frozen region differs "
+                         f"from the composed trajectory")
+    if got != want:
+        raise SystemExit(f"{model} final request: launches {got}, want "
+                         f"{want}")
+    return dict(seconds=seconds, image_std=img.std().item())
+
+
+def back_half(bundle, records, char_model: str, model: str,
+              chars_spec) -> dict:
+    """At the bundle's canvas: the final pass checked against
+    plain_path(), the characters of ``chars_spec`` ((ip_scale, layout box)
+    each: 50-step character requests, decoded), their masks from the
+    step-mean reference maps, the composition program, one final request,
+    and the final pass's evaluation times."""
+    cfg = bundle.cfg
+    px = cfg.pipeline.height
+    h, w = cfg.pipeline.latent_height, cfg.pipeline.latent_width
+    k = cfg.pipeline.max_objects
+    torch.cuda.reset_peak_memory_stats()
+    rels = final_reference_phase(bundle)
+    g = torch.Generator(device="cuda").manual_seed(17)
+    ref_image = torch.rand(1, 512, 512, 3, device="cuda", generator=g)
+    run_char, _ = character.make_character_pipeline(
+        bundle, SD15_STEPS, use_ip=True, capture_ref_attn=True)
+    chars, char_seconds = [], []
+    for i, (scale, box) in enumerate(chars_spec):
+        sec, res = character_request(bundle, run_char, ref_image, 20 + i,
+                                     scale, records, char_model)
+        char_seconds.append(sec)
+        image = sd.decode_with(bundle.vae, cfg.vae.scaling_factor,
+                               res.latents)
+        box = torch.tensor(box, device="cuda")
+        maps = theater.aggregate_attn(res.ref_attn, SD15_STEPS)
+        m_lat, m_pix = theater._attn_mask_fallback(
+            maps, geometry.centered_box(box), h, w, px, px)
+        chars.append(dict(traj=res.trajectory, m_lat=m_lat, m_pix=m_pix,
+                          image=image[0], box=box))
+        log(f"  character {i}: mask {int(m_lat.sum())} of {h * w} latent "
+            f"pixels, layout box {tuple(round(v, 3) for v in box.tolist())}")
+    pad = k - len(chars)
+    t0 = time.perf_counter()
+
+    def stack(key, like):
+        return torch.stack([c[key] for c in chars]
+                           + [torch.zeros_like(like)] * pad)
+
+    g_bg = torch.Generator(device="cuda").manual_seed(1000)
+    composed, collage, cond_img, frozen_mask = theater._compose_program()(
+        stack("traj", chars[0]["traj"]), stack("m_lat", chars[0]["m_lat"]),
+        stack("m_pix", chars[0]["m_pix"]), stack("image", chars[0]["image"]),
+        stack("box", chars[0]["box"]),
+        torch.arange(k, device="cuda") < len(chars),
+        torch.randn(1, h, w, 4, device="cuda", generator=g_bg))
+    torch.cuda.synchronize()
+    compose_s = time.perf_counter() - t0
+    log(f"  composition program: {compose_s:.3f} s, frozen mask "
+        f"{int(frozen_mask.sum())} of {h * w} latent pixels, collage mean "
+        f"{collage.mean():.4f}, lineart mean {cond_img.mean():.4f}")
+    run, _ = final.make_final_pipeline(bundle, SD15_STEPS)
+    req = final_request(bundle, run, composed, frozen_mask, cond_img,
+                        chars[0]["image"][None], model, records)
+    peak = torch.cuda.max_memory_allocated()
+    times = final_eval_times(bundle)
+    log(f"  {px} px: character requests {char_seconds} s, final request "
+        f"{req['seconds']:.3f} s, peak memory {peak / 2 ** 30:.3f} GiB")
+    return dict(kernels_vs_plain_rel=rels, character_seconds=char_seconds,
+                compose_seconds=compose_s, final_request=req,
+                peak_bytes=peak, final_eval=times)
+
+
+def final_paths(records) -> dict:
+    """The back half at 512 px (two characters) and 768 px (one), on one
+    bundle: 768 px is the same modules under a config whose
+    ``pipeline.height``/``width`` are replaced."""
+    cfg = sd15_config()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bundle = init_bundle(cfg, seed=0, device="cuda", with_ip=True,
+                         with_vision=True, with_controlnet=True)
+    torch.cuda.synchronize()
+    n_cn = sum(p.numel() for p in bundle.controlnet.parameters()) / 1e6
+    log(f"  init_bundle(sd15_config(), with_ip=True, with_vision=True, "
+        f"with_controlnet=True): {time.perf_counter() - t0:.3f} s, "
+        f"ControlNet {n_cn:.1f} M params, weights "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB")
+    out = {FINAL: back_half(bundle, records, CHAR, FINAL, FINAL_CHARS[512])}
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg768 = dataclasses.replace(cfg, pipeline=dataclasses.replace(
+        cfg.pipeline, height=768, width=768))
+    out[FINAL_768] = back_half(dataclasses.replace(bundle, cfg=cfg768),
+                               records, CHAR_768, FINAL_768, FINAL_CHARS[768])
     return out
 
 
@@ -879,8 +1152,15 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     log("[check+time] kernels vs plain versions at both models' shapes")
-    records = [flash_phase(gen), ff_phase(gen), geglu_phase(gen),
-               gn_phase(gen), qmm_phase(gen)]
+    records = [
+        _record("flash_attention", "csrc/flash_attention.cu",
+                "theatergen_tpu/ops/flash_attention.py:283",
+                "flash_attention_packed (_flat_call)", flash_phase(gen)),
+        _record("flash_attention_long", "csrc/flash_attention.cu",
+                "theatergen_tpu/ops/flash_attention.py:435",
+                "_flash_attention_flat_online (_flat_online_call)",
+                flash_phase(gen, FLASH_LONG_SHAPES)),
+        ff_phase(gen), geglu_phase(gen), gn_phase(gen), qmm_phase(gen)]
     torch.cuda.synchronize()
 
     log(f"[main path] SD1.5 Text2Img, 512 px, {SD15_STEPS} DDIM steps, "
@@ -904,6 +1184,13 @@ def main() -> int:
     log(f"[main path] IP-Adapter character pass, SD1.5 512 px, "
         f"{SD15_STEPS} DDIM steps, CFG 7.5, bf16 UNet, fp32 ViT-H/14 tower")
     paths[CHAR] = character_path(records, args.profile)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[main path] the back half of a turn: masks, composition, collage, "
+        f"lineart and the ControlNet final pass, SD1.5 at 512 and 768 px, "
+        f"{SD15_STEPS} DDIM steps, CFG 7.5, frozen_steps {FROZEN_STEPS}, "
+        f"ip_scale {IP_SCALE_FINAL}")
+    paths.update(final_paths(records))
     log(f"[done] {time.perf_counter() - t_start:.1f} s after the build began")
     log(json.dumps({"main_path": paths, "card": card}))
     log(json.dumps({"kernels": records}))

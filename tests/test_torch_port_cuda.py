@@ -54,6 +54,43 @@ def test_flash_kernel_d64_matches_plain_on_card(s, h):
 
 
 @pytest.mark.cuda
+def test_flash_kernel_long_route_matches_plain_on_card():
+    """SD1.5 on a 768-px canvas: level-0 self-attention at S = 9216, 8
+    heads of 40, CFG batch 2 (the JAX package's _flat_online_call route).
+    Kernel vs plain (fp32 from the same bf16 inputs), 1e-2·max|ref|; the
+    launch counts on launches_long only."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(6)
+    q, k, v = (torch.randn(2, 9216, 8, 40, device=dev, generator=g,
+                           dtype=torch.bfloat16) for _ in range(3))
+    n0 = (tfa.launches, tfa.launches_long)
+    out = tfa.flash_attention(q, k, v).float()
+    torch.cuda.synchronize()
+    assert (tfa.launches, tfa.launches_long) == (n0[0], n0[1] + 1)
+    ref = tfa.flash_attention_plain(q.float(), k.float(), v.float())
+    assert (out - ref).abs().max() <= 1e-2 * ref.abs().max()
+
+
+@pytest.mark.cuda
+def test_self_attention_routes_at_768_px():
+    """A bf16 self-attention layer at 96² = 9216 tokens (8 heads of 40)
+    launches the kernel on the long route; at 48² = 2304 tokens (not a
+    multiple of 512: outside the JAX package's flash domain) it launches
+    nothing and runs the plain attention."""
+    dev = _card()
+    attn = tl.CrossAttention(320, 8, 40).to(dev, torch.bfloat16)
+    n0 = (tfa.launches, tfa.launches_long)
+    with torch.no_grad():
+        attn(torch.randn(2, 9216, 320, device=dev, dtype=torch.bfloat16))
+        mid = (tfa.launches, tfa.launches_long)
+        attn2 = tl.CrossAttention(640, 8, 80).to(dev, torch.bfloat16)
+        attn2(torch.randn(2, 2304, 640, device=dev, dtype=torch.bfloat16))
+    torch.cuda.synchronize()
+    assert mid == (n0[0], n0[1] + 1)
+    assert (tfa.launches, tfa.launches_long) == mid
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(8192, 2560, 640), (2048, 5120, 1280),
                                    (100, 2560, 640)])
 def test_geglu_kernel_matches_plain_on_card(m, k, n):
@@ -180,17 +217,18 @@ def test_layers_raise_in_the_domain_without_a_kernel_instance():
     """A bf16 self-attention in the flash domain with a head dim the kernel
     has no instance for (48), a fused bf16 FF of an uncompiled width, and
     an unfused bf16 FF whose width the geglu_matmul tile does not divide
-    (192), raise on the card instead of running the plain path."""
+    (192), each at 128 rows (inside the JAX FF gates), raise on the card
+    instead of running the plain path."""
     dev = _card()
     attn = tl.CrossAttention(96, 2, 48).to(dev, torch.bfloat16)
     with pytest.raises(ValueError):
         attn(torch.randn(1, 1024, 96, device=dev, dtype=torch.bfloat16))
     ff = tl.FeedForward(32, fused_ff=True).to(dev, torch.bfloat16)
     with pytest.raises(ValueError):
-        ff(torch.randn(1, 16, 32, device=dev, dtype=torch.bfloat16))
+        ff(torch.randn(1, 128, 32, device=dev, dtype=torch.bfloat16))
     ff = tl.FeedForward(192, fused_ff=False).to(dev, torch.bfloat16)
     with pytest.raises(ValueError):
-        ff(torch.randn(1, 16, 192, device=dev, dtype=torch.bfloat16))
+        ff(torch.randn(1, 128, 192, device=dev, dtype=torch.bfloat16))
 
 
 @pytest.mark.cuda

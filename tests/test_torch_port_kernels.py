@@ -9,6 +9,7 @@ kernels to the plain versions on the card.
 import collections
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -109,15 +110,69 @@ def test_geglu_plain_matches_pallas(interpret, dtype):
 
 
 def test_gates_cover_the_sd15_shapes():
-    """The flash gate is the TPU gate's domain, by sequence length alone;
-    a head dim without a kernel instance raises on the card instead
+    """The flash gate is the TPU gates' domain (8 heads of 40 here): 1024
+    to 32768 tokens in steps of 512, the 768-px canvas's 9216 included; a
+    head dim without a kernel instance raises on the card instead
     (``test_torch_port_cuda.py``)."""
-    for s in (1024, 1536, 4096):
-        assert tfa.supported(s, s)
-    assert not tfa.supported(256, 256)      # below the flash domain
-    assert not tfa.supported(4096, 77)      # cross-attention
-    assert not tfa.supported(1100, 1100)    # not a multiple of 512
-    assert not tfa.supported(8192, 8192)    # above the domain
+    for s in (1024, 1536, 4096, 8192, 9216):
+        assert tfa.supported(s, s, 8, 40)
+    assert not tfa.supported(256, 256, 8, 40)      # below the flash domain
+    assert not tfa.supported(4096, 77, 8, 40)      # cross-attention
+    assert not tfa.supported(1100, 1100, 8, 40)    # not a multiple of 512
+    assert not tfa.supported(2304, 2304, 8, 80)    # 768 px, level 1
+    assert not tfa.supported(33280, 33280, 8, 40)  # above the domain
+
+
+@pytest.mark.parametrize("s", [1024, 2304, 4096, 4608, 9216, 16384, 32768,
+                               33280])
+@pytest.mark.parametrize("d", [40, 64, 80])
+def test_flash_gate_equals_the_jax_route(s, d):
+    """The port's supported() is the set of self-attention shapes where
+    the JAX package reaches a Pallas flash kernel (packed_supported up to
+    4096 tokens, fa.supported and flat_online_supported past it), at 8
+    heads and at SDXL's 20 (where the online blocks' budget binds
+    earlier); cross-attention lengths never."""
+    for heads in (8, 20):
+        q = jax.ShapeDtypeStruct((2, s, heads, d), jnp.bfloat16)
+        want = (fa.packed_supported(s, heads, d, 2)
+                or (fa.supported(q, q) and fa.flat_online_supported(q, q)))
+        assert tfa.supported(s, s, heads, d, 2) == want
+    assert not tfa.supported(s, 77, 8, d)
+
+
+def test_flash_plain_matches_flat_online_pallas(interpret):
+    """_flat_online_call (the Sk > 4096 route's Pallas kernel, interpret)
+    forced onto 256-row q blocks and two 512-key K blocks, so the online
+    correction runs, vs the port's flash_attention on CPU tensors at
+    (1, 1024, 2, 40); logits of scale ~9 (q, k × 3), up to ~40.  Both
+    fp32, but the Pallas kernel rounds q·d^-0.5·log2e before the product
+    and takes exp2, the port scales the logits and takes exp: ~4e-6 apart
+    in a logit of 40, which the softmax passes on as relative error, so
+    5e-5 absolute on outputs of O(1) (1.6e-5 measured)."""
+    b, s, h, d = 1, 1024, 2, 40
+    rng = np.random.RandomState(3)
+    q, k = (rng.randn(b, s, h, d).astype(np.float32) * 3 for _ in range(2))
+    v = rng.randn(b, s, h, d).astype(np.float32)
+    dp = fa._pad_head_dim(d)
+    out = fa._flat_online_call(
+        _pack(q * (d ** -0.5 * fa.LOG2E), dp), _pack(k, dp), _pack(v, dp),
+        h, dp, bq=256, bk=512)
+    ref = np.asarray(out).reshape(b, s, h, dp)[..., :d]
+    got = tfa.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v))
+    np.testing.assert_allclose(got.numpy(), ref, atol=5e-5)
+    np.testing.assert_array_equal(
+        tfa.flash_attention_plain(torch.from_numpy(q), torch.from_numpy(k),
+                                  torch.from_numpy(v)).numpy(), got.numpy())
+
+
+def test_flash_route_counters_stay_apart_on_cpu():
+    """On CPU tensors neither counter moves, at either route's length."""
+    before = (tfa.launches, tfa.launches_long)
+    for s in (1024, 4608):
+        x = torch.randn(1, s, 1, 40)
+        assert tfa.flash_attention(x, x, x).shape == x.shape
+    assert (tfa.launches, tfa.launches_long) == before
 
 
 @pytest.mark.parametrize("m,d,k,sms,want", [
@@ -153,7 +208,8 @@ def test_layers_route_to_the_kernels(monkeypatch):
     assert calls == ["flash", "flash"]
     for dim in (320, 32):
         ff = tl.FeedForward(dim, fused_ff=True).to(torch.bfloat16)
-        y = torch.randn(1, 16, dim, dtype=torch.bfloat16)
+        # 128 rows: the smallest row block of the JAX FF gate
+        y = torch.randn(1, 128, dim, dtype=torch.bfloat16)
         out = ff(y)
         ref = ff.net[2](ff.net[0](y)).float()
         # fused (fp32 gate) vs unfused (bf16 up-projection): bf16 rounding
@@ -172,10 +228,11 @@ def test_layers_route_to_the_kernels(monkeypatch):
     (True, torch.bfloat16, True, None)])
 def test_ff_layer_routes(monkeypatch, fused_ff, dtype, plain, want):
     """FeedForward's routes, as the JAX package's layers.py:235-254 gates
-    them: fused_ff and bf16 → ff_matmul; bf16 without fused_ff → a plain
-    up-projection, then geglu_matmul on it and net.2's weight; fp32, and
-    anything inside plain_path(), → the plain modules.  Each route gives
-    the plain modules' answer within bf16 rounding (2e-2·max|ref|)."""
+    them (128 rows, which both of its gates take): fused_ff and bf16 →
+    ff_matmul; bf16 without fused_ff → a plain up-projection, then
+    geglu_matmul on it and net.2's weight; fp32, and anything inside
+    plain_path(), → the plain modules.  Each route gives the plain
+    modules' answer within bf16 rounding (2e-2·max|ref|)."""
     calls = []
     real_ff, real_gg = tgg.ff_matmul, tgg.geglu_matmul
     monkeypatch.setattr(tgg, "ff_matmul",
@@ -184,7 +241,7 @@ def test_ff_layer_routes(monkeypatch, fused_ff, dtype, plain, want):
                         lambda *a: calls.append("geglu") or real_gg(*a))
     torch.manual_seed(1)
     ff = tl.FeedForward(64, fused_ff=fused_ff).to(dtype)
-    x = torch.randn(2, 16, 64, dtype=dtype)
+    x = torch.randn(2, 64, 64, dtype=dtype)
     if plain:
         with tl.plain_path():
             out = ff(x)

@@ -161,3 +161,16 @@ def test_port_modules_of_the_w8a8_slice():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             init_bundle(cfg, 0)
+
+
+def test_port_modules_of_the_final_slice():
+    """The final slice's modules are among those the import rule above
+    covers, and a bundle with the ControlNet defaults to the card too."""
+    mods = _modules()
+    for m in ("theater", "ops.geometry", "ops.latents", "ops.lineart",
+              "models.controlnet", "pipelines.final"):
+        assert f"theatergen_tpu_torch.{m}" in mods
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            init_bundle(tiny_config(), 0, with_ip=True, with_vision=True,
+                        with_controlnet=True)

@@ -1,10 +1,10 @@
 """Configuration dataclasses of the PyTorch port.
 
-The port's own copy of the SD1.5 and SDXL txt2img and IP-Adapter character
-slices of ``theatergen_tpu/config.py``: field names and defaults are
-identical, so a config written for one package reads the same in the
-other.  Only the dataclasses the ported paths need live here; the others
-join as their modules are ported.
+The port's own copy of the SD1.5 and SDXL txt2img, IP-Adapter character and
+ControlNet final-pass slices of ``theatergen_tpu/config.py``: field names
+and defaults are identical, so a config written for one package reads the
+same in the other.  Only the dataclasses the ported paths need live here;
+the others join as their modules are ported.
 """
 
 from __future__ import annotations
@@ -111,6 +111,16 @@ class CLIPVisionConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ControlNetConfig:
+    """ControlNet (v1.1 lineart in the reference): a copy of the UNet's
+    encoder and mid block, and the hint's conditioning embedding."""
+
+    unet: UNetConfig = dataclasses.field(default_factory=UNetConfig)
+    conditioning_channels: int = 3
+    conditioning_embed_channels: Tuple[int, ...] = (16, 32, 96, 256)
+
+
+@dataclasses.dataclass(frozen=True)
 class IPAdapterConfig:
     """IP-Adapter image projection (ImageProj; MLPProj and the Resampler
     of the full and plus variants)."""
@@ -200,6 +210,8 @@ class TheaterConfig:
     text2: Optional[CLIPTextConfig] = None
     vision: CLIPVisionConfig = dataclasses.field(
         default_factory=CLIPVisionConfig)
+    controlnet: ControlNetConfig = dataclasses.field(
+        default_factory=ControlNetConfig)
     ip_adapter: IPAdapterConfig = dataclasses.field(
         default_factory=IPAdapterConfig)
     scheduler: SchedulerConfig = dataclasses.field(
@@ -252,22 +264,31 @@ def tiny_config(latent_size: int = 8) -> TheaterConfig:
         max_iter=(2, 2, 2, 2),
         guidance_steps=2,
     )
-    return TheaterConfig(unet=unet, vae=vae, text=text, vision=vision,
-                         ip_adapter=ip, pipeline=pipe, guidance=guidance)
+    return TheaterConfig(
+        unet=unet, vae=vae, text=text, vision=vision,
+        # one stride-2 stage to match the tiny VAE's scale-2 latents
+        controlnet=ControlNetConfig(unet=unet,
+                                    conditioning_embed_channels=(8, 16)),
+        ip_adapter=ip, pipeline=pipe, guidance=guidance)
 
 
 def sd15_config() -> TheaterConfig:
-    """Full-size SD1.5 stack (the main path), with the fused FF on."""
+    """Full-size SD1.5 stack (the main path), with the fused FF on; the
+    ControlNet encoder shares the UNet config, the flag included.  A 768-px
+    canvas is ``dataclasses.replace`` of ``pipeline.height``/``width``: the
+    modules do not depend on it."""
     base = TheaterConfig()
+    unet = dataclasses.replace(base.unet, fused_ff=True)
     return dataclasses.replace(
-        base, unet=dataclasses.replace(base.unet, fused_ff=True))
+        base, unet=unet,
+        controlnet=dataclasses.replace(base.controlnet, unet=unet))
 
 
 def tiny_xl_config(latent_size: int = 8) -> TheaterConfig:
     """Miniature SDXL-shaped config: per-level depths/heads, text_time
-    micro-conditioning, dual text towers, EulerAncestral.  The JAX
-    package's twin also carries IP-Adapter XL and ControlNet parts, which
-    join with their slices."""
+    micro-conditioning, dual text towers, EulerAncestral, and a ControlNet
+    on the XL UNet.  The JAX package's twin also carries an IP-Adapter XL
+    part, which joins with its slice."""
     base = tiny_config(latent_size)
     text2 = dataclasses.replace(
         base.text, hidden_size=48, num_heads=2, intermediate_size=96,
@@ -287,7 +308,10 @@ def tiny_xl_config(latent_size: int = 8) -> TheaterConfig:
     )
     pipe = dataclasses.replace(base.pipeline,
                                scheduler_type="euler_ancestral")
-    return dataclasses.replace(base, unet=unet, text2=text2, pipeline=pipe)
+    return dataclasses.replace(
+        base, unet=unet, text2=text2, pipeline=pipe,
+        controlnet=ControlNetConfig(unet=unet,
+                                    conditioning_embed_channels=(8, 16)))
 
 
 def sdxl_config() -> TheaterConfig:

@@ -1,14 +1,20 @@
 // Flash self-attention forward for Hopper (sm_90a), bf16 in/out.
 //
-// Replaces theatergen_tpu/ops/flash_attention.py::flash_attention_packed
-// (_flat_call / _attn_kernel_flat): exact softmax attention over q, k, v of
-// shape [B, S, H, D], the d^-0.5 scale and base-2 exponent applied to the
-// fp32 logits, 1/l applied to the output.
+// Replaces two TPU kernels of theatergen_tpu/ops/flash_attention.py:
+// flash_attention_packed (_flat_call / _attn_kernel_flat, whole K per
+// block, S <= 4096) and _flash_attention_flat_online (_flat_online_call /
+// _attn_kernel_flat_online, online softmax over K blocks, 4096 < S <=
+// 32768).  Both compute exact softmax attention over q, k, v of shape
+// [B, S, H, D], the d^-0.5 scale and base-2 exponent applied to the fp32
+// logits, 1/l applied to the output; the K loop below is online at every
+// length, so one kernel serves both (the wrapper counts the two routes
+// apart).  Offsets into q, k, v and o are 64-bit.
 //
 // Bound on the H100: at SD1.5's shapes (S = 4096, d = 40 and S = 1024,
-// d = 80) and SDXL's (S = 4096 and 1024, d = 64) the 4·S²·d operations per
-// head dwarf the 4·S·d bytes, so the kernel is bound by tensor-core
-// throughput and by the exp2 of the S² logits.
+// d = 80; S = 9216, d = 40 on a 768-px canvas) and SDXL's (S = 4096 and
+// 1024, d = 64) the 4·S²·d operations per head dwarf the 4·S·d bytes, so
+// the kernel is bound by tensor-core throughput and by the exp2 of the S²
+// logits.
 // The design keeps the logits out of device memory: one block per
 // (batch·head, 64 query rows), one warp per 16 query rows, K/V tiles of 64
 // keys in shared memory, online softmax in fp32 registers, QK^T and PV on

@@ -10,8 +10,9 @@ transformer LayerNorms flax's default 1e-6).
 
 Four layers reach a kernel: :class:`FeedForward` (``ops/geglu_matmul``:
 ``ff_matmul`` when the model's ``fused_ff`` is on and it runs in bf16,
-``geglu_matmul`` when it is off), :class:`CrossAttention`
-(``ops/flash_attention`` for self-attention at 1024..4096 tokens),
+``geglu_matmul`` when it is off, each where the JAX gate takes the
+shape), :class:`CrossAttention` (``ops/flash_attention`` for
+self-attention where the JAX package reaches a Pallas flash kernel),
 :class:`GroupNorm` (``ops/groupnorm`` where ``THEATERGEN_FUSED_GN`` routes
 the shape) and, in a model configured ``quantized``, the
 :class:`QuantLinear` that :func:`make_linear` builds at the JAX package's
@@ -252,13 +253,17 @@ class FeedForward(nn.Module):
     """GEGLU → down projection (``net.0`` / ``net.2``).
 
     With bf16 activations, as the JAX package's ``layers.py:235-254`` gates
-    it: with ``fused_ff`` the whole FF is one ``ops.geglu_matmul.ff_matmul``
-    call; without, the up-projection is a plain linear and the gate and
-    down-projection one ``ops.geglu_matmul.geglu_matmul`` call.  On the
-    card a width without a kernel instance raises there rather than
-    running the plain path.  fp32 and :func:`plain_path` take the plain
-    path.  A ``quantized`` FF is never fused (JAX ``layers.py:235-258``):
-    ``net.2(GEGLU(x))`` with both layers ``QuantLinear``."""
+    it: with ``fused_ff`` and a shape ``ops.geglu_matmul.ff_supported``
+    takes, the whole FF is one ``ff_matmul`` call; otherwise, where
+    ``ops.geglu_matmul.supported`` takes it, the up-projection is a plain
+    linear and the gate and down-projection one ``geglu_matmul`` call
+    (the gates are the JAX package's block searches, so both packages
+    route the same sites: SD1.5's mid block at 768 px, 288 rows, takes
+    neither).  On the card a width without a kernel instance raises there
+    rather than running the plain path.  fp32 and :func:`plain_path` take
+    the plain path.  A ``quantized`` FF is never fused (JAX
+    ``layers.py:235-258``): ``net.2(GEGLU(x))`` with both layers
+    ``QuantLinear``."""
 
     def __init__(self, dim: int, mult: int = 4, fused_ff: bool = False,
                  quantized: bool = False):
@@ -273,22 +278,28 @@ class FeedForward(nn.Module):
         if (self.quantized or not _use_kernels
                 or x.dtype != torch.bfloat16):
             return down(geglu(x))
-        if self.fused_ff:
+        d, k = x.shape[-1], down.in_features
+        m = x.numel() // d
+        if self.fused_ff and gg_ops.ff_supported(m, d, k):
             out = gg_ops.ff_matmul(x, geglu.proj.weight, geglu.proj.bias,
                                    down.weight)
-        else:
+        elif gg_ops.supported(m, k, d):
             out = gg_ops.geglu_matmul(geglu.proj(x), down.weight)
+        else:
+            return down(geglu(x))
         return out + down.bias
 
 
 class CrossAttention(nn.Module):
     """Attention with diffusers' projections (no-bias q/k/v, biased out).
 
-    Self-attention (``context is None``) in bf16 in the flash domain
-    (``ops.flash_attention.supported``: the sequence length alone) takes
-    ``ops.flash_attention``, which raises on the card for a head dim it
-    has no kernel instance for; every other call, and every call inside
-    :func:`plain_path`, takes ``ops.attention.multi_head_attention``.
+    Self-attention (``context is None``) in bf16 where the JAX package
+    reaches a Pallas flash kernel (``ops.flash_attention.supported``:
+    1024..32768 tokens in steps of 512, within the TPU blocks' budget; a
+    quantized model too, as there) takes ``ops.flash_attention``, which
+    raises on the card for a head dim it has no kernel instance for;
+    every other call, and every call inside :func:`plain_path`, takes
+    ``ops.attention.multi_head_attention``.
 
     With ``ip_tokens > 0`` the last ``ip_tokens`` rows of a context are
     image tokens with their own ``to_k_ip``/``to_v_ip`` projections, and
@@ -339,7 +350,8 @@ class CrossAttention(nn.Module):
             v = self.to_v(ctx).view(shape)
             if (context is None and self.use_flash and _use_kernels
                     and not return_probs and x.dtype == torch.bfloat16
-                    and fa_ops.supported(lq, lq)):
+                    and fa_ops.supported(lq, lq, self.heads, self.head_dim,
+                                         x.element_size())):
                 res = fa_ops.flash_attention(q, k, v)
             else:
                 res = attn_ops.multi_head_attention(

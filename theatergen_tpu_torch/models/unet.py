@@ -18,8 +18,15 @@ forward returns ``(eps, {key: probs [B, heads, HW, Lk]})`` and keeps no
 other layer's probabilities.  With ``cfg.quantized`` the linears the JAX
 package quantizes (attention projections, the FF, ``time_emb_proj`` and
 ``time_embedding``; not SDXL's ``add_embedding``) are W8A8
-``layers.QuantLinear``s.  ControlNet residuals, DeepCache and
-T2I-Adapter residuals come with later slices.
+``layers.QuantLinear``s.  ``down_residuals`` (one per skip) and
+``mid_residual``, a ControlNet's outputs, are added to the skips and to
+the mid block's output.  DeepCache and T2I-Adapter residuals come with
+later slices.
+
+:class:`UNetEncoder` holds ``conv_in``, the time embedding, the down
+blocks and the mid block, and runs them; the UNet and
+``models/controlnet.py::ControlNet`` both build on it, as the JAX
+package's ``UNetEncoder``/``UNetMid`` are shared.
 """
 
 from __future__ import annotations
@@ -55,89 +62,157 @@ class UNetBlock(nn.Module):
         self.attentions = nn.ModuleList()
 
 
-class UNet2DCondition(nn.Module):
-    def __init__(self, cfg: UNetConfig):
+class UNetEncoder(nn.Module):
+    """``conv_in``, ``time_embedding``, the down blocks and the mid block
+    under diffusers' names.  The UNet (``unet=True``) quantizes the time
+    embedding where ``cfg.quantized`` and adds SDXL's ``add_embedding``
+    where the config asks for it; the JAX ControlNet has neither."""
+
+    def __init__(self, cfg: UNetConfig, unet: bool = True):
         super().__init__()
-        if cfg.addition_embed_type not in (None, "text_time"):
-            raise ValueError(f"unknown addition_embed_type "
-                             f"{cfg.addition_embed_type!r}")
         self.cfg = cfg
         boc = cfg.block_out_channels
         n = len(boc)
-        time_dim = boc[0] * cfg.time_embed_mult
-        groups = cfg.norm_num_groups
-
-        def resnet(cin, cout):
-            return ResnetBlock2D(cin, cout, time_dim, groups=groups,
-                                 fast_norm=cfg.fast_norm,
-                                 quantized=cfg.quantized)
-
-        def transformer(level, ch):
-            heads = cfg.heads_at(level)
-            return Transformer2D(
-                ch, heads, ch // heads, cfg.cross_attention_dim,
-                depth=cfg.depth_at(level), groups=groups,
-                fast_norm=cfg.fast_norm, use_flash=cfg.flash_attention,
-                fused_ff=cfg.fused_ff, ip_tokens=cfg.ip_num_tokens,
-                quantized=cfg.quantized)
-
+        self.time_dim = boc[0] * cfg.time_embed_mult
         self.conv_in = nn.Conv2d(cfg.in_channels, boc[0], 3, padding=1)
-        self.time_embedding = TimestepEmbedding(boc[0], time_dim,
-                                                quantized=cfg.quantized)
-        if cfg.addition_embed_type == "text_time":
+        self.time_embedding = TimestepEmbedding(
+            boc[0], self.time_dim, quantized=cfg.quantized and unet)
+        if unet and cfg.addition_embed_type == "text_time":
             # SDXL micro-conditioning over [pooled ++ sinusoids(time_ids)]
             # (never quantized, as in the JAX package)
             self.add_embedding = TimestepEmbedding(
-                cfg.projection_class_embeddings_input_dim, time_dim)
-
-        skip_channels = [boc[0]]
+                cfg.projection_class_embeddings_input_dim, self.time_dim)
+        # channels of each skip the down path leaves for the up path
+        self.skip_channels = [boc[0]]
         h_ch = boc[0]
         self.down_blocks = nn.ModuleList()
         for i, ch in enumerate(boc):
             blk = UNetBlock()
             for _ in range(cfg.layers_per_block):
-                blk.resnets.append(resnet(h_ch, ch))
+                blk.resnets.append(self._resnet(h_ch, ch))
                 h_ch = ch
                 if cfg.attention_levels[i]:
-                    blk.attentions.append(transformer(i, ch))
-                skip_channels.append(ch)
+                    blk.attentions.append(self._transformer(i, ch))
+                self.skip_channels.append(ch)
             if i < n - 1:
                 blk.downsamplers = nn.ModuleList([Downsample2D(ch)])
-                skip_channels.append(ch)
+                self.skip_channels.append(ch)
             self.down_blocks.append(blk)
-
         self.mid_block = UNetBlock()
-        self.mid_block.resnets.extend([resnet(boc[-1], boc[-1]),
-                                       resnet(boc[-1], boc[-1])])
-        self.mid_block.attentions.append(transformer(n - 1, boc[-1]))
+        self.mid_block.resnets.extend([self._resnet(boc[-1], boc[-1]),
+                                       self._resnet(boc[-1], boc[-1])])
+        self.mid_block.attentions.append(self._transformer(n - 1, boc[-1]))
 
+    def _resnet(self, cin: int, cout: int) -> ResnetBlock2D:
+        cfg = self.cfg
+        return ResnetBlock2D(cin, cout, self.time_dim,
+                             groups=cfg.norm_num_groups,
+                             fast_norm=cfg.fast_norm, quantized=cfg.quantized)
+
+    def _transformer(self, level: int, ch: int) -> Transformer2D:
+        cfg = self.cfg
+        heads = cfg.heads_at(level)
+        return Transformer2D(
+            ch, heads, ch // heads, cfg.cross_attention_dim,
+            depth=cfg.depth_at(level), groups=cfg.norm_num_groups,
+            fast_norm=cfg.fast_norm, use_flash=cfg.flash_attention,
+            fused_ff=cfg.fused_ff, ip_tokens=cfg.ip_num_tokens,
+            quantized=cfg.quantized)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.conv_in.weight.dtype
+
+    def embed_time(self, timesteps: torch.Tensor, batch: int) -> torch.Tensor:
+        """``[B]`` or scalar timesteps → ``[batch, time_dim]`` embedding."""
+        if timesteps.ndim == 0:
+            timesteps = timesteps[None]
+        temb = timestep_embedding(timesteps, self.cfg.block_out_channels[0])
+        temb = self.time_embedding(temb.to(self.dtype))
+        return temb.expand(batch, -1) if temb.shape[0] != batch else temb
+
+    def encode(self, h: torch.Tensor, temb: torch.Tensor, attend,
+               cond_hint: Optional[torch.Tensor] = None):
+        """conv_in (plus a ControlNet's ``cond_hint`` right after it) and
+        the down blocks; ``attend(module, h, place, block, index)`` runs
+        each transformer.  Returns ``(h, skips)``."""
+        h = self.conv_in(h)
+        if cond_hint is not None:
+            h = h + cond_hint.to(h.dtype)
+        skips = [h]
+        for i, blk in enumerate(self.down_blocks):
+            for j, res in enumerate(blk.resnets):
+                h = res(h, temb)
+                if len(blk.attentions):
+                    h = attend(blk.attentions[j], h, "down", i, j)
+                skips.append(h)
+            if hasattr(blk, "downsamplers"):
+                h = blk.downsamplers[0](h)
+                skips.append(h)
+        return h, skips
+
+    def middle(self, h: torch.Tensor, temb: torch.Tensor,
+               attend) -> torch.Tensor:
+        h = self.mid_block.resnets[0](h, temb)
+        h = attend(self.mid_block.attentions[0], h, "mid", 0, 0)
+        return self.mid_block.resnets[1](h, temb)
+
+
+def attender(context: torch.Tensor, ip_scale=1.0,
+             capture_keys: Sequence[AttnKey] = (),
+             captured: Optional[Dict[AttnKey, torch.Tensor]] = None):
+    """The ``attend`` of :meth:`UNetEncoder.encode`: runs a transformer on
+    ``context``, keeping the probabilities of the ``capture_keys`` layers
+    in ``captured``."""
+    def attend(module, h, place, block, idx):
+        layers = _captures(capture_keys, place, block, idx)
+        if not layers:
+            return module(h, context, ip_scale=ip_scale)
+        h, probs = module(h, context, ip_scale=ip_scale,
+                          capture_layers=layers)
+        for key in capture_keys:
+            if tuple(key[:3]) == (place, block, idx):
+                captured[tuple(key)] = probs[key[3]]
+        return h
+    return attend
+
+
+class UNet2DCondition(UNetEncoder):
+    def __init__(self, cfg: UNetConfig):
+        if cfg.addition_embed_type not in (None, "text_time"):
+            raise ValueError(f"unknown addition_embed_type "
+                             f"{cfg.addition_embed_type!r}")
+        super().__init__(cfg)
+        boc = cfg.block_out_channels
+        n = len(boc)
+        skip_channels = list(self.skip_channels)
+        h_ch = boc[-1]
         self.up_blocks = nn.ModuleList()
         for idx in range(n):
             i = n - 1 - idx
             ch = boc[i]
             blk = UNetBlock()
             for _ in range(cfg.layers_per_block + 1):
-                blk.resnets.append(resnet(h_ch + skip_channels.pop(), ch))
+                blk.resnets.append(self._resnet(h_ch + skip_channels.pop(),
+                                                ch))
                 h_ch = ch
                 if cfg.attention_levels[i]:
-                    blk.attentions.append(transformer(i, ch))
+                    blk.attentions.append(self._transformer(i, ch))
             if idx < n - 1:
                 blk.upsamplers = nn.ModuleList([Upsample2D(ch)])
             self.up_blocks.append(blk)
 
-        self.conv_norm_out = GroupNorm(groups, boc[0], act="silu",
-                                       fp32=not cfg.fast_norm)
+        self.conv_norm_out = GroupNorm(cfg.norm_num_groups, boc[0],
+                                       act="silu", fp32=not cfg.fast_norm)
         self.conv_out = nn.Conv2d(boc[0], cfg.out_channels, 3, padding=1)
-
-    @property
-    def dtype(self) -> torch.dtype:
-        return self.conv_in.weight.dtype
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 context: torch.Tensor, *, ip_scale=1.0,
                 capture_keys: Sequence[AttnKey] = (),
                 pooled_text: Optional[torch.Tensor] = None,
-                time_ids: Optional[torch.Tensor] = None):
+                time_ids: Optional[torch.Tensor] = None,
+                down_residuals: Optional[Sequence[torch.Tensor]] = None,
+                mid_residual: Optional[torch.Tensor] = None):
         cfg = self.cfg
         dtype = self.dtype
         # NCHW-contiguous from here on, whatever the caller's layout: a
@@ -145,12 +220,7 @@ class UNet2DCondition(nn.Module):
         # the convolutions, and the GroupNorm kernel takes contiguous NCHW
         h = sample.to(dtype).contiguous()
         context = context.to(dtype)
-        if timesteps.ndim == 0:
-            timesteps = timesteps[None]
-        temb = timestep_embedding(timesteps, cfg.block_out_channels[0])
-        temb = self.time_embedding(temb.to(dtype))
-        if temb.shape[0] != h.shape[0]:
-            temb = temb.expand(h.shape[0], -1)
+        temb = self.embed_time(timesteps, h.shape[0])
         if cfg.addition_embed_type == "text_time":
             if pooled_text is None or time_ids is None:
                 raise ValueError("text_time conditioning needs pooled_text "
@@ -163,33 +233,16 @@ class UNet2DCondition(nn.Module):
             temb = temb + add.expand_as(temb)
 
         captured: Dict[AttnKey, torch.Tensor] = {}
-
-        def attend(module, h, place, block, idx):
-            layers = _captures(capture_keys, place, block, idx)
-            if not layers:
-                return module(h, context, ip_scale=ip_scale)
-            h, probs = module(h, context, ip_scale=ip_scale,
-                              capture_layers=layers)
-            for key in capture_keys:
-                if tuple(key[:3]) == (place, block, idx):
-                    captured[tuple(key)] = probs[key[3]]
-            return h
-
-        h = self.conv_in(h)
-        skips = [h]
-        for i, blk in enumerate(self.down_blocks):
-            for j, res in enumerate(blk.resnets):
-                h = res(h, temb)
-                if len(blk.attentions):
-                    h = attend(blk.attentions[j], h, "down", i, j)
-                skips.append(h)
-            if hasattr(blk, "downsamplers"):
-                h = blk.downsamplers[0](h)
-                skips.append(h)
-
-        h = self.mid_block.resnets[0](h, temb)
-        h = attend(self.mid_block.attentions[0], h, "mid", 0, 0)
-        h = self.mid_block.resnets[1](h, temb)
+        attend = attender(context, ip_scale, capture_keys, captured)
+        h, skips = self.encode(h, temb, attend)
+        if down_residuals is not None:
+            if len(down_residuals) != len(skips):
+                raise ValueError(f"{len(down_residuals)} down residuals for "
+                                 f"{len(skips)} skips")
+            skips = [s + r.to(s.dtype) for s, r in zip(skips, down_residuals)]
+        h = self.middle(h, temb, attend)
+        if mid_residual is not None:
+            h = h + mid_residual.to(h.dtype)
 
         for idx, blk in enumerate(self.up_blocks):
             for j, res in enumerate(blk.resnets):

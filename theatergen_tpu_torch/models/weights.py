@@ -3,7 +3,7 @@ state dicts.
 
 ``from_flax(kind, params)`` takes a flax tree (nested dicts of arrays) of
 the JAX package's UNet (SDXL's ``add_embedding`` and the IP UNet's
-``attn2.to_k_ip``/``to_v_ip`` included), VAE, text tower (either of
+``attn2.to_k_ip``/``to_v_ip`` included), ControlNet, VAE, text tower (either of
 SDXL's two, ``text_projection`` included), CLIP vision tower or IP-Adapter
 projector (``image_proj``, ``mlp_proj``, ``resampler``) and returns the
 port's state dict as numpy arrays.  It is written from the two packages'
@@ -14,8 +14,10 @@ naming rules:
   ``mid_block.attentions.0``, ``transformer_blocks_0`` →
   ``transformer_blocks.0``, ``to_out_0`` → ``to_out.0``, ``net_0`` →
   ``net.0``, ``layers_3`` (CLIP) → ``encoder.layers.3``,
-  ``layers_0_attn`` (Resampler) → ``layers.0.attn``; the UNet's
-  ``encoder``/``mid`` wrapper scopes vanish, the VAE's ``post_quant_conv``
+  ``layers_0_attn`` (Resampler) → ``layers.0.attn``,
+  ``controlnet_down_blocks_3`` → ``controlnet_down_blocks.3``, ``blocks_5``
+  (the ControlNet's hint embedding) → ``blocks.5``; the UNet's and the
+  ControlNet's ``encoder``/``mid`` wrapper scopes vanish, the VAE's ``post_quant_conv``
   and ``quant_conv`` move out of its decoder/encoder, the JAX GroupNorm
   wrapper's inner ``norm`` scope is dropped, and the vision tower's
   ``patch_embedding``, ``class_embedding`` and ``position_embedding`` move
@@ -34,8 +36,8 @@ from typing import Dict, Mapping
 
 import numpy as np
 
-KINDS = ("unet", "vae", "text", "vision", "image_proj", "mlp_proj",
-         "resampler")
+KINDS = ("unet", "controlnet", "vae", "text", "vision", "image_proj",
+         "mlp_proj", "resampler")
 
 _SCOPE_RULES = (
     (re.compile(r"(down_blocks|up_blocks)_(\d+)_"
@@ -48,6 +50,7 @@ _SCOPE_RULES = (
     (re.compile(r"layers_(\d+)"), r"encoder.layers.\1"),
     (re.compile(r"layers_(\d+)_(attn|ff_norm|ff_1|ff_2)"), r"layers.\1.\2"),
     (re.compile(r"token_embedding"), r"embeddings.token_embedding"),
+    (re.compile(r"(blocks|controlnet_down_blocks)_(\d+)"), r"\1.\2"),
 )
 
 
@@ -93,7 +96,8 @@ def from_flax(kind: str, params: Mapping) -> Dict[str, np.ndarray]:
         if len(scopes) >= 2 and scopes[-1] == "norm" and leaf in (
                 "scale", "bias"):
             scopes.pop()          # the GroupNorm wrapper's inner nn.GroupNorm
-        if kind == "unet" and scopes and scopes[0] in ("encoder", "mid"):
+        if (kind in ("unet", "controlnet") and scopes
+                and scopes[0] in ("encoder", "mid")):
             scopes.pop(0)
         if kind == "vae" and scopes[-1:] in (["post_quant_conv"],
                                              ["quant_conv"]):

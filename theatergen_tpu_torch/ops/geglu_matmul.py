@@ -43,6 +43,49 @@ GEGLU_BLOCK_K = 32
 ff_launches = 0
 geglu_launches = 0
 
+# the TPU gates' VMEM budgets (the full-FF kernel's default 48 MiB limit,
+# five sixths of it usable; the geglu kernel's 80 MiB), kept so that the
+# block searches below, copies of the JAX package's, take the same shapes
+_FF_BUDGET = 48 * 1024 * 1024 * 5 // 6
+_GEGLU_BUDGET = 80 * 1024 * 1024
+
+
+def ff_supported(m: int, d: int, k: int) -> bool:
+    """Whether the JAX package's ``ff_supported`` takes an FF of M rows,
+    width D and inner width K: a row block of 128..4096 dividing M and a
+    K chunk dividing K within its budget (``_plan_full``)."""
+    for bm in (4096, 2048, 1024, 512, 256, 128):
+        if bm > m or m % bm:
+            continue
+        for bk in (2048, 1280, 1024, 640, 512, 256, 128):
+            if bk > k or k % bk:
+                continue
+            vmem = (bm * d * 2 + 2 * (d * bk * 2) * 2 + (bk * d * 2) * 2
+                    + 2 * 2 * (bm * bk * 4) + bm * bk * 2 + bm * d * 4
+                    + bm * d * 2 * 2)
+            if vmem <= _FF_BUDGET:
+                return True
+    return False
+
+
+def supported(m: int, k: int, n: int) -> bool:
+    """Whether the JAX package's ``geglu_matmul`` gate takes ``[M, 2K] x
+    [K, N]``: N ≤ 2048 and a row block of 128..8192 dividing M and a K
+    chunk of 128..1024 dividing K within its budget (the blocks its
+    planners may pick, ``_plan``)."""
+    if n > 2048:
+        return False
+    for bm in (8192, 4096, 2048, 1024, 512, 256, 128):
+        if bm > m or m % bm:
+            continue
+        for bk in (1024, 512, 256, 128):
+            if bk > k or k % bk:
+                continue
+            if (2 * (bm * bk * 2) * 2 + (bk * n * 2) * 2 + bm * n * 4
+                    + bm * n * 2 * 2) <= _GEGLU_BUDGET:
+                return True
+    return False
+
 
 def ff_matmul_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                     w2: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Model bundle: UNet, VAE, text tower(s) and tokenizer in one object.
 
 Port of ``theatergen_tpu/pipelines/bundle.py`` for the txt2img slices
-(SD1.5; SDXL adds the second text tower ``text2``) and the IP-Adapter
-character pass (``unet_ip``, ``image_proj`` and the CLIP vision tower).
+(SD1.5; SDXL adds the second text tower ``text2``), the IP-Adapter
+character pass (``unet_ip``, ``image_proj`` and the CLIP vision tower) and
+the final pass (``controlnet``).
 :func:`init_bundle` builds the modules on the target device with seeded
 random weights (no checkpoint ships with the repo); :meth:`Bundle.load_flax`
 loads the JAX package's parameter trees through ``models/weights.py``.  A
@@ -22,6 +23,7 @@ import torch.nn as nn
 
 from ..config import TheaterConfig
 from ..models.clip import CLIPTextEncoder, CLIPVisionEncoder
+from ..models.controlnet import ControlNet
 from ..models.ip_adapter import ImageProjModel, MLPProjModel, Resampler
 from ..models.layers import QuantLinear, get_dtype
 from ..models.unet import UNet2DCondition
@@ -46,6 +48,7 @@ class Bundle:
     image_proj: Optional[nn.Module] = None  # ImageProj / MLPProj / Resampler
     ip_variant: str = "base"                # "base" | "plus" | "full"
     vision: Optional[CLIPVisionEncoder] = None
+    controlnet: Optional[ControlNet] = None
 
     @property
     def device(self) -> torch.device:
@@ -64,7 +67,8 @@ class Bundle:
                   text2: Optional[Mapping] = None,
                   unet_ip: Optional[Mapping] = None,
                   image_proj: Optional[Mapping] = None,
-                  vision: Optional[Mapping] = None) -> "Bundle":
+                  vision: Optional[Mapping] = None,
+                  controlnet: Optional[Mapping] = None) -> "Bundle":
         """Load JAX-package param trees (nested dicts of arrays); every key
         must match (``load_state_dict(strict=True)``)."""
         for name, kind, tree in (
@@ -72,7 +76,8 @@ class Bundle:
                 ("text", "text", text), ("text2", "text", text2),
                 ("unet_ip", "unet", unet_ip),
                 ("image_proj", PROJ_KINDS[self.ip_variant], image_proj),
-                ("vision", "vision", vision)):
+                ("vision", "vision", vision),
+                ("controlnet", "controlnet", controlnet)):
             if tree is None:
                 continue
             module = getattr(self, name)
@@ -138,6 +143,7 @@ def _build(cls, cfg, dtype: torch.dtype, device: torch.device,
 def init_bundle(cfg: TheaterConfig, seed: int = 0, *,
                 device="cuda", tokenizer_assets: Optional[str] = None,
                 with_ip: bool = False, with_vision: bool = False,
+                with_controlnet: bool = False,
                 ip_variant: str = "base") -> Bundle:
     """Random-weight bundle built directly on ``device`` (default the card;
     there is no fallback to the CPU: pass ``device="cpu"`` to ask for it).
@@ -145,7 +151,9 @@ def init_bundle(cfg: TheaterConfig, seed: int = 0, *,
     ``with_ip`` adds the IP-Adapter UNet (``unet_ip``, its own weights,
     ``ip_num_tokens`` = ``num_tokens``, ``resampler_queries`` or 1 for the
     base, plus and full variants) and the variant's projector;
-    ``with_vision`` adds the CLIP vision tower."""
+    ``with_vision`` adds the CLIP vision tower; ``with_controlnet`` the
+    ControlNet of ``cfg.controlnet``, drawn last, so the other parts keep
+    the weights of a bundle without it."""
     if ip_variant not in PROJ_KINDS:
         raise ValueError(f"ip_variant must be one of {tuple(PROJ_KINDS)}, "
                          f"got {ip_variant!r}")
@@ -186,4 +194,8 @@ def init_bundle(cfg: TheaterConfig, seed: int = 0, *,
     if with_vision:
         b.vision = _build(CLIPVisionEncoder, cfg.vision,
                           get_dtype(cfg.vision.dtype), device, gen)
+    if with_controlnet:
+        b.controlnet = _build(ControlNet, cfg.controlnet,
+                              get_dtype(cfg.controlnet.unet.dtype), device,
+                              gen)
     return b
