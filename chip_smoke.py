@@ -77,6 +77,7 @@ from theatergen_tpu_torch import theater
 from theatergen_tpu_torch.config import sd15_config, sdxl_config
 from theatergen_tpu_torch.models.layers import (GroupNorm, QuantLinear,
                                                  plain_path)
+from theatergen_tpu_torch.ops.attention import multi_head_attention
 from theatergen_tpu_torch.ops import flash_attention as fa
 from theatergen_tpu_torch.ops import geometry
 from theatergen_tpu_torch.ops import geglu_matmul as gg
@@ -824,11 +825,33 @@ def final_reference_phase(bundle) -> dict:
     return rels
 
 
+def plain_attention_ms(bundle) -> dict:
+    """Device ms of one plain self-attention call (CUDA events, 10 back
+    to back) at each UNet level whose self-attention has 1024 tokens or
+    more but lies outside the flash gate (768 px: level 1, 2304 tokens),
+    keyed by its [B, S, H, D] shape."""
+    ucfg, h = bundle.unet_ip.cfg, bundle.cfg.pipeline.latent_height
+    out = {}
+    for level, ch in enumerate(ucfg.block_out_channels):
+        heads, s = ucfg.heads_at(level), (h >> level) ** 2
+        if (not ucfg.attention_levels[level] or s < fa.MIN_SEQ
+                or fa.supported(s, s, heads, ch // heads)):
+            continue
+        g = torch.Generator(device="cuda").manual_seed(s)
+        q, k, v = (randn(g, 2, s, heads, ch // heads) for _ in range(3))
+        shape = (2, s, heads, ch // heads)
+        out[str(list(shape))] = time_ms(
+            lambda: multi_head_attention(q, k, v), 10)
+        log(f"  plain attention {list(shape)} (outside the flash gate): "
+            f"{out[str(list(shape))]:.5f} ms")
+    return out
+
+
 def final_eval_times(bundle) -> dict:
     """Wall ms per final-pass evaluation (ControlNet + IP UNet, batch 2;
     CUDA events over 5 back to back: the loop's pace, which the host sets)
     and its device ms (torch.profiler, one evaluation: the sum of the
-    kernels' self device time)."""
+    kernels' self device time, and the kernels that take most of it)."""
     from torch.profiler import ProfilerActivity, profile as prof
     px, text_len = bundle.cfg.pipeline.height, bundle.cfg.text.max_length
     x, t, ctx, cond = final_inputs(bundle, px + 1)
@@ -846,13 +869,19 @@ def final_eval_times(bundle) -> dict:
         with prof(activities=[ProfilerActivity.CUDA]) as p:
             one()
             torch.cuda.synchronize()
-    device = sum(getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0))
-                 for e in p.key_averages()
-                 if not e.key.startswith("aten::")) / 1e3
+    kernels = collections.Counter()
+    for e in p.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if not e.key.startswith("aten::") and us > 0:
+            kernels[e.key[:60]] += us / 1e3
+    device = sum(kernels.values())
+    top = dict(kernels.most_common(8))
     log(f"  {px} px final-pass evaluation (ControlNet + IP UNet): wall "
-        f"{wall:.3f} ms, device {device:.3f} ms")
-    return dict(wall_ms=wall, device_ms=device)
+        f"{wall:.3f} ms, device {device:.3f} ms; device ms by kernel "
+        f"{json.dumps(top)}")
+    return dict(wall_ms=wall, device_ms=device, top_kernels_ms=top,
+                plain_attention_ms=plain_attention_ms(bundle))
 
 
 def final_request(bundle, run, composed, frozen_mask, cond_img, ip_image,

@@ -144,8 +144,11 @@ def linear_weights(in_size: int, out_size: int, scale, translation,
     if isinstance(scale, torch.Tensor):
         inv = 1.0 / scale.to(**f32)
     else:
-        inv = torch.tensor(1.0 / scale, **f32)
-    translation = torch.as_tensor(translation).to(**f32)
+        inv = torch.full((), 1.0 / scale, **f32)
+    if isinstance(translation, torch.Tensor):
+        translation = translation.to(**f32)
+    else:
+        translation = torch.full((), translation, **f32)
     kscale = torch.clamp(inv, min=1.0) if antialias else 1.0
     sample = ((torch.arange(out_size, **f32) + 0.5) * inv
               - translation * inv - 0.5)
