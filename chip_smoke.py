@@ -107,8 +107,14 @@ FLASH_SHAPES = [(SD15, (2, 4096, 8, 40), 5), (SD15, (2, 1024, 8, 80), 5),
 # the long route (past 4096 tokens): SD1.5 at 768 px, level 0 (96²), 5 calls
 # in the IP UNet and 2 in the ControlNet per final-pass evaluation
 FLASH_LONG_SHAPES = [(FINAL_768, (2, 9216, 8, 40), 7)]
+# ff_matmul's (M, D, K): SD1.5 at 512 px (the UNet's 16 blocks), and the
+# 768-px final pass (IP UNet 5 + ControlNet 2 per level; the mid block's
+# 288 rows take no kernel)
 FF_SHAPES = [(SD15, (8192, 320, 1280), 5), (SD15, (2048, 640, 2560), 5),
-             (SD15, (512, 1280, 5120), 5), (SD15, (128, 1280, 5120), 1)]
+             (SD15, (512, 1280, 5120), 5), (SD15, (128, 1280, 5120), 1),
+             (FINAL_768, (18432, 320, 1280), 7),
+             (FINAL_768, (4608, 640, 2560), 7),
+             (FINAL_768, (1152, 1280, 5120), 7)]
 GEGLU_SHAPES = [(SDXL, (8192, 2560, 640), 10), (SDXL, (2048, 5120, 1280), 60)]
 # quant_matmul's (M, K, N) in one W8A8 SD1.5 UNet evaluation (CFG batch 2)
 # and calls per evaluation (184): per transformer block the six (M, C, C)
@@ -129,7 +135,9 @@ QMM_PER_EVAL = 184
 # batch 2, 32 groups: (B, C, H·W) and calls per evaluation.  The SD1.5
 # UNet (the IP UNet's are the same) at 512 px: 61, 45 with SiLU.  SDXL at
 # 1024 px: 42 of its 46; 128²×640, 128²×960 and 64²×1920 fail the TPU
-# gate's size limit and stay on F.group_norm
+# gate's size limit and stay on F.group_norm.  The 768-px final pass: the
+# IP UNet's 58 (96²×640 and 96²×960 fail the size limit) and the
+# ControlNet's 27
 GN_SHAPES = [(CHAR, (2, c, hw), n) for (c, hw), n in (
     ((320, 4096), 13), ((640, 4096), 2), ((960, 4096), 1),
     ((320, 1024), 1), ((640, 1024), 11), ((960, 1024), 1), ((1280, 1024), 1),
@@ -138,7 +146,12 @@ GN_SHAPES = [(CHAR, (2, c, hw), n) for (c, hw), n in (
     (SDXL, (2, c, hw), n) for (c, hw), n in (
         ((320, 16384), 8), ((320, 4096), 1), ((640, 4096), 11),
         ((960, 4096), 1), ((1280, 4096), 1), ((640, 1024), 1),
-        ((1280, 1024), 16), ((1920, 1024), 1), ((2560, 1024), 2))]
+        ((1280, 1024), 16), ((1920, 1024), 1), ((2560, 1024), 2))] + [
+    (FINAL_768, (2, c, hw), n) for (c, hw), n in (
+        ((320, 9216), 19), ((320, 2304), 2), ((640, 2304), 16),
+        ((960, 2304), 1), ((1280, 2304), 1), ((1920, 2304), 1),
+        ((640, 576), 2), ((1280, 576), 16), ((1920, 576), 1),
+        ((2560, 576), 2), ((1280, 144), 21), ((2560, 144), 3))]
 # GroupNorm kernel launches per UNet evaluation under THEATERGEN_FUSED_GN=1
 # (the final pass: IP UNet + ControlNet; at 768 px the UNet's three norms
 # at 96²×640 and 96²×960 fail the TPU gate's size limit)
@@ -162,10 +175,13 @@ SD15_STEPS, SDXL_STEPS = 50, 30
 CHAR_REQUESTS = (("1", 0.4), ("1", 0.0), ("0", 0.4))
 # the back half's characters: (ip_scale, layout box) at 512 px and 768 px;
 # the final pass's frozen steps and IP scale (frozen_step_ratio 0.5,
-# ip_scale_final 0.1)
+# ip_scale_final 0.1).  Random weights give near-uniform reference maps,
+# so a character's mask covers the canvas; each box's centre lies about a
+# quarter of the canvas off the middle, so alignment shifts the mask and
+# the frozen mask leaves a free region for the blend's other side
 FINAL_CHARS = {512: ((0.4, (0.05, 0.2, 0.45, 0.95)),
                      (0.0, (0.55, 0.35, 0.95, 0.9))),
-               768: ((0.4, (0.3, 0.15, 0.75, 0.95)),)}
+               768: ((0.4, (0.05, 0.15, 0.5, 0.95)),)}
 FROZEN_STEPS, IP_SCALE_FINAL = 25, 0.1
 OVERALL_PROMPT = "a red knight and a girl with a blue umbrella in a forest"
 # --profile: request pairs of the GroupNorm A/B ("0" and "1" in turns,
@@ -888,13 +904,19 @@ def final_request(bundle, run, composed, frozen_mask, cond_img, ip_image,
                   model: str, records) -> dict:
     """One final request, counters set to 0 just before it and read just
     after: the overall prompt's context, ``ip_context`` with the first
-    character's image, the 50-step runner and the decode.  Checks the
-    image, the trajectory's shape, the frozen region of every step below
-    FROZEN_STEPS bit for bit against the composed trajectory, and the
-    launches."""
+    character's image, the 50-step runner and the decode.  Checks that the
+    frozen mask leaves both a frozen and a free region, the image, the
+    trajectory's shape, the frozen region of every step below FROZEN_STEPS
+    bit for bit against the composed trajectory, the free region moved
+    off it (the denoiser's side of the blend), and the launches."""
     cfg = bundle.cfg
     h, w, px = (cfg.pipeline.latent_height, cfg.pipeline.latent_width,
                 cfg.pipeline.height)
+    on = frozen_mask > 0
+    if not 0 < int(on.sum()) < h * w:
+        raise SystemExit(f"{model} final request: the frozen mask covers "
+                         f"{int(on.sum())} of {h * w} latent pixels; the "
+                         f"check needs both sides of the blend")
     want = path_want(model)
     reset_counts()
     t0 = time.perf_counter()
@@ -909,11 +931,14 @@ def final_request(bundle, run, composed, frozen_mask, cond_img, ip_image,
     seconds = time.perf_counter() - t0
     got = read_counts()
     add_launches(records, model, got)
-    on = frozen_mask > 0
     frozen_equal = all(
         torch.equal(traj[j, 0].permute(2, 0, 1)[:, on],
                     composed[j, 0].permute(2, 0, 1)[:, on])
         for j in range(FROZEN_STEPS + 1))
+    # where the mask is off, step 1 holds the DDIM step's output, not the
+    # composed trajectory (0 there past step 0)
+    free_moved = not torch.equal(traj[1, 0].permute(2, 0, 1)[:, ~on],
+                                 composed[1, 0].permute(2, 0, 1)[:, ~on])
     finite = bool(torch.isfinite(img).all())
     in_range = bool(img.min() >= 0.0 and img.max() <= 1.0)
     log(f"  {model} final request: {seconds:.3f} s  launches {got}  image "
@@ -921,7 +946,7 @@ def final_request(bundle, run, composed, frozen_mask, cond_img, ip_image,
         f"{img.max():.4f}] std {img.std():.4f}  trajectory "
         f"{tuple(traj.shape)}  frozen region ({int(on.sum())} of {h * w} "
         f"latent pixels) equal to the composition for steps 0..{FROZEN_STEPS}"
-        f": {frozen_equal}")
+        f": {frozen_equal}  free region off it at step 1: {free_moved}")
     if (tuple(img.shape) != (1, px, px, 3) or not finite or not in_range
             or tuple(traj.shape) != (SD15_STEPS + 1, 1, h, w, 4)
             or not bool(torch.isfinite(traj).all())):
@@ -929,6 +954,9 @@ def final_request(bundle, run, composed, frozen_mask, cond_img, ip_image,
     if not frozen_equal:
         raise SystemExit(f"{model} final request: the frozen region differs "
                          f"from the composed trajectory")
+    if not free_moved:
+        raise SystemExit(f"{model} final request: the free region kept the "
+                         f"composed trajectory; the denoiser's step is lost")
     if got != want:
         raise SystemExit(f"{model} final request: launches {got}, want "
                          f"{want}")

@@ -684,3 +684,50 @@ def test_final_pass_kernel_sites(monkeypatch):
         for got, key in ((got_cn, "controlnet"), (got_unet, "unet")):
             assert {k: got.get(k, 0) for k in want[key]} == want[key], (
                 px, key, got)
+
+
+def test_chip_smoke_768_kernel_shapes_are_the_sites(monkeypatch):
+    """The ff_matmul and group_norm shapes that chip_smoke.py checks and
+    times for the 768-px final pass (FF_SHAPES, GN_SHAPES) are the shapes,
+    with their calls, that one evaluation of the full-size IP UNet and
+    ControlNet makes on the meta device, and they add up to its launch
+    counts per evaluation (PER_EVAL, GN_PER_EVAL)."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    monkeypatch.setattr(tgn, "FUSED_MODE", "1")
+    ff, gn_ = collections.Counter(), collections.Counter()
+    real_ff, real_gn = tgg.ff_matmul, tgn.fused_group_norm
+
+    def spy_ff(x, w1, b1, w2):
+        ff[(x.reshape(-1, x.shape[-1]).shape[0], x.shape[-1],
+            w2.shape[1])] += 1
+        return real_ff(x, w1, b1, w2)
+
+    def spy_gn(x, *a, **k):
+        gn_[(x.shape[0], x.shape[1], x.shape[2] * x.shape[3])] += 1
+        return real_gn(x, *a, **k)
+
+    monkeypatch.setattr(tgg, "ff_matmul", spy_ff)
+    monkeypatch.setattr(tgn, "fused_group_norm", spy_gn)
+    cfg = tcfg.sd15_config()
+    with torch.device("meta"), torch.no_grad():
+        unet = TUNet(dataclasses.replace(cfg.unet, ip_num_tokens=4)).to(
+            torch.bfloat16)
+        cn = TControlNet(cfg.controlnet).to(torch.bfloat16)
+        x = torch.empty(2, 4, 96, 96)
+        t = torch.empty(2, dtype=torch.long)
+        down, mid = cn(x, t, torch.empty(2, 77, 768),
+                       torch.empty(2, 3, 768, 768))
+        unet(x, t, torch.empty(2, 81, 768), ip_scale=0.1,
+             down_residuals=down, mid_residual=mid)
+    for got, shapes, per_eval in (
+            (ff, cs.FF_SHAPES, cs.PER_EVAL[cs.FINAL_768]["ff_geglu"]),
+            (gn_, cs.GN_SHAPES, cs.GN_PER_EVAL[cs.FINAL_768])):
+        listed = {tuple(s): n for model, s, n in shapes
+                  if model == cs.FINAL_768}
+        assert dict(got) == listed
+        assert sum(listed.values()) == per_eval

@@ -140,6 +140,37 @@ def test_flash_gate_equals_the_jax_route(s, d):
     assert not tfa.supported(s, 77, 8, d)
 
 
+@pytest.mark.parametrize("gate,shape", [
+    # SD1.5 at 512 px (M = 2·H·W; D, inner K): levels 0-2 and the mid block
+    ("ff", (8192, 320, 1280)), ("ff", (2048, 640, 2560)),
+    ("ff", (512, 1280, 5120)), ("ff", (128, 1280, 5120)),
+    # SD1.5 at 768 px: levels 0-2 take the kernel, the mid block's 288
+    # rows do not
+    ("ff", (18432, 320, 1280)), ("ff", (4608, 640, 2560)),
+    ("ff", (1152, 1280, 5120)), ("ff", (288, 1280, 5120)),
+    # SDXL's FF through the whole-FF gate, and rows that miss
+    ("ff", (8192, 640, 2560)), ("ff", (2048, 1280, 5120)),
+    ("ff", (16, 320, 1280)), ("ff", (100, 640, 2560)),
+    # geglu_matmul's (M, K, N): SDXL's two levels, SD1.5's widths, N past
+    # 2048, and rows that miss
+    ("geglu", (8192, 2560, 640)), ("geglu", (2048, 5120, 1280)),
+    ("geglu", (1152, 5120, 1280)), ("geglu", (512, 5120, 2560)),
+    ("geglu", (288, 5120, 1280)), ("geglu", (16, 1280, 320))])
+def test_ff_gates_equal_the_jax_gates(monkeypatch, gate, shape):
+    """The port's ff_supported() and supported() give the JAX package's
+    ff_supported / supported answers (under INTERPRET, so its TPU check
+    passes on the CPU) at the SD1.5 (512 and 768 px) and SDXL FF shapes
+    and at rows no block divides, so one configuration sends the same FF
+    sites to a kernel in both packages."""
+    monkeypatch.setattr(gg, "INTERPRET", True)
+    if gate == "ff":
+        got, want = tgg.ff_supported(*shape), gg.ff_supported(*shape,
+                                                               jnp.bfloat16)
+    else:
+        got, want = tgg.supported(*shape), gg.supported(*shape, jnp.bfloat16)
+    assert got == want
+
+
 def test_flash_plain_matches_flat_online_pallas(interpret):
     """_flat_online_call (the Sk > 4096 route's Pallas kernel, interpret)
     forced onto 256-row q blocks and two 512-key K blocks, so the online
