@@ -10,7 +10,9 @@ Phases, in order (any failure exits non-zero):
      one process per source, all at once;
   3. hold each kernel against its plain PyTorch version (fp32 from the same
      bf16 inputs) at every shape its main paths give it (GroupNorm also with
-     and without SiLU and with a large-mean input);
+     and without SiLU and with a large-mean input; flash on each of its
+     four routes' counters, d = 160 and Sq != Sk included, and sequence
+     parallelism's query shards, concatenated, against the unsharded call);
   4. time kernel, plain version and a library yardstick at those shapes;
   5. SD1.5: ``init_bundle(sd15_config())``, one full-size UNet evaluation
      with the kernels against the same UNet under ``plain_path()``, then
@@ -23,6 +25,8 @@ Phases, in order (any failure exits non-zero):
      same seed, then
      ``Text2Img(bundle, num_steps=50)`` on three prompts with the switch at
      "1" (every quantized linear through ``quant_matmul``) and one at "0";
+     then the UNet check and one request under ``THEATERGEN_FLASH_BSHD=1``
+     (flash's row-3 route) and under ``THEATERGEN_FLASH_FLAT=0`` (row 4);
   7. SDXL: the W8A8 bundle freed, ``init_bundle(sdxl_config())``, the same
      UNet check, then ``Text2ImgXL(bundle, num_steps=30)`` on two prompts at
      1024 px, Euler-Ancestral, CFG 7.5;
@@ -42,13 +46,22 @@ Phases, in order (any failure exits non-zero):
      (alignment, composition, collage, DoG lineart), then a final request:
      the overall prompt, ``ip_context`` with the first character's image,
      ``make_final_pipeline(bundle, 50)`` at ``frozen_steps`` 25 and
-     ip_scale 0.1, and the decode;
+     ip_scale 0.1, and the decode; and one final-pass evaluation under
+     ``THEATERGEN_FLASH_BSHD=1``, whose launches stay on the packed route;
  10. the same at 768 px (the bundle's config with ``pipeline.height`` and
      ``width`` replaced, one character), where level-0 self-attention runs
-     9216 tokens: the flash kernel's long route.
-Every launch counter is set to 0 just before each request and read just
-after it, and must equal the constant launches per request of each kernel
-(SD1.5, W8A8 and SDXL under the GroupNorm switch's default).  Then one
+     9216 tokens: the flash kernel's long route; then the check and one
+     final request under ``THEATERGEN_FLASH_BSHD=1`` (row 3) and under
+     ``THEATERGEN_FLASH_FLAT16K=0`` (row 4);
+ 11. a whole story dialogue through the CLI, ``cli.generate.main``: the 4
+     turns of dialogue_0 of data/sample/story.json at 512 px, 50 steps,
+     its own random-weight bundle, output tree and character DB; each
+     turn's launches against its character attempts.
+Every launch counter is set to 0 just before each request (or turn) and
+read just after it, and must equal the constant launches per request of
+each kernel (SD1.5, W8A8 and SDXL under the GroupNorm switch's default).
+The script sets flash's switches itself and refuses to start when one is
+set in the environment.  Then one
 JSON line of kernel records and, last, the device line.  ``--profile``
 adds the device time by kernel of one UNet evaluation of each model (the
 W8A8 UNet at "1" too) and the GroupNorm A/B: device ms per evaluation of
@@ -61,14 +74,18 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import gc
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
 
 import dataclasses
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -86,6 +103,7 @@ from theatergen_tpu_torch.ops import quant as qz
 from theatergen_tpu_torch.ops import quant_matmul as qm
 from theatergen_tpu_torch.pipelines import character, final, sd, sdxl
 from theatergen_tpu_torch.pipelines.bundle import init_bundle
+from theatergen_tpu_torch.utils import png
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_BF16_FLOPS = 989e12
@@ -98,15 +116,31 @@ W8A8 = "sd15_512_w8a8"
 # the back half of a turn: the final pass (IP UNet + ControlNet) at 512 and
 # 768 px, and the character pass at 768 px
 FINAL, FINAL_768, CHAR_768 = "sd15_512_final", "sd15_768_final", "sd15_768_ip"
+# kernel shapes of models no request here runs: SD1.5's level 2 on a
+# 1024-px canvas (d = 160), and the 768-px final pass's level 0 split over
+# 2 or 4 sequence-parallel ranks (one card runs each rank's shard)
+SD15_1024, SP2_768, SP4_768 = "sd15_1024", "sd15_768_sp2", "sd15_768_sp4"
+# a whole story turn through the CLI (dialogue_0 of data/sample/story.json)
+TURN = "sd15_512_turn"
 # (model, shape, calls per UNet evaluation of that model); batch 1 with
 # CFG, so 2 rows.  SD1.5: 10 transformer blocks at 64²/32²/16²/8²;
 # SDXL: 10 blocks at 64² (4 down, 6 up) and 60 at 32² (20 down, 10 mid,
 # 30 up), head dim 64 throughout, FF split (geglu_matmul)
 FLASH_SHAPES = [(SD15, (2, 4096, 8, 40), 5), (SD15, (2, 1024, 8, 80), 5),
-                (SDXL, (2, 4096, 10, 64), 10), (SDXL, (2, 1024, 20, 64), 60)]
+                (SDXL, (2, 4096, 10, 64), 10), (SDXL, (2, 1024, 20, 64), 60),
+                (SD15_1024, (2, 1024, 8, 160), 5)]
 # the long route (past 4096 tokens): SD1.5 at 768 px, level 0 (96²), 5 calls
 # in the IP UNet and 2 in the ControlNet per final-pass evaluation
 FLASH_LONG_SHAPES = [(FINAL_768, (2, 9216, 8, 40), 7)]
+# the BSHD-native route (row 3, THEATERGEN_FLASH_BSHD=1) and the copy-based
+# one (row 4: THEATERGEN_FLASH_FLAT=0 for a W8A8 UNet, FLAT16K=0 at 768 px)
+# at the sites they take; row 4 also at sequence parallelism's per-shard
+# shapes, Sq/n queries against all 9216 keys (n = 2, 4), as
+# (B, Sq, Sk, H, D), 7 calls per evaluation on each rank
+FLASH_BSHD_SHAPES = [(W8A8, (2, 4096, 8, 40), 5), (W8A8, (2, 1024, 8, 80), 5),
+                     (FINAL_768, (2, 9216, 8, 40), 7)]
+FLASH_COPY_SHAPES = FLASH_BSHD_SHAPES + [
+    (SP2_768, (2, 4608, 9216, 8, 40), 7), (SP4_768, (2, 2304, 9216, 8, 40), 7)]
 # ff_matmul's (M, D, K): SD1.5 at 512 px (the UNet's 16 blocks), and the
 # 768-px final pass (IP UNet 5 + ControlNet 2 per level; the mid block's
 # 288 rows take no kernel)
@@ -171,6 +205,20 @@ PER_EVAL = {CHAR: dict(flash_attention=10, ff_geglu=16),
 # such a variant failing the bound that the kernel meets)
 GN_LARGE_MEAN, GN_LARGE_STD = 1024.0, 1.5
 SD15_STEPS, SDXL_STEPS = 50, 30
+# the flash switches that send attention down rows 3 and 4: (environment
+# setting, module attributes, counter).  In the W8A8 UNet (no packed
+# projections) BSHD takes every flash site and FLAT=0 sends them to the
+# copy-based kernel; at 768 px BSHD takes level 0 (9216 tokens) and so does
+# the copy-based kernel with FLAT16K=0; the packed sites at 512 px stay
+SWITCH_REQUESTS = (
+    ("THEATERGEN_FLASH_BSHD=1", dict(BSHD_NATIVE=True),
+     "flash_attention_bshd"),
+    ("THEATERGEN_FLASH_FLAT=0", dict(FLAT=False), "flash_attention_copy"))
+SWITCH_REQUESTS_768 = (
+    ("THEATERGEN_FLASH_BSHD=1", dict(BSHD_NATIVE=True),
+     "flash_attention_bshd"),
+    ("THEATERGEN_FLASH_FLAT16K=0", dict(FLAT_ONLINE=False),
+     "flash_attention_copy"))
 # the character requests' (THEATERGEN_FUSED_GN, ip_scale)
 CHAR_REQUESTS = (("1", 0.4), ("1", 0.0), ("0", 0.4))
 # the back half's characters: (ip_scale, layout box) at 512 px and 768 px;
@@ -184,6 +232,10 @@ FINAL_CHARS = {512: ((0.4, (0.05, 0.2, 0.45, 0.95)),
                768: ((0.4, (0.05, 0.15, 0.5, 0.95)),)}
 FROZEN_STEPS, IP_SCALE_FINAL = 25, 0.1
 OVERALL_PROMPT = "a red knight and a girl with a blue umbrella in a forest"
+# dialogue_0's characters per turn, as DB hits: turn 1 draws the knight
+# (obj 0) and the dragon (obj 1), turns 2 and 3 find them, turn 4 finds the
+# dragon and draws a second one (obj 2)
+TURN_HITS = [[False, False], [True], [True], [True, False]]
 # --profile: request pairs of the GroupNorm A/B ("0" and "1" in turns,
 # ABBA order) for the character pass and SDXL
 AB_PAIRS = {CHAR: 12, SDXL: 8}
@@ -193,6 +245,8 @@ PROMPTS = ["a red knight rides through a dark forest",
 # kernel -> (module, its launch counter)
 COUNTERS = {"flash_attention": (fa, "launches"),
             "flash_attention_long": (fa, "launches_long"),
+            "flash_attention_bshd": (fa, "launches_bshd"),
+            "flash_attention_copy": (fa, "launches_copy"),
             "ff_geglu": (gg, "ff_launches"),
             "geglu_matmul": (gg, "geglu_launches"),
             "group_norm": (gn, "launches"),
@@ -297,24 +351,72 @@ def _row(model, shape, calls, err, flops, nbytes, kernel, plain, library,
     return row
 
 
-def flash_phase(gen, shapes=FLASH_SHAPES) -> list:
+@contextlib.contextmanager
+def flash_switches(**attrs):
+    """Set the flash module's switches (the JAX package's
+    THEATERGEN_FLASH_* variables, mirrored as module attributes) for the
+    block, and restore them."""
+    saved = {name: getattr(fa, name) for name in attrs}
+    for name, value in attrs.items():
+        setattr(fa, name, value)
+    try:
+        yield
+    finally:
+        for name, value in saved.items():
+            setattr(fa, name, value)
+
+
+def flash_phase(gen, shapes, route: str) -> list:
+    """The flash kernel on one route's counter at each shape ((B, S, H, D)
+    self-attention or (B, Sq, Sk, H, D)): checked against its plain
+    version, timed beside the plain version and SDPA."""
     rows = []
-    for model, (b, s, h, d), calls in shapes:
-        q, k, v = (randn(gen, b, s, h, d) for _ in range(3))
-        out = fa.flash_attention(q, k, v)
+    for model, shape, calls in shapes:
+        b, sq, h, d = (shape[0], shape[1], shape[-2], shape[-1])
+        sk = shape[2] if len(shape) == 5 else sq
+        q = randn(gen, b, sq, h, d)
+        k, v = (randn(gen, b, sk, h, d) for _ in range(2))
+        out = fa.flash_attention(q, k, v, route=route)
         torch.cuda.synchronize()
         ref = fa.flash_attention_plain(q.float(), k.float(), v.float())
         err = (out.float() - ref).abs().max().item()
-        check(err, ref.abs().max().item(), f"flash {model} S={s} H={h} d={d}")
+        check(err, ref.abs().max().item(),
+              f"flash {route} {model} Sq={sq} Sk={sk} H={h} d={d}")
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         rows.append(_row(
-            model, (b, s, h, d), calls, err, fa.flops(b, s, h, d),
-            fa.min_bytes(b, s, h, d), lambda: fa.flash_attention(q, k, v),
+            model, shape, calls, err, fa.flops(b, sq, h, d, sk),
+            fa.min_bytes(b, sq, h, d, sk),
+            lambda: fa.flash_attention(q, k, v, route=route),
             lambda: fa.flash_attention_plain(q.float(), k.float(), v.float()),
             lambda: F.scaled_dot_product_attention(qt, kt, vt), 3))
         del q, k, v, qt, kt, vt, ref, out
         torch.cuda.empty_cache()
     return rows
+
+
+def sp_shards_phase(gen) -> dict:
+    """Sequence parallelism's per-shard body on one card: the 768-px level
+    0 (B2 S9216 H8 d40) split into n = 2 and 4 query shards, each run
+    against all the keys on row 4's route; the concatenated shards must
+    equal the unsharded call bit for bit (each 64-row q block sees the
+    same inputs either way)."""
+    q, k, v = (randn(gen, 2, 9216, 8, 40) for _ in range(3))
+    full = fa.flash_attention(q, k, v, route="copy")
+    out = {}
+    for n in (2, 4):
+        s = 9216 // n
+        parts = [fa.flash_attention(q[:, i * s:(i + 1) * s], k, v,
+                                    route="copy") for i in range(n)]
+        joined = torch.cat(parts, dim=1)
+        torch.cuda.synchronize()
+        out[n] = bool(torch.equal(joined, full))
+        log(f"  sequence-parallel shards n={n} (Sq {s} against Sk 9216): "
+            f"concatenated == unsharded {out[n]}  "
+            f"{'ok' if out[n] else 'FAIL'}")
+        if not out[n]:
+            raise SystemExit(f"flash: {n} query shards disagree with the "
+                             f"unsharded call")
+    return out
 
 
 def ff_phase(gen) -> dict:
@@ -466,7 +568,9 @@ def _record(name, source, replaces, tpu_function, rows) -> dict:
             "SD1.5 512 px, sdxl_1024: SDXL 1024 px, sd15_512_ip: the SD1.5 "
             "IP UNet of the character pass, sd15_512_w8a8: the SD1.5 W8A8 "
             "UNet, sd15_768_final: the IP UNet and the ControlNet of the "
-            "768-px final pass), batch 1 with CFG",
+            "768-px final pass, sd15_1024: SD1.5 1024 px, sd15_768_sp2/4: "
+            "one rank's share of the 768-px final pass over 2/4 "
+            "sequence-parallel ranks), batch 1 with CFG",
         per_model=per_model, shapes=rows)
 
 
@@ -619,7 +723,9 @@ def w8a8_path(records, profiling: bool, float_eps, sd15: dict) -> dict:
     quantized), checked with the kernels against plain_path(), each
     quantized site against the kernel's plain version, and compared with
     the float UNet's eps (``float_eps``, same seed and inputs); three
-    50-step requests with THEATERGEN_FUSED_INT8 at "1", one at "0"."""
+    50-step requests with THEATERGEN_FUSED_INT8 at "1", one at "0"; then,
+    at "1", the UNet check and one request with each of flash's other
+    routes switched on (SWITCH_REQUESTS)."""
     prev_mode, qz.FUSED_MODE = qz.FUSED_MODE, "1"
     cfg = sd15_config()
     cfg = dataclasses.replace(cfg, unet=dataclasses.replace(
@@ -644,6 +750,17 @@ def w8a8_path(records, profiling: bool, float_eps, sd15: dict) -> dict:
                       else 0)
         seconds[mode] = run_requests(W8A8, pipe, prompts, want, 512,
                                      records)
+    qz.FUSED_MODE = "1"
+    switch_rel = {}
+    for env, attrs, counter in SWITCH_REQUESTS:
+        with flash_switches(**attrs):
+            log(f"  {env}:")
+            switch_rel[env] = unet_reference_phase(bundle, 5e-2)[0]
+            want = counts(**{counter: 10 * SD15_STEPS},
+                          group_norm=gn_want(SD15, SD15_STEPS),
+                          quant_matmul=QMM_PER_EVAL * SD15_STEPS)
+            seconds[env] = run_requests(W8A8, pipe, PROMPTS[:1], want, 512,
+                                        records)
     peak = torch.cuda.max_memory_allocated()
     log(f"  seconds per request by THEATERGEN_FUSED_INT8 {seconds}; peak "
         f"memory {peak / 2 ** 30:.3f} GiB (bf16 SD1.5 in this call: "
@@ -654,7 +771,8 @@ def w8a8_path(records, profiling: bool, float_eps, sd15: dict) -> dict:
         profile(bundle, sd.encode_prompts)
     qz.FUSED_MODE = prev_mode
     return dict(seconds_per_request=seconds, peak_bytes=peak,
-                unet_kernels_vs_plain_rel=rel, unet_vs_float_rel=rel_float)
+                unet_kernels_vs_plain_rel=rel, unet_vs_float_rel=rel_float,
+                switch_unet_kernels_vs_plain_rel=switch_rel)
 
 
 def sdxl_path(records, profiling: bool) -> dict:
@@ -901,14 +1019,15 @@ def final_eval_times(bundle) -> dict:
 
 
 def final_request(bundle, run, composed, frozen_mask, cond_img, ip_image,
-                  model: str, records) -> dict:
+                  model: str, records, want: dict = None) -> dict:
     """One final request, counters set to 0 just before it and read just
     after: the overall prompt's context, ``ip_context`` with the first
     character's image, the 50-step runner and the decode.  Checks that the
     frozen mask leaves both a frozen and a free region, the image, the
     trajectory's shape, the frozen region of every step below FROZEN_STEPS
     bit for bit against the composed trajectory, the free region moved
-    off it (the denoiser's side of the blend), and the launches."""
+    off it (the denoiser's side of the blend), and the launches (``want``,
+    by default the path's)."""
     cfg = bundle.cfg
     h, w, px = (cfg.pipeline.latent_height, cfg.pipeline.latent_width,
                 cfg.pipeline.height)
@@ -917,7 +1036,7 @@ def final_request(bundle, run, composed, frozen_mask, cond_img, ip_image,
         raise SystemExit(f"{model} final request: the frozen mask covers "
                          f"{int(on.sum())} of {h * w} latent pixels; the "
                          f"check needs both sides of the blend")
-    want = path_want(model)
+    want = path_want(model) if want is None else want
     reset_counts()
     t0 = time.perf_counter()
     neg = "incohesive, edge shadow, blurry"
@@ -964,12 +1083,15 @@ def final_request(bundle, run, composed, frozen_mask, cond_img, ip_image,
 
 
 def back_half(bundle, records, char_model: str, model: str,
-              chars_spec) -> dict:
+              chars_spec, switch_requests=()) -> dict:
     """At the bundle's canvas: the final pass checked against
     plain_path(), the characters of ``chars_spec`` ((ip_scale, layout box)
     each: 50-step character requests, decoded), their masks from the
     step-mean reference maps, the composition program, one final request,
-    and the final pass's evaluation times."""
+    and the final pass's evaluation times; then, for each of
+    ``switch_requests`` (SWITCH_REQUESTS_768), the check against
+    plain_path() and one final request with that flash switch set, its
+    level-0 launches on the switch's counter."""
     cfg = bundle.cfg
     px = cfg.pipeline.height
     h, w = cfg.pipeline.latent_height, cfg.pipeline.latent_width
@@ -1021,9 +1143,49 @@ def back_half(bundle, records, char_model: str, model: str,
     times = final_eval_times(bundle)
     log(f"  {px} px: character requests {char_seconds} s, final request "
         f"{req['seconds']:.3f} s, peak memory {peak / 2 ** 30:.3f} GiB")
+    switched = {}
+    for env, attrs, counter in switch_requests:
+        with flash_switches(**attrs):
+            log(f"  {env}:")
+            rels_sw = final_reference_phase(bundle)
+            flash = PER_EVAL[model]["flash_attention_long"]
+            want = counts(**{counter: flash * SD15_STEPS},
+                          ff_geglu=PER_EVAL[model]["ff_geglu"] * SD15_STEPS,
+                          group_norm=gn_want(model, SD15_STEPS))
+            switched[env] = dict(kernels_vs_plain_rel=rels_sw,
+                                 final_request=final_request(
+                                     bundle, run, composed, frozen_mask,
+                                     cond_img, chars[0]["image"][None],
+                                     model, records, want))
     return dict(kernels_vs_plain_rel=rels, character_seconds=char_seconds,
                 compose_seconds=compose_s, final_request=req,
-                peak_bytes=peak, final_eval=times)
+                peak_bytes=peak, final_eval=times, switched=switched)
+
+
+def packed_route_phase(bundle) -> dict:
+    """One 512-px final-pass evaluation (ControlNet + IP UNet) with
+    THEATERGEN_FLASH_BSHD=1: its self-attentions (4096 and 1024 tokens) take
+    the packed projections first, so every launch stays on row 1's
+    counter."""
+    px, text_len = bundle.cfg.pipeline.height, bundle.cfg.text.max_length
+    x, t, ctx, cond = final_inputs(bundle, px + 2)
+    want = counts(flash_attention=PER_EVAL[FINAL]["flash_attention"],
+                  ff_geglu=PER_EVAL[FINAL]["ff_geglu"],
+                  group_norm=gn_want(FINAL, 1))
+    with flash_switches(BSHD_NATIVE=True), torch.no_grad():
+        reset_counts()
+        down, mid = bundle.controlnet(x, t, ctx[:, :text_len], cond)
+        bundle.unet_ip(x, t, ctx, ip_scale=torch.tensor(IP_SCALE_FINAL,
+                                                        device="cuda"),
+                       down_residuals=down, mid_residual=mid)
+        torch.cuda.synchronize()
+        got = read_counts()
+    log(f"  {px} px final-pass evaluation with THEATERGEN_FLASH_BSHD=1: "
+        f"launches {got}  {'ok' if got == want else 'FAIL'}")
+    if got != want:
+        raise SystemExit(f"{px} px with THEATERGEN_FLASH_BSHD=1: launches "
+                         f"{got}, want {want}")
+    return got
 
 
 def final_paths(records) -> dict:
@@ -1042,13 +1204,118 @@ def final_paths(records) -> dict:
         f"ControlNet {n_cn:.1f} M params, weights "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB")
     out = {FINAL: back_half(bundle, records, CHAR, FINAL, FINAL_CHARS[512])}
+    out[FINAL]["bshd_launches_one_eval"] = packed_route_phase(bundle)
     gc.collect()
     torch.cuda.empty_cache()
     cfg768 = dataclasses.replace(cfg, pipeline=dataclasses.replace(
         cfg.pipeline, height=768, width=768))
     out[FINAL_768] = back_half(dataclasses.replace(bundle, cfg=cfg768),
-                               records, CHAR_768, FINAL_768, FINAL_CHARS[768])
+                               records, CHAR_768, FINAL_768, FINAL_CHARS[768],
+                               SWITCH_REQUESTS_768)
     return out
+
+
+def turn_want(attempts: int) -> dict:
+    """Launches of one turn: each character attempt is a 50-step character
+    request, and the turn ends in one 50-step final request."""
+    per_attempt, final_req = path_want(CHAR), path_want(FINAL)
+    return {k: attempts * per_attempt[k] + final_req[k] for k in COUNTERS}
+
+
+def turn_path(records) -> dict:
+    """The serial story loop through the port's CLI,
+    ``cli.generate.main``, over dialogue_0 of data/sample/story.json:
+    SD1.5 at 512 px, full width and depth on random weights, 50 DDIM
+    steps, frozen_step_ratio 0.5, into an output tree and character DB
+    under build/chip_smoke_turn/ (emptied first: the CLI resumes by
+    existence).  Every counter is set to 0 just before each turn and read
+    just after it (Theater.run_turn wrapped here); the turn's character
+    attempts are read from its PhaseTimer.  Fails unless every turn ran
+    (none quarantined), its images are finite, in [0, 1] and 512², the
+    DB hits are TURN_HITS, and each turn's launches are turn_want."""
+    from theatergen_tpu_torch.cli import generate
+    from theatergen_tpu_torch.db import CharacterDB
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_turn")
+    shutil.rmtree(root, ignore_errors=True)
+    out_dir, db_dir = os.path.join(root, "out"), os.path.join(root, "db")
+    turns, real = [], theater.Theater.run_turn
+
+    def counted_turn(self, spec, seed, **kw):
+        before = self.timer.counts().get("char.denoise_decode", 0)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = real(self, spec, seed, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_counts()
+        add_launches(records, TURN, got)
+        attempts = self.timer.counts()["char.denoise_decode"] - before
+        images = [res.image] + res.so_images
+        ok_images = all(
+            im.shape == (512, 512, 3) and bool(np.isfinite(im).all())
+            and im.min() >= 0.0 and im.max() <= 1.0 for im in images)
+        turns.append(dict(seconds=res.seconds, wall_s=wall,
+                          attempts=attempts, launches=got,
+                          db_hits=res.db_hits, detections=res.detections,
+                          images_ok=ok_images))
+        log(f"  turn {len(turns)}: {wall:.3f} s  characters "
+            f"{len(res.so_images)}  attempts {attempts}  DB hits "
+            f"{res.db_hits}  detections {res.detections}  launches {got}  "
+            f"images finite, in [0, 1], 512²: {ok_images}")
+        return res
+
+    torch.cuda.reset_peak_memory_stats()
+    theater.Theater.run_turn = counted_turn
+    try:
+        generate.main([
+            "--dataset_path", os.path.join(os.path.dirname(
+                os.path.abspath(__file__)), "data", "sample"),
+            "--task", "story", "--max_dialogues", "1",
+            "--num_steps", str(SD15_STEPS), "--frozen_step_ratio", "0.5",
+            "--base_save_dir", out_dir, "--database_path_base", db_dir])
+    finally:
+        theater.Theater.run_turn = real
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(out_dir, "story", "run0", "run_log.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    logged = [e for e in events if e["event"] == "turn"]
+    (dialogue,) = [e for e in events if e["event"] == "dialogue"]
+    store = CharacterDB(os.path.join(db_dir, "story", "dialogue_0")).store_kind
+    log(f"  dialogue: {dialogue['seconds']} s; seconds per turn "
+        f"{[round(t['wall_s'], 3) for t in turns]}; peak memory "
+        f"{peak / 2 ** 30:.3f} GiB; embedding store: {store}")
+    log(f"  phase summary: {json.dumps(dialogue['phase_summary'])}")
+    bad = []
+    if [e["turn"] for e in logged] != [f"turn {i}" for i in range(1, 5)]:
+        bad.append(f"turn events {[e['turn'] for e in logged]}")
+    if any(e["event"] == "quarantine" for e in events):
+        bad.append("a turn was quarantined")
+    for i, t in enumerate(turns):
+        if not t["images_ok"]:
+            bad.append(f"turn {i + 1}: bad image")
+        if t["db_hits"] != TURN_HITS[i]:
+            bad.append(f"turn {i + 1}: DB hits {t['db_hits']}, want "
+                       f"{TURN_HITS[i]}")
+        if t["launches"] != turn_want(t["attempts"]):
+            bad.append(f"turn {i + 1}: launches {t['launches']}, want "
+                       f"{turn_want(t['attempts'])}")
+    for t_idx in range(len(logged)):
+        turn_dir = os.path.join(out_dir, "story", "run0", "dialogue_0",
+                                f"turn {t_idx + 1}")
+        for name in sorted(os.listdir(turn_dir)):
+            if png.read_png(os.path.join(turn_dir, name)).shape != (512, 512,
+                                                                    3):
+                bad.append(f"turn {t_idx + 1}/{name}: not 512²")
+    if len(turns) != 4:
+        bad.append(f"{len(turns)} turns ran")
+    log(f"  turn checks: {'ok' if not bad else 'FAIL ' + '; '.join(bad)}")
+    if bad:
+        raise SystemExit("the story turn failed: " + "; ".join(bad))
+    return dict(turns=turns, dialogue_seconds=dialogue["seconds"],
+                phase_summary=dialogue["phase_summary"], peak_bytes=peak,
+                store=store)
 
 
 def request_ab(model: str, one_request) -> dict:
@@ -1181,6 +1448,12 @@ def main() -> int:
               f"script sets the switch itself for the W8A8 requests and "
               f"keeps the port's default \"0\" elsewhere", file=sys.stderr)
         return 1
+    preset = sorted(k for k in fa.SWITCHES if k in os.environ)
+    if preset:
+        print(f"chip_smoke: {preset} set; the script sets the flash switches "
+              f"itself, request by request, and counts each route's "
+              f"launches under the defaults elsewhere", file=sys.stderr)
+        return 1
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
@@ -1212,12 +1485,22 @@ def main() -> int:
     records = [
         _record("flash_attention", "csrc/flash_attention.cu",
                 "theatergen_tpu/ops/flash_attention.py:283",
-                "flash_attention_packed (_flat_call)", flash_phase(gen)),
+                "flash_attention_packed (_flat_call)",
+                flash_phase(gen, FLASH_SHAPES, "packed")),
         _record("flash_attention_long", "csrc/flash_attention.cu",
                 "theatergen_tpu/ops/flash_attention.py:435",
                 "_flash_attention_flat_online (_flat_online_call)",
-                flash_phase(gen, FLASH_LONG_SHAPES)),
+                flash_phase(gen, FLASH_LONG_SHAPES, "flat_online")),
+        _record("flash_attention_bshd", "csrc/flash_attention.cu",
+                "theatergen_tpu/ops/flash_attention.py:561",
+                "_flash_attention_bshd",
+                flash_phase(gen, FLASH_BSHD_SHAPES, "bshd")),
+        _record("flash_attention_copy", "csrc/flash_attention.cu",
+                "theatergen_tpu/ops/flash_attention.py:633",
+                "flash_attention (_flash_attention_impl)",
+                flash_phase(gen, FLASH_COPY_SHAPES, "copy")),
         ff_phase(gen), geglu_phase(gen), gn_phase(gen), qmm_phase(gen)]
+    sp_shards = sp_shards_phase(gen)
     torch.cuda.synchronize()
 
     log(f"[main path] SD1.5 Text2Img, 512 px, {SD15_STEPS} DDIM steps, "
@@ -1248,6 +1531,13 @@ def main() -> int:
         f"{SD15_STEPS} DDIM steps, CFG 7.5, frozen_steps {FROZEN_STEPS}, "
         f"ip_scale {IP_SCALE_FINAL}")
     paths.update(final_paths(records))
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[main path] a story dialogue through the CLI: dialogue_0 of "
+        f"data/sample/story.json, 4 turns, SD1.5 512 px, {SD15_STEPS} DDIM "
+        f"steps, CFG 7.5, frozen_step_ratio 0.5")
+    paths[TURN] = turn_path(records)
+    paths["sp_shards_equal"] = sp_shards
     log(f"[done] {time.perf_counter() - t_start:.1f} s after the build began")
     log(json.dumps({"main_path": paths, "card": card}))
     log(json.dumps({"kernels": records}))

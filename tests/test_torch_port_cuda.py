@@ -91,6 +91,59 @@ def test_self_attention_routes_at_768_px():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk,d", [(1024, 1024, 160), (100, 1024, 40),
+                                     (100, 1024, 160), (4608, 9216, 40)])
+def test_flash_kernel_d160_and_sq_ne_sk_on_card(sq, sk, d):
+    """The d = 160 instance (SD1.5's level 2 at 1024 px; dynamic shared
+    memory past 48 KB), and Sq ≠ Sk with a q tail that the 64-row tile
+    does not divide (Sq = 100) and at sequence parallelism's 2-shard
+    shape: kernel vs plain, 1e-2·max|ref|."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(sq + d)
+    q = torch.randn(2, sq, 8, d, device=dev, generator=g, dtype=torch.bfloat16)
+    k, v = (torch.randn(2, sk, 8, d, device=dev, generator=g,
+                        dtype=torch.bfloat16) for _ in range(2))
+    out = tfa.flash_attention(q, k, v, route="copy").float()
+    ref = tfa.flash_attention_plain(q.float(), k.float(), v.float())
+    assert out.shape == (2, sq, 8, d)
+    assert (out - ref).abs().max() <= 1e-2 * ref.abs().max()
+
+
+@pytest.mark.cuda
+def test_each_route_counts_on_its_own_counter_on_card():
+    """One launch per route moves that route's counter only ("packed" and
+    "flat" share row 1's); a layer under the switches launches on the
+    route the JAX package would take."""
+    dev = _card()
+    names = ("launches", "launches_long", "launches_bshd", "launches_copy")
+    q = torch.randn(1, 1024, 2, 40, device=dev, dtype=torch.bfloat16)
+    for route, counter in tfa.COUNTERS.items():
+        before = {n: getattr(tfa, n) for n in names}
+        tfa.flash_attention(q, q, q, route=route)
+        torch.cuda.synchronize()
+        after = {n: getattr(tfa, n) for n in names}
+        assert {n: after[n] - before[n] for n in names} == {
+            n: int(n == counter) for n in names}
+    with pytest.raises(ValueError):
+        tfa.flash_attention(q, q, q, route="nope")
+    attn = tl.CrossAttention(80, 2, 40, quantized=False).to(dev,
+                                                           torch.bfloat16)
+    x = torch.randn(1, 1024, 80, device=dev, dtype=torch.bfloat16)
+    saved = (tfa.BSHD_NATIVE, tfa.PACKED)
+    try:
+        for bshd, packed, counter in ((True, True, "launches"),
+                                      (True, False, "launches_bshd"),
+                                      (False, False, "launches")):
+            tfa.BSHD_NATIVE, tfa.PACKED = bshd, packed
+            before = getattr(tfa, counter)
+            with torch.no_grad():
+                attn(x)
+            assert getattr(tfa, counter) == before + 1
+    finally:
+        tfa.BSHD_NATIVE, tfa.PACKED = saved
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(8192, 2560, 640), (2048, 5120, 1280),
                                    (100, 2560, 640)])
 def test_geglu_kernel_matches_plain_on_card(m, k, n):

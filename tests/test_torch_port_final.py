@@ -657,9 +657,10 @@ def test_final_pass_kernel_sites(monkeypatch):
     monkeypatch.setattr(tgn, "FUSED_MODE", "1")
     calls = collections.Counter()
     real = (tfa.flash_attention, tgg.ff_matmul, tgn.fused_group_norm)
-    monkeypatch.setattr(tfa, "flash_attention", lambda q, k, v: calls.update(
-        ["flash_long" if q.shape[1] > tfa.MAX_WHOLE_K_SEQ else "flash"])
-        or real[0](q, k, v))
+    monkeypatch.setattr(
+        tfa, "flash_attention", lambda q, k, v, route=None: calls.update(
+            ["flash_long" if route == "flat_online" else "flash"])
+        or real[0](q, k, v, route=route))
     monkeypatch.setattr(tgg, "ff_matmul", lambda *a: calls.update(["ff"])
                         or real[1](*a))
     monkeypatch.setattr(tgn, "fused_group_norm", lambda *a, **k: calls.update(

@@ -29,6 +29,7 @@ from theatergen_tpu_torch.ops import groupnorm as tgn
 from theatergen_tpu_torch.pipelines.bundle import init_bundle
 
 from test_torch_port_models import random_params
+from test_torch_port_routes import SETTINGS, jax_route, switches
 
 torch.set_num_threads(1)
 
@@ -127,16 +128,21 @@ def test_gates_cover_the_sd15_shapes():
                                33280])
 @pytest.mark.parametrize("d", [40, 64, 80])
 def test_flash_gate_equals_the_jax_route(s, d):
-    """The port's supported() is the set of self-attention shapes where
-    the JAX package reaches a Pallas flash kernel (packed_supported up to
-    4096 tokens, fa.supported and flat_online_supported past it), at 8
-    heads and at SDXL's 20 (where the online blocks' budget binds
-    earlier); cross-attention lengths never."""
+    """The port's route() is the route the JAX package's CrossAttention
+    takes (found by spying on its four Pallas entry points under
+    jax.eval_shape, test_torch_port_routes.jax_route), at 8 heads and at
+    SDXL's 20 (where the online blocks' budget binds earlier), in a float
+    and a quantized layer, under each switch setting; supported() says
+    whether there is a route; cross-attention lengths route nowhere."""
     for heads in (8, 20):
-        q = jax.ShapeDtypeStruct((2, s, heads, d), jnp.bfloat16)
-        want = (fa.packed_supported(s, heads, d, 2)
-                or (fa.supported(q, q) and fa.flat_online_supported(q, q)))
-        assert tfa.supported(s, s, heads, d, 2) == want
+        for quantized in (False, True):
+            for setting in SETTINGS:
+                want = jax_route(s, heads, d, quantized, setting)
+                with switches(setting):
+                    got = tfa.route(s, s, heads, d, 2, quantized)
+                    assert tfa.supported(s, s, heads, d, 2,
+                                         quantized) == (want is not None)
+                assert got == want, (heads, quantized, setting)
     assert not tfa.supported(s, 77, 8, d)
 
 
@@ -226,7 +232,8 @@ def test_layers_route_to_the_kernels(monkeypatch):
     calls = []
     real_fa, real_ff = tfa.flash_attention, tgg.ff_matmul
     monkeypatch.setattr(tfa, "flash_attention",
-                        lambda *a: calls.append("flash") or real_fa(*a))
+                        lambda *a, **k: calls.append("flash")
+                        or real_fa(*a, **k))
     monkeypatch.setattr(tgg, "ff_matmul",
                         lambda *a: calls.append("ff") or real_ff(*a))
     launches = (tfa.launches, tgg.ff_launches, tgg.geglu_launches)
@@ -290,7 +297,7 @@ def test_plain_path_keeps_flash_off(monkeypatch):
     calls = []
     real = tfa.flash_attention
     monkeypatch.setattr(tfa, "flash_attention",
-                        lambda *a: calls.append("flash") or real(*a))
+                        lambda *a, **k: calls.append("flash") or real(*a, **k))
     attn = tl.CrossAttention(128, 2, 64).to(torch.bfloat16)
     x = torch.randn(1, 1024, 128, dtype=torch.bfloat16)
     attn(x)

@@ -46,6 +46,15 @@ def test_port_imports_no_jax():
     assert r.returncode == 0, r.stderr
 
 
+def test_the_turn_modules_are_covered():
+    """The turn's modules are among those test_port_imports_no_jax
+    imports in a fresh interpreter."""
+    mods = set(_modules())
+    for m in ("cli.generate", "db", "runtime.store", "perception.detector",
+              "utils.parse", "utils.profiling", "utils.png", "theater"):
+        assert f"theatergen_tpu_torch.{m}" in mods, m
+
+
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in list(PKG.rglob("*.py"))
     + [ROOT / "chip_smoke.py"]))

@@ -1,0 +1,234 @@
+"""CMIGBench generation driver, serial loop.
+
+The port of ``theatergen_tpu/cli/generate.py`` without its wave mode.  It
+keeps the reference CLI's flags, seed discipline, resume and output tree
+(``generate.py:34-48,155-269``):
+
+- output tree ``<base_save_dir>/<task>/run<k>/<dialogue>/turn n/img_<rep>.png``
+  and ``so_<rep>_<i>.png`` per character (``generate.py:168,192,199``);
+- a character DB per dialogue, ``<database_path_base>/<task>/<dialogue>/``
+  (``generate.py:186-187``);
+- resume by existence: a turn whose directory exists is skipped
+  (``generate.py:193-194``);
+- error quarantine: a turn that raises is printed, logged and skipped
+  (``generate.py:250-259``);
+- ``run_log.jsonl`` beside the tree: a ``turn`` event per turn, a
+  ``quarantine`` event per failed turn, a ``dialogue`` event with the
+  phase summary, and a ``summary`` event.
+
+Seeds are a deterministic hash of (seed offset, dialogue index or frozen
+seed, turn, repeat, regenerate pass), so any turn regenerates alike in
+isolation.  Runs on the card unless ``--device`` names another device::
+
+    python -m theatergen_tpu_torch.cli.generate --tiny --device cpu \\
+        --dataset_path data/sample --max_dialogues 1 --num_steps 4
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+import traceback
+from typing import Optional
+
+import numpy as np
+
+# flags of the JAX driver that raise here, and the ROADMAP §1 item that
+# brings each
+UNPORTED_FLAGS = {
+    "dp_dialogues": 9, "mesh": 9, "batch_chars": 9, "snapshot": 7,
+    "weights": 7, "profile": 2, "guidance": 6, "cfg_cutoff": 4,
+    "deepcache": 4, "cn_interval": 4, "scheduler": 4, "prediction_type": 4,
+    "zero_snr": 4}
+
+
+def turn_seed(seed_offset: int, dialogue_base: int, turn_idx: int,
+              repeat: int, regen: int = 0) -> int:
+    """Deterministic per-(regenerate pass, dialogue, turn, repeat) seed; a
+    regenerate pass sees fresh randomness (the reference advances
+    seed_offset per pass, generate.py:157-160)."""
+    return (seed_offset * 1_000_003 + regen * 7_919_997
+            + dialogue_base * 10_007 + turn_idx * 101 + repeat) % (2**31 - 1)
+
+
+def build_spec(turn_data: dict) -> dict:
+    """CMIGBench turn dict → spec (``generate.py:205-226``)."""
+    obj_ids, gen_boxes = [], []
+    for bbox in turn_data.get("objects", []):
+        gen_boxes.append((bbox[0], tuple(bbox[1])))
+        obj_ids.append(bbox[2])
+    return {
+        "prompt": turn_data["caption"],
+        "gen_boxes": gen_boxes,
+        "bg_prompt": turn_data.get("background", ""),
+        "extra_neg_prompt": turn_data.get("negative", ""),
+        "obj_ids": obj_ids,
+    }
+
+
+def save_image(path: str, image: np.ndarray) -> None:
+    from ..utils import png
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    png.write_png(path, png.to_uint8(image))
+
+
+def make_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        description="TheaterGen CMIGBench driver (PyTorch port)")
+    ap.add_argument("--task", default="story", choices=["story", "editing"])
+    ap.add_argument("--repeats", type=int, default=1)
+    ap.add_argument("--regenerate", type=int, default=1)
+    ap.add_argument("--force_run_ind", type=int, default=0)
+    ap.add_argument("--seed_offset", type=int, default=0)
+    ap.add_argument("--sd_version", default="1.5", choices=["1.5", "xl"])
+    ap.add_argument("--database_path_base", default="database")
+    ap.add_argument("--base_save_dir", default="img_generations")
+    ap.add_argument("--dataset_path", default="CMIGBench")
+    ap.add_argument("--frozen_step_ratio", type=float, default=0.5)
+    ap.add_argument("--freeze_dialogue_seed", type=int, default=None)
+    ap.add_argument("--num_steps", type=int, default=None)
+    ap.add_argument("--tiny", action="store_true",
+                    help="tiny random-weight config (smoke runs)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device of the bundle (default: the card)")
+    ap.add_argument("--box_canvas", type=int, default=None,
+                    help="authoring canvas of the dataset's pixel boxes "
+                         "(CMIGBench: 512); defaults to the render size, "
+                         "and to 512 with --tiny")
+    ap.add_argument("--max_dialogues", type=int, default=None)
+    # the JAX driver's other flags parse, and raise (UNPORTED_FLAGS)
+    for flag in ("weights", "snapshot", "mesh"):
+        ap.add_argument(f"--{flag}", default=None)
+    for flag in ("guidance", "batch_chars", "profile", "zero_snr"):
+        ap.add_argument(f"--{flag}", action="store_true", default=None)
+    for flag in ("cfg_cutoff",):
+        ap.add_argument(f"--{flag}", type=float, default=None)
+    for flag in ("deepcache", "cn_interval", "dp_dialogues"):
+        ap.add_argument(f"--{flag}", type=int, default=None)
+    ap.add_argument("--scheduler", default=None,
+                    choices=["ddim", "euler_ancestral", "lcm"])
+    ap.add_argument("--prediction_type", default=None,
+                    choices=["epsilon", "v_prediction", "sample"])
+    return ap
+
+
+def check_ported(args) -> None:
+    """Raise NotImplementedError for a flag whose feature the port lacks."""
+    for flag, item in UNPORTED_FLAGS.items():
+        if getattr(args, flag) not in (None, False):
+            raise NotImplementedError(
+                f"--{flag} is not ported yet (ROADMAP §1 item {item})")
+    if args.sd_version == "xl":
+        raise NotImplementedError(
+            "--sd_version xl: the SDXL turn is not ported yet (ROADMAP §1 "
+            "item 5)")
+
+
+def load_dataset(dataset_path: str, task: str) -> dict:
+    with open(os.path.join(dataset_path, f"{task}.json")) as f:
+        return json.load(f)
+
+
+def build_theater(args):
+    """The turn's bundle: random weights from seed 0 with the IP UNet, the
+    vision tower and the ControlNet, on ``args.device``."""
+    from ..config import sd15_config, tiny_config
+    from ..pipelines.bundle import init_bundle
+
+    cfg = tiny_config() if args.tiny else sd15_config()
+    return init_bundle(cfg, 0, device=args.device, with_ip=True,
+                       with_vision=True, with_controlnet=True)
+
+
+def main(argv: Optional[list] = None) -> None:
+    args = make_parser().parse_args(argv)
+    check_ported(args)
+    bundle = build_theater(args)
+    dataset = load_dataset(args.dataset_path, args.task)
+    dialogues = list(dataset)
+    if args.max_dialogues:
+        dialogues = dialogues[: args.max_dialogues]
+
+    save_dir = os.path.join(args.base_save_dir, args.task,
+                            f"run{args.force_run_ind}")
+    print(f"Save dir: {save_dir}")
+    os.makedirs(save_dir, exist_ok=True)
+    with open(os.path.join(save_dir, "run_log.jsonl"), "a") as run_log:
+        def log(**kw):
+            run_log.write(json.dumps(kw) + "\n")
+            run_log.flush()
+
+        _run(args, bundle, dataset, dialogues, save_dir, log)
+
+
+def _run(args, bundle, dataset: dict, dialogues: list, save_dir: str,
+         log) -> None:
+    """The serial loop: regenerate passes × dialogues × turns × repeats."""
+    from ..db import CharacterDB
+    from ..theater import Theater
+
+    use_time = []
+    canvas = args.box_canvas or (512 if args.tiny else None)
+    for regen_ind in range(args.regenerate):
+        for d_idx, dialogue in enumerate(dialogues):
+            db = CharacterDB(os.path.join(
+                args.database_path_base, args.task, str(dialogue)))
+            theater = Theater(bundle, db, task=args.task,
+                              num_steps=args.num_steps)
+            base = (args.freeze_dialogue_seed
+                    if args.freeze_dialogue_seed is not None else d_idx)
+            t0 = time.time()
+            for t_idx in range(4):
+                turn = f"turn {t_idx + 1}"
+                turn_dir = os.path.join(save_dir, str(dialogue), turn)
+                if os.path.exists(turn_dir):
+                    continue  # resume-by-existence (generate.py:193-194)
+                if turn not in dataset[dialogue]:
+                    continue
+                spec = build_spec(dataset[dialogue][turn])
+                if canvas:
+                    spec["canvas_height"] = spec["canvas_width"] = canvas
+                for rep in range(args.repeats):
+                    seed = turn_seed(args.seed_offset, base, t_idx, rep,
+                                     regen=regen_ind)
+                    try:
+                        res = theater.run_turn(
+                            spec, seed,
+                            frozen_step_ratio=args.frozen_step_ratio)
+                    except Exception as e:
+                        # error quarantine (generate.py:250-259)
+                        print(f"[quarantine] {dialogue}/{turn} rep {rep}:")
+                        traceback.print_exc()
+                        log(event="quarantine", dialogue=str(dialogue),
+                            turn=turn, repeat=rep, seed=seed, error=repr(e))
+                        continue
+                    save_image(os.path.join(turn_dir, f"img_{rep}.png"),
+                               res.image)
+                    for i, so in enumerate(res.so_images):
+                        save_image(os.path.join(turn_dir, f"so_{rep}_{i}.png"),
+                                   so)
+                    log(event="turn", dialogue=str(dialogue), turn=turn,
+                        repeat=rep, seed=seed, seconds=round(res.seconds, 2),
+                        characters=len(res.so_images),
+                        detections=res.detections, db_hits=res.db_hits)
+            dt = time.time() - t0
+            use_time.append(dt)
+            print(f"dialogue {dialogue}: {dt:.1f}s "
+                  f"(avg {np.mean(use_time):.1f}s, p50 "
+                  f"{np.median(use_time):.1f}s)")
+            log(event="dialogue", dialogue=str(dialogue),
+                seconds=round(dt, 2), phase_summary=theater.timer.summary())
+
+    if use_time:
+        print(f"Total {len(use_time)} dialogues, avg {np.mean(use_time):.1f}s,"
+              f" p50 {np.median(use_time):.1f}s per 4-turn dialogue")
+        log(event="summary", dialogues=len(use_time),
+            avg_s=round(float(np.mean(use_time)), 2),
+            p50_s=round(float(np.median(use_time)), 2))
+
+
+if __name__ == "__main__":
+    main()

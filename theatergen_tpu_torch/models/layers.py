@@ -294,9 +294,10 @@ class CrossAttention(nn.Module):
     """Attention with diffusers' projections (no-bias q/k/v, biased out).
 
     Self-attention (``context is None``) in bf16 where the JAX package
-    reaches a Pallas flash kernel (``ops.flash_attention.supported``:
-    1024..32768 tokens in steps of 512, within the TPU blocks' budget; a
-    quantized model too, as there) takes ``ops.flash_attention``, which
+    reaches a Pallas flash kernel (``ops.flash_attention.route``: 1024..
+    32768 tokens in steps of 512, within the TPU blocks' budget, under the
+    JAX package's flash switches; a quantized layer skips the packed
+    route, as there) takes ``ops.flash_attention`` on that route, which
     raises on the card for a head dim it has no kernel instance for;
     every other call, and every call inside :func:`plain_path`, takes
     ``ops.attention.multi_head_attention``.
@@ -316,7 +317,7 @@ class CrossAttention(nn.Module):
         inner = heads * head_dim
         context_dim = query_dim if context_dim is None else context_dim
         self.heads, self.head_dim, self.use_flash = heads, head_dim, use_flash
-        self.ip_tokens = ip_tokens
+        self.ip_tokens, self.quantized = ip_tokens, quantized
 
         def proj(din, dout):
             return make_linear(quantized, din, dout, bias=False)
@@ -348,11 +349,13 @@ class CrossAttention(nn.Module):
         else:
             k = self.to_k(ctx).view(shape)
             v = self.to_v(ctx).view(shape)
+            route = None
             if (context is None and self.use_flash and _use_kernels
-                    and not return_probs and x.dtype == torch.bfloat16
-                    and fa_ops.supported(lq, lq, self.heads, self.head_dim,
-                                         x.element_size())):
-                res = fa_ops.flash_attention(q, k, v)
+                    and not return_probs and x.dtype == torch.bfloat16):
+                route = fa_ops.route(lq, lq, self.heads, self.head_dim,
+                                     x.element_size(), self.quantized)
+            if route is not None:
+                res = fa_ops.flash_attention(q, k, v, route=route)
             else:
                 res = attn_ops.multi_head_attention(
                     q, k, v, return_probs=return_probs)

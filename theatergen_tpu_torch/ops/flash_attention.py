@@ -1,27 +1,36 @@
-"""Flash self-attention: the Hopper counterpart of
-``theatergen_tpu/ops/flash_attention.py::flash_attention_packed``
-(``_flat_call``, S ≤ 4096) and ``_flash_attention_flat_online``
-(``_flat_online_call``, 4096 < S ≤ 32768).
+"""Flash attention: the Hopper counterpart of the four Pallas attention
+kernels of ``theatergen_tpu/ops/flash_attention.py``.
 
-:func:`flash_attention` takes ``[B, S, H, D]`` q, k, v (strided views of a
-projection are fine) and returns ``[B, S, H, D]``.  On a CUDA tensor it
-launches the hand-written kernel of ``csrc/flash_attention.cu`` (see the
-note there: one block per (batch·head, 64 query rows), online softmax in
-fp32 registers over 64-key tiles, QK^T and PV on bf16 tensor cores, head
-dims 40 (padded to 48 in shared memory), 64 and 80) or raises.  On a CPU
-tensor it runs :func:`flash_attention_plain`, the same function in plain
-PyTorch.
+:func:`flash_attention` takes q ``[B, Sq, H, D]`` and k, v ``[B, Sk, H,
+D]`` (strided views of a projection are fine) and returns ``[B, Sq, H,
+D]``.  On a CUDA tensor it launches the hand-written kernel of
+``csrc/flash_attention.cu`` (see the note there: one block per
+(batch·head, 64 query rows), online softmax in fp32 registers over
+64-key tiles, QK^T and PV on bf16 tensor cores, head dims 40 (padded to
+48 in shared memory), 64, 80 and 160, Sq ≠ Sk with masked q rows) or
+raises.  On a CPU tensor it runs :func:`flash_attention_plain`, the same
+function in plain PyTorch.
 
-The JAX package has two Pallas routes for self-attention: the whole-K
-kernel up to 4096 tokens and the online kernel past it.  The one kernel
-here is online at every length, so both routes launch it; a call past
-4096 tokens counts in :data:`launches_long`, any other in
-:data:`launches`.  :func:`supported` is the set of shapes where the JAX
-package reaches either Pallas kernel.  Outside it the JAX package leaves
-attention to XLA, and the port to its plain ``multi_head_attention``: for
-SD1.5 on a 768-px canvas that is level 1 (48² = 2304 tokens, not a
-multiple of 512) and every shorter self-attention.  That is the JAX
-package's own route, not a fallback.
+The JAX package picks one of four Pallas kernels for an attention call
+(its ``route``), under four environment switches that this module reads
+from the same variables at import, into attributes that tests and
+scripts may set:
+
+======================  ==============================  ===============
+route                   JAX kernel (kernel row)         counter
+======================  ==============================  ===============
+``"packed"``, ``"flat"``  ``_flat_call`` (1)            ``launches``
+``"flat_online"``       ``_flat_online_call`` (2)       ``launches_long``
+``"bshd"``              ``_flash_attention_bshd`` (3)   ``launches_bshd``
+``"copy"``              ``_flash_attention_impl`` (4)   ``launches_copy``
+======================  ==============================  ===============
+
+:func:`route` returns the route of a site, or None where the JAX package
+leaves attention to XLA and the port to its plain
+``multi_head_attention`` (for SD1.5 on a 768-px canvas: level 1, 48² =
+2304 tokens, and every shorter self-attention; every cross-attention).
+The one kernel here computes every route's function, so each launch
+counts on the counter of the route its caller names.
 
 The TPU package folds the 1/sqrt(d) scale, the base-2 exponent and a lane
 pad into packed projection weights (a Mosaic layout device); the kernel
@@ -31,6 +40,8 @@ here applies the scale to its fp32 logits and reads BSHD directly.
 from __future__ import annotations
 
 import ctypes
+import os
+from typing import Optional
 
 import torch
 
@@ -38,23 +49,39 @@ from .. import _build
 from .attention import multi_head_attention
 
 LOG2E = 1.4426950408889634
-# the TPU gates' lengths: self-attention at 1024..32768 tokens in steps of
-# 512, the whole-K kernel up to 4096 (packed_supported, flat_supported)
-# and the online one past it (flat_online_supported)
+# the TPU gates' lengths: keys 1024..32768 in steps of 512
+# (fa.supported); the whole-K kernel up to 4096 (packed_supported,
+# flat_supported) and the online one past it (flat_online_supported)
 MIN_SEQ = 1024
 MAX_WHOLE_K_SEQ = 4096
 MAX_SEQ = 32768
 # head dims with a compiled kernel instance (csrc/flash_attention.cu)
-KERNEL_HEAD_DIMS = (40, 64, 80)
+KERNEL_HEAD_DIMS = (40, 64, 80, 160)
 # the TPU gates' scoped-VMEM budget and lane width, kept so that the block
 # searches below, copies of the JAX package's, accept the same shapes
 _VMEM_BUDGET = 80 * 1024 * 1024
 _LANE = 128
 
-# kernel launches made by flash_attention at S ≤ 4096 and past it (reset
-# and read by callers)
+# the JAX package's switches (theatergen_tpu/ops/flash_attention.py:39-98)
+PACKED = os.environ.get("THEATERGEN_FLASH_PACKED", "1") == "1"
+FLAT = os.environ.get("THEATERGEN_FLASH_FLAT", "1") == "1"
+FLAT_ONLINE = os.environ.get("THEATERGEN_FLASH_FLAT16K", "1") == "1"
+BSHD_NATIVE = os.environ.get("THEATERGEN_FLASH_BSHD", "0") == "1"
+DEFAULT_Q_BLOCK = int(os.environ.get("THEATERGEN_FLASH_BQ", "512"))
+SWITCHES = {"THEATERGEN_FLASH_PACKED": "PACKED",
+            "THEATERGEN_FLASH_FLAT": "FLAT",
+            "THEATERGEN_FLASH_FLAT16K": "FLAT_ONLINE",
+            "THEATERGEN_FLASH_BSHD": "BSHD_NATIVE",
+            "THEATERGEN_FLASH_BQ": "DEFAULT_Q_BLOCK"}
+
+# route -> its launch counter (reset and read by callers)
+COUNTERS = {"packed": "launches", "flat": "launches",
+            "flat_online": "launches_long", "bshd": "launches_bshd",
+            "copy": "launches_copy"}
 launches = 0
 launches_long = 0
+launches_bshd = 0
+launches_copy = 0
 
 
 def _pad_head_dim(d: int) -> int:
@@ -94,18 +121,43 @@ def _flat_online_blocks(sq: int, sk: int, h: int, dp: int,
     return 0, 0
 
 
-def supported(sq: int, sk: int, heads: int, head_dim: int,
-              itemsize: int = 2) -> bool:
-    """Whether the JAX package sends self-attention of this shape to a
-    Pallas flash kernel: ``packed_supported`` (equivalently
-    ``flat_supported``) up to 4096 tokens, ``fa.supported`` and
-    ``flat_online_supported`` past it."""
-    if sq != sk or sq % 512 or not MIN_SEQ <= sq <= MAX_SEQ:
-        return False
+def route(sq: int, sk: int, heads: int, head_dim: int, itemsize: int = 2,
+          quantized: bool = False) -> Optional[str]:
+    """The JAX package's route for attention of ``sq`` queries against
+    ``sk`` keys (one of :data:`COUNTERS`), or None where it reaches no
+    Pallas kernel.  Reads the switches at call time, in the JAX order:
+
+    1. the packed projections, for self-attention of a float layer
+       (``models/layers.py:333-339``, ``packed_supported``);
+    2. ``multi_head_attention`` → ``fa.supported``: keys 1024..32768 in
+       steps of 512, whatever Sq (``ops/attention.py:120-129``);
+    3. ``_flash_attention_impl`` (:604-609): BSHD-native where Sq is a
+       multiple of its q block, then flat (Sq = Sk ≤ 4096), then
+       flat-online (Sq = Sk > 4096) where their blocks fit, else the
+       copy-based kernel."""
     dp = _pad_head_dim(head_dim)
-    if sq <= MAX_WHOLE_K_SEQ:
-        return _flat_q_block(sq, sk, heads * dp, itemsize) > 0
-    return _flat_online_blocks(sq, sk, heads, dp, itemsize) != (0, 0)
+    if (PACKED and not quantized and sq == sk and MIN_SEQ <= sq
+            <= MAX_WHOLE_K_SEQ and sq % 512 == 0
+            and _flat_q_block(sq, sq, heads * dp, itemsize) > 0):
+        return "packed"
+    if not (MIN_SEQ <= sk <= MAX_SEQ and sk % 512 == 0):
+        return None
+    if BSHD_NATIVE and sq % min(DEFAULT_Q_BLOCK, sq) == 0:
+        return "bshd"
+    if (FLAT and sq == sk and sk <= MAX_WHOLE_K_SEQ
+            and _flat_q_block(sq, sk, heads * dp, itemsize) > 0):
+        return "flat"
+    if (FLAT_ONLINE and sq == sk and sk > MAX_WHOLE_K_SEQ
+            and _flat_online_blocks(sq, sk, heads, dp, itemsize) != (0, 0)):
+        return "flat_online"
+    return "copy"
+
+
+def supported(sq: int, sk: int, heads: int, head_dim: int,
+              itemsize: int = 2, quantized: bool = False) -> bool:
+    """Whether the JAX package sends this attention to a Pallas kernel
+    (:func:`route` is not None)."""
+    return route(sq, sk, heads, head_dim, itemsize, quantized) is not None
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -119,7 +171,7 @@ def _lib():
     fn = lib.tg_flash_attention_fwd
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                        + [ctypes.c_longlong] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
     return fn
@@ -139,38 +191,47 @@ def _check_operand(name: str, x: torch.Tensor, shape) -> None:
                          f"aligned base (strides {x.stride()})")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor) -> torch.Tensor:
-    """Self-attention ``[B, S, H, D]`` → ``[B, S, H, D]`` (Sq = Sk)."""
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    route: Optional[str] = None) -> torch.Tensor:
+    """Attention ``[B, Sq, H, D]`` x ``[B, Sk, H, D]`` → ``[B, Sq, H, D]``.
+    ``route`` names the JAX route the call stands for, and so the counter
+    a launch adds to; without it the call counts as self-attention does
+    under the default switches: row 1 up to 4096 keys, row 2 past it."""
     if not q.is_cuda:
         return flash_attention_plain(q, k, v)
-    b, s, h, d = q.shape
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if route is None:
+        route = "flat" if sk <= MAX_WHOLE_K_SEQ else "flat_online"
+    if route not in COUNTERS:
+        raise ValueError(f"flash_attention: unknown route {route!r} (have "
+                         f"{tuple(COUNTERS)})")
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {d} has no kernel "
                          f"instance (have {KERNEL_HEAD_DIMS})")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        _check_operand(name, x, (b, s, h, d))
-    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    _check_operand("q", q, (b, sq, h, d))
+    for name, x in (("k", k), ("v", v)):
+        _check_operand(name, x, (b, sk, h, d))
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     fn = _lib()
     _build.check(fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, d,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk,
+        h, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         d ** -0.5 * LOG2E, torch.cuda.current_stream(q.device).cuda_stream,
     ), "flash_attention")
-    global launches, launches_long
-    if s > MAX_WHOLE_K_SEQ:
-        launches_long += 1
-    else:
-        launches += 1
+    counter = COUNTERS[route]
+    globals()[counter] += 1
     return out
 
 
-def flops(b: int, s: int, h: int, d: int) -> float:
-    """Operations of one call: QK^T and PV, 2·S²·d multiply-adds each."""
-    return 4.0 * b * h * s * s * d
+def flops(b: int, s: int, h: int, d: int, sk: Optional[int] = None) -> float:
+    """Operations of one call: QK^T and PV, 2·Sq·Sk·d multiply-adds each
+    (Sk = Sq unless given)."""
+    return 4.0 * b * h * s * (s if sk is None else sk) * d
 
 
-def min_bytes(b: int, s: int, h: int, d: int, itemsize: int = 2) -> float:
-    """Bytes of one call: q, k, v read once and the output written once."""
-    return 4.0 * b * s * h * d * itemsize
-
+def min_bytes(b: int, s: int, h: int, d: int, sk: Optional[int] = None,
+              itemsize: int = 2) -> float:
+    """Bytes of one call: q, k, v read once and the output written once
+    (Sk = Sq unless given)."""
+    return 2.0 * b * h * d * (s + (s if sk is None else sk)) * itemsize

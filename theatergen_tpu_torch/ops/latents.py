@@ -1,6 +1,8 @@
-"""Trajectory composition, alignment and the pixel collage.
+"""Latent seeding and blending, trajectory composition, alignment and the
+pixel collage.
 
-The port of ``theatergen_tpu/ops/latents.py::{compose_trajectories,
+The port of ``theatergen_tpu/ops/latents.py::{unscaled_latents,
+blend_latents, input_latents_for_boxes, compose_trajectories,
 align_with_boxes, collage_images}``: per-object stacks carry a leading
 axis of ``max_objects`` slots, and a padded slot (an empty mask, a zero
 trajectory, ``valid`` False) changes nothing.  NHWC at the boundary, as
@@ -16,6 +18,54 @@ from typing import Optional, Tuple
 import torch
 
 from . import geometry as G
+
+
+def unscaled_latents(generator: torch.Generator, shape, *,
+                     device=None) -> torch.Tensor:
+    """fp32 unit-normal noise of ``shape`` drawn from ``generator`` (on its
+    device), then moved to ``device`` (reference ``get_unscaled_latents``,
+    ``utils/latents.py:138-149``)."""
+    x = torch.randn(tuple(shape), generator=generator,
+                    device=generator.device, dtype=torch.float32)
+    return x if device is None else x.to(device)
+
+
+def blend_latents(latents_bg: torch.Tensor, latents_fg: torch.Tensor,
+                  fg_mask: torch.Tensor, fg_blending_ratio: float = 0.1
+                  ) -> torch.Tensor:
+    """Variance-preserving fg/bg noise blend inside the mask ``[h, w]``
+    (reference ``blend_latents``, ``utils/latents.py:156-166``)."""
+    r = fg_blending_ratio
+    mask = fg_mask[..., None]                    # over NHWC channels
+    blended = latents_bg * (1.0 - r) ** 0.5 + latents_fg * r ** 0.5
+    return latents_bg * (1.0 - mask) + blended * mask
+
+
+def input_latents_for_boxes(generator: Optional[torch.Generator],
+                            boxes: torch.Tensor, h: int, w: int, *,
+                            fg_blending_ratio: float = 0.1,
+                            init_noise_sigma: float = 1.0, channels: int = 4,
+                            bg_noise: Optional[torch.Tensor] = None,
+                            fg_noise: Optional[torch.Tensor] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Shared background noise and, per box ``boxes [K, 4]``, foreground
+    noise blended into it inside the box (reference
+    ``get_input_latents_list``, ``utils/latents.py:257-295``).  Both draws
+    come from ``generator``, the background first; ``bg_noise [1, h, w,
+    C]`` and ``fg_noise [K, 1, h, w, C]`` replace them (no draw is made
+    for a given one).  Returns ``(per_object [K, 1, h, w, C], bg [1, h, w,
+    C])``, scaled by ``init_noise_sigma``, on the boxes' device."""
+    dev = boxes.device
+    k = boxes.shape[0]
+    bg = (unscaled_latents(generator, (1, h, w, channels), device=dev)
+          if bg_noise is None else bg_noise.to(dev, torch.float32))
+    fg = (unscaled_latents(generator, (k, 1, h, w, channels), device=dev)
+          if fg_noise is None else fg_noise.to(dev, torch.float32))
+    masks = G.box_mask(boxes, h, w)                          # [K, h, w]
+    per_obj = torch.stack([blend_latents(bg, fg[i], masks[i],
+                                         fg_blending_ratio)
+                           for i in range(k)])
+    return per_obj * init_noise_sigma, bg * init_noise_sigma
 
 
 def compose_trajectories(trajectories: torch.Tensor, masks: torch.Tensor,

@@ -7,9 +7,9 @@ the IP UNet conditions on the projected CLIP image features of the
 character, ``ip_scale`` weights them (0.4 on a character-DB hit, 0.0 on a
 miss), the whole latent trajectory is kept on the device, and the
 guidance keys' cross-attention maps of the character's word token are
-captured each step for the final pass.  Latent guidance, CFG cutoff,
-DeepCache and the SDXL bundle are later slices and raise
-``NotImplementedError``.
+captured each step, for the mask and the detection of a turn.  Latent
+guidance, CFG cutoff, DeepCache and the SDXL bundle are later slices and
+raise ``NotImplementedError``.
 
 NHWC at the boundary, as in the JAX package: latents ``[1, h, w, 4]``,
 images ``[B, H, W, 3]`` in [0, 1].
@@ -95,11 +95,15 @@ def make_character_pipeline(bundle: Bundle, num_steps: int, *,
                             deepcache_interval: Optional[int] = None):
     """Build the per-character runner; returns ``(run, sched)``.
 
-    ``run(input_latents [1, h, w, 4], context [2, L(+n), C], ip_scale)
-    -> CharacterResult``; ``ip_scale`` is a float or a 0-dim tensor, made a
-    tensor on the device once per run, so one runner serves a DB hit and a
-    miss.  The loop copies nothing from the host per step: the timesteps
-    and alphas are indexed from tables on the device."""
+    ``run(input_latents [1, h, w, 4], context [2, L(+n), C], ip_scale,
+    word_token=0) -> CharacterResult``; ``ip_scale`` is a float or a 0-dim
+    tensor, made a tensor on the device once per run, so one runner serves
+    a DB hit and a miss.  The reference maps are captured at the prompt
+    position ``word_token``: in a turn the last token of the character's
+    phrase (the JAX runner's ``gin.word_token[0]``, set by
+    ``Theater._character_prep``), 0 where no phrase is given.  The loop
+    copies nothing from the host per step: the timesteps and alphas are
+    indexed from tables on the device."""
     cfg = bundle.cfg
     if guided:
         raise NotImplementedError("latent guidance is not ported yet")
@@ -128,7 +132,7 @@ def make_character_pipeline(bundle: Bundle, num_steps: int, *,
 
     @torch.no_grad()
     def run(input_latents: torch.Tensor, context: torch.Tensor,
-            ip_scale=0.0) -> CharacterResult:
+            ip_scale=0.0, word_token: int = 0) -> CharacterResult:
         dev = bundle.device
         tables = sched_ops.device_tables(sched, dev)
         kwargs = {}
@@ -148,7 +152,6 @@ def make_character_pipeline(bundle: Bundle, num_steps: int, *,
                        capture_keys=keys, **kwargs)
             if keys:
                 eps, captured = out
-                # the character's word token: 0 without guidance inputs
                 maps = guidance_ops.attn_collection_to_maps(
                     captured, keys, cond_batch_index=1, text_len=text_len)
                 if refs is None:
@@ -156,7 +159,7 @@ def make_character_pipeline(bundle: Bundle, num_steps: int, *,
                                              dtype=torch.float32, device=dev)
                                  for m in maps)
                 for r, m in zip(refs, maps):
-                    r[i] = m[:, :, 0]
+                    r[i] = m[:, :, word_token]
             else:
                 eps = out
             eps = cfg_combine(eps.float(), gs)

@@ -1,26 +1,64 @@
-"""The back half of a turn as plain functions: the step mean of the
-reference attention maps, the character mask from them, and the
-composition program that feeds the final pass.
+"""The TheaterGen orchestrator: one turn → one character-consistent image.
 
-The port of the module-level parts of ``theatergen_tpu/theater.py``
-(``_attn_mask_fallback``, ``_compose_program``) and of the step mean in
-``Theater._aggregate_attn``.  The ``Theater`` orchestrator itself
-(``run_turn``: dedup, the character DB, detect-and-regenerate) comes with
-the CLI.  Everything stays on the tensors' device.
+The port of ``theatergen_tpu/theater.py`` on its serial path (the
+reference's ``theatergen.run``, ``theatergen.py:278-488``, with
+``generate_single_object_with_box`` and ``get_masked_latents_all_list``):
+
+- each unique character of a turn (:func:`_dedup_plans`) gets a
+  50-step IP-Adapter pass conditioned on its character-DB entry (IP scale
+  0.4 on a hit, 0 with placeholder features on a miss), the reference
+  maps of its word token captured at every step;
+- its image is detected from those maps (``perception.detector``) and
+  regenerated from fresh noise up to :data:`MAX_REGEN_ATTEMPTS` times;
+- its mask comes from the step-mean maps (:func:`_attn_mask_fallback`;
+  the port has no segmenter yet);
+- the composition program (:func:`_compose_program`) aligns, composes and
+  collages the characters over ``max_objects`` padded slots, and the
+  ControlNet final pass denoises the composed scene with the first
+  character's IP features, the masked region frozen for the first
+  ``frozen_step_ratio`` of the steps;
+- a new character's image and features go to the DB after the final pass
+  is dispatched.
+
+Every random draw of a turn comes from one ``torch.Generator`` seeded from
+the turn's seed, in a fixed order: per character attempt the background
+and then the foreground noise, then the composition's background noise
+(or, in a turn without characters, its starting latents).  Everything
+stays on the bundle's device until the turn's images are fetched.  The
+batched character mode, meshes and latent guidance raise until their
+ROADMAP items land.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+import dataclasses
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from .db import CharacterDB
 from .ops import geometry as G
 from .ops import latents as L
 from .ops.lineart import dog_lineart
+from .perception import detector as det
+from .pipelines import sd
+from .pipelines.bundle import Bundle
+from .pipelines.character import (encode_ip_image, ip_context,
+                                  make_character_pipeline,
+                                  uncond_ip_features)
+from .pipelines.final import make_final_pipeline
+from .utils import parse
+from .utils.profiling import PhaseTimer
+from .utils.tokenizer import find_phrase_token_indices
 
 # the reference aggregates the late, semantically stable steps
 ATTN_AGG_START = 10
+# theatergen.py:98-160 retries a character up to 3 seeds
+MAX_REGEN_ATTEMPTS = 3
+# the final pass's fixed negative-prompt prefix (theatergen.py:363)
+FINAL_NEG_PREFIX = "incohesive, edge shadow, blurry, "
 
 
 def aggregate_attn(ref_attn: Sequence[torch.Tensor], num_steps: int
@@ -80,3 +118,347 @@ def _compose_program(lineart_module=None):
         return composed, collage, dog_lineart(collage), (fg_idx > 0).float()
 
     return run
+
+
+@dataclasses.dataclass
+class TurnResult:
+    image: np.ndarray                 # [H, W, 3] in [0, 1]
+    so_images: List[np.ndarray]       # per character, in spec order
+    collage: np.ndarray               # [H, W, 3]
+    seconds: float
+    detections: List[bool]
+    db_hits: List[bool]               # per character: a DB hit this turn
+
+
+def _dedup_plans(plan: parse.TurnPlan):
+    """Within-turn character dedup (reference theatergen.py:217-226): a
+    repeated (prompt, obj_id) reuses the first generation.  Returns (order
+    keys, unique object plans, their spec indices)."""
+    seen = set()
+    order, unique_plans, unique_idx = [], [], []
+    for idx, oplan in enumerate(plan.object_plans):
+        key = (oplan.prompt, oplan.obj_id)
+        order.append(key)
+        if key not in seen:
+            seen.add(key)
+            unique_plans.append(oplan)
+            unique_idx.append(idx)
+    return order, unique_plans, unique_idx
+
+
+class Theater:
+    """Runs the turns of one dialogue against one character DB.
+
+    >>> th = Theater(init_bundle(sd15_config(), with_ip=True,
+    ...              with_vision=True, with_controlnet=True), CharacterDB(d))
+    >>> res = th.run_turn(spec, seed=0)      # res.image [512, 512, 3]
+    """
+
+    def __init__(self, bundle: Bundle, db: CharacterDB, *,
+                 task: str = "story", num_steps: Optional[int] = None,
+                 guided: bool = False, use_controlnet: bool = True,
+                 mesh=None, batch_characters: bool = False):
+        if guided:
+            raise NotImplementedError(
+                "latent guidance is not ported yet (ROADMAP §1 item 6)")
+        if mesh is not None or batch_characters:
+            raise NotImplementedError(
+                "the batched character mode and meshes are not ported yet "
+                "(ROADMAP §1 item 9)")
+        if bundle.unet_ip is None:
+            raise ValueError("Theater: the bundle needs the IP UNet "
+                             "(init_bundle(..., with_ip=True))")
+        cfg = bundle.cfg
+        self.bundle, self.db, self.task, self.cfg = bundle, db, task, cfg
+        self.num_steps = num_steps or cfg.pipeline.num_steps
+        self.is_xl = cfg.unet.addition_embed_type == "text_time"
+        self.use_controlnet = use_controlnet and bundle.controlnet is not None
+        pl = cfg.pipeline
+        self.char_run, self.char_sched = make_character_pipeline(
+            bundle, self.num_steps, use_ip=True, capture_ref_attn=True,
+            cfg_cutoff_fraction=pl.cfg_cutoff_fraction,
+            deepcache_interval=pl.deepcache_interval)
+        self.final_run, _ = make_final_pipeline(
+            bundle, self.num_steps, use_ip=True,
+            use_controlnet=self.use_controlnet,
+            cfg_cutoff_fraction=pl.cfg_cutoff_fraction,
+            deepcache_interval=pl.deepcache_interval,
+            controlnet_interval=pl.controlnet_interval)
+        self._init_sigma = float(self.char_sched.init_noise_sigma)
+        # plus/full IP variants condition the uncond branch on black-image
+        # features; computed once per Theater
+        self._uncond_ip = uncond_ip_features(bundle)
+        self.timer = PhaseTimer(bundle.device)
+        # obj_id -> (image [1, H, W, 3], features), on the device: DB writes
+        # whose fetch is deferred past the final pass's dispatch
+        self._pending_saves: Dict = {}
+
+    @staticmethod
+    def so_prompt_for(task: str, phrase: str) -> str:
+        """Single-object prompt per task (reference
+        ``models/pipelines.py:216-221``)."""
+        if task == "story":
+            return f"full-body picture of {phrase}"
+        return f"single object, {phrase}"
+
+    def _placeholder_ip_features(self) -> torch.Tensor:
+        """Zero (base) or black-image (plus, full) features of the shape
+        the IP variant expects."""
+        if self._uncond_ip is not None:
+            return self._uncond_ip
+        return torch.zeros((1, self.cfg.ip_adapter.clip_embeddings_dim),
+                           device=self.bundle.device)
+
+    def _embed_from_db(self, emb: np.ndarray) -> torch.Tensor:
+        """DB-stored (flattened) features → the variant's [1, ...] shape."""
+        return self._embed_dev(torch.as_tensor(np.asarray(emb, np.float32),
+                                               device=self.bundle.device))
+
+    def _embed_dev(self, emb: torch.Tensor) -> torch.Tensor:
+        if self.bundle.ip_variant == "plus":
+            return emb.reshape(1, -1, self.cfg.vision.hidden_size)
+        return emb.reshape(1, -1)
+
+    def _encode_text(self, prompt: str, negative: str):
+        """(context [2, L, C], extra_cond); SD1.5's single tower."""
+        if self.is_xl:
+            raise NotImplementedError(
+                "the SDXL turn is not ported yet (ROADMAP §1 item 5)")
+        return sd.encode_prompts(self.bundle, prompt, negative), None
+
+    def _decode_img(self, latents: torch.Tensor) -> torch.Tensor:
+        return sd.decode_with(self.bundle.vae, self.cfg.vae.scaling_factor,
+                              latents)
+
+    def _aggregate_attn(self, ref_attn) -> List[torch.Tensor]:
+        """Step mean of the reference maps from ATTN_AGG_START, at the
+        character schedule's length (fast schedules shorten it)."""
+        return aggregate_attn(ref_attn, self.char_sched.num_steps)
+
+    def _extract_masks(self, agg_maps, image, box_hint):
+        """(latent mask [h, w], pixel mask [H, W]) from the thresholded
+        step-mean maps (the port has no segmenter yet)."""
+        pl = self.cfg.pipeline
+        return _attn_mask_fallback(agg_maps, box_hint, pl.latent_height,
+                                   pl.latent_width, pl.height, pl.width)
+
+    # -------------------------------------------------------------- character
+
+    def _character_prep(self, plan: parse.ObjectPlan, extra_neg: str) -> dict:
+        """Prompts, the word token, the text context and the DB lookup →
+        IP scale and features (theatergen.py:43-96)."""
+        b, cfg = self.bundle, self.cfg
+        centered = G.centered_box(torch.tensor(plan.box, dtype=torch.float32))
+        so_prompt = self.so_prompt_for(self.task, plan.phrase)
+        neg = parse.DEFAULT_SO_NEGATIVE_PROMPT
+        if extra_neg:
+            neg = f"{extra_neg}, {neg}"
+        with self.timer.phase("char.encode_text"):
+            token_pos = find_phrase_token_indices(
+                b.tokenizer, so_prompt, plan.word, cfg.text.max_length)
+            if not token_pos:
+                so_prompt = f"{so_prompt} | {plan.phrase}"  # guidance.py:33-36
+                token_pos = find_phrase_token_indices(
+                    b.tokenizer, so_prompt, plan.word, cfg.text.max_length)
+            text_ctx, _ = self._encode_text(so_prompt, neg)
+
+        pending = self._pending_saves.get(plan.obj_id)
+        if pending is not None:
+            # saved earlier this turn, its disk write still deferred: a hit,
+            # served from the features on the device
+            hit, ip_scale = True, cfg.pipeline.ip_scale_hit
+            img_embed = self._embed_dev(pending[1])
+        elif (hit_t := self.db.lookup(plan.obj_id))[2]:
+            db_img, db_emb, hit = hit_t
+            if db_emb is None:
+                db_emb = encode_ip_image(
+                    b, torch.as_tensor(db_img)[None])[0].cpu().numpy()
+            ip_scale = cfg.pipeline.ip_scale_hit
+            img_embed = self._embed_from_db(db_emb)
+        else:
+            # a miss: placeholder features at IP scale 0 (the reference uses
+            # a placeholder image at scale 0, models/pipelines.py:183-199)
+            hit, ip_scale = False, 0.0
+            img_embed = self._placeholder_ip_features()
+        ctx = ip_context(b, text_ctx, img_embed, self._uncond_ip)
+        return dict(ctx=ctx, ip_scale=ip_scale, img_embed=img_embed,
+                    word_token=token_pos[-1] if token_pos else 0,
+                    token_pos=token_pos, hit=hit, centered=centered)
+
+    def _char_input_latents(self, gen: torch.Generator,
+                            centered: torch.Tensor) -> torch.Tensor:
+        """One attempt's starting latents [1, h, w, 4]: background noise,
+        then the character's noise blended in inside its centred box."""
+        pl = self.cfg.pipeline
+        return L.input_latents_for_boxes(
+            gen, centered[None].to(self.bundle.device), pl.latent_height,
+            pl.latent_width, fg_blending_ratio=pl.fg_blending_ratio,
+            init_noise_sigma=self._init_sigma)[0][0]
+
+    def _bg_latents(self, gen: torch.Generator) -> torch.Tensor:
+        """Scaled unit noise [1, h, w, 4]: the composition's background, or
+        the starting latents of a turn without characters."""
+        pl = self.cfg.pipeline
+        return sd.seeded_latents(gen, 1, pl.latent_height, pl.latent_width,
+                                 device=self.bundle.device) * self._init_sigma
+
+    def _character_finish(self, plan: parse.ObjectPlan, prep: dict, result,
+                          image, agg, detected_ok: bool, det_box) -> dict:
+        """Masks, the deferred DB write of a new character, and the
+        character's record (theatergen.py:158-201)."""
+        img_embed = prep["img_embed"]
+        with self.timer.phase("char.masks"):
+            m_lat, m_pix = self._extract_masks(agg, image, det_box)
+        if not prep["hit"]:
+            with self.timer.phase("char.embed_db"):
+                emb_dev = encode_ip_image(self.bundle, image)[0]
+                self._pending_saves[plan.obj_id] = (image, emb_dev)
+                img_embed = self._embed_dev(emb_dev)
+        return dict(trajectory=result.trajectory, ref_attn=result.ref_attn,
+                    image=image, mask_lat=m_lat, mask_pix=m_pix,
+                    detected=detected_ok, token_pos=prep["token_pos"],
+                    img_embed=img_embed, hit=prep["hit"])
+
+    def _generate_character(self, plan: parse.ObjectPlan, extra_neg: str,
+                            gen: torch.Generator) -> dict:
+        """One character with detect-and-regenerate (theatergen.py:43-201):
+        a fresh draw per attempt, up to MAX_REGEN_ATTEMPTS."""
+        prep = self._character_prep(plan, extra_neg)
+        detected_ok = False
+        result = image = agg = detection = None
+        for _ in range(MAX_REGEN_ATTEMPTS):
+            init_lat = self._char_input_latents(gen, prep["centered"])
+            with self.timer.phase("char.denoise_decode", sync=True):
+                result = self.char_run(init_lat, prep["ctx"],
+                                       prep["ip_scale"],
+                                       word_token=prep["word_token"])
+                image = self._decode_img(result.latents)
+                agg = self._aggregate_attn(result.ref_attn)
+            with self.timer.phase("char.detect"):
+                detection = det.attention_detect(agg, None)
+                detected_ok = bool(detection.ok)
+            if detected_ok:
+                break
+        det_box = (detection.box if detected_ok
+                   else prep["centered"].to(self.bundle.device))
+        return self._character_finish(plan, prep, result, image, agg,
+                                      detected_ok, det_box)
+
+    # ------------------------------------------------------------------ turn
+
+    def _flush_db_saves(self) -> None:
+        """Fetch and persist the deferred DB writes; called once the final
+        pass is dispatched, and in run_turn's ``finally`` so the DB is
+        durable at the end of every turn."""
+        while self._pending_saves:
+            obj_id = next(iter(self._pending_saves))
+            image, emb = self._pending_saves.pop(obj_id)
+            self.db.save(obj_id, image[0].float().cpu().numpy(),
+                         emb.float().cpu().numpy().reshape(-1))
+
+    def run_turn(self, spec: dict, seed: int,
+                 frozen_step_ratio: Optional[float] = None,
+                 overall_prompt_override: Optional[str] = None
+                 ) -> TurnResult:
+        """One turn → one image (reference theatergen.py:278-488)."""
+        try:
+            return self._run_turn(spec, seed, frozen_step_ratio,
+                                  overall_prompt_override)
+        finally:
+            self._flush_db_saves()
+
+    def _run_turn(self, spec: dict, seed: int,
+                  frozen_step_ratio: Optional[float] = None,
+                  overall_prompt_override: Optional[str] = None
+                  ) -> TurnResult:
+        t_start = time.time()
+        b, cfg = self.bundle, self.cfg
+        plan = parse.convert_spec(spec, cfg.pipeline.height,
+                                  cfg.pipeline.width)
+        if overall_prompt_override and overall_prompt_override.strip():
+            plan.overall_prompt = overall_prompt_override.strip()
+        extra_neg = spec.get("extra_neg_prompt") or ""
+        ratio = (cfg.pipeline.frozen_step_ratio
+                 if frozen_step_ratio is None else frozen_step_ratio)
+        frozen_steps = min(int(round(ratio * self.num_steps)),
+                           self.char_sched.num_steps)
+        gen = torch.Generator(device=b.device).manual_seed(seed)
+
+        order, unique_plans, _ = _dedup_plans(plan)
+        cache: Dict[Tuple[str, int], dict] = {}
+        for oplan in unique_plans:
+            with self.timer.phase("character"):
+                cache[(oplan.prompt, oplan.obj_id)] = (
+                    self._generate_character(oplan, extra_neg, gen))
+        chars = [cache[key] for key in order]
+
+        if not chars:
+            # background only: plain txt2img on the overall prompt
+            ctx, _ = self._encode_text(plan.overall_prompt or plan.bg_prompt,
+                                       parse.DEFAULT_OVERALL_NEGATIVE_PROMPT)
+            ctx = ip_context(b, ctx, self._placeholder_ip_features(),
+                             self._uncond_ip)
+            res = self.char_run(self._bg_latents(gen), ctx, 0.0)
+            img = self._decode_img(res.latents)[0].float().cpu().numpy()
+            return TurnResult(img, [], img, time.time() - t_start, [], [])
+
+        fargs, collage = self._final_stage(plan, chars, extra_neg, gen)
+        with self.timer.phase("final", sync=True):
+            final, _ = self.final_run(
+                fargs["composed"], fargs["frozen_mask"], frozen_steps,
+                fargs["ctx"], fargs["cn_ctx"], fargs["cond_img"],
+                cfg.pipeline.ip_scale_final)
+            image = self._decode_img(final)
+            # the deferred DB writes: their feature programs precede the
+            # final pass in the device queue
+            self._flush_db_saves()
+
+        return TurnResult(
+            image=image[0].float().cpu().numpy(),
+            so_images=[c["image"][0].float().cpu().numpy() for c in chars],
+            collage=collage.float().cpu().numpy(),
+            seconds=time.time() - t_start,
+            detections=[bool(c["detected"]) for c in chars],
+            db_hits=[bool(c["hit"]) for c in chars])
+
+    def _final_stage(self, plan: parse.TurnPlan, chars: List[dict],
+                     extra_neg: str, gen: torch.Generator):
+        """Composition and the final pass's conditioning for a turn whose
+        characters are generated (theatergen.py:417-477).  Returns
+        ``(final-run inputs, collage)``."""
+        b, cfg = self.bundle, self.cfg
+        pl = cfg.pipeline
+        dev = b.device
+        k = pl.max_objects
+        n = min(len(chars), k)
+        pad = k - n
+
+        def stack(key):
+            xs = [chars[i][key] for i in range(n)]
+            return torch.stack(xs + [torch.zeros_like(xs[0])] * pad)
+
+        boxes = torch.tensor(
+            [plan.object_plans[i].box for i in range(n)] + [(0.0,) * 4] * pad,
+            dtype=torch.float32, device=dev)
+        with self.timer.phase("compose", sync=True):
+            composed, collage, cond_img, frozen_mask = _compose_program()(
+                stack("trajectory"), stack("mask_lat"), stack("mask_pix"),
+                torch.stack([chars[i]["image"][0] for i in range(n)]
+                            + [torch.zeros_like(chars[0]["image"][0])] * pad),
+                boxes, torch.arange(k, device=dev) < n, self._bg_latents(gen))
+
+        # the overall context, with the first character's IP features
+        # (models/pipelines.py:700-701)
+        neg = parse.DEFAULT_OVERALL_NEGATIVE_PROMPT
+        if extra_neg:
+            neg = f"{extra_neg}, {neg}"
+        neg = FINAL_NEG_PREFIX + neg
+        overall_ctx, _ = self._encode_text(plan.overall_prompt, neg)
+        ctx = ip_context(b, overall_ctx, chars[0]["img_embed"],
+                         self._uncond_ip)
+        # The JAX package also looks up each object's token positions in the
+        # overall prompt here (theater.py:833-856); they feed only the
+        # latent-guidance inputs, which the final runner reads with guidance
+        # on (ROADMAP §1 item 6), so the lookup waits for that item.
+        return dict(composed=composed, frozen_mask=frozen_mask, ctx=ctx,
+                    cn_ctx=overall_ctx, cond_img=cond_img), collage

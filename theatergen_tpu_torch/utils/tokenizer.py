@@ -210,3 +210,30 @@ def load_tokenizer(assets_dir: Optional[str] = None,
                 vocab = os.path.join(assets_dir, "vocab.json")
                 return CLIPBPETokenizer(p, vocab if os.path.exists(vocab) else None)
     return HashTokenizer(vocab_size)
+
+
+def find_phrase_token_indices(tokenizer, prompt: str, phrase: str,
+                              max_length: int = MAX_LEN) -> List[int]:
+    """Positions (in the padded BOS+ids+EOS sequence) of ``phrase``'s tokens
+    inside ``prompt``: word-level alignment on the word sequences, then
+    expansion to token positions (reference ``utils/guidance.py:32-89``).
+    Returns [] when the phrase is not present (the caller then suffixes
+    the prompt, reference ``:33-36``)."""
+    pw = tokenizer.encode_words(prompt)
+    fw = tokenizer.encode_words(phrase)
+    if not fw:
+        return []
+    words = [w for w, _ in pw]
+    target = [w for w, _ in fw]
+    # token start offset per word: BOS at 0, first word token at 1
+    offsets, off = [], 1
+    for _, ids in pw:
+        offsets.append(off)
+        off += len(ids)
+    hits: List[int] = []
+    for i in range(len(words) - len(target) + 1):
+        if words[i:i + len(target)] == target:
+            for j in range(len(target)):
+                start = offsets[i + j]
+                hits.extend(range(start, start + len(pw[i + j][1])))
+    return sorted({h for h in hits if h < max_length - 1})
