@@ -13,7 +13,10 @@ Phases, in order (any failure exits non-zero):
      and without SiLU and with a large-mean input; flash on each of its
      four routes' counters, d = 160 and Sq != Sk included, and sequence
      parallelism's query shards, concatenated, against the unsharded call);
-  4. time kernel, plain version and a library yardstick at those shapes;
+  4. time kernel, plain version and a library yardstick at those shapes,
+     printing each flash and FF launch plan (cluster size, rows per CTA
+     or cluster, keys per K/V tile, splits, ring stages), and the host µs
+     per call of the flash and FF wrappers at one 512-px shape each;
   5. SD1.5: ``init_bundle(sd15_config())``, one full-size UNet evaluation
      with the kernels against the same UNet under ``plain_path()``, then
      ``Text2Img(bundle, num_steps=50)`` on three prompts at 512 px, CFG 7.5;
@@ -46,7 +49,9 @@ Phases, in order (any failure exits non-zero):
      (alignment, composition, collage, DoG lineart), then a final request:
      the overall prompt, ``ip_context`` with the first character's image,
      ``make_final_pipeline(bundle, 50)`` at ``frozen_steps`` 25 and
-     ip_scale 0.1, and the decode; and one final-pass evaluation under
+     ip_scale 0.1, and the decode; the device time of one final-pass
+     evaluation, with the FF and flash kernels' shares of it (also at
+     768 px); and one final-pass evaluation under
      ``THEATERGEN_FLASH_BSHD=1``, whose launches stay on the packed route;
  10. the same at 768 px (the bundle's config with ``pipeline.height`` and
      ``width`` replaced, one character), where level-0 self-attention runs
@@ -376,6 +381,9 @@ def flash_phase(gen, shapes, route: str) -> list:
         sk = shape[2] if len(shape) == 5 else sq
         q = randn(gen, b, sq, h, d)
         k, v = (randn(gen, b, sk, h, d) for _ in range(2))
+        plan = fa.launch_plan(b, sq, h, d)
+        log(f"  flash {route} {model} Sq={sq} Sk={sk} H={h} d={d}: launch "
+            f"plan {json.dumps(plan)}")
         out = fa.flash_attention(q, k, v, route=route)
         torch.cuda.synchronize()
         ref = fa.flash_attention_plain(q.float(), k.float(), v.float())
@@ -389,6 +397,7 @@ def flash_phase(gen, shapes, route: str) -> list:
             lambda: fa.flash_attention(q, k, v, route=route),
             lambda: fa.flash_attention_plain(q.float(), k.float(), v.float()),
             lambda: F.scaled_dot_product_attention(qt, kt, vt), 3))
+        rows[-1]["plan"] = plan
         del q, k, v, qt, kt, vt, ref, out
         torch.cuda.empty_cache()
     return rows
@@ -398,8 +407,8 @@ def sp_shards_phase(gen) -> dict:
     """Sequence parallelism's per-shard body on one card: the 768-px level
     0 (B2 S9216 H8 d40) split into n = 2 and 4 query shards, each run
     against all the keys on row 4's route; the concatenated shards must
-    equal the unsharded call bit for bit (each 64-row q block sees the
-    same inputs either way)."""
+    equal the unsharded call bit for bit (each 128-row q block sees the
+    same inputs either way: fa.Q_BLOCK divides both shard lengths)."""
     q, k, v = (randn(gen, 2, 9216, 8, 40) for _ in range(3))
     full = fa.flash_attention(q, k, v, route="copy")
     out = {}
@@ -426,6 +435,12 @@ def ff_phase(gen) -> dict:
         w1 = randn(gen, 2 * k, d, scale=d ** -0.5)
         b1 = randn(gen, 2 * k, scale=0.1)
         w2 = randn(gen, d, k, scale=k ** -0.5)
+        slots = gg._ff_slots(x.device, d)
+        c, bm, splits = gg.ff_plan(m, d, k, slots)
+        plan = dict(cluster=c, bm=bm, splits=splits, stages=gg.FF_STAGES,
+                    chunk=gg.ff_chunk(d), ctas=-(-m // bm) * c * splits,
+                    cta_slots=slots)
+        log(f"  ff {model} M={m} D={d} K={k}: launch plan {json.dumps(plan)}")
         out = gg.ff_matmul(x, w1, b1, w2)
         torch.cuda.synchronize()
         ref = gg.ff_matmul_plain(x.float(), w1.float(), b1.float(),
@@ -442,9 +457,37 @@ def ff_phase(gen) -> dict:
             gg.ff_min_bytes(m, d, k), lambda: gg.ff_matmul(x, w1, b1, w2),
             lambda: gg.ff_matmul_plain(x.float(), w1.float(), b1.float(),
                                        w2.float()), library, 5))
+        rows[-1]["plan"] = plan
     return _record("ff_geglu", "csrc/ff_geglu.cu",
                    "theatergen_tpu/ops/geglu_matmul.py:471",
                    "ff_matmul (_ff_matmul_2d)", rows)
+
+
+def host_us_phase(gen) -> dict:
+    """Host µs per call of the flash and FF wrappers at one SD1.5 512-px
+    shape each (level 0: B2 S4096 H8 d40, M8192 D320 K1280): 200 calls
+    enqueued back to back, timed on the host clock before the synchronise
+    (the device runs behind, so this is the wrapper's own cost: checks,
+    the planner, tensor maps and the ctypes launch)."""
+    q, k, v = (randn(gen, 2, 4096, 8, 40) for _ in range(3))
+    x = randn(gen, 8192, 320)
+    w1, b1 = randn(gen, 2560, 320, scale=320 ** -0.5), randn(gen, 2560)
+    w2 = randn(gen, 320, 1280, scale=1280 ** -0.5)
+    out = {}
+    for name, fn in (("flash_attention B2 S4096 H8 d40",
+                      lambda: fa.flash_attention(q, k, v, route="packed")),
+                     ("ff_geglu M8192 D320 K1280",
+                      lambda: gg.ff_matmul(x, w1, b1, w2))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        us = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+        out[name] = us
+        log(f"  host time of the wrapper, {name}: {us:.2f} µs per call")
+    return out
 
 
 def geglu_phase(gen) -> dict:
@@ -1004,17 +1047,27 @@ def final_eval_times(bundle) -> dict:
             one()
             torch.cuda.synchronize()
     kernels = collections.Counter()
+    ours = collections.Counter()
     for e in p.key_averages():
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0.0))
         if not e.key.startswith("aten::") and us > 0:
             kernels[e.key[:60]] += us / 1e3
+            for name, tag in (("ff_geglu", "ff_geglu_kernel"),
+                              ("flash_attention", "flash_fwd_kernel")):
+                if tag in e.key:
+                    ours[name] += us / 1e3
     device = sum(kernels.values())
     top = dict(kernels.most_common(8))
+    shares = {name: dict(ms=ms, share=ms / device) for name, ms in
+              ours.items()}
     log(f"  {px} px final-pass evaluation (ControlNet + IP UNet): wall "
         f"{wall:.3f} ms, device {device:.3f} ms; device ms by kernel "
         f"{json.dumps(top)}")
+    log(f"  {px} px final-pass evaluation, the redesigned kernels' device "
+        f"ms and share: {json.dumps(shares)}")
     return dict(wall_ms=wall, device_ms=device, top_kernels_ms=top,
+                kernel_shares=shares,
                 plain_attention_ms=plain_attention_ms(bundle))
 
 
@@ -1501,6 +1554,7 @@ def main() -> int:
                 flash_phase(gen, FLASH_COPY_SHAPES, "copy")),
         ff_phase(gen), geglu_phase(gen), gn_phase(gen), qmm_phase(gen)]
     sp_shards = sp_shards_phase(gen)
+    host_us = host_us_phase(gen)
     torch.cuda.synchronize()
 
     log(f"[main path] SD1.5 Text2Img, 512 px, {SD15_STEPS} DDIM steps, "
@@ -1538,6 +1592,7 @@ def main() -> int:
         f"steps, CFG 7.5, frozen_step_ratio 0.5")
     paths[TURN] = turn_path(records)
     paths["sp_shards_equal"] = sp_shards
+    paths["wrapper_host_us_per_call"] = host_us
     log(f"[done] {time.perf_counter() - t_start:.1f} s after the build began")
     log(json.dumps({"main_path": paths, "card": card}))
     log(json.dumps({"kernels": records}))

@@ -1,0 +1,128 @@
+"""Time the flash and FF kernels of two checkouts of the PyTorch port on one
+card, in turns (A, B, B, A), and print a table of device ms and wrapper
+host µs per call at the main paths' shapes.
+
+    python3 scripts/torch_kernel_ab.py OLD_CHECKOUT NEW_CHECKOUT [--out F]
+
+Each checkout runs in a process of its own (its package on ``sys.path``,
+its kernels built into its own ``build/torch_kernels``).  Device ms: CUDA
+events over 20 back-to-back calls after 3 warm-up calls (L2 warm).  Host
+µs: 200 calls enqueued back to back, timed before the synchronise.  Needs
+a CUDA device; imports no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+FF_SHAPES = [(8192, 320, 1280), (2048, 640, 2560), (512, 1280, 5120),
+             (128, 1280, 5120), (18432, 320, 1280), (4608, 640, 2560),
+             (1152, 1280, 5120)]
+# (B, Sq, Sk, H, D)
+FLASH_SHAPES = [(2, 4096, 4096, 8, 40), (2, 1024, 1024, 8, 80),
+                (2, 4096, 4096, 10, 64), (2, 1024, 1024, 20, 64),
+                (2, 1024, 1024, 8, 160), (2, 9216, 9216, 8, 40),
+                (2, 4608, 9216, 8, 40), (2, 2304, 9216, 8, 40)]
+
+
+def time_one(root: str) -> dict:
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+    from theatergen_tpu_torch.ops import flash_attention as fa
+    from theatergen_tpu_torch.ops import geglu_matmul as gg
+    if not fa.__file__.startswith(os.path.abspath(root)):
+        raise SystemExit(f"imported {fa.__file__}, not the one under {root}")
+
+    def dev_ms(fn, n=20):
+        for _ in range(3):
+            fn()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / n
+
+    def host_us(fn, n=200):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        us = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, device="cuda", generator=g)
+                * scale).to(torch.bfloat16)
+
+    out = {}
+    for m, d, k in FF_SHAPES:
+        x, w1 = rnd(m, d), rnd(2 * k, d, scale=d ** -0.5)
+        b1, w2 = rnd(2 * k, scale=0.1), rnd(d, k, scale=k ** -0.5)
+
+        def ff():
+            return gg.ff_matmul(x, w1, b1, w2)
+        out[f"ff M{m} D{d} K{k}"] = dict(ms=dev_ms(ff), host_us=host_us(ff))
+    for b, sq, sk, h, d in FLASH_SHAPES:
+        q, kk, vv = rnd(b, sq, h, d), rnd(b, sk, h, d), rnd(b, sk, h, d)
+
+        def flash():
+            return fa.flash_attention(q, kk, vv, route="copy")
+        out[f"flash B{b} Sq{sq} Sk{sk} H{h} d{d}"] = dict(
+            ms=dev_ms(flash), host_us=host_us(flash))
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("old")
+    ap.add_argument("new")
+    ap.add_argument("--out", default=None, help="also write the runs here")
+    ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.one:  # child: time the checkout given as `old`
+        print("AB " + json.dumps(time_one(args.old)), flush=True)
+        return 0
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    print(card, flush=True)
+    order = (args.old, args.new, args.new, args.old)
+    runs = []
+    for root in order:
+        p = subprocess.run([sys.executable, __file__, root, root, "--one"],
+                           capture_output=True, text=True)
+        line = [s for s in p.stdout.splitlines() if s.startswith("AB ")]
+        if p.returncode or not line:
+            print(p.stdout[-3000:], p.stderr[-3000:], file=sys.stderr)
+            return 1
+        runs.append(json.loads(line[0][3:]))
+    print(f"{'shape':34s} {'old ms':>17s} {'new ms':>17s} "
+          f"{'old host µs':>13s} {'new host µs':>13s}")
+    for name in runs[0]:
+        old = [runs[i][name] for i in (0, 3)]
+        new = [runs[i][name] for i in (1, 2)]
+        print(f"{name:34s} {old[0]['ms']:.5f}/{old[1]['ms']:.5f} "
+              f"{new[0]['ms']:.5f}/{new[1]['ms']:.5f} "
+              f"{old[0]['host_us']:6.2f}/{old[1]['host_us']:6.2f} "
+              f"{new[0]['host_us']:6.2f}/{new[1]['host_us']:6.2f}")
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(dict(card=card, order=order, runs=runs), f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -95,7 +95,7 @@ def test_self_attention_routes_at_768_px():
                                      (100, 1024, 160), (4608, 9216, 40)])
 def test_flash_kernel_d160_and_sq_ne_sk_on_card(sq, sk, d):
     """The d = 160 instance (SD1.5's level 2 at 1024 px; dynamic shared
-    memory past 48 KB), and Sq ≠ Sk with a q tail that the 64-row tile
+    memory past 48 KB), and Sq ≠ Sk with a q tail that the 128-row tile
     does not divide (Sq = 100) and at sequence parallelism's 2-shard
     shape: kernel vs plain, 1e-2·max|ref|."""
     dev = _card()
@@ -211,9 +211,10 @@ def test_ff_kernel_matches_plain_on_card(m, d):
 
 @pytest.mark.cuda
 def test_ff_split_reduce_is_deterministic_and_resets_its_counters():
-    """At the mid block's shape (16 inner splits) repeated calls give
-    bit-identical outputs, and the per-row-block counters are zero after
-    each call, ready for the next."""
+    """At the mid block's shape (M = 128: one row block, its chunks split
+    over ff_plan's splits) repeated calls give bit-identical outputs, and
+    the per-CTA split counters are zero after each call, ready for the
+    next."""
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(2)
     m, d, k = 128, 1280, 5120
@@ -229,10 +230,103 @@ def test_ff_split_reduce_is_deterministic_and_resets_its_counters():
         assert not tgg._split_counters[x.device].any()
 
 
+def _ragged_multiwave_m(dev, d: int) -> int:
+    """The smallest M (not a multiple of the 128-row block) whose planned
+    launch at width D splits its chunks and needs more than one wave of
+    the card's CTA slots."""
+    slots = tgg._ff_slots(dev, d)
+    for m in range(129, 1 << 15, 37):
+        c, bm, splits = tgg.ff_plan(m, d, 4 * d, slots)
+        if m % bm and splits > 1 and -(-m // bm) * c * splits > slots:
+            return m
+    raise AssertionError(f"no ragged multi-wave split plan at D={d}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [320, 640, 1280])
+def test_ff_ragged_multiwave_splits_on_card(d):
+    """At every width, a ragged M whose plan splits the chunks over more
+    than one wave: within 1e-2·max|ref| of the plain version, two calls
+    bit-identical (split-order sums), the split counters left zero."""
+    dev = _card()
+    x_dev = torch.empty(0, device=dev).device
+    m, k = _ragged_multiwave_m(x_dev, d), 4 * d
+    g = torch.Generator(device=dev).manual_seed(m)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, device=dev, generator=g) * scale).to(
+            torch.bfloat16)
+
+    x, w1, b1, w2 = (rnd(m, d), rnd(2 * k, d, scale=d ** -0.5),
+                     rnd(2 * k, scale=0.1), rnd(d, k, scale=k ** -0.5))
+    first = tgg.ff_matmul(x, w1, b1, w2)
+    second = tgg.ff_matmul(x, w1, b1, w2)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert not tgg._split_counters[x_dev].any()
+    ref = tgg.ff_matmul_plain(x.float(), w1.float(), b1.float(), w2.float())
+    assert (first.float() - ref).abs().max() <= 1e-2 * ref.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [40, 64, 80, 160])
+def test_flash_kernel_every_head_dim_strided_ragged_sq_ne_sk(d):
+    """Each head dim with strided q, k, v views (q from a [B, S, 3, H, d]
+    projection, k and v from a [B, S, 2, H, d] one), Sq = 300 against
+    Sk = 1000 (tails of both the 128-row q block and the K/V tile):
+    kernel vs plain, 1e-2·max|ref|."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(d)
+    q = torch.randn(2, 300, 3, 4, d, device=dev, generator=g,
+                    dtype=torch.bfloat16)[:, :, 1]
+    k, v = torch.randn(2, 1000, 2, 4, d, device=dev, generator=g,
+                       dtype=torch.bfloat16).unbind(2)
+    assert not (q.is_contiguous() or k.is_contiguous())
+    out = tfa.flash_attention(q, k, v, route="copy").float()
+    ref = tfa.flash_attention_plain(q.float(), k.float(), v.float())
+    assert out.shape == (2, 300, 4, d)
+    assert (out - ref).abs().max() <= 1e-2 * ref.abs().max()
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    """Both wrappers raise (and launch nothing) on a width, head dim, inner
+    width, dtype, stride or alignment their kernels do not take."""
+    dev = _card()
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    n0 = (tgg.ff_launches, tfa.launches, tfa.launches_copy)
+    x = torch.randn(64, 384, **bf)
+    with pytest.raises(ValueError):  # no D = 384 instance
+        tgg.ff_matmul(x, torch.randn(3072, 384, **bf),
+                      torch.randn(3072, **bf), torch.randn(384, 1536, **bf))
+    x = torch.randn(64, 320, **bf)
+    with pytest.raises(ValueError):  # K not a multiple of the chunk
+        tgg.ff_matmul(x, torch.randn(2000, 320, **bf),
+                      torch.randn(2000, **bf), torch.randn(320, 1000, **bf))
+    w1 = torch.randn(2560 * 320 + 1, **bf)[1:].view(2560, 320)
+    with pytest.raises(ValueError):  # W1 not 16-byte aligned
+        tgg.ff_matmul(x, w1, torch.randn(2560, **bf),
+                      torch.randn(320, 1280, **bf))
+    with pytest.raises(TypeError):  # fp32 activations
+        tgg.ff_matmul(x.float(), torch.randn(2560, 320, **bf),
+                      torch.randn(2560, **bf), torch.randn(320, 1280, **bf))
+    q = torch.randn(1, 256, 2, 48, **bf)
+    with pytest.raises(ValueError):  # no d = 48 instance
+        tfa.flash_attention(q, q, q)
+    qkv = torch.randn(1, 256, 2 * 40 + 4, **bf)
+    q = qkv[..., 4:].view(1, 256, 2, 40)
+    with pytest.raises(ValueError):  # base not 16-byte aligned
+        tfa.flash_attention(q, q, q, route="copy")
+    with pytest.raises(TypeError):
+        q = torch.randn(1, 256, 2, 40, device=dev)
+        tfa.flash_attention(q, q, q)
+    assert (tgg.ff_launches, tfa.launches, tfa.launches_copy) == n0
+
+
 @pytest.mark.cuda
 def test_flash_kernel_reads_strided_views_and_masks_the_tail():
     """q, k, v as strided views of one QKV tensor, S = 1000 (not a multiple
-    of the 64-row tiles): same bound as above."""
+    of the 128-row q block or the 128-key tile): same bound as above."""
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(1)
     qkv = torch.randn(1, 1000, 3, 4, 40, device=dev, generator=g,

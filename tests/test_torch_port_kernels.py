@@ -212,17 +212,49 @@ def test_flash_route_counters_stay_apart_on_cpu():
     assert (tfa.launches, tfa.launches_long) == before
 
 
-@pytest.mark.parametrize("m,d,k,sms,want", [
-    (8192, 320, 1280, 132, 1), (2048, 640, 2560, 132, 2),
-    (512, 1280, 5120, 132, 4), (128, 1280, 5120, 132, 16),
-    (128, 1280, 5120, 8, 1)])
-def test_ff_inner_splits_fill_the_card(m, d, k, sms, want):
-    """Row blocks x inner splits stay within one block per SM (so the split
-    counters, one per row block, fit in SM-count slots), and every split
-    holds whole 64-column chunks."""
-    s = tgg.inner_splits(m, d, k, sms)
-    assert s == want and (k // tgg.K_CHUNK) % s == 0
-    assert s == 1 or -(-m // (tgg.BLOCK_ELEMS // d)) * s <= sms
+# ff_matmul's (M, D, K) on the main paths (SD1.5 at 512 px, the 768-px
+# final pass), and ragged row counts
+FF_PLAN_SHAPES = [(8192, 320, 1280), (2048, 640, 2560), (512, 1280, 5120),
+                  (128, 1280, 5120), (18432, 320, 1280), (4608, 640, 2560),
+                  (1152, 1280, 5120), (100, 320, 1280), (1000, 640, 2560)]
+
+
+@pytest.mark.parametrize("m,d,k", FF_PLAN_SHAPES)
+@pytest.mark.parametrize("sms", [132, 120])
+def test_ff_plan_fills_the_card(m, d, k, sms):
+    """The FF kernel's launch plan: a cluster of D/160 CTAs per 128 rows,
+    splits that hold whole chunks, split counters for every CTA of a split,
+    and CTAs enough to keep at least 80 % of the SMs busy, or every chunk
+    of the shape in flight where it has less work than that (one full wave
+    of whole clusters beats a second, near-empty one)."""
+    c, bm, splits = tgg.ff_plan(m, d, k, sms)
+    assert (c, bm) == (d // tgg.FF_CTA_COLS, tgg.FF_BM)
+    chunks = k // tgg.ff_chunk(d)
+    assert k % tgg.ff_chunk(d) == 0 and chunks % splits == 0
+    ctas = -(-m // bm) * c
+    assert tgg.ff_counter_slots(m, d) == ctas
+    assert ctas * splits >= 0.8 * min(sms, ctas * chunks)
+
+
+def test_ff_split_counters_grow_to_the_row_blocks():
+    """The counter buffer is sized by the CTAs of a split (row blocks x
+    cluster size), not by the SM count, and grows for a larger call."""
+    dev = torch.device("cpu")
+    tgg._split_counters.pop(dev, None)
+    small = tgg._counters(dev, tgg.ff_counter_slots(512, 1280))
+    assert small.numel() == 32 and not small.any()
+    big = tgg._counters(dev, tgg.ff_counter_slots(18432, 320))
+    assert big.numel() == 288 and not big.any()
+    assert tgg._counters(dev, 8) is big
+    tgg._split_counters.pop(dev, None)
+
+
+@pytest.mark.parametrize("s", [9216, 4608, 2304])
+def test_flash_q_block_divides_the_sp_shards(s):
+    """The flash kernel's 128-row q block divides the 768-px level-0 length
+    and its 2- and 4-way sequence-parallel shards, so every shard's blocks
+    hold the same rows as the unsharded call's (bit-equal concatenation)."""
+    assert s % tfa.Q_BLOCK == 0
 
 
 def test_layers_route_to_the_kernels(monkeypatch):

@@ -4,10 +4,10 @@ kernels of ``theatergen_tpu/ops/flash_attention.py``.
 :func:`flash_attention` takes q ``[B, Sq, H, D]`` and k, v ``[B, Sk, H,
 D]`` (strided views of a projection are fine) and returns ``[B, Sq, H,
 D]``.  On a CUDA tensor it launches the hand-written kernel of
-``csrc/flash_attention.cu`` (see the note there: one block per
-(batch·head, 64 query rows), online softmax in fp32 registers over
-64-key tiles, QK^T and PV on bf16 tensor cores, head dims 40 (padded to
-48 in shared memory), 64, 80 and 160, Sq ≠ Sk with masked q rows) or
+``csrc/flash_attention.cu`` (see the note there: one CTA per
+(batch·head, 128 query rows), K and V tiles of 128 keys (64 at d = 160)
+through a TMA ring, QK^T and PV on wgmma, online softmax in fp32
+registers, head dims 40, 64, 80 and 160, Sq ≠ Sk with masked q rows) or
 raises.  On a CPU tensor it runs :func:`flash_attention_plain`, the same
 function in plain PyTorch.
 
@@ -57,6 +57,9 @@ MAX_WHOLE_K_SEQ = 4096
 MAX_SEQ = 32768
 # head dims with a compiled kernel instance (csrc/flash_attention.cu)
 KERNEL_HEAD_DIMS = (40, 64, 80, 160)
+# the kernel's query rows per CTA and depth of its K/V ring
+Q_BLOCK = 128
+KV_STAGES = 3
 # the TPU gates' scoped-VMEM budget and lane width, kept so that the block
 # searches below, copies of the JAX package's, accept the same shapes
 _VMEM_BUDGET = 80 * 1024 * 1024
@@ -158,6 +161,13 @@ def supported(sq: int, sk: int, heads: int, head_dim: int,
     """Whether the JAX package sends this attention to a Pallas kernel
     (:func:`route` is not None)."""
     return route(sq, sk, heads, head_dim, itemsize, quantized) is not None
+
+
+def launch_plan(b: int, sq: int, h: int, d: int) -> dict:
+    """The kernel's launch for q ``[B, Sq, H, D]``: rows per CTA, keys per
+    K/V tile (128 up to d = 80, 64 at d = 160), ring stages and CTAs."""
+    return dict(q_block=Q_BLOCK, kv_block=128 if d <= 80 else 64,
+                stages=KV_STAGES, ctas=-(-sq // Q_BLOCK) * b * h)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,

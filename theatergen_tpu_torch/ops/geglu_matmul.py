@@ -11,7 +11,9 @@ first and the gate half takes exact-erf gelu, as in the TPU package's
 read in place.  The net.2 bias is added by the caller.
 
 On a CUDA tensor each wrapper launches its kernel (``csrc/ff_geglu.cu``:
-the ``[M, 2K]`` intermediate never reaches device memory;
+a thread-block cluster of D/160 CTAs per 128 rows shares each chunk of h
+through distributed shared memory, so the ``[M, 2K]`` intermediate never
+reaches device memory; :func:`ff_plan` picks its launch;
 ``csrc/geglu_matmul.cu``: 64x320 output tiles, the gate computed per
 tile; see the notes there) or raises.  On a CPU tensor it runs its plain
 version (:func:`ff_matmul_plain`, :func:`geglu_matmul_plain`).
@@ -28,10 +30,19 @@ from .. import _build
 
 # model widths D with a compiled kernel instance (csrc/ff_geglu.cu)
 KERNEL_WIDTHS = (320, 640, 1280)
-# the kernel streams the inner dimension in chunks of this many columns
-K_CHUNK = 64
-# rows x width a kernel block owns (BM = 64, 32, 16 at D = 320, 640, 1280)
-BLOCK_ELEMS = 20480
+# the kernel's cluster: one CTA per FF_CTA_COLS output columns, FF_BM rows
+# per cluster; each CTA adds FF_H_COLS inner columns to a chunk, so a chunk
+# holds FF_H_COLS * D / FF_CTA_COLS columns
+FF_CTA_COLS = 160
+FF_BM = 128
+FF_H_COLS = 64
+# stages of the kernel's TMA ring (32 KB each)
+FF_STAGES = 5
+# the split planner's model of one CTA: its bf16 tensor-core rate (about
+# 60 % of the H100's 989 TFLOP/s over 132 SMs) and the rate at which the
+# partials of a split travel to device memory and back
+_CTA_FLOPS = 4.5e12
+_PARTIAL_BYTES_PER_S = 3.0e12
 
 # geglu_matmul's kernel tile (csrc/geglu_matmul.cu): N and K must be
 # multiples of these; M is masked
@@ -97,27 +108,66 @@ def ff_matmul_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     return h @ w2.t()
 
 
-def inner_splits(m: int, d: int, k: int, sms: int) -> int:
-    """Splits of the inner dimension that bring the kernel's grid of
-    ceil(M/BM) row blocks closest to one block per SM without passing
-    it; each split must hold whole 64-column chunks."""
-    blocks = -(-m // (BLOCK_ELEMS // d))
-    chunks = k // K_CHUNK
-    return max(s for s in range(1, chunks + 1)
-               if chunks % s == 0 and (s == 1 or blocks * s <= sms))
+def ff_chunk(d: int) -> int:
+    """Inner columns of one kernel chunk at width D (K must be a multiple)."""
+    return FF_H_COLS * d // FF_CTA_COLS
 
 
-# per device: one int32 counter per row block for the splits of a call;
-# the kernel leaves them zero, so calls on one stream share them
+def ff_plan(m: int, d: int, k: int, slots: int) -> tuple:
+    """The kernel's launch for an FF of M rows, width D and inner width K
+    on a card that holds ``slots`` CTAs of this width at once (the SM count,
+    less what whole clusters leave over): (cluster size
+    C, rows per cluster BM, inner splits).  Splits hold whole chunks; the
+    plan minimises the modelled time, waves x chunks per split x a chunk's
+    time, plus the partials' round trip, taking fewer splits on a tie."""
+    c = d // FF_CTA_COLS
+    ctas = -(-m // FF_BM) * c
+    chunks = k // ff_chunk(d)
+    chunk_s = ff_flops(FF_BM, d, ff_chunk(d)) / c / _CTA_FLOPS
+
+    def cost(s):
+        waves = -(-ctas * s // slots)
+        reduce_s = 0.0 if s == 1 else 2 * s * m * d * 4 / _PARTIAL_BYTES_PER_S
+        return waves * (chunks // s) * chunk_s + reduce_s
+
+    splits = min((s for s in range(1, chunks + 1) if chunks % s == 0),
+                 key=lambda s: (cost(s), s))
+    return c, FF_BM, splits
+
+
+def ff_counter_slots(m: int, d: int) -> int:
+    """Split counters a call needs: one per CTA of a split (row blocks x
+    cluster size)."""
+    return -(-m // FF_BM) * (d // FF_CTA_COLS)
+
+
+# per device: int32 counters, one per CTA of a split, for the splits of a
+# call; the kernel leaves them zero, so calls on one stream share them
 _split_counters: dict = {}
+# per (device, D): CTAs of the kernel the card holds at once
+_slots: dict = {}
 
 
-def _counters(device: torch.device, sms: int) -> torch.Tensor:
-    # splits > 1 only where row blocks x splits <= SMs
-    if device not in _split_counters:
-        _split_counters[device] = torch.zeros(sms, dtype=torch.int32,
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    have = _split_counters.get(device)
+    if have is None or have.numel() < n:
+        _split_counters[device] = torch.zeros(n, dtype=torch.int32,
                                               device=device)
     return _split_counters[device]
+
+
+def _ff_slots(device: torch.device, d: int) -> int:
+    if (device, d) not in _slots:
+        lib = _build.library("ff_geglu")
+        fn = lib.tg_ff_geglu_slots
+        fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int]
+        with torch.cuda.device(device):
+            n = fn(d)
+        if n <= 0:
+            raise RuntimeError(f"ff_matmul: no CTA of the D={d} kernel fits "
+                               f"on {device} (CUDA error {-n})")
+        _slots[(device, d)] = n
+    return _slots[(device, d)]
 
 
 def _ff_lib():
@@ -138,29 +188,30 @@ def ff_matmul(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     k = w2.shape[1]
     if x.dtype != torch.bfloat16:
         raise TypeError(f"ff_matmul: x must be bfloat16, got {x.dtype}")
-    if d not in KERNEL_WIDTHS or k % K_CHUNK:
+    if d not in KERNEL_WIDTHS or k % ff_chunk(d):
         raise ValueError(f"ff_matmul: no kernel instance for D={d}, K={k} "
-                         f"(widths {KERNEL_WIDTHS}, K % {K_CHUNK} == 0)")
+                         f"(widths {KERNEL_WIDTHS}, K a multiple of "
+                         f"{FF_H_COLS} * D / {FF_CTA_COLS})")
     expect = {"w1": (w1, (2 * k, d)), "b1": (b1, (2 * k,)), "w2": (w2, (d, k))}
     for name, (t, shape) in expect.items():
         if (t.dtype != torch.bfloat16 or tuple(t.shape) != shape
-                or not t.is_contiguous() or t.device != x.device):
-            raise ValueError(f"ff_matmul: {name} must be a contiguous bf16 "
-                             f"{shape} tensor on {x.device}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
+                or not t.is_contiguous() or t.device != x.device
+                or t.data_ptr() % 16):
+            raise ValueError(f"ff_matmul: {name} must be a contiguous, "
+                             f"16-byte aligned bf16 {shape} tensor on "
+                             f"{x.device}, got {t.dtype} {tuple(t.shape)}")
     x2 = x.reshape(-1, d)
     if not x2.is_contiguous() or x2.data_ptr() % 16:
         raise ValueError("ff_matmul: x must be contiguous and 16-byte aligned")
     m = x2.shape[0]
     out = torch.empty((m, d), dtype=x.dtype, device=x.device)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits = inner_splits(m, d, k, sms)
+    _, _, splits = ff_plan(m, d, k, _ff_slots(x.device, d))
     work = counters = None
     if splits > 1:
         # fp32 partial outputs of the splits (never the [M, 2K] intermediate)
         work = torch.empty((splits, m, d), dtype=torch.float32,
                            device=x.device)
-        counters = _counters(x.device, sms)
+        counters = _counters(x.device, ff_counter_slots(m, d))
     fn = _ff_lib()
     _build.check(fn(
         x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
