@@ -14,9 +14,10 @@ Phases, in order (any failure exits non-zero):
      four routes' counters, d = 160 and Sq != Sk included, and sequence
      parallelism's query shards, concatenated, against the unsharded call);
   4. time kernel, plain version and a library yardstick at those shapes,
-     printing each flash and FF launch plan (cluster size, rows per CTA
-     or cluster, keys per K/V tile, splits, ring stages), and the host µs
-     per call of the flash and FF wrappers at one 512-px shape each;
+     printing each flash, FF, geglu_matmul and quant_matmul launch plan
+     (cluster size, rows per CTA or cluster, keys per K/V tile, splits,
+     ring stages), and the host µs per call of the flash, FF, geglu_matmul
+     and quant_matmul wrappers at one or two path shapes each;
   5. SD1.5: ``init_bundle(sd15_config())``, one full-size UNet evaluation
      with the kernels against the same UNet under ``plain_path()``, then
      ``Text2Img(bundle, num_steps=50)`` on three prompts at 512 px, CFG 7.5;
@@ -464,20 +465,36 @@ def ff_phase(gen) -> dict:
 
 
 def host_us_phase(gen) -> dict:
-    """Host µs per call of the flash and FF wrappers at one SD1.5 512-px
-    shape each (level 0: B2 S4096 H8 d40, M8192 D320 K1280): 200 calls
-    enqueued back to back, timed on the host clock before the synchronise
-    (the device runs behind, so this is the wrapper's own cost: checks,
-    the planner, tensor maps and the ctypes launch)."""
+    """Host µs per call of the wrappers: flash and FF at one SD1.5 512-px
+    shape each (level 0: B2 S4096 H8 d40, M8192 D320 K1280),
+    geglu_matmul at SDXL's M2048 K5120 N1280 and quant_matmul at the W8A8
+    UNet's most frequent shape (M8192 K320 N320) and an M = 2 one (M2
+    K1280 N1280, split K): 200 calls enqueued back to back, timed on the
+    host clock before the synchronise (the device runs behind, so this is
+    the wrapper's own cost: checks, the planner, tensor maps, workspace
+    and the ctypes launch)."""
     q, k, v = (randn(gen, 2, 4096, 8, 40) for _ in range(3))
     x = randn(gen, 8192, 320)
     w1, b1 = randn(gen, 2560, 320, scale=320 ** -0.5), randn(gen, 2560)
     w2 = randn(gen, 320, 1280, scale=1280 ** -0.5)
+    hg, wg = randn(gen, 2048, 10240), randn(gen, 1280, 5120, scale=0.014)
+    qargs = {}
+    for m, kk, n in ((8192, 320, 320), (2, 1280, 1280)):
+        wq, ws = qz.quantize_linear_weight(
+            torch.randn(n, kk, device="cuda", generator=gen) * kk ** -0.5)
+        qargs[(m, kk, n)] = (randn(gen, m, kk), wq, ws,
+                             randn(gen, n, scale=0.1))
     out = {}
     for name, fn in (("flash_attention B2 S4096 H8 d40",
                       lambda: fa.flash_attention(q, k, v, route="packed")),
                      ("ff_geglu M8192 D320 K1280",
-                      lambda: gg.ff_matmul(x, w1, b1, w2))):
+                      lambda: gg.ff_matmul(x, w1, b1, w2)),
+                     ("geglu_matmul M2048 K5120 N1280",
+                      lambda: gg.geglu_matmul(hg, wg)),
+                     ("quant_matmul M8192 K320 N320",
+                      lambda: qm.quant_matmul(*qargs[(8192, 320, 320)])),
+                     ("quant_matmul M2 K1280 N1280",
+                      lambda: qm.quant_matmul(*qargs[(2, 1280, 1280)]))):
         fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -495,6 +512,13 @@ def geglu_phase(gen) -> dict:
     for model, (m, k, n), calls in GEGLU_SHAPES:
         hg = randn(gen, m, 2 * k)
         w = randn(gen, n, k, scale=k ** -0.5)
+        slots = gg._geglu_slots(hg.device, n)
+        c, bm, splits = gg.geglu_plan(m, n, k, slots)
+        plan = dict(cluster=c, bm=bm, splits=splits, stages=gg.GEGLU_STAGES,
+                    chunk=gg.geglu_chunk(n), ctas=-(-m // bm) * c * splits,
+                    cta_slots=slots)
+        log(f"  geglu_matmul {model} M={m} K={k} N={n}: launch plan "
+            f"{json.dumps(plan)}")
         out = gg.geglu_matmul(hg, w)
         torch.cuda.synchronize()
         ref = gg.geglu_matmul_plain(hg.float(), w.float())
@@ -507,6 +531,7 @@ def geglu_phase(gen) -> dict:
             gg.geglu_min_bytes(m, k, n), lambda: gg.geglu_matmul(hg, w),
             lambda: gg.geglu_matmul_plain(hg.float(), w.float()),
             lambda: torch.matmul(val * F.gelu(gate), w.t()), 5))
+        rows[-1]["plan"] = plan
         del hg, w, out, ref, val, gate
     return _record("geglu_matmul", "csrc/geglu_matmul.cu",
                    "theatergen_tpu/ops/geglu_matmul.py:222",
@@ -565,6 +590,14 @@ def qmm_phase(gen) -> dict:
         wq, ws = qz.quantize_linear_weight(w)
         bias = randn(gen, n, scale=0.1)
         w_deq = (wq.float() * ws[:, None]).to(torch.bfloat16)
+        c, bm, bn, splits = qm.launch_plan(x.device, m, n, k)
+        rb, nt, steps = qm.qmm_tiles(m, n, k)
+        plan = dict(cluster=c, bm=bm, bn=bn, splits=splits,
+                    k_steps=steps, ctas=rb * nt * splits,
+                    cta_slots=qm.qmm_slots(x.device, c),
+                    a_quantised_times=nt // c)
+        log(f"  quant_matmul M={m} K={k} N={n}: launch plan "
+            f"{json.dumps(plan)}")
         out = qm.quant_matmul(x, wq, ws, bias)
         torch.cuda.synchronize()
         ref = qm.quant_matmul_plain(x, wq, ws, bias)
@@ -582,6 +615,7 @@ def qmm_phase(gen) -> dict:
             lambda: qm.quant_matmul_plain(x, wq, ws, bias),
             lambda: F.linear(x, w_deq, bias), 5, graphs=True,
             peak_ops=PEAK_INT8_OPS))
+        rows[-1]["plan"] = plan
         del x, w, wq, ws, bias, w_deq, out, ref
     return _record("quant_matmul", "csrc/quant_matmul.cu",
                    "theatergen_tpu/ops/quant_matmul.py:92",

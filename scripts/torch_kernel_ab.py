@@ -1,12 +1,15 @@
-"""Time the flash and FF kernels of two checkouts of the PyTorch port on one
-card, in turns (A, B, B, A), and print a table of device ms and wrapper
-host µs per call at the main paths' shapes.
+"""Time the flash, FF, geglu_matmul and quant_matmul kernels of two
+checkouts of the PyTorch port on one card, in turns (A, B, B, A), and
+print a table of device ms and wrapper host µs per call at the main paths'
+shapes.
 
     python3 scripts/torch_kernel_ab.py OLD_CHECKOUT NEW_CHECKOUT [--out F]
 
 Each checkout runs in a process of its own (its package on ``sys.path``,
 its kernels built into its own ``build/torch_kernels``).  Device ms: CUDA
-events over 20 back-to-back calls after 3 warm-up calls (L2 warm).  Host
+events over 20 back-to-back calls after 3 warm-up calls (L2 warm);
+quant_matmul, whose M = 2 calls are shorter than an eager launch, by
+replaying 20 calls captured in a CUDA graph.  Host
 µs: 200 calls enqueued back to back, timed before the synchronise.  Needs
 a CUDA device; imports no JAX.
 """
@@ -28,6 +31,16 @@ FLASH_SHAPES = [(2, 4096, 4096, 8, 40), (2, 1024, 1024, 8, 80),
                 (2, 4096, 4096, 10, 64), (2, 1024, 1024, 20, 64),
                 (2, 1024, 1024, 8, 160), (2, 9216, 9216, 8, 40),
                 (2, 4608, 9216, 8, 40), (2, 2304, 9216, 8, 40)]
+# geglu_matmul's (M, K, N): SDXL's two levels
+GEGLU_SHAPES = [(8192, 2560, 640), (2048, 5120, 1280)]
+# quant_matmul's (M, K, N): the 19 shapes of one W8A8 SD1.5 evaluation
+QMM_SHAPES = [
+    (8192, 320, 320), (154, 768, 320), (8192, 320, 2560), (8192, 1280, 320),
+    (2048, 640, 640), (154, 768, 640), (2048, 640, 5120), (2048, 2560, 640),
+    (512, 1280, 1280), (154, 768, 1280), (512, 1280, 10240),
+    (512, 5120, 1280), (128, 1280, 1280), (128, 1280, 10240),
+    (128, 5120, 1280), (2, 320, 1280), (2, 1280, 1280), (2, 1280, 640),
+    (2, 1280, 320)]
 
 
 def time_one(root: str) -> dict:
@@ -35,6 +48,8 @@ def time_one(root: str) -> dict:
     import torch
     from theatergen_tpu_torch.ops import flash_attention as fa
     from theatergen_tpu_torch.ops import geglu_matmul as gg
+    from theatergen_tpu_torch.ops import quant as qz
+    from theatergen_tpu_torch.ops import quant_matmul as qm
     if not fa.__file__.startswith(os.path.abspath(root)):
         raise SystemExit(f"imported {fa.__file__}, not the one under {root}")
 
@@ -49,6 +64,19 @@ def time_one(root: str) -> dict:
         b.record()
         torch.cuda.synchronize()
         return a.elapsed_time(b) / n
+
+    def graph_ms(fn, n=20):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(n):
+                fn()
+        return dev_ms(graph.replay, 5) / n
 
     def host_us(fn, n=200):
         fn()
@@ -81,6 +109,22 @@ def time_one(root: str) -> dict:
             return fa.flash_attention(q, kk, vv, route="copy")
         out[f"flash B{b} Sq{sq} Sk{sk} H{h} d{d}"] = dict(
             ms=dev_ms(flash), host_us=host_us(flash))
+    for m, k, n in GEGLU_SHAPES:
+        hg, w = rnd(m, 2 * k), rnd(n, k, scale=k ** -0.5)
+
+        def geglu():
+            return gg.geglu_matmul(hg, w)
+        out[f"geglu M{m} K{k} N{n}"] = dict(ms=dev_ms(geglu),
+                                            host_us=host_us(geglu))
+    for m, k, n in QMM_SHAPES:
+        x, bias = rnd(m, k), rnd(n, scale=0.1)
+        wq, ws = qz.quantize_linear_weight(
+            torch.randn(n, k, device="cuda", generator=g) * k ** -0.5)
+
+        def qmm():
+            return qm.quant_matmul(x, wq, ws, bias)
+        out[f"qmm M{m} K{k} N{n}"] = dict(ms=graph_ms(qmm),
+                                          host_us=host_us(qmm))
     return out
 
 

@@ -162,6 +162,35 @@ def test_geglu_kernel_matches_plain_on_card(m, k, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [320, 960, 1920])
+@pytest.mark.parametrize("splits", [None, 2])
+def test_geglu_kernel_every_cluster_width_ragged_rows_on_card(monkeypatch, n,
+                                                             splits):
+    """Cluster sizes 2, 6 and 12 (N = 320, 960, 1920; 12 a non-portable
+    cluster) at M = 100 (a masked row tail) with K = 1280 (a ragged last
+    chunk past N = 960), planned and forced to 2 splits: within
+    1e-2·max|ref| of the plain version, the split counters left zero."""
+    dev = _card()
+    m, k = 100, 1280
+    g = torch.Generator(device=dev).manual_seed(n)
+    hg = torch.randn(m, 2 * k, device=dev, generator=g).to(torch.bfloat16)
+    w = (torch.randn(n, k, device=dev, generator=g) * k ** -0.5).to(
+        torch.bfloat16)
+    chunks = -(-k // tgg.geglu_chunk(n))
+    if splits is not None:
+        forced = splits if chunks % splits == 0 else chunks
+        monkeypatch.setattr(tgg, "geglu_launch_plan",
+                            lambda *a: (n // 160, 128, forced))
+    out = tgg.geglu_matmul(hg, w).float()
+    torch.cuda.synchronize()
+    ref = tgg.geglu_matmul_plain(hg.float(), w.float())
+    assert out.shape == (m, n)
+    assert (out - ref).abs().max() <= 1e-2 * ref.abs().max()
+    counters = tgg._split_counters.get(hg.device)
+    assert counters is None or not counters.any()
+
+
+@pytest.mark.cuda
 def test_plain_path_launches_nothing():
     """An SDXL-shaped transformer block in bf16 on the card launches flash
     and geglu_matmul once each, and inside plain_path() no kernel at all
@@ -538,6 +567,38 @@ def test_quant_matmul_kernel_matches_plain_on_card(m, k, n):
         torch.cuda.synchronize()
         assert out.shape == (m, n) and out.dtype == torch.bfloat16
         assert torch.equal(out, ref), (out.float() - ref.float()).abs().max()
+
+
+def _forced_qmm_plans(m, k, n):
+    """Split counts 1, 2 and the largest at the planned cluster size, and
+    a cluster of 1 unsplit and at the largest split count."""
+    _, nt, steps = tqm.qmm_tiles(m, n, k)
+    c = next(c for c in tqm.QMM_CLUSTERS if nt % c == 0)
+    splits = sorted({1, steps} | ({2} if steps % 2 == 0 else set()))
+    return ([(c, 128, 160, s) for s in splits]
+            + [(1, 128, 160, 1), (1, 128, 160, steps)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(512, 1280, 1280), (154, 768, 640),
+                                   (2, 1280, 320), (100, 320, 2560),
+                                   (40, 128, 130)])
+def test_quant_matmul_forced_plans_bit_equal_on_card(monkeypatch, m, k, n):
+    """Whatever the launch (split counts 1, 2 and the largest, the
+    cluster shrunk to one CTA), the kernel equals its plain version bit
+    for bit: the int32 split sums are exact in any order and every CTA of
+    a cluster quantises with the same row scales; the split counters are
+    left zero."""
+    dev = _card()
+    x, wq, ws, bias = _qmm_inputs(dev, m, k, n, 3 * m + n)
+    ref = tqm.quant_matmul_plain(x, wq, ws, bias)
+    for plan in _forced_qmm_plans(m, k, n):
+        monkeypatch.setattr(tqm, "launch_plan", lambda *a, p=plan: p)
+        out = tqm.quant_matmul(x, wq, ws, bias)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), (plan, int((out != ref).sum()))
+        counters = tqm._split_counters.get(x.device)
+        assert counters is None or not counters.any()
 
 
 @pytest.mark.cuda

@@ -50,7 +50,9 @@
 // counter; the last split to arrive reads back all the partials (its own
 // too) and sums them in split order, so the result does not depend on which
 // split finishes last, rounds and writes the tile, and resets the counter
-// for the next call.  One launch per call.
+// for the next call.  One launch per call.  The h exchange with the
+// down-product and the split reduction are common.cuh's
+// exchange_down_chunk and store_split_tile, shared with geglu_matmul.cu.
 
 #include "common.cuh"
 
@@ -58,27 +60,20 @@ using namespace tg;
 
 namespace {
 
-constexpr int CONSUMERS = 256;          // two warpgroups
-constexpr int THREADS = CONSUMERS + 128;  // + the producer's warpgroup
+constexpr int CONSUMERS = DOWN_CONSUMERS;  // two warpgroups
+constexpr int THREADS = CONSUMERS + 128;    // + the producer's warpgroup
 constexpr int BM = 128;       // rows per cluster (64 per warpgroup)
-constexpr int NO = 160;       // output columns per CTA
-constexpr int HP = 64;        // inner (h) columns per CTA and chunk
+constexpr int NO = DOWN_NO;   // output columns per CTA
+constexpr int HP = DOWN_HP;   // inner (h) columns per CTA and chunk
 constexpr int KP = 64;        // D columns per up-product panel
 constexpr int STAGES = 5;
 constexpr int STAGE_BYTES = 32768;
 constexpr int X_BYTES = BM * KP * 2, WV_BYTES = HP * KP * 2;
-constexpr int W2_BYTES = NO * KP * 2;
-constexpr int SLOT_BYTES = CONSUMERS * 64;  // one h piece: 16 registers a thread
 // + 1 KB: the ring's base is rounded up to the swizzle atom
-constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 2 * SLOT_BYTES + (2 * STAGES + 4) * 8;
+constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 2 * H_SLOT_BYTES + (2 * STAGES + 4) * 8;
 
 __device__ __forceinline__ float geglu(float value, float gate) {
   return value * (0.5f * gate * (1.f + erff(gate * 0.70710678118654752f)));
-}
-
-// the consumer warpgroups alone (the producer's warpgroup leaves early)
-__device__ __forceinline__ void named_sync() {
-  asm volatile("bar.sync 1, %0;\n" :: "n"(CONSUMERS) : "memory");
 }
 
 template <int C>
@@ -103,7 +98,7 @@ ff_geglu_kernel(const __grid_constant__ CUtensorMap x_map,
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
   unsigned char* slots = smem + STAGES * STAGE_BYTES;
-  uint64_t* full = reinterpret_cast<uint64_t*>(slots + 2 * SLOT_BYTES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(slots + 2 * H_SLOT_BYTES);
   uint64_t* empty = full + STAGES;
   uint64_t* h_full = empty + STAGES;  // [2]: every CTA's piece of a chunk stored
   uint64_t* h_free = h_full + 2;      // [2]: every reader done with this CTA's piece
@@ -114,7 +109,7 @@ ff_geglu_kernel(const __grid_constant__ CUtensorMap x_map,
   const int o0 = rank * NO;                        // this CTA's output columns
   const int kc0 = blockIdx.y * chunks_per_split * BK;
   const int nsteps = chunks_per_split * SPC;
-  const uint32_t ring = smem_u32(smem);
+  const uint32_t ring_base = smem_u32(smem);
 
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -139,7 +134,7 @@ ff_geglu_kernel(const __grid_constant__ CUtensorMap x_map,
       for (int s = 0; s < nsteps; ++s) {
         const int stage = s % STAGES;
         if (s >= STAGES) mbar_wait(&empty[stage], (s / STAGES - 1) & 1);
-        const uint32_t st = ring + stage * STAGE_BYTES;
+        const uint32_t st = ring_base + stage * STAGE_BYTES;
         const int kc = kc0 + (s / SPC) * BK, within = s % SPC;
         if (within < UP) {
           mbar_expect_tx(&full[stage], X_BYTES + 2 * WV_BYTES);
@@ -149,7 +144,7 @@ ff_geglu_kernel(const __grid_constant__ CUtensorMap x_map,
                       K + kc + HP * rank);
         } else {
           const int j = (rank + within - UP) % C;
-          mbar_expect_tx(&full[stage], W2_BYTES);
+          mbar_expect_tx(&full[stage], W_TILE_BYTES);
           tma_load_2d(st, &w2_map, &full[stage], kc + HP * j, o0);
         }
       }
@@ -163,20 +158,11 @@ ff_geglu_kernel(const __grid_constant__ CUtensorMap x_map,
 #pragma unroll
   for (int i = 0; i < NO / 2; ++i) acc[i] = 0.f;
 
-  // the consumer side of the ring: wait for step s's tiles; hand a stage
-  // back once the wgmma group that read it has completed
-  auto ready = [&](int s) -> uint32_t {
-    mbar_wait(&full[s % STAGES], (s / STAGES) & 1);
-    return ring + (s % STAGES) * STAGE_BYTES;
-  };
-  auto release = [&](int s) {
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[s % STAGES]);
-  };
+  const RingConsumer<STAGES, STAGE_BYTES> ring{full, empty, ring_base, lane};
 
   int s = 0;
   for (int ci = 0; ci < chunks_per_split; ++ci) {
-    const int kc = kc0 + ci * BK, buf = ci & 1;
+    const int kc = kc0 + ci * BK;
     // up-product: value (columns 0..63) and gate (64..127; the two W1
     // panels are adjacent) of this CTA's 64 inner columns, 64 rows per
     // warpgroup
@@ -184,7 +170,7 @@ ff_geglu_kernel(const __grid_constant__ CUtensorMap x_map,
 #pragma unroll
     for (int i = 0; i < 64; ++i) u[i] = 0.f;
     for (int p = 0; p < UP; ++p, ++s) {
-      const uint32_t st = ready(s);
+      const uint32_t st = ring.ready(s);
       fence_regs(u);
       wgmma_fence();
 #pragma unroll
@@ -194,14 +180,14 @@ ff_geglu_kernel(const __grid_constant__ CUtensorMap x_map,
       wgmma_commit();
       wgmma_wait<1>();
       fence_regs(u);
-      if (p > 0) release(s - 1);
+      if (p > 0) ring.release(s - 1);
     }
     wgmma_wait<0>();
     fence_regs(u);
-    release(s - 1);
+    ring.release(s - 1);
 
     // bias + GEGLU in fp32, h rounded to bf16 as down-product A fragments
-    uint32_t hf[2][16];
+    uint32_t hf[16];
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int col = kc + HP * rank + 8 * i + 2 * t;
@@ -210,109 +196,21 @@ ff_geglu_kernel(const __grid_constant__ CUtensorMap x_map,
       // n-block i is k-step i/2's lower (even i) or upper (odd i) half
       const float* v = &u[4 * i];
       const float* gt = &u[4 * (i + 8)];
-      hf[0][(i >> 1) * 4 + (i & 1) * 2] =
+      hf[(i >> 1) * 4 + (i & 1) * 2] =
           pack_bf16(geglu(v[0] + bv0, gt[0] + bg0), geglu(v[1] + bv1, gt[1] + bg1));
-      hf[0][(i >> 1) * 4 + (i & 1) * 2 + 1] =
+      hf[(i >> 1) * 4 + (i & 1) * 2 + 1] =
           pack_bf16(geglu(v[2] + bv0, gt[2] + bg0), geglu(v[3] + bv1, gt[3] + bg1));
     }
-    // publish the piece: wait until every reader is done with chunk ci - 2's
-    uint4* slot = reinterpret_cast<uint4*>(slots + buf * SLOT_BYTES + tid * 64);
-    if (ci >= 2) mbar_wait_cluster(&h_free[buf], ((ci >> 1) - 1) & 1);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      slot[i] = make_uint4(hf[0][4 * i], hf[0][4 * i + 1], hf[0][4 * i + 2], hf[0][4 * i + 3]);
-    __syncwarp();
-    if (lane < C) mbar_arrive_remote(&h_full[buf], lane);
-
-    // down-product over the chunk's C pieces, this CTA's own first
-#pragma unroll
-    for (int q = 0; q < C; ++q, ++s) {
-      uint32_t (&h)[16] = hf[q & 1];
-      if (q > 0) {
-        const uint32_t j = (rank + q) % C;
-        if (q == 1) mbar_wait_cluster(&h_full[buf], (ci >> 1) & 1);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const uint4 r = ld_dsmem128(reinterpret_cast<const unsigned char*>(slot) + 16 * i, j);
-          h[4 * i] = r.x; h[4 * i + 1] = r.y; h[4 * i + 2] = r.z; h[4 * i + 3] = r.w;
-        }
-        __syncwarp();
-        if (lane == 0) mbar_arrive_remote(&h_free[buf], j);
-      }
-      const uint32_t st = ready(s);
-      fence_regs(acc);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < HP / 16; ++kk) {
-        const uint32_t a[4] = {h[4 * kk], h[4 * kk + 1], h[4 * kk + 2], h[4 * kk + 3]};
-        wgmma_m64n160k16_rs<0>(acc, a, wgmma_desc_sw128(st + kk * 32), 1);
-      }
-      wgmma_commit();
-      wgmma_wait<1>();
-      fence_regs(acc);
-      if (q > 0) release(s - 1);
-    }
-    wgmma_wait<0>();
-    fence_regs(acc);
-    release(s - 1);
+    // publish the piece, and the down-product over the chunk's C pieces
+    exchange_down_chunk<C>(acc, hf, slots, h_full, h_free, ci, rank, tid, ring, s);
   }
   // no CTA leaves while a neighbour may still read its pieces or arrive on
   // its barriers (the producer's warpgroup has left: it takes no part)
   cluster_arrive();
   cluster_wait();
 
-  const int row0 = m0 + wg * 64 + (warp & 3) * 16 + g;
-  const int splits = gridDim.y, split = blockIdx.y;
-  if (splits > 1) {
-    // publish this split's partial, then count it; only the last split of
-    // the CTA's tile goes on
-    __shared__ int is_last;
-#pragma unroll
-    for (int i = 0; i < NO / 8; ++i)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = row0 + 8 * half;
-        if (r < M)
-          __stcg(reinterpret_cast<float2*>(
-                     partial + ((long long)split * M + r) * D + o0 + 8 * i + 2 * t),
-                 make_float2(acc[4 * i + 2 * half], acc[4 * i + 2 * half + 1]));
-      }
-    __threadfence();
-    named_sync();
-    if (tid == 0) is_last = atomicAdd(&counters[blockIdx.x], 1) == splits - 1;
-    named_sync();
-    if (!is_last) return;
-    __threadfence();
-    // sum all the splits' partials (its own too) in split order, each
-    // thread over the fragment positions it wrote
-#pragma unroll
-    for (int i = 0; i < NO / 2; ++i) acc[i] = 0.f;
-    for (int sp = 0; sp < splits; ++sp) {
-      const float* ps = partial + (long long)sp * M * D;
-#pragma unroll
-      for (int i = 0; i < NO / 8; ++i)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int r = row0 + 8 * half;
-          if (r >= M) continue;
-          const float2 v = __ldcg(reinterpret_cast<const float2*>(
-              ps + (long long)r * D + o0 + 8 * i + 2 * t));
-          acc[4 * i + 2 * half] += v.x;
-          acc[4 * i + 2 * half + 1] += v.y;
-        }
-    }
-    if (tid == 0) counters[blockIdx.x] = 0;
-  }
-
-#pragma unroll
-  for (int i = 0; i < NO / 8; ++i)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = row0 + 8 * half;
-      if (r < M)
-        st32(out + (long long)r * D + o0 + 8 * i + 2 * t,
-             pack_bf16(acc[4 * i + 2 * half], acc[4 * i + 2 * half + 1]));
-    }
+  store_split_tile(acc, out, partial, counters, M, D, o0,
+                   m0 + wg * 64 + (warp & 3) * 16 + g, t, tid);
 }
 
 template <int C>

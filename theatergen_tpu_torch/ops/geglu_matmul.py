@@ -14,8 +14,10 @@ On a CUDA tensor each wrapper launches its kernel (``csrc/ff_geglu.cu``:
 a thread-block cluster of D/160 CTAs per 128 rows shares each chunk of h
 through distributed shared memory, so the ``[M, 2K]`` intermediate never
 reaches device memory; :func:`ff_plan` picks its launch;
-``csrc/geglu_matmul.cu``: 64x320 output tiles, the gate computed per
-tile; see the notes there) or raises.  On a CPU tensor it runs its plain
+``csrc/geglu_matmul.cu``: the same cluster design without the
+up-projection, each CTA gating its own 64 inner columns of a chunk once
+and sharing the bf16 piece; :func:`geglu_plan` picks its launch; see the
+notes there) or raises.  On a CPU tensor it runs its plain
 version (:func:`ff_matmul_plain`, :func:`geglu_matmul_plain`).
 """
 
@@ -44,10 +46,16 @@ FF_STAGES = 5
 _CTA_FLOPS = 4.5e12
 _PARTIAL_BYTES_PER_S = 3.0e12
 
-# geglu_matmul's kernel tile (csrc/geglu_matmul.cu): N and K must be
-# multiples of these; M is masked
-GEGLU_BLOCK_N = 320
+# geglu_matmul's kernel (csrc/geglu_matmul.cu): a cluster of N / 160 CTAs
+# (FF_CTA_COLS columns each) per FF_BM rows, built for the even cluster
+# sizes 2..12, so N a multiple of GEGLU_BLOCK_N up to GEGLU_MAX_N (every
+# N the JAX gate routes, N <= 2048, that the first design's 320-column
+# tiles took); K a multiple of GEGLU_BLOCK_K, M any
+GEGLU_BLOCK_N = 2 * FF_CTA_COLS
+GEGLU_MAX_N = 1920
 GEGLU_BLOCK_K = 32
+# stages of its TMA ring (20 KB each)
+GEGLU_STAGES = 8
 
 # kernel launches made by ff_matmul and geglu_matmul (reset and read by
 # callers)
@@ -144,8 +152,10 @@ def ff_counter_slots(m: int, d: int) -> int:
 # per device: int32 counters, one per CTA of a split, for the splits of a
 # call; the kernel leaves them zero, so calls on one stream share them
 _split_counters: dict = {}
-# per (device, D): CTAs of the kernel the card holds at once
+# per (device, D): CTAs of the kernel the card holds at once; per shape:
+# geglu_matmul's launch plan
 _slots: dict = {}
+_plans: dict = {}
 
 
 def _counters(device: torch.device, n: int) -> torch.Tensor:
@@ -245,18 +255,71 @@ def geglu_matmul_plain(hg: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return h @ w.t()
 
 
+def geglu_kernel_takes(n: int, k: int) -> bool:
+    """Whether geglu_matmul's kernel has an instance for ``w [N, K]``."""
+    return (0 < n <= GEGLU_MAX_N and n % GEGLU_BLOCK_N == 0 and k > 0
+            and k % GEGLU_BLOCK_K == 0)
+
+
+def geglu_chunk(n: int) -> int:
+    """Inner columns of one kernel chunk at output width N."""
+    return FF_H_COLS * n // FF_CTA_COLS
+
+
+def geglu_plan(m: int, n: int, k: int, slots: int) -> tuple:
+    """The kernel's launch for ``[M, 2K] x [N, K]^T`` on a card that holds
+    ``slots`` CTAs of this width at once: (cluster size C, rows per
+    cluster BM, inner splits), as :func:`ff_plan` models it (each chunk's
+    time its down-product; a ragged last chunk counts whole)."""
+    c = n // FF_CTA_COLS
+    ctas = -(-m // FF_BM) * c
+    chunks = -(-k // geglu_chunk(n))
+    chunk_s = geglu_flops(FF_BM, geglu_chunk(n), n) / c / _CTA_FLOPS
+
+    def cost(s):
+        waves = -(-ctas * s // slots)
+        reduce_s = 0.0 if s == 1 else 2 * s * m * n * 4 / _PARTIAL_BYTES_PER_S
+        return waves * (chunks // s) * chunk_s + reduce_s
+
+    splits = min((s for s in range(1, chunks + 1) if chunks % s == 0),
+                 key=lambda s: (cost(s), s))
+    return c, FF_BM, splits
+
+
+def _geglu_slots(device: torch.device, n: int) -> int:
+    if ("geglu", device, n) not in _slots:
+        fn = _build.library("geglu_matmul").tg_geglu_matmul_slots
+        fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int]
+        with torch.cuda.device(device):
+            got = fn(n)
+        if got <= 0:
+            raise RuntimeError(f"geglu_matmul: no CTA of the N={n} kernel "
+                               f"fits on {device} (CUDA error {-got})")
+        _slots[("geglu", device, n)] = got
+    return _slots[("geglu", device, n)]
+
+
+def geglu_launch_plan(device: torch.device, m: int, n: int, k: int) -> tuple:
+    """:func:`geglu_plan` with the card's slots for width N, computed once
+    per shape."""
+    key = ("geglu", device, m, n, k)
+    if key not in _plans:
+        _plans[key] = geglu_plan(m, n, k, _geglu_slots(device, n))
+    return _plans[key]
+
+
 def _geglu_lib():
     fn = _build.library("geglu_matmul").tg_geglu_matmul_fwd
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
     return fn
 
 
 def geglu_matmul(hg: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``[..., 2K]`` × ``w [N, K]`` → ``[..., N]``; leading dims of ``hg``
-    flatten into M."""
+    flatten into M; :func:`geglu_launch_plan` picks the launch."""
     if not hg.is_cuda:
         return geglu_matmul_plain(hg, w)
     n, k = w.shape
@@ -265,25 +328,35 @@ def geglu_matmul(hg: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if hg.shape[-1] != 2 * k:
         raise ValueError(f"geglu_matmul: hg width {hg.shape[-1]} != 2 * "
                          f"{k} (w is [N, K] = {tuple(w.shape)})")
-    if n % GEGLU_BLOCK_N or k % GEGLU_BLOCK_K:
+    if not geglu_kernel_takes(n, k):
         raise ValueError(f"geglu_matmul: no kernel instance for N={n}, "
-                         f"K={k} (N % {GEGLU_BLOCK_N} == 0, "
-                         f"K % {GEGLU_BLOCK_K} == 0)")
+                         f"K={k} (N % {GEGLU_BLOCK_N} == 0, N <= "
+                         f"{GEGLU_MAX_N}, K % {GEGLU_BLOCK_K} == 0)")
     if (w.dtype != torch.bfloat16 or not w.is_contiguous()
             or w.device != hg.device or w.data_ptr() % 16):
         raise ValueError(f"geglu_matmul: w must be a contiguous, 16-byte "
                          f"aligned bf16 tensor on {hg.device}, got "
                          f"{w.dtype} on {w.device}")
     hg2 = hg.reshape(-1, 2 * k)
-    # 16-byte loads of both halves: the gate half starts K columns in
+    # TMA boxes of both halves: the gate half starts K columns in
     if (not hg2.is_contiguous() or hg2.data_ptr() % 16
             or (k * hg.element_size()) % 16):
         raise ValueError("geglu_matmul: hg must be contiguous with 16-byte "
                          "aligned rows and gate half")
     m = hg2.shape[0]
     out = torch.empty((m, n), dtype=hg.dtype, device=hg.device)
+    if m == 0:
+        return out.reshape(*hg.shape[:-1], n)
+    _, _, splits = geglu_launch_plan(hg.device, m, n, k)
+    work = counters = None
+    if splits > 1:
+        work = torch.empty((splits, m, n), dtype=torch.float32,
+                           device=hg.device)
+        counters = _counters(hg.device, ff_counter_slots(m, n))
     _build.check(_geglu_lib()(
-        hg2.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k,
+        hg2.data_ptr(), w.data_ptr(), out.data_ptr(),
+        None if work is None else work.data_ptr(),
+        None if counters is None else counters.data_ptr(), m, n, k, splits,
         torch.cuda.current_stream(hg.device).cuda_stream,
     ), "geglu_matmul")
     global geglu_launches
