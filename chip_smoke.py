@@ -14,10 +14,12 @@ Phases, in order (any failure exits non-zero):
      four routes' counters, d = 160 and Sq != Sk included, and sequence
      parallelism's query shards, concatenated, against the unsharded call);
   4. time kernel, plain version and a library yardstick at those shapes,
-     printing each flash, FF, geglu_matmul and quant_matmul launch plan
-     (cluster size, rows per CTA or cluster, keys per K/V tile, splits,
-     ring stages), and the host µs per call of the flash, FF, geglu_matmul
-     and quant_matmul wrappers at one or two path shapes each;
+     printing each flash, FF, geglu_matmul, group_norm and quant_matmul
+     launch plan (cluster size, rows per CTA or cluster, keys per K/V tile,
+     splits, ring stages; group_norm's width, share and route), group_norm
+     also cold (its input read from device memory, not L2), and the host
+     µs per call of the flash, FF, geglu_matmul, quant_matmul and
+     group_norm wrappers at one or two path shapes each;
   5. SD1.5: ``init_bundle(sd15_config())``, one full-size UNet evaluation
      with the kernels against the same UNet under ``plain_path()``, then
      ``Text2Img(bundle, num_steps=50)`` on three prompts at 512 px, CFG 7.5;
@@ -117,6 +119,8 @@ PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 # the kernels' outputs are bf16: 8 mantissa bits round at ~4e-3 relative
 TOL = 1e-2
+# inputs that a cold timing rotates through: over twice the H100's 50 MB L2
+COLD_BYTES = 100e6
 SD15, SDXL, CHAR = "sd15_512", "sdxl_1024", "sd15_512_ip"
 W8A8 = "sd15_512_w8a8"
 # the back half of a turn: the final pass (IP UNet + ControlNet) at 512 and
@@ -321,6 +325,30 @@ def graph_ms(fn, iters: int = 20) -> float:
     return time_ms(graph.replay, 5, 1) / iters
 
 
+def cold_graph_ms(fn, inputs) -> float:
+    """Device time of one call that reads its input from device memory:
+    one call per input, in turn, captured in a CUDA graph, the inputs
+    together over twice the 50 MB L2 (``cold_inputs``), so that each is
+    evicted before its next call; replayed and timed with CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(inputs[0])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for x in inputs:
+            fn(x)
+    graph.replay()
+    return time_ms(graph.replay, 3, 1) / len(inputs)
+
+
+def cold_inputs(make, nbytes: int, total: float = COLD_BYTES) -> list:
+    """Distinct inputs from ``make()``, at least 4 and together over
+    ``total`` bytes."""
+    return [make() for _ in range(max(4, -(-int(total) // nbytes)))]
+
+
 def randn(gen, *shape, scale=1.0):
     return (torch.randn(*shape, device="cuda", generator=gen) * scale).to(
         torch.bfloat16)
@@ -467,9 +495,10 @@ def ff_phase(gen) -> dict:
 def host_us_phase(gen) -> dict:
     """Host µs per call of the wrappers: flash and FF at one SD1.5 512-px
     shape each (level 0: B2 S4096 H8 d40, M8192 D320 K1280),
-    geglu_matmul at SDXL's M2048 K5120 N1280 and quant_matmul at the W8A8
+    geglu_matmul at SDXL's M2048 K5120 N1280, quant_matmul at the W8A8
     UNet's most frequent shape (M8192 K320 N320) and an M = 2 one (M2
-    K1280 N1280, split K): 200 calls enqueued back to back, timed on the
+    K1280 N1280, split K), and group_norm at SD1.5's 8²×1280 (the plan
+    memoised): 200 calls enqueued back to back, timed on the
     host clock before the synchronise (the device runs behind, so this is
     the wrapper's own cost: checks, the planner, tensor maps, workspace
     and the ctypes launch)."""
@@ -484,6 +513,8 @@ def host_us_phase(gen) -> dict:
             torch.randn(n, kk, device="cuda", generator=gen) * kk ** -0.5)
         qargs[(m, kk, n)] = (randn(gen, m, kk), wq, ws,
                              randn(gen, n, scale=0.1))
+    xg = randn(gen, 2, 1280, 8, 8)
+    wg1, bg1 = randn(gen, 1280, scale=0.2) + 1, randn(gen, 1280, scale=0.1)
     out = {}
     for name, fn in (("flash_attention B2 S4096 H8 d40",
                       lambda: fa.flash_attention(q, k, v, route="packed")),
@@ -494,7 +525,10 @@ def host_us_phase(gen) -> dict:
                      ("quant_matmul M8192 K320 N320",
                       lambda: qm.quant_matmul(*qargs[(8192, 320, 320)])),
                      ("quant_matmul M2 K1280 N1280",
-                      lambda: qm.quant_matmul(*qargs[(2, 1280, 1280)]))):
+                      lambda: qm.quant_matmul(*qargs[(2, 1280, 1280)])),
+                     ("group_norm B2 C1280 HW64",
+                      lambda: gn.fused_group_norm(xg, wg1, bg1,
+                                                  act="silu"))):
         fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -539,13 +573,20 @@ def geglu_phase(gen) -> dict:
 
 
 def gn_phase(gen) -> dict:
-    """fused_group_norm at every site shape of both UNets: checked with and without
-    SiLU and with a large-mean input (GN_LARGE_MEAN), timed with SiLU
-    against the library pair F.group_norm + F.silu in bf16, as CUDA-graph
-    replays (the eager launch outlasts these kernels)."""
+    """fused_group_norm at every site shape of both UNets: its launch plan
+    printed, checked with and without SiLU and with a large-mean input
+    (GN_LARGE_MEAN), timed with SiLU against the library pair
+    F.group_norm + F.silu in bf16, as CUDA-graph replays (the eager launch
+    outlasts these kernels): warm (``ms``, 20 calls on one input, which
+    stays in L2) and cold (``cold_ms``, a rotation of inputs over 100 MB,
+    ``cold_graph_ms``)."""
     rows = []
     for model, (b, c, hw), calls in GN_SHAPES:
         side = int(hw ** 0.5)
+        plan = gn.launch_plan(b, c, hw, 32)._asdict()
+        plan["ctas"] = b * 32 * plan["cluster"]
+        log(f"  group_norm {model} B={b} C={c} HW={hw}: launch plan "
+            f"{json.dumps(plan)}")
         w = (1.0 + 0.2 * torch.randn(c, device="cuda", generator=gen)).to(
             torch.bfloat16)
         bias = randn(gen, c, scale=0.1)
@@ -568,9 +609,26 @@ def gn_phase(gen) -> dict:
             lambda: gn.fused_group_norm_plain(x, w, bias, act="silu"),
             lambda: F.silu(F.group_norm(x, 32, w, bias, 1e-5)), 5,
             graphs=True))
-    return _record("group_norm", "csrc/group_norm.cu",
-                   "theatergen_tpu/ops/groupnorm.py:140",
-                   "fused_group_norm (_gn_fused)", rows)
+        xs = cold_inputs(lambda: randn(gen, b, c, side, side),
+                         x.numel() * 2)
+        rows[-1].update(
+            plan=plan,
+            cold_ms=cold_graph_ms(
+                lambda xi: gn.fused_group_norm(xi, w, bias, act="silu"), xs),
+            library_cold_ms=cold_graph_ms(
+                lambda xi: F.silu(F.group_norm(xi, 32, w, bias, 1e-5)), xs))
+        log(f"    cold (a rotation of {len(xs)} inputs): kernel "
+            f"{rows[-1]['cold_ms']:.5f} ms  library "
+            f"{rows[-1]['library_cold_ms']:.5f}")
+        del xs
+    rec = _record("group_norm", "csrc/group_norm.cu",
+                  "theatergen_tpu/ops/groupnorm.py:140",
+                  "fused_group_norm (_gn_fused)", rows)
+    for model, pm in rec["per_model"].items():
+        log(f"  group_norm per {model} evaluation: warm {pm['ms']:.5f} ms  "
+            f"cold {pm['cold_ms']:.5f}  bound {pm['bound_ms']:.5f}  library "
+            f"warm {pm['library_ms']:.5f} cold {pm['library_cold_ms']:.5f}")
+    return rec
 
 
 def qmm_phase(gen) -> dict:
@@ -628,7 +686,8 @@ def _record(name, source, replaces, tpu_function, rows) -> dict:
     final pass one IP UNet and one ControlNet evaluation), and per model
     under ``per_model``; ``launches`` are added by the main paths."""
     keys = [k for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                        "eager_ms") if k in rows[0]]
+                        "eager_ms", "cold_ms", "library_cold_ms")
+            if k in rows[0]]
     per_model = {}
     for r in rows:
         pm = per_model.setdefault(r["model"], dict.fromkeys(keys, 0.0))
@@ -1062,7 +1121,9 @@ def final_eval_times(bundle) -> dict:
     """Wall ms per final-pass evaluation (ControlNet + IP UNet, batch 2;
     CUDA events over 5 back to back: the loop's pace, which the host sets)
     and its device ms (torch.profiler, one evaluation: the sum of the
-    kernels' self device time, and the kernels that take most of it)."""
+    kernels' self device time, the kernels that take most of it, and the
+    shares of flash, ff_geglu, group_norm and PyTorch's GroupNorm, which
+    takes the sites the TPU gate leaves out)."""
     from torch.profiler import ProfilerActivity, profile as prof
     px, text_len = bundle.cfg.pipeline.height, bundle.cfg.text.max_length
     x, t, ctx, cond = final_inputs(bundle, px + 1)
@@ -1091,6 +1152,9 @@ def final_eval_times(bundle) -> dict:
                               ("flash_attention", "flash_fwd_kernel")):
                 if tag in e.key:
                     ours[name] += us / 1e3
+            norm = gn_kernel_kind(e.key)
+            if norm:
+                ours[norm] += us / 1e3
     device = sum(kernels.values())
     top = dict(kernels.most_common(8))
     shares = {name: dict(ms=ms, share=ms / device) for name, ms in
@@ -1098,8 +1162,8 @@ def final_eval_times(bundle) -> dict:
     log(f"  {px} px final-pass evaluation (ControlNet + IP UNet): wall "
         f"{wall:.3f} ms, device {device:.3f} ms; device ms by kernel "
         f"{json.dumps(top)}")
-    log(f"  {px} px final-pass evaluation, the redesigned kernels' device "
-        f"ms and share: {json.dumps(shares)}")
+    log(f"  {px} px final-pass evaluation, the redesigned kernels' (and "
+        f"PyTorch's GroupNorm's) device ms and share: {json.dumps(shares)}")
     return dict(wall_ms=wall, device_ms=device, top_kernels_ms=top,
                 kernel_shares=shares,
                 plain_attention_ms=plain_attention_ms(bundle))
@@ -1453,11 +1517,25 @@ def host_ab(bundle, **kw) -> dict:
     return dict(unet_eval_wall_ms=dict(evals), norm_layer_call_ms=dict(layer))
 
 
+def gn_kernel_kind(name: str):
+    """The GroupNorm kernel a profiler name belongs to: this port's
+    ("group_norm_ours"), PyTorch's F.group_norm ("group_norm_library"),
+    or neither (None)."""
+    low = name.lower()
+    if "group_norm_kernel<" in name and "at::native" not in name:
+        return "group_norm_ours"
+    if "at::native" in name and any(k in low for k in (
+            "groupnorm", "group_norm", "rowwisemoments",
+            "computefusedparams")):
+        return "group_norm_library"
+    return None
+
+
 def gn_ab_profile(bundle, unet, **kw) -> dict:
     """Device time of one evaluation of ``unet`` (batch 2) with the switch
-    at "0" and at "1", in turns: in all, in GroupNorm kernels, and in SiLU
-    kernels (the separate activation the kernel folds in), by
-    torch.profiler."""
+    at "0" and at "1", in turns: in all, in GroupNorm kernels (this port's
+    and PyTorch's, apart and together), and in SiLU kernels (the separate
+    activation the kernel folds in), by torch.profiler."""
     from torch.profiler import ProfilerActivity, profile as prof
     prev_mode = gn.FUSED_MODE
     x, t, ctx, cond = unet_inputs(bundle, 3, 501,
@@ -1477,12 +1555,12 @@ def gn_ab_profile(bundle, unet, **kw) -> dict:
                          getattr(e, "self_cuda_time_total", 0.0))
             if e.key.startswith("aten::") or us <= 0:
                 continue
-            name = e.key.lower()
             parts["total"] += us / 1e3
-            if any(k in name for k in ("group_norm", "groupnorm",
-                                       "rowwisemoments", "computefusedparams")):
+            norm = gn_kernel_kind(e.key)
+            if norm:
                 parts["group_norm"] += us / 1e3
-            elif "silu" in name:
+                parts[norm] += us / 1e3
+            elif "silu" in e.key.lower():
                 parts["silu"] += us / 1e3
         out.setdefault(mode, []).append(dict(parts))
         log(f"  UNet evaluation, switch {mode}: device ms "

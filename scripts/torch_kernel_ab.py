@@ -1,17 +1,19 @@
-"""Time the flash, FF, geglu_matmul and quant_matmul kernels of two
-checkouts of the PyTorch port on one card, in turns (A, B, B, A), and
-print a table of device ms and wrapper host µs per call at the main paths'
-shapes.
+"""Time the flash, FF, geglu_matmul, quant_matmul and group_norm kernels
+of two checkouts of the PyTorch port on one card, in turns (A, B, B, A),
+and print a table of device ms and wrapper host µs per call at the main
+paths' shapes.
 
     python3 scripts/torch_kernel_ab.py OLD_CHECKOUT NEW_CHECKOUT [--out F]
 
 Each checkout runs in a process of its own (its package on ``sys.path``,
 its kernels built into its own ``build/torch_kernels``).  Device ms: CUDA
 events over 20 back-to-back calls after 3 warm-up calls (L2 warm);
-quant_matmul, whose M = 2 calls are shorter than an eager launch, by
-replaying 20 calls captured in a CUDA graph.  Host
-µs: 200 calls enqueued back to back, timed before the synchronise.  Needs
-a CUDA device; imports no JAX.
+quant_matmul and group_norm, whose calls are shorter than an eager
+launch, by replaying 20 calls captured in a CUDA graph; group_norm also
+cold (``cold_ms``: one call per input over a rotation of inputs past
+100 MB, twice the L2, in one graph), and summed per UNet evaluation of
+the three models that call it.  Host µs: 200 calls enqueued back to back,
+timed before the synchronise.  Needs a CUDA device; imports no JAX.
 """
 
 from __future__ import annotations
@@ -41,6 +43,29 @@ QMM_SHAPES = [
     (512, 5120, 1280), (128, 1280, 1280), (128, 1280, 10240),
     (128, 5120, 1280), (2, 320, 1280), (2, 1280, 1280), (2, 1280, 640),
     (2, 1280, 320)]
+
+# group_norm's (model, (B, C, H·W), calls per UNet evaluation): the 35
+# GN_SHAPES of chip_smoke.py (the SD1.5 / IP UNet at 512 px, SDXL at
+# 1024 px, the 768-px final pass: IP UNet and ControlNet), SiLU on
+GN_SHAPES = [("sd15_512_ip", (2, c, hw), n) for (c, hw), n in (
+    ((320, 4096), 13), ((640, 4096), 2), ((960, 4096), 1),
+    ((320, 1024), 1), ((640, 1024), 11), ((960, 1024), 1), ((1280, 1024), 1),
+    ((1920, 1024), 1), ((640, 256), 1), ((1280, 256), 11), ((1920, 256), 1),
+    ((2560, 256), 2), ((1280, 64), 12), ((2560, 64), 3))] + [
+    ("sdxl_1024", (2, c, hw), n) for (c, hw), n in (
+        ((320, 16384), 8), ((320, 4096), 1), ((640, 4096), 11),
+        ((960, 4096), 1), ((1280, 4096), 1), ((640, 1024), 1),
+        ((1280, 1024), 16), ((1920, 1024), 1), ((2560, 1024), 2))] + [
+    ("sd15_768_final", (2, c, hw), n) for (c, hw), n in (
+        ((320, 9216), 19), ((320, 2304), 2), ((640, 2304), 16),
+        ((960, 2304), 1), ((1280, 2304), 1), ((1920, 2304), 1),
+        ((640, 576), 2), ((1280, 576), 16), ((1920, 576), 1),
+        ((2560, 576), 2), ((1280, 144), 21), ((2560, 144), 3))]
+COLD_BYTES = 100e6
+
+
+def gn_name(b: int, c: int, hw: int) -> str:
+    return f"gn B{b} C{c} HW{hw}"
 
 
 def time_one(root: str) -> dict:
@@ -77,6 +102,18 @@ def time_one(root: str) -> dict:
             for _ in range(n):
                 fn()
         return dev_ms(graph.replay, 5) / n
+
+    def cold_ms(fn, inputs):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn(inputs[0])
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for xi in inputs:
+                fn(xi)
+        return dev_ms(graph.replay, 3) / len(inputs)
 
     def host_us(fn, n=200):
         fn()
@@ -125,6 +162,18 @@ def time_one(root: str) -> dict:
             return qm.quant_matmul(x, wq, ws, bias)
         out[f"qmm M{m} K{k} N{n}"] = dict(ms=graph_ms(qmm),
                                           host_us=host_us(qmm))
+    from theatergen_tpu_torch.ops import groupnorm as gn
+    for b, c, hw in dict.fromkeys(shape for _, shape, _ in GN_SHAPES):
+        xs = [rnd(b, c, hw) for _ in range(
+            max(4, -(-int(COLD_BYTES) // (2 * b * c * hw))))]
+        w, bias = rnd(c, scale=0.2) + 1, rnd(c, scale=0.1)
+
+        def norm(xi=xs[0]):
+            return gn.fused_group_norm(xi, w, bias, act="silu")
+        out[gn_name(b, c, hw)] = dict(ms=graph_ms(norm),
+                                      cold_ms=cold_ms(norm, xs),
+                                      host_us=host_us(norm))
+        del xs
     return out
 
 
@@ -158,10 +207,23 @@ def main() -> int:
     for name in runs[0]:
         old = [runs[i][name] for i in (0, 3)]
         new = [runs[i][name] for i in (1, 2)]
+        cold = (f"  cold {old[0]['cold_ms']:.5f}/{old[1]['cold_ms']:.5f} "
+                f"{new[0]['cold_ms']:.5f}/{new[1]['cold_ms']:.5f}"
+                if "cold_ms" in old[0] else "")
         print(f"{name:34s} {old[0]['ms']:.5f}/{old[1]['ms']:.5f} "
               f"{new[0]['ms']:.5f}/{new[1]['ms']:.5f} "
               f"{old[0]['host_us']:6.2f}/{old[1]['host_us']:6.2f} "
-              f"{new[0]['host_us']:6.2f}/{new[1]['host_us']:6.2f}")
+              f"{new[0]['host_us']:6.2f}/{new[1]['host_us']:6.2f}{cold}")
+    print(f"{'group_norm per UNet evaluation':34s} {'old ms':>17s} "
+          f"{'new ms':>17s} {'old cold ms':>17s} {'new cold ms':>17s}")
+    for model in dict.fromkeys(m for m, _, _ in GN_SHAPES):
+        sums = [{k: sum(run[gn_name(*shape)][k] * calls
+                        for m, shape, calls in GN_SHAPES if m == model)
+                 for k in ("ms", "cold_ms")} for run in runs]
+        print(f"{model:34s} {sums[0]['ms']:.5f}/{sums[3]['ms']:.5f} "
+              f"{sums[1]['ms']:.5f}/{sums[2]['ms']:.5f} "
+              f"{sums[0]['cold_ms']:.5f}/{sums[3]['cold_ms']:.5f} "
+              f"{sums[1]['cold_ms']:.5f}/{sums[2]['cold_ms']:.5f}")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=card, order=order, runs=runs), f, indent=1)

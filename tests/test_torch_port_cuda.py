@@ -531,6 +531,135 @@ def test_plain_path_launches_no_group_norm(monkeypatch):
     assert rel <= 2e-2
 
 
+def _gn_inputs(dev, b, c, h, w, seed, mean=0.0, std=1.0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(b, c, h, w, device=dev, generator=g) * std
+         + mean).to(torch.bfloat16)
+    scale = (1.0 + 0.2 * torch.randn(c, device=dev, generator=g)).to(
+        torch.bfloat16)
+    bias = (0.1 * torch.randn(c, device=dev, generator=g)).to(torch.bfloat16)
+    return x, scale, bias
+
+
+def _gn_forced_plan(c, hw, cluster, threads=256, chunks=4):
+    """A plan of the given cluster size and width; chunks = 0 keeps the
+    shares in registers."""
+    pieces = tgn.gn_pieces(c, hw, 32)
+    share = -(-pieces // cluster)
+    chunks = min(chunks, share)
+    return tgn.GnPlan(cluster, threads, share, chunks,
+                      tgn.gn_smem(share, c, hw, 32, chunks))
+
+
+# (C, H, W): a small group (8²×2560, 10 KB), a 64²×320 one (80 KB), and an
+# uneven one (27·152 = 4104 values a channel: 5130 pieces a slice, so 2,
+# 4 and 8 CTAs get shares of 2565; 1283 and 1281; 642 and 636)
+GN_FORCED = [(2560, 8, 8), (320, 64, 64), (320, 27, 152)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,h,w", GN_FORCED)
+@pytest.mark.parametrize("b", [1, 4])
+def test_group_norm_forced_cluster_sizes_on_card(monkeypatch, c, h, w, b):
+    """Every cluster size (1, 2, 4, 8), each at 128 and 256 threads, the
+    shares in shared memory and, where they fit, in registers, with and
+    without SiLU, at a mean of 0 and of 1024 (std 1.5): within
+    1e-2·max|ref| of the plain version, so the CTAs of a slice combine
+    their statistics into one centred variance, uneven shares included."""
+    dev = _card()
+    for mean, std in ((0.0, 1.0), (1024.0, 1.5)):
+        x, scale, bias = _gn_inputs(dev, b, c, h, w, c + b, mean, std)
+        for act in (None, "silu"):
+            ref = tgn.fused_group_norm_plain(x.float(), scale.float(),
+                                             bias.float(), act=act)
+            bound = 1e-2 * ref.abs().max()
+            plans = [_gn_forced_plan(c, h * w, cluster, threads, chunks)
+                     for cluster in (1, 2, 4, 8) for threads in (128, 256)
+                     for chunks in (4, 0)]
+            for plan in plans:
+                if (plan.chunks == 0
+                        and plan.share > plan.threads * tgn.GN_REG_PIECES):
+                    continue
+                monkeypatch.setattr(tgn, "launch_plan",
+                                    lambda *a, p=plan: p)
+                out = tgn.fused_group_norm(x, scale, bias, act=act)
+                torch.cuda.synchronize()
+                err = (out.float() - ref).abs().max()
+                assert err <= bound, (plan, mean, act, float(err))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,hw", [(320, 16384), (1280, 64), (2560, 144),
+                                  (640, 2304), (32, 8), (20480, 256)])
+def test_group_norm_planned_launch_at_every_batch_on_card(c, hw):
+    """The planner's launch at B = 1 to 8, from the largest slice the
+    gate admits (10 channels × 16384, 320 KB) to a one-piece one: within
+    1e-2·max|ref| of the plain version, and one launch a call."""
+    dev = _card()
+    side = int(hw ** 0.5)
+    h, w = (side, hw // side) if side * side == hw else (1, hw)
+    for b in range(1, 9):
+        x, scale, bias = _gn_inputs(dev, b, c, h, w, b * 7 + c, 1024.0, 1.5)
+        n0 = tgn.launches
+        out = tgn.fused_group_norm(x, scale, bias, act="silu")
+        torch.cuda.synchronize()
+        assert tgn.launches - n0 == 1
+        ref = tgn.fused_group_norm_plain(x.float(), scale.float(),
+                                         bias.float(), act="silu")
+        err = (out.float() - ref).abs().max()
+        assert err <= 1e-2 * ref.abs().max(), (b, tgn.launch_plan(
+            b, c, hw, 32), float(err))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", [8, 16])
+def test_group_norm_other_group_counts_on_card(groups):
+    """8 and 16 groups (slices of 4 and 2 times the size, up to 1.28 MB
+    at 64²×1280 with 8 groups: eight CTAs of 160 KB) at mean 1024, std
+    1.5: within 1e-2·max|ref| of the plain version."""
+    dev = _card()
+    for c, h in ((1280, 8), (320, 64), (1280, 64)):
+        x, scale, bias = _gn_inputs(dev, 2, c, h, h, c + h, 1024.0, 1.5)
+        out = tgn.fused_group_norm(x, scale, bias, num_groups=groups,
+                                   act="silu")
+        ref = tgn.fused_group_norm_plain(x.float(), scale.float(),
+                                         bias.float(), num_groups=groups,
+                                         act="silu")
+        torch.cuda.synchronize()
+        err = (out.float() - ref).abs().max()
+        assert err <= 1e-2 * ref.abs().max(), (c, h, groups, float(err))
+
+
+@pytest.mark.cuda
+def test_group_norm_wrapper_raises_on_a_plan_the_kernel_cannot_take(
+        monkeypatch):
+    """A cluster size that is not 1, 2, 4 or 8; a cluster that leaves a
+    CTA without a piece; shares that do not cover the slice; too little
+    shared memory; 1024 threads; five chunks; a share in registers over
+    GN_REG_PIECES a thread: each raises, and no launch is counted."""
+    dev = _card()
+    x, scale, bias = _gn_inputs(dev, 2, 320, 64, 64, 0)
+    good = _gn_forced_plan(320, 4096, 2)
+    pieces = tgn.gn_pieces(320, 4096, 32)
+    bad = [good._replace(cluster=3), good._replace(cluster=16),
+           tgn.GnPlan(8, 256, pieces // 6, 4, 16 * pieces),
+           good._replace(share=good.share - 1),
+           good._replace(smem=16 * good.share),
+           good._replace(threads=1024), good._replace(threads=100),
+           good._replace(chunks=5),
+           good._replace(chunks=0, threads=64)]
+    n0 = tgn.launches
+    for plan in bad:
+        monkeypatch.setattr(tgn, "launch_plan", lambda *a, p=plan: p)
+        with pytest.raises(RuntimeError):
+            tgn.fused_group_norm(x, scale, bias)
+    assert tgn.launches == n0
+    monkeypatch.setattr(tgn, "launch_plan", lambda *a: good)
+    tgn.fused_group_norm(x, scale, bias)
+    torch.cuda.synchronize()
+    assert tgn.launches == n0 + 1
+
+
 # (M, K, N) of the SD1.5 W8A8 UNet's quant_matmul calls (CFG batch 2)
 QMM_PATH_SHAPES = [
     (8192, 320, 320), (154, 768, 320), (8192, 320, 2560), (8192, 1280, 320),

@@ -1,12 +1,13 @@
 // Shared device helpers for the port's hand-written Hopper kernels:
 // bf16 tensor-core MMA (mma.sync m16n8k16, fp32 accumulate), fragment
 // packing, 32-bit shared and 128-bit global loads; and for sm_90a:
-// mbarriers, TMA tile loads and their tensor maps, thread-block-cluster
-// barriers and distributed shared memory, warpgroup MMA (wgmma m64nNk16,
-// bf16 -> fp32; m64n160k32, s8 -> s32) on 128-byte-swizzled shared-memory
-// tiles; and the two pieces that ff_geglu.cu and geglu_matmul.cu share: a
-// cluster's exchange of bf16 h pieces feeding a [128, 160] down-product,
-// and the split reduction of its fp32 output tile.
+// mbarriers, TMA tile loads and their tensor maps, 1-D bulk copies,
+// thread-block-cluster barriers and distributed shared memory, warpgroup
+// MMA (wgmma m64nNk16, bf16 -> fp32; m64n160k32, s8 -> s32) on
+// 128-byte-swizzled shared-memory tiles; and the two pieces that
+// ff_geglu.cu and geglu_matmul.cu share: a cluster's exchange of bf16 h
+// pieces feeding a [128, 160] down-product, and the split reduction of its
+// fp32 output tile.
 #pragma once
 
 #include <cuda.h>
@@ -123,6 +124,19 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t sr
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
+
+// ---- 1-D bulk copies (no tensor map) ----
+// `bytes` (a multiple of 16) from global src to this CTA's shared memory
+// at dst, both 16-byte aligned, by the bulk-copy engine; completion counts
+// on bar's transactions
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+
 // hand registers between warpgroups: the producer's gives some up, the
 // consumers' take them (ptxas then compiles each side to its own count)
 template <int N>
@@ -173,6 +187,12 @@ __device__ __forceinline__ uint32_t cluster_ctarank() {
   asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
   return r;
 }
+// CTAs in this cluster (1 for a launch without a cluster dimension)
+__device__ __forceinline__ uint32_t cluster_nctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
 // every thread of every CTA of the cluster arrives (release: its shared
 // writes before it become visible to the cluster) ...
 __device__ __forceinline__ void cluster_arrive() {
@@ -181,6 +201,11 @@ __device__ __forceinline__ void cluster_arrive() {
 // ... and waits for all of them (acquire)
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// an arrival that releases nothing: after fence.mbarrier_init, it tells
+// the peers that this CTA's mbarriers exist
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 }
 // the shared::cluster address of p's offset in CTA `rank` of this cluster
 __device__ __forceinline__ uint32_t cluster_addr(const void* p, uint32_t rank) {
@@ -207,6 +232,17 @@ __device__ __forceinline__ uint4 ld_dsmem128(const void* p, uint32_t rank) {
   return v;
 }
 
+// 16 bytes to the same shared offset as p in CTA `rank` of this cluster;
+// completion counts 16 bytes on the transactions of the mbarrier at bar's
+// offset in that CTA
+__device__ __forceinline__ void st_async128(const void* p, uint4 v, uint64_t* bar,
+                                            uint32_t rank) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32"
+      " [%0], {%1, %2, %3, %4}, [%5];\n"
+      :: "r"(cluster_addr(p, rank)), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w),
+         "r"(cluster_addr(bar, rank)) : "memory");
+}
 // `bytes` (a multiple of 16) from this CTA's shared memory at src to the
 // same offset in CTA `rank`, by the bulk-copy engine; completion counts on
 // the transactions of the mbarrier at bar's offset in that CTA
