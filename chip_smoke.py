@@ -7,12 +7,16 @@
 Phases, in order (any failure exits non-zero):
   1. the card's name and power limit;
   2. build every kernel of ``theatergen_tpu_torch/csrc`` with nvcc (sm_90a),
-     one process per source, all at once;
+     one process per source, all at once; derive each evaluation kind's
+     launches (CFG or cond-only, full or DeepCache-shallow; ControlNet)
+     from the routing functions (``eval_launches``) and hold them to the
+     constants of the earlier paths;
   3. hold each kernel against its plain PyTorch version (fp32 from the same
      bf16 inputs) at every shape its main paths give it (GroupNorm also with
      and without SiLU and with a large-mean input; flash on each of its
      four routes' counters, d = 160 and Sq != Sk included, and sequence
-     parallelism's query shards, concatenated, against the unsharded call);
+     parallelism's query shards, concatenated, against the unsharded call),
+     batch-1 (cond-only) shapes included;
   4. time kernel, plain version and a library yardstick at those shapes,
      printing each flash, FF, geglu_matmul, group_norm and quant_matmul
      launch plan (cluster size, rows per CTA or cluster, keys per K/V tile,
@@ -23,6 +27,10 @@ Phases, in order (any failure exits non-zero):
   5. SD1.5: ``init_bundle(sd15_config())``, one full-size UNet evaluation
      with the kernels against the same UNet under ``plain_path()``, then
      ``Text2Img(bundle, num_steps=50)`` on three prompts at 512 px, CFG 7.5;
+     then one request with DeepCache every 3rd step, and one 4-step LCM
+     request on a copy of the UNet with a seeded synthetic LoRA (rank 64,
+     every attention projection and FF linear) merged by
+     ``apply_lora_unet``;
   6. W8A8 SD1.5: the SD1.5 bundle freed, ``init_bundle`` of
      ``sd15_config()`` with ``quantized=True`` (the seeded float weights
      quantized), the same UNet check at ``THEATERGEN_FUSED_INT8`` "1",
@@ -35,7 +43,8 @@ Phases, in order (any failure exits non-zero):
      (flash's row-3 route) and under ``THEATERGEN_FLASH_FLAT=0`` (row 4);
   7. SDXL: the W8A8 bundle freed, ``init_bundle(sdxl_config())``, the same
      UNet check, then ``Text2ImgXL(bundle, num_steps=30)`` on two prompts at
-     1024 px, Euler-Ancestral, CFG 7.5;
+     1024 px, Euler-Ancestral, CFG 7.5, and one 4-step LCM request (the
+     config's ``scheduler_type`` replaced);
   8. the IP-Adapter character pass:
      ``init_bundle(sd15_config(), with_ip=True, with_vision=True)``, the IP
      UNet with the kernels against ``plain_path()`` (``THEATERGEN_FUSED_GN``
@@ -56,6 +65,10 @@ Phases, in order (any failure exits non-zero):
      evaluation, with the FF and flash kernels' shares of it (also at
      768 px); and one final-pass evaluation under
      ``THEATERGEN_FLASH_BSHD=1``, whose launches stay on the packed route;
+     then DeepCache (``deepcache_phase``): the IP UNet's shallow evaluation
+     from the cache of a full one, held to it and to ``plain_path()``, the
+     launches of every evaluation kind, and its device and wall ms beside
+     a full evaluation's;
  10. the same at 768 px (the bundle's config with ``pipeline.height`` and
      ``width`` replaced, one character), where level-0 self-attention runs
      9216 tokens: the flash kernel's long route; then the check and one
@@ -64,10 +77,16 @@ Phases, in order (any failure exits non-zero):
  11. a whole story dialogue through the CLI, ``cli.generate.main``: the 4
      turns of dialogue_0 of data/sample/story.json at 512 px, 50 steps,
      its own random-weight bundle, output tree and character DB; each
-     turn's launches against its character attempts.
+     turn's launches against its character attempts; then the same with
+     the CLI's knobs (TURN_KNOBS): ``--deepcache 3 --cfg_cutoff 0.5
+     --cn_interval 2`` with ``--profile`` (its trace checked on disk) and
+     without, ``--scheduler lcm`` at 4 steps, and Euler-Ancestral with
+     v-prediction and zero terminal SNR at 30 steps.
 Every launch counter is set to 0 just before each request (or turn) and
-read just after it, and must equal the constant launches per request of
-each kernel (SD1.5, W8A8 and SDXL under the GroupNorm switch's default).
+read just after it, and must equal the launches per request of each
+kernel: the constants of the SD1.5, W8A8 and SDXL requests under the
+GroupNorm switch's default, and elsewhere ``request_want`` over the
+request's step plan.
 The script sets flash's switches itself and refuses to start when one is
 set in the environment.  Then one
 JSON line of kernel records and, last, the device line.  ``--profile``
@@ -85,7 +104,9 @@ import collections
 import contextlib
 import gc
 import json
+import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -102,6 +123,7 @@ from theatergen_tpu_torch import theater
 from theatergen_tpu_torch.config import sd15_config, sdxl_config
 from theatergen_tpu_torch.models.layers import (GroupNorm, QuantLinear,
                                                  plain_path)
+from theatergen_tpu_torch.models.lora import apply_lora_unet
 from theatergen_tpu_torch.ops.attention import multi_head_attention
 from theatergen_tpu_torch.ops import flash_attention as fa
 from theatergen_tpu_torch.ops import geometry
@@ -132,13 +154,17 @@ FINAL, FINAL_768, CHAR_768 = "sd15_512_final", "sd15_768_final", "sd15_768_ip"
 SD15_1024, SP2_768, SP4_768 = "sd15_1024", "sd15_768_sp2", "sd15_768_sp4"
 # a whole story turn through the CLI (dialogue_0 of data/sample/story.json)
 TURN = "sd15_512_turn"
+# batch-1 evaluations (no CFG: the CFG cutoff's tail, every LCM step) of
+# SD1.5 at 512 px and SDXL at 1024 px
+SD15_B1, SDXL_B1 = "sd15_512_cond", "sdxl_1024_cond"
 # (model, shape, calls per UNet evaluation of that model); batch 1 with
 # CFG, so 2 rows.  SD1.5: 10 transformer blocks at 64²/32²/16²/8²;
 # SDXL: 10 blocks at 64² (4 down, 6 up) and 60 at 32² (20 down, 10 mid,
 # 30 up), head dim 64 throughout, FF split (geglu_matmul)
 FLASH_SHAPES = [(SD15, (2, 4096, 8, 40), 5), (SD15, (2, 1024, 8, 80), 5),
                 (SDXL, (2, 4096, 10, 64), 10), (SDXL, (2, 1024, 20, 64), 60),
-                (SD15_1024, (2, 1024, 8, 160), 5)]
+                (SD15_1024, (2, 1024, 8, 160), 5),
+                (SD15_B1, (1, 4096, 8, 40), 5), (SD15_B1, (1, 1024, 8, 80), 5)]
 # the long route (past 4096 tokens): SD1.5 at 768 px, level 0 (96²), 5 calls
 # in the IP UNet and 2 in the ControlNet per final-pass evaluation
 FLASH_LONG_SHAPES = [(FINAL_768, (2, 9216, 8, 40), 7)]
@@ -158,8 +184,14 @@ FF_SHAPES = [(SD15, (8192, 320, 1280), 5), (SD15, (2048, 640, 2560), 5),
              (SD15, (512, 1280, 5120), 5), (SD15, (128, 1280, 5120), 1),
              (FINAL_768, (18432, 320, 1280), 7),
              (FINAL_768, (4608, 640, 2560), 7),
-             (FINAL_768, (1152, 1280, 5120), 7)]
-GEGLU_SHAPES = [(SDXL, (8192, 2560, 640), 10), (SDXL, (2048, 5120, 1280), 60)]
+             (FINAL_768, (1152, 1280, 5120), 7),
+             (SD15_B1, (4096, 320, 1280), 5), (SD15_B1, (1024, 640, 2560), 5),
+             (SD15_B1, (256, 1280, 5120), 5)]
+# batch 1 (SD1.5 cond-only): the mid block's 64 rows take neither FF
+# kernel (no row block of 128 or more divides 64), as in the JAX package
+GEGLU_SHAPES = [(SDXL, (8192, 2560, 640), 10), (SDXL, (2048, 5120, 1280), 60),
+                (SDXL_B1, (4096, 2560, 640), 10),
+                (SDXL_B1, (1024, 5120, 1280), 60)]
 # quant_matmul's (M, K, N) in one W8A8 SD1.5 UNet evaluation (CFG batch 2)
 # and calls per evaluation (184): per transformer block the six (M, C, C)
 # projections, to_k/to_v of the 77-token context (M = 154, K = 768),
@@ -182,11 +214,13 @@ QMM_PER_EVAL = 184
 # gate's size limit and stay on F.group_norm.  The 768-px final pass: the
 # IP UNet's 58 (96²×640 and 96²×960 fail the size limit) and the
 # ControlNet's 27
-GN_SHAPES = [(CHAR, (2, c, hw), n) for (c, hw), n in (
+GN_SD15_SITES = (
     ((320, 4096), 13), ((640, 4096), 2), ((960, 4096), 1),
     ((320, 1024), 1), ((640, 1024), 11), ((960, 1024), 1), ((1280, 1024), 1),
     ((1920, 1024), 1), ((640, 256), 1), ((1280, 256), 11), ((1920, 256), 1),
-    ((2560, 256), 2), ((1280, 64), 12), ((2560, 64), 3))] + [
+    ((2560, 256), 2), ((1280, 64), 12), ((2560, 64), 3))
+GN_SHAPES = [(CHAR, (2, c, hw), n) for (c, hw), n in GN_SD15_SITES] + [
+    (SD15_B1, (1, c, hw), n) for (c, hw), n in GN_SD15_SITES] + [
     (SDXL, (2, c, hw), n) for (c, hw), n in (
         ((320, 16384), 8), ((320, 4096), 1), ((640, 4096), 11),
         ((960, 4096), 1), ((1280, 4096), 1), ((640, 1024), 1),
@@ -215,6 +249,23 @@ PER_EVAL = {CHAR: dict(flash_attention=10, ff_geglu=16),
 # such a variant failing the bound that the kernel meets)
 GN_LARGE_MEAN, GN_LARGE_STD = 1024.0, 1.5
 SD15_STEPS, SDXL_STEPS = 50, 30
+# the knob requests: Text2Img with DeepCache every 3rd step (50 DDIM
+# steps), and LCM at 4 steps (SD1.5 after a synthetic LCM-LoRA merge of
+# rank LORA_RANK, and SDXL)
+DEEPCACHE_INTERVAL, LCM_STEPS, LORA_RANK = 3, 4, 64
+# the CLI's knob runs over dialogue_0: (label, flags, steps, the step plan's
+# knobs); the first also writes the --profile trace (checked, then deleted:
+# about 1 GB), so the second times the same knobs without the profiler
+TURN_KNOBS = (
+    ("a", ["--deepcache", "3", "--cfg_cutoff", "0.5", "--cn_interval", "2",
+           "--profile"], 50, dict(deepcache=3, cutoff=0.5, cn_interval=2)),
+    ("a_unprofiled", ["--deepcache", "3", "--cfg_cutoff", "0.5",
+                      "--cn_interval", "2"], 50,
+     dict(deepcache=3, cutoff=0.5, cn_interval=2)),
+    ("b", ["--scheduler", "lcm"], 4, dict(sampler="lcm")),
+    ("c", ["--scheduler", "euler_ancestral", "--prediction_type",
+           "v_prediction", "--zero_snr"], 30,
+     dict(sampler="euler_ancestral")))
 # the flash switches that send attention down rows 3 and 4: (environment
 # setting, module attributes, counter).  In the W8A8 UNet (no packed
 # projections) BSHD takes every flash site and FLAT=0 sends them to the
@@ -706,13 +757,172 @@ def _record(name, source, replaces, tpu_function, rows) -> dict:
             "UNet, sd15_768_final: the IP UNet and the ControlNet of the "
             "768-px final pass, sd15_1024: SD1.5 1024 px, sd15_768_sp2/4: "
             "one rank's share of the 768-px final pass over 2/4 "
-            "sequence-parallel ranks), batch 1 with CFG",
+            "sequence-parallel ranks), batch 1 with CFG; sd15_512_cond and "
+            "sdxl_1024_cond: one batch-1 evaluation without CFG (the CFG "
+            "cutoff's tail, every LCM step), whose launches are the LCM "
+            "requests'",
         per_model=per_model, shapes=rows)
 
 
 def gn_want(model: str, steps: int) -> int:
     """GroupNorm kernel launches of one request under the current switch."""
     return GN_PER_EVAL[model] * steps if gn.FUSED_MODE == "1" else 0
+
+
+# flash's route counters by the wrapper's attribute
+FLASH_COUNTERS = {attr: name for name, (mod, attr) in COUNTERS.items()
+                  if mod is fa}
+
+
+def eval_launches(ucfg, side: int, batch: int, shallow: bool = False,
+                  encoder_only: bool = False, cache_level: int = 1):
+    """Kernel launches of one evaluation of a UNet (``encoder_only``: a
+    ControlNet, its encoder and mid block) of config ``ucfg`` on a
+    ``side``² latent at ``batch`` rows, derived from the layers' routing
+    functions at each site's shape (``fa.route`` for self-attention,
+    ``gg.ff_supported`` then ``gg.supported`` for the FF,
+    ``gn.routes`` under the current switch for a bf16 GroupNorm), walking
+    the modules in forward order.  ``shallow``: DeepCache's shallow
+    forward, the first ``cache_level`` levels of the encoder (without
+    their last downsampler) and the last ``cache_level`` up blocks.
+    ``quant_matmul`` is not derived here (its W8A8 requests keep
+    QMM_PER_EVAL)."""
+    got = collections.Counter()
+    boc, n, lpb = ucfg.block_out_channels, len(ucfg.block_out_channels), \
+        ucfg.layers_per_block
+
+    def norm(c, level):
+        s = side >> level
+        if ucfg.fast_norm and gn.routes((batch, c, s, s), torch.bfloat16,
+                                        ucfg.norm_num_groups):
+            got["group_norm"] += 1
+
+    def resnet(cin, cout, level):
+        norm(cin, level)
+        norm(cout, level)
+
+    def transformer(level, ch):
+        norm(ch, level)
+        heads, hw = ucfg.heads_at(level), (side >> level) ** 2
+        for _ in range(ucfg.depth_at(level)):
+            route = fa.route(hw, hw, heads, ch // heads, 2, ucfg.quantized) \
+                if ucfg.flash_attention else None
+            if route is not None:
+                got[FLASH_COUNTERS[fa.COUNTERS[route]]] += 1
+            m, k = batch * hw, 4 * ch
+            if ucfg.quantized:
+                continue
+            if ucfg.fused_ff and gg.ff_supported(m, ch, k):
+                got["ff_geglu"] += 1
+            elif gg.supported(m, k, ch):
+                got["geglu_matmul"] += 1
+
+    levels = cache_level if shallow else n
+    skips, h_ch = [boc[0]], boc[0]
+    for i in range(levels):
+        for _ in range(lpb):
+            resnet(h_ch, boc[i], i)
+            h_ch = boc[i]
+            if ucfg.attention_levels[i]:
+                transformer(i, boc[i])
+            skips.append(h_ch)
+        if i < levels - 1:
+            skips.append(h_ch)
+    if not shallow:
+        resnet(boc[-1], boc[-1], n - 1)
+        transformer(n - 1, boc[-1])
+        resnet(boc[-1], boc[-1], n - 1)
+    if encoder_only:
+        return got
+    h_ch = boc[min(cache_level, n - 1)] if shallow else boc[-1]
+    for idx in range(n - levels if shallow else 0, n):
+        i = n - 1 - idx
+        for _ in range(lpb + 1):
+            resnet(h_ch + skips.pop(), boc[i], i)
+            h_ch = boc[i]
+            if ucfg.attention_levels[i]:
+                transformer(i, boc[i])
+    norm(boc[0], 0)
+    return got
+
+
+def step_plan(steps: int, sampler: str = "ddim", cutoff=None,
+              deepcache=None, cn_interval=None) -> list:
+    """Per step of a runner, ``(cfg, full, controlnet)``: whether it runs
+    CFG (batch 2; cond-only after the cutoff, ``ceil(cutoff·steps)`` at
+    least 1, and every LCM step), a full UNet forward (step 0 and every
+    ``deepcache``-th; shallow in between) and a fresh ControlNet forward
+    (every ``cn_interval``-th step)."""
+    if sampler == "lcm":
+        cut = 0
+    elif cutoff is None or cutoff >= 1:
+        cut = steps
+    else:
+        cut = max(1, min(steps, math.ceil(cutoff * steps)))
+    dc = deepcache if deepcache and deepcache > 1 else 1
+    cn = cn_interval if cn_interval and cn_interval > 1 else 1
+    return [(i < cut, i % dc == 0, i % cn == 0) for i in range(steps)]
+
+
+def request_want(ucfg, side: int, plan, cn_cfg=None) -> dict:
+    """Launches of one request: its UNet evaluations by kind (CFG or
+    cond-only, full or shallow) and, with ``cn_cfg``, the ControlNet
+    forwards of its plan, each kind's launches from eval_launches."""
+    kinds = collections.Counter()
+    for cfg_on, full, cn in plan:
+        b = 2 if cfg_on else 1
+        kinds[("unet", b, not full)] += 1
+        if cn_cfg is not None and cn:
+            kinds[("controlnet", b, False)] += 1
+    total = collections.Counter()
+    for (what, b, shallow), k in kinds.items():
+        per = eval_launches(cn_cfg if what == "controlnet" else ucfg, side, b,
+                            shallow, encoder_only=what == "controlnet")
+        for name, v in per.items():
+            total[name] += k * v
+    return counts(**total)
+
+
+def derivation_check() -> None:
+    """eval_launches against the constants the earlier paths are gated
+    with (SD1.5, SDXL, the character and final passes at 512 and 768 px,
+    full CFG evaluations, switch "1"), and each evaluation kind's
+    launches printed; a mismatch fails before any request runs."""
+    prev, gn.FUSED_MODE = gn.FUSED_MODE, "1"
+    sd, xl = sd15_config(), sdxl_config()
+    try:
+        want = {
+            SD15: (eval_launches(sd.unet, 64, 2),
+                   dict(flash_attention=10, ff_geglu=16, group_norm=61)),
+            SDXL: (eval_launches(xl.unet, 128, 2),
+                   dict(flash_attention=70, geglu_matmul=70, group_norm=42))}
+        for model, px in ((CHAR, 64), (CHAR_768, 96)):
+            want[model] = (eval_launches(sd.unet, px, 2),
+                           dict(PER_EVAL[model], group_norm=GN_PER_EVAL[model]))
+        for model, px in ((FINAL, 64), (FINAL_768, 96)):
+            got = eval_launches(sd.unet, px, 2) + eval_launches(
+                sd.controlnet.unet, px, 2, encoder_only=True)
+            want[model] = (got, dict(PER_EVAL[model],
+                                     group_norm=GN_PER_EVAL[model]))
+        bad = [m for m, (got, ref) in want.items() if counts(**got) != counts(
+            **ref)]
+        for model, (got, _) in want.items():
+            log(f"  derived launches per {model} evaluation: {dict(got)}")
+        for name, ucfg, px in (("SD1.5 512 px", sd.unet, 64),
+                               ("ControlNet 512 px", sd.controlnet.unet, 64),
+                               ("SDXL 1024 px", xl.unet, 128)):
+            enc = name.startswith("ControlNet")
+            kinds = {f"{'cfg' if b == 2 else 'cond'}"
+                     f"{'_shallow' if sh else ''}": dict(eval_launches(
+                         ucfg, px, b, sh, encoder_only=enc))
+                     for b in (2, 1) for sh in ((False,) if enc
+                                                else (False, True))}
+            log(f"  {name} evaluation kinds: {json.dumps(kinds)}")
+    finally:
+        gn.FUSED_MODE = prev
+    if bad:
+        raise SystemExit(f"derived launches disagree with the constants of "
+                         f"{bad}")
 
 
 def unet_inputs(bundle, seed: int, t_value: int, ctx_len: int = None):
@@ -808,10 +1018,83 @@ def sd15_path(records, profiling: bool) -> dict:
     peak = torch.cuda.max_memory_allocated()
     log(f"  seconds per request {seconds}; peak memory "
         f"{peak / 2 ** 30:.3f} GiB")
+    knobs = sd15_knob_requests(bundle, records)
     if profiling:
         profile(bundle, sd.encode_prompts)
     return dict(seconds_per_request=seconds, peak_bytes=peak,
-                unet_kernels_vs_plain_rel=rel), eps
+                unet_kernels_vs_plain_rel=rel, knob_requests=knobs), eps
+
+
+def with_pipeline(bundle, **fields):
+    """The bundle under a config whose ``pipeline`` fields are replaced
+    (the same modules)."""
+    cfg = bundle.cfg
+    return dataclasses.replace(bundle, cfg=dataclasses.replace(
+        cfg, pipeline=dataclasses.replace(cfg.pipeline, **fields)))
+
+
+def synthetic_lora(unet, rank: int, seed: int) -> dict:
+    """A seeded LoRA in peft/diffusers names over every attention
+    projection (``attn1``/``attn2`` ``to_q``, ``to_k``, ``to_v``,
+    ``to_out.0``) and FF linear (``ff.net.0.proj``, ``ff.net.2``) of the
+    UNet: A ~ N(0, 1/in), B ~ N(0, 0.01²/rank)."""
+    rng = np.random.RandomState(seed)
+    pat = re.compile(r".*\.(attn[12]\.(to_q|to_k|to_v|to_out\.0)|"
+                     r"ff\.net\.(0\.proj|2))$")
+    sd_ = {}
+    for name, mod in unet.named_modules():
+        if pat.fullmatch(name):
+            out_f, in_f = mod.weight.shape
+            sd_[f"unet.{name}.lora_A.weight"] = (
+                rng.randn(rank, in_f) / np.sqrt(in_f)).astype(np.float32)
+            sd_[f"unet.{name}.lora_B.weight"] = (
+                rng.randn(out_f, rank) * 0.01 / np.sqrt(rank)).astype(
+                np.float32)
+    return sd_
+
+
+def sd15_knob_requests(bundle, records) -> dict:
+    """Text2Img with the knobs on the SD1.5 bundle: one 50-step DDIM
+    request with DeepCache every DEEPCACHE_INTERVAL-th step (the config's
+    ``deepcache_interval``), and one LCM_STEPS-step LCM request after
+    ``apply_lora_unet`` merges a seeded synthetic LoRA (rank LORA_RANK, every
+    attention projection and FF linear) into a copy of the UNet; each
+    request's launches gated by request_want."""
+    t0 = time.perf_counter()
+    ucfg = bundle.cfg.unet
+    dc = sd.Text2Img(with_pipeline(bundle,
+                                   deepcache_interval=DEEPCACHE_INTERVAL),
+                     num_steps=SD15_STEPS)
+    want = request_want(ucfg, 64, step_plan(SD15_STEPS,
+                                             deepcache=DEEPCACHE_INTERVAL))
+    log(f"  Text2Img, DeepCache every {DEEPCACHE_INTERVAL}rd step:")
+    dc_s = run_requests(SD15 + "_deepcache", dc, PROMPTS[:1], want, 512,
+                        records)
+    t1 = time.perf_counter()
+    lora = synthetic_lora(bundle.unet, LORA_RANK, 11)
+    merged = apply_lora_unet(bundle.unet, lora)
+    torch.cuda.synchronize()
+    merge_s = time.perf_counter() - t1
+    moved = sum(not torch.equal(a, b) for a, b in zip(
+        merged.parameters(), bundle.unet.parameters()))
+    log(f"  apply_lora_unet: {len(lora) // 2} modules of rank {LORA_RANK} "
+        f"merged into a copy in {merge_s:.3f} s; {moved} tensors changed")
+    if moved != len(lora) // 2:
+        raise SystemExit(f"LoRA merge changed {moved} tensors, want "
+                         f"{len(lora) // 2}")
+    lcm = sd.Text2Img(dataclasses.replace(bundle, unet=merged),
+                      num_steps=LCM_STEPS, sampler="lcm")
+    want = request_want(ucfg, 64, step_plan(LCM_STEPS, "lcm"))
+    log(f"  Text2Img, LCM {LCM_STEPS} steps on the LoRA-merged UNet:")
+    lcm_s = run_requests(SD15_B1, lcm, PROMPTS[:1], want, 512, records)
+    del merged, lcm
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = dict(deepcache_seconds=dc_s, lcm_lora_seconds=lcm_s,
+               lora_modules=len(lora) // 2, lora_merge_seconds=merge_s,
+               phase_seconds=time.perf_counter() - t0)
+    log(f"  knob requests phase: {out['phase_seconds']:.1f} s")
+    return out
 
 
 def w8a8_sites_phase(bundle) -> None:
@@ -929,8 +1212,16 @@ def sdxl_path(records, profiling: bool) -> dict:
     peak = torch.cuda.max_memory_allocated()
     log(f"  seconds per request {seconds}; peak memory "
         f"{peak / 2 ** 30:.3f} GiB")
+    t0 = time.perf_counter()
+    log(f"  Text2ImgXL, LCM {LCM_STEPS} steps (the config's scheduler_type "
+        f"\"lcm\"):")
+    lcm = sdxl.Text2ImgXL(with_pipeline(bundle, scheduler_type="lcm"),
+                          num_steps=LCM_STEPS)
+    lcm_s = run_requests(SDXL_B1, lcm, PROMPTS[:1], request_want(
+        bundle.cfg.unet, 128, step_plan(LCM_STEPS, "lcm")), 1024, records)
+    log(f"  SDXL LCM phase: {time.perf_counter() - t0:.1f} s")
     out = dict(seconds_per_request=seconds, peak_bytes=peak,
-               unet_kernels_vs_plain_rel=rel)
+               unet_kernels_vs_plain_rel=rel, lcm_seconds=lcm_s)
     if profiling:
         profile(bundle, sdxl.encode_prompts_xl)
         out["gn_ab_device_ms"] = gn_ab_profile(bundle, bundle.unet)
@@ -940,10 +1231,16 @@ def sdxl_path(records, profiling: bool) -> dict:
     return out
 
 
-def path_want(model: str, steps: int = SD15_STEPS) -> dict:
-    """Launches of one request of a character or final path."""
-    return counts(**{k: v * steps for k, v in PER_EVAL[model].items()},
-                  group_norm=gn_want(model, steps))
+def path_want(model: str, steps: int = SD15_STEPS, **knobs) -> dict:
+    """Launches of one request of a character or final path (the final
+    pass's ControlNet forwards included) under the step plan of
+    ``knobs`` (step_plan), from request_want."""
+    cfg = sd15_config()
+    side = (768 if model in (CHAR_768, FINAL_768) else 512) // 8
+    cn = cfg.controlnet.unet if model in (FINAL, FINAL_768) else None
+    if cn is None:
+        knobs.pop("cn_interval", None)
+    return request_want(cfg.unet, side, step_plan(steps, **knobs), cn)
 
 
 def character_request(bundle, run, image, i: int, scale: float,
@@ -1313,6 +1610,103 @@ def back_half(bundle, records, char_model: str, model: str,
                 peak_bytes=peak, final_eval=times, switched=switched)
 
 
+def device_ms(fn) -> float:
+    """Device ms of one call of ``fn``: the kernels' self device time in
+    torch.profiler, summed."""
+    from torch.profiler import ProfilerActivity, profile as prof
+    fn()
+    torch.cuda.synchronize()
+    with prof(activities=[ProfilerActivity.CUDA]) as p:
+        fn()
+        torch.cuda.synchronize()
+    return sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+               for e in p.key_averages()
+               if not e.key.startswith("aten::")) / 1e3
+
+
+def deepcache_phase(bundle) -> dict:
+    """DeepCache on the card, at 512 px on the back half's IP UNet with
+    ControlNet residuals: one full evaluation with
+    ``return_deep_cache=True``, then the shallow evaluation from that
+    cache at the same inputs, which must agree with the full one within
+    1e-2·max|ref| (the same computation: the shallow forward recomputes
+    the encoder prefix and the last up block with the same kernels at the
+    same shapes), and the shallow evaluation with the kernels against
+    itself under plain_path() within 5e-2·max|ref|.  Each of the four
+    evaluation kinds (CFG or cond-only, full or shallow) launches what
+    eval_launches derives, and the ControlNet at batch 1 too.  Then the
+    device and wall ms of a shallow evaluation beside a full one (batch 2;
+    wall: CUDA events over 5 back to back)."""
+    t0 = time.perf_counter()
+    text_len = bundle.cfg.text.max_length
+    x, t, ctx, cond = final_inputs(bundle, 33)
+    unet, ucfg = bundle.unet_ip, bundle.unet_ip.cfg
+    ip_scale = torch.tensor(IP_SCALE_FINAL, device="cuda")
+    bad, launches = [], {}
+
+    def counted(what, want, fn):
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = read_counts()
+        launches[what] = got
+        if got != counts(**want):
+            bad.append(f"{what}: launches {got}, want {counts(**want)}")
+        return out
+
+    with torch.no_grad():
+        rows = {}
+        for b in (2, 1):
+            xb, tb_, cb = x[-b:], t[-b:], ctx[-b:]
+            res = counted(f"controlnet b{b}", eval_launches(
+                bundle.controlnet.cfg, 64, b, encoder_only=True),
+                lambda: bundle.controlnet(xb, tb_, cb[:, :text_len],
+                                          cond[-b:]))
+            kw = dict(ip_scale=ip_scale, down_residuals=res[0],
+                      mid_residual=res[1])
+            full, cache = counted(f"full b{b}", eval_launches(ucfg, 64, b),
+                                  lambda: unet(xb, tb_, cb,
+                                               return_deep_cache=True, **kw))
+            shallow = counted(f"shallow b{b}",
+                              eval_launches(ucfg, 64, b, shallow=True),
+                              lambda: unet(xb, tb_, cb, deep_cache=cache,
+                                           **kw))
+            rows[b] = (full.float(), shallow.float(), cache, kw)
+        full, shallow, cache, kw = rows[2]
+        with plain_path():
+            plain = unet(x, t, ctx, deep_cache=cache, **kw).float()
+        err = (shallow - full).abs().max().item()
+        bit_equal = bool(torch.equal(shallow, full))
+        check(err, full.abs().max().item(),
+              f"shallow evaluation from its own cache vs the full one "
+              f"(bit for bit: {bit_equal})")
+        rel = ((shallow - plain).abs().max() / plain.abs().max()).item()
+        ok = bool(torch.isfinite(shallow).all()) and rel <= 5e-2
+        log(f"  shallow evaluation, kernels vs plain path: max|diff|/max|ref| "
+            f"{rel:.3e} (bound 5e-2)  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append("the shallow evaluation disagrees with its plain path")
+        times = {}
+        for kind, fn in (
+                ("full", lambda: unet(x, t, ctx, return_deep_cache=True,
+                                      **kw)),
+                ("shallow", lambda: unet(x, t, ctx, deep_cache=cache,
+                                         **kw))):
+            times[kind] = dict(wall_ms=time_ms(fn, 5, 1),
+                               device_ms=device_ms(fn))
+    log(f"  launches per evaluation kind: {json.dumps(launches)}")
+    log(f"  IP UNet evaluation (batch 2, with residuals), full vs shallow: "
+        f"{json.dumps(times)}")
+    phase_s = time.perf_counter() - t0
+    log(f"  DeepCache phase: {phase_s:.1f} s")
+    if bad:
+        raise SystemExit("DeepCache: " + "; ".join(bad))
+    return dict(shallow_vs_full_max_abs_err=err, shallow_bit_equal=bit_equal,
+                shallow_kernels_vs_plain_rel=rel, launches=launches,
+                eval_times=times, phase_seconds=phase_s)
+
+
 def packed_route_phase(bundle) -> dict:
     """One 512-px final-pass evaluation (ControlNet + IP UNet) with
     THEATERGEN_FLASH_BSHD=1: its self-attentions (4096 and 1024 tokens) take
@@ -1356,6 +1750,8 @@ def final_paths(records) -> dict:
         f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB")
     out = {FINAL: back_half(bundle, records, CHAR, FINAL, FINAL_CHARS[512])}
     out[FINAL]["bshd_launches_one_eval"] = packed_route_phase(bundle)
+    log("  DeepCache on the IP UNet (512 px, ControlNet residuals):")
+    out[FINAL]["deepcache"] = deepcache_phase(bundle)
     gc.collect()
     torch.cuda.empty_cache()
     cfg768 = dataclasses.replace(cfg, pipeline=dataclasses.replace(
@@ -1366,29 +1762,38 @@ def final_paths(records) -> dict:
     return out
 
 
-def turn_want(attempts: int) -> dict:
-    """Launches of one turn: each character attempt is a 50-step character
-    request, and the turn ends in one 50-step final request."""
-    per_attempt, final_req = path_want(CHAR), path_want(FINAL)
+def turn_want(attempts: int, steps: int = SD15_STEPS, **knobs) -> dict:
+    """Launches of one turn: each character attempt is a character
+    request, and the turn ends in one final request, each of ``steps``
+    under the step plan of ``knobs``."""
+    per_attempt = path_want(CHAR, steps, **knobs)
+    final_req = path_want(FINAL, steps, **knobs)
     return {k: attempts * per_attempt[k] + final_req[k] for k in COUNTERS}
 
 
-def turn_path(records) -> dict:
+def turn_path(records, label: str = "", flags=(), steps: int = SD15_STEPS,
+              knobs=None) -> dict:
     """The serial story loop through the port's CLI,
     ``cli.generate.main``, over dialogue_0 of data/sample/story.json:
-    SD1.5 at 512 px, full width and depth on random weights, 50 DDIM
-    steps, frozen_step_ratio 0.5, into an output tree and character DB
-    under build/chip_smoke_turn/ (emptied first: the CLI resumes by
-    existence).  Every counter is set to 0 just before each turn and read
-    just after it (Theater.run_turn wrapped here); the turn's character
-    attempts are read from its PhaseTimer.  Fails unless every turn ran
-    (none quarantined), its images are finite, in [0, 1] and 512², the
-    DB hits are TURN_HITS, and each turn's launches are turn_want."""
+    SD1.5 at 512 px, full width and depth on random weights, ``steps``
+    steps (50 DDIM by default; ``flags`` adds the CLI's knob flags and
+    ``knobs`` their step plan), frozen_step_ratio 0.5, into an output tree
+    and character DB under build/chip_smoke_turn[_label]/ (emptied first:
+    the CLI resumes by existence).  Every counter is set to 0 just before
+    each turn and read just after it (Theater.run_turn wrapped here); the
+    turn's character attempts are read from its PhaseTimer.  Fails unless
+    every turn ran (none quarantined), its images are finite, in [0, 1]
+    and 512², the DB hits are TURN_HITS, each turn's launches are
+    turn_want, and, with ``--profile``, the trace directory holds a
+    non-empty file."""
     from theatergen_tpu_torch.cli import generate
     from theatergen_tpu_torch.db import CharacterDB
 
+    knobs = knobs or {}
+    model = TURN + (f"_{label}" if label else "")
+    t_phase = time.perf_counter()
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
-                        "chip_smoke_turn")
+                        "chip_smoke_turn" + (f"_{label}" if label else ""))
     shutil.rmtree(root, ignore_errors=True)
     out_dir, db_dir = os.path.join(root, "out"), os.path.join(root, "db")
     turns, real = [], theater.Theater.run_turn
@@ -1401,7 +1806,7 @@ def turn_path(records) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got = read_counts()
-        add_launches(records, TURN, got)
+        add_launches(records, model, got)
         attempts = self.timer.counts()["char.denoise_decode"] - before
         images = [res.image] + res.so_images
         ok_images = all(
@@ -1424,8 +1829,9 @@ def turn_path(records) -> dict:
             "--dataset_path", os.path.join(os.path.dirname(
                 os.path.abspath(__file__)), "data", "sample"),
             "--task", "story", "--max_dialogues", "1",
-            "--num_steps", str(SD15_STEPS), "--frozen_step_ratio", "0.5",
-            "--base_save_dir", out_dir, "--database_path_base", db_dir])
+            "--num_steps", str(steps), "--frozen_step_ratio", "0.5",
+            "--base_save_dir", out_dir, "--database_path_base", db_dir,
+            *flags])
     finally:
         theater.Theater.run_turn = real
     peak = torch.cuda.max_memory_allocated()
@@ -1449,9 +1855,10 @@ def turn_path(records) -> dict:
         if t["db_hits"] != TURN_HITS[i]:
             bad.append(f"turn {i + 1}: DB hits {t['db_hits']}, want "
                        f"{TURN_HITS[i]}")
-        if t["launches"] != turn_want(t["attempts"]):
+        want = turn_want(t["attempts"], steps, **knobs)
+        if t["launches"] != want:
             bad.append(f"turn {i + 1}: launches {t['launches']}, want "
-                       f"{turn_want(t['attempts'])}")
+                       f"{want}")
     for t_idx in range(len(logged)):
         turn_dir = os.path.join(out_dir, "story", "run0", "dialogue_0",
                                 f"turn {t_idx + 1}")
@@ -1461,12 +1868,26 @@ def turn_path(records) -> dict:
                 bad.append(f"turn {t_idx + 1}/{name}: not 512²")
     if len(turns) != 4:
         bad.append(f"{len(turns)} turns ran")
+    trace = None
+    if "--profile" in flags:
+        tdir = os.path.join(out_dir, "story", "run0", "profile")
+        files = [os.path.join(tdir, f) for f in sorted(os.listdir(tdir))] \
+            if os.path.isdir(tdir) else []
+        trace = {os.path.basename(f): os.path.getsize(f) for f in files}
+        log(f"  --profile trace {tdir}: {trace} bytes (deleted now)")
+        if not any(trace.values()):
+            bad.append("the --profile trace directory is missing or empty")
+        shutil.rmtree(tdir, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    log(f"  {model}: {phase_s:.1f} s for the phase (the bundle's build "
+        f"included)")
     log(f"  turn checks: {'ok' if not bad else 'FAIL ' + '; '.join(bad)}")
     if bad:
-        raise SystemExit("the story turn failed: " + "; ".join(bad))
+        raise SystemExit(f"the story turn {model} failed: " + "; ".join(bad))
     return dict(turns=turns, dialogue_seconds=dialogue["seconds"],
                 phase_summary=dialogue["phase_summary"], peak_bytes=peak,
-                store=store)
+                store=store, flags=list(flags), steps=steps,
+                phase_seconds=phase_s, profile_trace_bytes=trace)
 
 
 def request_ab(model: str, one_request) -> dict:
@@ -1645,6 +2066,9 @@ def main() -> int:
                     or "spill" in line:
                 log(f"    {line.strip()}")
 
+    log("[launch counts] derived from the routing functions per "
+        "evaluation kind")
+    derivation_check()
     gen = torch.Generator(device="cuda").manual_seed(0)
     log("[check+time] kernels vs plain versions at both models' shapes")
     records = [
@@ -1703,6 +2127,13 @@ def main() -> int:
         f"data/sample/story.json, 4 turns, SD1.5 512 px, {SD15_STEPS} DDIM "
         f"steps, CFG 7.5, frozen_step_ratio 0.5")
     paths[TURN] = turn_path(records)
+    for label, flags, steps, knobs in TURN_KNOBS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[main path] dialogue_0 through the CLI with {' '.join(flags)}, "
+            f"{steps} steps")
+        paths[f"{TURN}_{label}"] = turn_path(records, label, flags, steps,
+                                             knobs)
     paths["sp_shards_equal"] = sp_shards
     paths["wrapper_host_us_per_call"] = host_us
     log(f"[done] {time.perf_counter() - t_start:.1f} s after the build began")

@@ -260,12 +260,33 @@ def test_character_pass_without_ip_or_capture():
     assert torch.isfinite(res.trajectory).all()
 
 
-@pytest.mark.parametrize("kw", [dict(guided=True), dict(deepcache_interval=2),
-                                dict(cfg_cutoff_fraction=0.5)])
+@pytest.mark.parametrize("kw", [dict(guided=True)])
 def test_unported_knobs_raise(kw):
     tb = init_bundle(tcfg.tiny_config(), 0, device="cpu", with_ip=True)
     with pytest.raises(NotImplementedError):
         tchar.make_character_pipeline(tb, 2, **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(deepcache_interval=2),
+                                dict(cfg_cutoff_fraction=0.5)])
+def test_knobs_run(kw):
+    """DeepCache and CFG cutoff (held to the JAX runner in
+    test_torch_port_knobs.py): step 0 is a full CFG step under both, so
+    the first step equals the exact run's bit for bit, and the second
+    (shallow, or cond-only) moves the result off it; a DeepCache step's
+    maps repeat step 0's."""
+    tb = init_bundle(tcfg.tiny_config(), 0, device="cpu", with_ip=True)
+    lat = torch.randn(1, 8, 8, 4, generator=torch.Generator().manual_seed(3))
+    ctx = torch.randn(2, 20, 32, generator=torch.Generator().manual_seed(4))
+    exact, _ = tchar.make_character_pipeline(tb, 2, capture_ref_attn=True)
+    run, _ = tchar.make_character_pipeline(tb, 2, capture_ref_attn=True, **kw)
+    a, b = exact(lat, ctx, 0.4), run(lat, ctx, 0.4)
+    torch.testing.assert_close(b.trajectory[:2], a.trajectory[:2], rtol=0,
+                               atol=0)
+    assert float((b.latents - a.latents).abs().max()) > 1e-4
+    for m in b.ref_attn:
+        if "deepcache_interval" in kw:
+            torch.testing.assert_close(m[1], m[0], rtol=0, atol=0)
 
 
 def test_xl_bundle_raises():

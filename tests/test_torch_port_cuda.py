@@ -818,3 +818,140 @@ def test_division_by_127_is_ieee_on_card():
     g = torch.Generator(device=dev).manual_seed(9)
     x = torch.rand(1 << 20, device=dev, generator=g) * 100.0
     assert torch.equal(tqm.div127(x), (x.double() / 127.0).float())
+
+
+# ---------------------------------------------------------------------------
+# batch 1 (the CFG cutoff's tail, LCM) and DeepCache's shallow evaluation
+# ---------------------------------------------------------------------------
+
+def _chip_smoke():
+    """chip_smoke.py as a module, for its launch derivation."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,d", [(4096, 40), (1024, 80)])
+def test_flash_kernel_batch_one_on_card(s, d):
+    """SD1.5's flash shapes at batch 1 (8 heads); bound 1e-2·max|ref|."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(21)
+    q, k, v = (torch.randn(1, s, 8, d, device=dev, generator=g,
+                           dtype=torch.bfloat16) for _ in range(3))
+    out = tfa.flash_attention(q, k, v).float()
+    ref = tfa.flash_attention_plain(q.float(), k.float(), v.float())
+    assert (out - ref).abs().max() <= 1e-2 * ref.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d", [(4096, 320), (1024, 640), (256, 1280)])
+def test_ff_kernel_batch_one_on_card(m, d):
+    """SD1.5's FF rows at batch 1 (levels 0-2; the mid block's 64 rows
+    take no kernel); bound 1e-2·max|ref|."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(22)
+    k = 4 * d
+    x = torch.randn(m, d, device=dev, generator=g).bfloat16()
+    w1 = (torch.randn(2 * k, d, device=dev, generator=g) * d ** -0.5).bfloat16()
+    b1 = (torch.randn(2 * k, device=dev, generator=g) * 0.1).bfloat16()
+    w2 = (torch.randn(d, k, device=dev, generator=g) * k ** -0.5).bfloat16()
+    assert tgg.ff_supported(m, d, k) and not tgg.ff_supported(64, 1280, 5120)
+    out = tgg.ff_matmul(x, w1, b1, w2).float()
+    ref = tgg.ff_matmul_plain(x.float(), w1.float(), b1.float(), w2.float())
+    assert (out - ref).abs().max() <= 1e-2 * ref.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(4096, 2560, 640), (1024, 5120, 1280)])
+def test_geglu_kernel_batch_one_on_card(m, k, n):
+    """SDXL's geglu_matmul rows at batch 1 (LCM); bound 1e-2·max|ref|."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(23)
+    hg = torch.randn(m, 2 * k, device=dev, generator=g).bfloat16()
+    w = (torch.randn(n, k, device=dev, generator=g) * k ** -0.5).bfloat16()
+    out = tgg.geglu_matmul(hg, w).float()
+    ref = tgg.geglu_matmul_plain(hg.float(), w.float())
+    assert (out - ref).abs().max() <= 1e-2 * ref.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,hw", [(320, 4096), (960, 4096), (640, 1024),
+                                  (1920, 1024), (1280, 256), (2560, 64)])
+def test_group_norm_batch_one_sites_on_card(c, hw):
+    """SD1.5 GroupNorm sites at batch 1 (32 slices), SiLU on; bound
+    1e-2·max|ref|."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(24)
+    s = int(hw ** 0.5)
+    x = torch.randn(1, c, s, s, device=dev, generator=g).bfloat16()
+    w = (1 + 0.2 * torch.randn(c, device=dev, generator=g)).bfloat16()
+    b = (0.1 * torch.randn(c, device=dev, generator=g)).bfloat16()
+    out = tgn.fused_group_norm(x, w, b, act="silu").float()
+    ref = tgn.fused_group_norm_plain(x.float(), w.float(), b.float(),
+                                     act="silu")
+    assert (out - ref).abs().max() <= 1e-2 * ref.abs().max()
+
+
+@pytest.fixture(scope="module")
+def sd15_bundle():
+    _card()
+    from theatergen_tpu_torch.config import sd15_config
+    from theatergen_tpu_torch.pipelines.bundle import init_bundle
+    return init_bundle(sd15_config(), 0, with_ip=True)
+
+
+@pytest.mark.cuda
+def test_shallow_ip_unet_evaluation_against_plain_path_on_card(sd15_bundle):
+    """The full-size IP UNet's shallow evaluation (DeepCache, the cache of
+    a full evaluation at the same inputs) with the kernels against itself
+    under plain_path(), 5e-2·max|ref| (bf16 through its blocks, as the
+    full evaluation's check in chip_smoke.py), and its launches those
+    chip_smoke.eval_launches derives."""
+    dev = _card()
+    cs = _chip_smoke()
+    unet = sd15_bundle.unet_ip
+    g = torch.Generator(device=dev).manual_seed(25)
+    x = torch.randn(2, 4, 64, 64, device=dev, generator=g)
+    t = torch.full((2,), 501, device=dev, dtype=torch.long)
+    ctx = torch.randn(2, 81, 768, device=dev, generator=g)
+    kw = dict(ip_scale=torch.tensor(0.4, device=dev))
+    with torch.no_grad():
+        _, cache = unet(x, t, ctx, return_deep_cache=True, **kw)
+        cs.reset_counts()
+        fast = unet(x, t, ctx, deep_cache=cache, **kw).float()
+        torch.cuda.synchronize()
+        got = cs.read_counts()
+        with tl.plain_path():
+            plain = unet(x, t, ctx, deep_cache=cache, **kw).float()
+    assert got == cs.counts(**cs.eval_launches(unet.cfg, 64, 2, shallow=True))
+    assert (fast - plain).abs().max() <= 5e-2 * plain.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knob", ["lcm", "deepcache"])
+def test_text2img_knob_request_launches_on_card(sd15_bundle, knob):
+    """One 4-step LCM request and one 6-step DDIM request with DeepCache
+    every 3rd step: an image in [0, 1], and every kernel's launches those
+    chip_smoke.request_want derives from the step plan."""
+    import dataclasses
+
+    from theatergen_tpu_torch.pipelines import sd as tsd
+    cs = _chip_smoke()
+    b = sd15_bundle
+    if knob == "lcm":
+        pipe, plan = tsd.Text2Img(b, 4, sampler="lcm"), cs.step_plan(4, "lcm")
+    else:
+        b = dataclasses.replace(b, cfg=dataclasses.replace(
+            b.cfg, pipeline=dataclasses.replace(b.cfg.pipeline,
+                                                deepcache_interval=3)))
+        pipe, plan = tsd.Text2Img(b, 6), cs.step_plan(6, deepcache=3)
+    cs.reset_counts()
+    img = pipe(torch.Generator(device="cuda").manual_seed(1), "a knight")
+    torch.cuda.synchronize()
+    assert cs.read_counts() == cs.request_want(b.cfg.unet, 64, plan)
+    assert torch.isfinite(img).all() and 0 <= img.min() and img.max() <= 1

@@ -579,18 +579,39 @@ def test_back_half_matches():
     np.testing.assert_allclose(_np(img_t), np.asarray(img_j), atol=1e-4)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(guided=True), dict(cfg_cutoff_fraction=0.5),
-    dict(deepcache_interval=2), dict(controlnet_interval=2)])
+@pytest.mark.parametrize("kw", [dict(guided=True)])
 def test_unported_final_knobs_raise(kw):
     _, tb = _bundles()
     with pytest.raises(NotImplementedError):
         tfinal.make_final_pipeline(tb, 2, **kw)
 
 
+@pytest.mark.parametrize("kw", [
+    dict(cfg_cutoff_fraction=0.5), dict(deepcache_interval=2),
+    dict(controlnet_interval=2)])
+def test_final_knobs_run(kw):
+    """CFG cutoff, DeepCache and the ControlNet interval (held to the JAX
+    runner in test_torch_port_knobs.py): step 0 is a full CFG step with a
+    fresh ControlNet forward under each, so the first step equals the
+    exact run's bit for bit; the second (cond-only, shallow, or on cached
+    residuals) moves the result off it; frozen replacement holds."""
+    _, tb = _bundles()
+    la, fm, ctx, cn_ctx, cond = _final_inputs()
+    args = (_t(la[:3]), _t(fm), 1, _t(ctx), _t(cn_ctx), _t(cond), 0.1)
+    exact, _ = tfinal.make_final_pipeline(tb, 2)
+    run, _ = tfinal.make_final_pipeline(tb, 2, **kw)
+    (fa, ta), (fb, tb_) = exact(*args), run(*args)
+    torch.testing.assert_close(tb_[:2], ta[:2], rtol=0, atol=0)
+    assert float((fb - fa).abs().max()) > 1e-4
+    on = torch.from_numpy(fm > 0)
+    torch.testing.assert_close(tb_[1, 0][on], _t(la[1, 0])[on], rtol=0,
+                               atol=0)
+
+
 def test_unported_final_inputs_raise():
-    """SDXL's extra_cond and adapter_feats, an SDXL or LCM bundle, and a
-    bundle without the ControlNet or the IP UNet."""
+    """SDXL's extra_cond and adapter_feats, an SDXL bundle, and a bundle
+    without the ControlNet or the IP UNet raise; an LCM bundle runs and
+    matches the JAX runner."""
     _, tb = _bundles()
     la, fm, ctx, cn_ctx, cond = _final_inputs()
     run, _ = tfinal.make_final_pipeline(tb, 2)
@@ -602,11 +623,29 @@ def test_unported_final_inputs_raise():
                      with_controlnet=True)
     with pytest.raises(NotImplementedError):
         tfinal.make_final_pipeline(xl, 2)
-    lcm = dataclasses.replace(tb, cfg=dataclasses.replace(
-        tb.cfg, pipeline=dataclasses.replace(tb.cfg.pipeline,
-                                             scheduler_type="lcm")))
-    with pytest.raises(NotImplementedError):
-        tfinal.make_final_pipeline(lcm, 2)
+    # an LCM bundle runs (cond-only steps, consistency noise): held to the
+    # JAX runner with its draws injected, bound 1e-5·max|ref| (no CFG)
+    jb, _ = _bundles()
+    lcm_cfg = lambda c: dataclasses.replace(c, pipeline=dataclasses.replace(
+        c.pipeline, scheduler_type="lcm"))
+    lcm = dataclasses.replace(tb, cfg=lcm_cfg(tb.cfg))
+    run_j, _ = jfinal.make_final_pipeline(
+        dataclasses.replace(jb, cfg=lcm_cfg(jb.cfg)), 2)
+    key = jax.random.key(2)
+    fj, trj = run_j(jb.unet_ip_params, jb.controlnet_params,
+                    jnp.asarray(la[:3]), jnp.asarray(fm), jnp.int32(1),
+                    jnp.asarray(ctx), jnp.asarray(cn_ctx), jnp.asarray(cond),
+                    jnp.float32(0.1), rng=key)
+    noise = np.stack([np.asarray(jax.random.normal(
+        jax.random.fold_in(key, i), (1, h, w, 4), jnp.float32))
+        for i in range(2)])
+    run_t, sampler = tfinal.make_final_pipeline(lcm, 2)
+    assert sampler.kind == "lcm"
+    ft, trt = run_t(_t(la[:3]), _t(fm), 1, _t(ctx), _t(cn_ctx), _t(cond),
+                    0.1, noise=_t(noise))
+    bound = 1e-5 * float(np.abs(np.asarray(trj)).max())
+    np.testing.assert_allclose(_np(trt), np.asarray(trj), rtol=0, atol=bound)
+    np.testing.assert_allclose(_np(ft), np.asarray(fj), rtol=0, atol=bound)
     bare = init_bundle(tcfg.tiny_config(), 0, device="cpu", with_ip=True)
     with pytest.raises(ValueError, match="ControlNet"):
         tfinal.make_final_pipeline(bare, 2)

@@ -116,23 +116,25 @@ def test_ea_tables_equal(steps, kw):
 @pytest.mark.parametrize("pred", ["epsilon", "v_prediction", "sample"])
 def test_ea_scale_and_step_match(pred):
     """ea_scale_model_input and ea_step at every loop position of a
-    10-step schedule with injected noise.  fp32 elementwise on latents of
+    10-step schedule with injected noise, the port reading the schedule's
+    tables moved to the device once.  fp32 elementwise on latents of
     scale up to sigma_0 (~14.6): bound 1e-5 absolute + 1e-5 relative."""
     sched_j = jsched.make_euler_ancestral_schedule(
         jcfg.SchedulerConfig(prediction_type=pred), 10)
     sched_t = tsched.make_euler_ancestral_schedule(
         tcfg.SchedulerConfig(prediction_type=pred), 10)
+    tables = tsched.ea_device_tables(sched_t, "cpu")
     rng = np.random.RandomState(5)
     x = (rng.randn(2, 4, 4, 4) * sched_t.init_noise_sigma).astype(np.float32)
     eps, noise = (rng.randn(2, 4, 4, 4).astype(np.float32) for _ in range(2))
     for i in range(10):
         ref = jsched.ea_scale_model_input(sched_j, jnp.asarray(x), i)
-        got = tsched.ea_scale_model_input(sched_t, torch.from_numpy(x), i)
+        got = tsched.ea_scale_model_input(tables, torch.from_numpy(x), i)
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5,
                                    rtol=1e-5)
         ref = jsched.ea_step(sched_j, jnp.asarray(eps), i, jnp.asarray(x),
                              jnp.asarray(noise))
-        got = tsched.ea_step(sched_t, torch.from_numpy(eps), i,
+        got = tsched.ea_step(tables, torch.from_numpy(eps), i,
                              torch.from_numpy(x), torch.from_numpy(noise))
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5,
                                    rtol=1e-5)
@@ -273,8 +275,8 @@ def test_sdxl_slice_matches(xl):
 
 def test_text2img_xl_runs_end_to_end(xl):
     """The entry point a user calls: seeded, deterministic, [B, H, W, 3]
-    in [0, 1]; denoising_end runs a prefix of the schedule; the routes of
-    later slices refuse."""
+    in [0, 1]; denoising_end runs a prefix of the schedule; the
+    T2I-Adapter hint refuses (the SDXL turn's slice)."""
     tb = xl["tb"]
     pipe = tsdxl.Text2ImgXL(tb, num_steps=3)
     a = pipe(torch.Generator().manual_seed(5), "a knight")
@@ -290,8 +292,37 @@ def test_text2img_xl_runs_end_to_end(xl):
     with pytest.raises(NotImplementedError):
         pipe(torch.Generator().manual_seed(5), "a knight",
              hint=torch.zeros(16, 16, 3))
-    lcm = dataclasses.replace(tb, cfg=dataclasses.replace(
-        tb.cfg, pipeline=dataclasses.replace(tb.cfg.pipeline,
-                                             scheduler_type="lcm")))
-    with pytest.raises(NotImplementedError):
-        tsdxl.Text2ImgXL(lcm)
+
+def test_text2img_xl_lcm_matches(xl, monkeypatch):
+    """Text2ImgXL under the config's LCM sampler: the cond rows of the
+    context, pooled text and time ids through 4 consistency steps and the
+    decode, against the JAX request with its starting latents
+    (``seeded_latents(split(rng)[0])``) and per-step draws
+    (``fold_in(split(rng)[1], i)``) injected: image bound 1e-5 (values in
+    [0, 1]; no CFG).  denoising_end is refused under LCM."""
+    cfg, jb, tb = xl["cfg"], xl["jb"], xl["tb"]
+
+    def lcm(c):
+        return dataclasses.replace(c, pipeline=dataclasses.replace(
+            c.pipeline, scheduler_type="lcm"))
+
+    rng = jax.random.key(8)
+    lat_rng, anc_rng = jax.random.split(rng)
+    lat = np.asarray(jsd.seeded_latents(lat_rng, 1, 8, 8))
+    noise = np.stack([np.asarray(jax.random.normal(
+        jax.random.fold_in(anc_rng, i), (1, 8, 8, 4), jnp.float32))
+        for i in range(4)])
+    ref = jsdxl.Text2ImgXL(dataclasses.replace(jb, cfg=lcm(cfg)),
+                           num_steps=4)(rng, PROMPTS[0])
+    monkeypatch.setattr(tsd, "seeded_latents",
+                        lambda *a, **k: torch.tensor(lat))
+    tb_lcm = dataclasses.replace(tb, cfg=lcm(tb.cfg))
+    pipe = tsdxl.Text2ImgXL(tb_lcm, num_steps=4)
+    assert pipe.is_lcm and pipe.sched.kind == "lcm"
+    got = pipe(torch.Generator().manual_seed(0), PROMPTS[0],
+               noise=torch.from_numpy(noise))
+    assert got.shape == (1, 16, 16, 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
+                               atol=1e-5)
+    with pytest.raises(ValueError):
+        tsdxl.Text2ImgXL(tb_lcm, num_steps=4, denoising_end=0.5)

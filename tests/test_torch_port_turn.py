@@ -412,15 +412,50 @@ def test_cli_quarantines_a_failing_turn(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flag", [
     ["--dp_dialogues", "2"], ["--mesh", "dp=2"], ["--batch_chars"],
-    ["--snapshot", "snap"], ["--weights", "w"], ["--profile"],
-    ["--guidance"], ["--cfg_cutoff", "0.5"], ["--deepcache", "2"],
-    ["--cn_interval", "2"], ["--scheduler", "lcm"],
-    ["--prediction_type", "v_prediction"], ["--zero_snr"],
+    ["--snapshot", "snap"], ["--weights", "w"], ["--guidance"],
     ["--sd_version", "xl"]])
 def test_cli_unported_flags_raise(tmp_path, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tgen.main(_cli(tmp_path, *flag))
     assert not (tmp_path / "out").exists()
+
+
+@pytest.mark.parametrize("flag,part,field,value", [
+    (["--profile"], None, None, None),
+    (["--cfg_cutoff", "0.5"], "pipeline", "cfg_cutoff_fraction", 0.5),
+    (["--deepcache", "2"], "pipeline", "deepcache_interval", 2),
+    (["--cn_interval", "2"], "pipeline", "controlnet_interval", 2),
+    (["--scheduler", "lcm"], "pipeline", "scheduler_type", "lcm"),
+    (["--prediction_type", "v_prediction"], "scheduler", "prediction_type",
+     "v_prediction"),
+    (["--zero_snr"], "scheduler", "rescale_zero_terminal_snr", True)])
+def test_cli_knob_flags_run(tmp_path, monkeypatch, flag, part, field, value):
+    """Each knob flag of the JAX package's CLI reaches the bundle's config and
+    the dialogue runs whole: every turn's images, the DB and the run log's
+    turn, dialogue and summary events.  ``--profile`` leaves a trace of
+    the first dialogue under <save dir>/profile."""
+    seen = []
+    real = tgen.build_theater
+    monkeypatch.setattr(tgen, "build_theater",
+                        lambda args: seen.append(real(args)) or seen[-1])
+    tgen.main(_cli(tmp_path, *flag))
+    if part is not None:
+        assert getattr(getattr(seen[0].cfg, part), field) == value
+    run = tmp_path / "out" / "story" / "run0" / "dialogue_0"
+    chars = [2, 1, 1, 2]
+    for t_idx, n in enumerate(chars):
+        files = sorted(os.listdir(run / f"turn {t_idx + 1}"))
+        assert files == ["img_0.png"] + [f"so_0_{i}.png" for i in range(n)]
+    events = _log(tmp_path)
+    assert [e["turn"] for e in events if e["event"] == "turn"] == [
+        f"turn {i}" for i in range(1, 5)]
+    assert not [e for e in events if e["event"] == "quarantine"]
+    assert [e["event"] for e in events][-2:] == ["dialogue", "summary"]
+    trace = tmp_path / "out" / "story" / "run0" / "profile"
+    if flag == ["--profile"]:
+        assert (trace / "trace.json").stat().st_size > 0
+    else:
+        assert not trace.exists()
 
 
 def test_cli_defaults_to_the_card():

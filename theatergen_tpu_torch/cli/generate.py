@@ -18,15 +18,23 @@ keeps the reference CLI's flags, seed discipline, resume and output tree
 
 Seeds are a deterministic hash of (seed offset, dialogue index or frozen
 seed, turn, repeat, regenerate pass), so any turn regenerates alike in
-isolation.  Runs on the card unless ``--device`` names another device::
+isolation.  The sampler knobs of the JAX package's CLI apply to the config
+(:func:`apply_pipeline_overrides`): ``--cfg_cutoff``, ``--deepcache``,
+``--cn_interval``, ``--scheduler``, ``--prediction_type`` and
+``--zero_snr``; ``--profile`` writes a ``torch.profiler`` trace of the
+first dialogue (host and device) to ``<save dir>/profile``.  Runs on the
+card unless ``--device`` names another device::
 
     python -m theatergen_tpu_torch.cli.generate --tiny --device cpu \\
-        --dataset_path data/sample --max_dialogues 1 --num_steps 4
+        --dataset_path data/sample --max_dialogues 1 --num_steps 4 \\
+        --deepcache 2 --cfg_cutoff 0.5 --cn_interval 2
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import os
 import time
@@ -39,9 +47,7 @@ import numpy as np
 # brings each
 UNPORTED_FLAGS = {
     "dp_dialogues": 9, "mesh": 9, "batch_chars": 9, "snapshot": 7,
-    "weights": 7, "profile": 2, "guidance": 6, "cfg_cutoff": 4,
-    "deepcache": 4, "cn_interval": 4, "scheduler": 4, "prediction_type": 4,
-    "zero_snr": 4}
+    "weights": 7, "guidance": 6}
 
 
 def turn_seed(seed_offset: int, dialogue_base: int, turn_idx: int,
@@ -99,26 +105,49 @@ def make_parser() -> argparse.ArgumentParser:
                          "(CMIGBench: 512); defaults to the render size, "
                          "and to 512 with --tiny")
     ap.add_argument("--max_dialogues", type=int, default=None)
+    ap.add_argument("--cfg_cutoff", type=float, default=None,
+                    help="CFG truncation fraction: full CFG for the first "
+                         "frac of steps, cond-only after")
+    ap.add_argument("--deepcache", type=int, default=None,
+                    help="DeepCache interval: full UNet every N-th step, "
+                         "shallow blocks + cached deep feature in between")
+    ap.add_argument("--cn_interval", type=int, default=None,
+                    help="final pass: ControlNet forward every N-th step, "
+                         "residuals reused in between")
+    ap.add_argument("--scheduler", default=None,
+                    choices=["ddim", "euler_ancestral", "lcm"],
+                    help="override the sampler; 'lcm' is the guidance-free "
+                         "few-step loop for LCM(-LoRA)-merged weights "
+                         "(pair with --num_steps 4-8)")
+    ap.add_argument("--prediction_type", default=None,
+                    choices=["epsilon", "v_prediction", "sample"],
+                    help="model output parameterization")
+    ap.add_argument("--zero_snr", action="store_true", default=None,
+                    help="rescale betas to zero terminal SNR "
+                         "(arXiv 2305.08891; pair with v_prediction)")
+    ap.add_argument("--profile", action="store_true",
+                    help="write a torch.profiler trace of the first "
+                         "dialogue to <save dir>/profile")
+    ap.add_argument("--no_guidance", action="store_true",
+                    help="(deprecated: guidance is off by default)")
     # the JAX driver's other flags parse, and raise (UNPORTED_FLAGS)
     for flag in ("weights", "snapshot", "mesh"):
         ap.add_argument(f"--{flag}", default=None)
-    for flag in ("guidance", "batch_chars", "profile", "zero_snr"):
+    for flag in ("guidance", "batch_chars"):
         ap.add_argument(f"--{flag}", action="store_true", default=None)
-    for flag in ("cfg_cutoff",):
-        ap.add_argument(f"--{flag}", type=float, default=None)
-    for flag in ("deepcache", "cn_interval", "dp_dialogues"):
-        ap.add_argument(f"--{flag}", type=int, default=None)
-    ap.add_argument("--scheduler", default=None,
-                    choices=["ddim", "euler_ancestral", "lcm"])
-    ap.add_argument("--prediction_type", default=None,
-                    choices=["epsilon", "v_prediction", "sample"])
+    ap.add_argument("--dp_dialogues", type=int, default=None)
     return ap
 
 
 def check_ported(args) -> None:
-    """Raise NotImplementedError for a flag whose feature the port lacks."""
+    """Raise NotImplementedError for a flag whose feature the port lacks
+    (``--guidance`` counts only without ``--no_guidance``, as the JAX
+    package's CLI reads the pair)."""
     for flag, item in UNPORTED_FLAGS.items():
-        if getattr(args, flag) not in (None, False):
+        value = getattr(args, flag)
+        if flag == "guidance" and args.no_guidance:
+            value = None
+        if value not in (None, False):
             raise NotImplementedError(
                 f"--{flag} is not ported yet (ROADMAP §1 item {item})")
     if args.sd_version == "xl":
@@ -132,13 +161,41 @@ def load_dataset(dataset_path: str, task: str) -> dict:
         return json.load(f)
 
 
+def apply_pipeline_overrides(cfg, *, cfg_cutoff=None, deepcache=None,
+                             scheduler=None, cn_interval=None,
+                             prediction_type=None, zero_snr=None):
+    """The CLI's sampler-knob overrides on a config, as the JAX package's
+    CLI applies them: ``cfg_cutoff_fraction``, ``deepcache_interval``,
+    ``scheduler_type`` and ``controlnet_interval`` on ``cfg.pipeline``,
+    ``prediction_type`` and ``rescale_zero_terminal_snr`` on
+    ``cfg.scheduler``; a knob left at None keeps the config's value."""
+    pl = cfg.pipeline
+    for field, value in (("cfg_cutoff_fraction", cfg_cutoff),
+                         ("deepcache_interval", deepcache),
+                         ("scheduler_type", scheduler),
+                         ("controlnet_interval", cn_interval)):
+        if value is not None:
+            pl = dataclasses.replace(pl, **{field: value})
+    sc = cfg.scheduler
+    if prediction_type is not None:
+        sc = dataclasses.replace(sc, prediction_type=prediction_type)
+    if zero_snr is not None:
+        sc = dataclasses.replace(sc, rescale_zero_terminal_snr=zero_snr)
+    return dataclasses.replace(cfg, pipeline=pl, scheduler=sc)
+
+
 def build_theater(args):
     """The turn's bundle: random weights from seed 0 with the IP UNet, the
-    vision tower and the ControlNet, on ``args.device``."""
+    vision tower and the ControlNet, on ``args.device``, under the
+    config's knob overrides."""
     from ..config import sd15_config, tiny_config
     from ..pipelines.bundle import init_bundle
 
-    cfg = tiny_config() if args.tiny else sd15_config()
+    cfg = apply_pipeline_overrides(
+        tiny_config() if args.tiny else sd15_config(),
+        cfg_cutoff=args.cfg_cutoff, deepcache=args.deepcache,
+        scheduler=args.scheduler, cn_interval=args.cn_interval,
+        prediction_type=args.prediction_type, zero_snr=args.zero_snr)
     return init_bundle(cfg, 0, device=args.device, with_ip=True,
                        with_vision=True, with_controlnet=True)
 
@@ -169,8 +226,10 @@ def _run(args, bundle, dataset: dict, dialogues: list, save_dir: str,
     """The serial loop: regenerate passes × dialogues × turns × repeats."""
     from ..db import CharacterDB
     from ..theater import Theater
+    from ..utils.profiling import trace
 
     use_time = []
+    profiled = False
     canvas = args.box_canvas or (512 if args.tiny else None)
     for regen_ind in range(args.regenerate):
         for d_idx, dialogue in enumerate(dialogues):
@@ -180,41 +239,16 @@ def _run(args, bundle, dataset: dict, dialogues: list, save_dir: str,
                               num_steps=args.num_steps)
             base = (args.freeze_dialogue_seed
                     if args.freeze_dialogue_seed is not None else d_idx)
-            t0 = time.time()
-            for t_idx in range(4):
-                turn = f"turn {t_idx + 1}"
-                turn_dir = os.path.join(save_dir, str(dialogue), turn)
-                if os.path.exists(turn_dir):
-                    continue  # resume-by-existence (generate.py:193-194)
-                if turn not in dataset[dialogue]:
-                    continue
-                spec = build_spec(dataset[dialogue][turn])
-                if canvas:
-                    spec["canvas_height"] = spec["canvas_width"] = canvas
-                for rep in range(args.repeats):
-                    seed = turn_seed(args.seed_offset, base, t_idx, rep,
-                                     regen=regen_ind)
-                    try:
-                        res = theater.run_turn(
-                            spec, seed,
-                            frozen_step_ratio=args.frozen_step_ratio)
-                    except Exception as e:
-                        # error quarantine (generate.py:250-259)
-                        print(f"[quarantine] {dialogue}/{turn} rep {rep}:")
-                        traceback.print_exc()
-                        log(event="quarantine", dialogue=str(dialogue),
-                            turn=turn, repeat=rep, seed=seed, error=repr(e))
-                        continue
-                    save_image(os.path.join(turn_dir, f"img_{rep}.png"),
-                               res.image)
-                    for i, so in enumerate(res.so_images):
-                        save_image(os.path.join(turn_dir, f"so_{rep}_{i}.png"),
-                                   so)
-                    log(event="turn", dialogue=str(dialogue), turn=turn,
-                        repeat=rep, seed=seed, seconds=round(res.seconds, 2),
-                        characters=len(res.so_images),
-                        detections=res.detections, db_hits=res.db_hits)
-            dt = time.time() - t0
+            profiling = args.profile and not profiled
+            profiled = profiled or profiling
+            with (trace(os.path.join(save_dir, "profile")) if profiling
+                  else contextlib.nullcontext()):
+                t0 = time.time()
+                _run_dialogue(args, dataset, dialogue, theater, base,
+                              regen_ind, canvas, save_dir, log)
+                dt = time.time() - t0
+            if profiling:
+                print(f"profiler trace: {os.path.join(save_dir, 'profile')}")
             use_time.append(dt)
             print(f"dialogue {dialogue}: {dt:.1f}s "
                   f"(avg {np.mean(use_time):.1f}s, p50 "
@@ -228,6 +262,41 @@ def _run(args, bundle, dataset: dict, dialogues: list, save_dir: str,
         log(event="summary", dialogues=len(use_time),
             avg_s=round(float(np.mean(use_time)), 2),
             p50_s=round(float(np.median(use_time)), 2))
+
+
+def _run_dialogue(args, dataset: dict, dialogue, theater, base: int,
+                  regen_ind: int, canvas, save_dir: str, log) -> None:
+    """A dialogue's four turns × repeats, with resume and quarantine."""
+    for t_idx in range(4):
+        turn = f"turn {t_idx + 1}"
+        turn_dir = os.path.join(save_dir, str(dialogue), turn)
+        if os.path.exists(turn_dir):
+            continue  # resume-by-existence (generate.py:193-194)
+        if turn not in dataset[dialogue]:
+            continue
+        spec = build_spec(dataset[dialogue][turn])
+        if canvas:
+            spec["canvas_height"] = spec["canvas_width"] = canvas
+        for rep in range(args.repeats):
+            seed = turn_seed(args.seed_offset, base, t_idx, rep,
+                             regen=regen_ind)
+            try:
+                res = theater.run_turn(
+                    spec, seed, frozen_step_ratio=args.frozen_step_ratio)
+            except Exception as e:
+                # error quarantine (generate.py:250-259)
+                print(f"[quarantine] {dialogue}/{turn} rep {rep}:")
+                traceback.print_exc()
+                log(event="quarantine", dialogue=str(dialogue), turn=turn,
+                    repeat=rep, seed=seed, error=repr(e))
+                continue
+            save_image(os.path.join(turn_dir, f"img_{rep}.png"), res.image)
+            for i, so in enumerate(res.so_images):
+                save_image(os.path.join(turn_dir, f"so_{rep}_{i}.png"), so)
+            log(event="turn", dialogue=str(dialogue), turn=turn, repeat=rep,
+                seed=seed, seconds=round(res.seconds, 2),
+                characters=len(res.so_images), detections=res.detections,
+                db_hits=res.db_hits)
 
 
 if __name__ == "__main__":

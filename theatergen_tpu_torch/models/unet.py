@@ -20,8 +20,9 @@ package quantizes (attention projections, the FF, ``time_emb_proj`` and
 ``time_embedding``; not SDXL's ``add_embedding``) are W8A8
 ``layers.QuantLinear``s.  ``down_residuals`` (one per skip) and
 ``mid_residual``, a ControlNet's outputs, are added to the skips and to
-the mid block's output.  DeepCache and T2I-Adapter residuals come with
-later slices.
+the mid block's output.  DeepCache's cached and shallow forwards are
+``forward``'s ``return_deep_cache``/``deep_cache``; T2I-Adapter residuals
+come with a later slice.
 
 :class:`UNetEncoder` holds ``conv_in``, the time embedding, the down
 blocks and the mid block, and runs them; the UNet and
@@ -132,21 +133,25 @@ class UNetEncoder(nn.Module):
         return temb.expand(batch, -1) if temb.shape[0] != batch else temb
 
     def encode(self, h: torch.Tensor, temb: torch.Tensor, attend,
-               cond_hint: Optional[torch.Tensor] = None):
+               cond_hint: Optional[torch.Tensor] = None,
+               max_level: Optional[int] = None):
         """conv_in (plus a ControlNet's ``cond_hint`` right after it) and
         the down blocks; ``attend(module, h, place, block, index)`` runs
-        each transformer.  Returns ``(h, skips)``."""
+        each transformer.  ``max_level`` stops after that many levels,
+        without their last downsampler (a DeepCache shallow forward).
+        Returns ``(h, skips)``."""
         h = self.conv_in(h)
         if cond_hint is not None:
             h = h + cond_hint.to(h.dtype)
         skips = [h]
-        for i, blk in enumerate(self.down_blocks):
+        blocks = self.down_blocks[:max_level]
+        for i, blk in enumerate(blocks):
             for j, res in enumerate(blk.resnets):
                 h = res(h, temb)
                 if len(blk.attentions):
                     h = attend(blk.attentions[j], h, "down", i, j)
                 skips.append(h)
-            if hasattr(blk, "downsamplers"):
+            if hasattr(blk, "downsamplers") and i < len(blocks) - 1:
                 h = blk.downsamplers[0](h)
                 skips.append(h)
         return h, skips
@@ -212,7 +217,24 @@ class UNet2DCondition(UNetEncoder):
                 pooled_text: Optional[torch.Tensor] = None,
                 time_ids: Optional[torch.Tensor] = None,
                 down_residuals: Optional[Sequence[torch.Tensor]] = None,
-                mid_residual: Optional[torch.Tensor] = None):
+                mid_residual: Optional[torch.Tensor] = None,
+                deep_cache: Optional[torch.Tensor] = None,
+                return_deep_cache: bool = False, cache_level: int = 1):
+        """DeepCache (arXiv 2312.00858), as the JAX package's UNet:
+
+        - ``return_deep_cache=True``: the full forward, returning ``(eps,
+          cache)`` (before the captured maps, where any are asked for);
+          ``cache`` is the feature entering up block ``n_levels −
+          cache_level``, right after the Upsample2D that ends the block
+          before it.
+        - ``deep_cache=cache``: the shallow forward.  The encoder runs its
+          first ``cache_level`` levels (fresh skips, ``down_residuals``
+          added to that prefix; the deeper ones and ``mid_residual`` go
+          unused), ``cache`` takes the place of the mid block and every
+          deeper block, and the last ``cache_level`` up blocks run.  From
+          the cache of the same ``(sample, t, context)`` this is the full
+          forward; from an earlier step's cache it is DeepCache's
+          approximation."""
         cfg = self.cfg
         dtype = self.dtype
         # NCHW-contiguous from here on, whatever the caller's layout: a
@@ -232,19 +254,37 @@ class UNet2DCondition(UNetEncoder):
                 torch.cat([pooled_text.to(dtype), tid.to(dtype)], dim=-1))
             temb = temb + add.expand_as(temb)
 
+        n = len(self.up_blocks)
+        if not 1 <= cache_level <= n:
+            raise ValueError(f"cache_level {cache_level} outside 1..{n}")
+        resume = n - cache_level
         captured: Dict[AttnKey, torch.Tensor] = {}
         attend = attender(context, ip_scale, capture_keys, captured)
-        h, skips = self.encode(h, temb, attend)
-        if down_residuals is not None:
-            if len(down_residuals) != len(skips):
-                raise ValueError(f"{len(down_residuals)} down residuals for "
-                                 f"{len(skips)} skips")
-            skips = [s + r.to(s.dtype) for s, r in zip(skips, down_residuals)]
-        h = self.middle(h, temb, attend)
-        if mid_residual is not None:
-            h = h + mid_residual.to(h.dtype)
+        cache = None
+        if deep_cache is None:
+            h, skips = self.encode(h, temb, attend)
+            if down_residuals is not None:
+                if len(down_residuals) != len(skips):
+                    raise ValueError(f"{len(down_residuals)} down residuals "
+                                     f"for {len(skips)} skips")
+                skips = [s + r.to(s.dtype)
+                         for s, r in zip(skips, down_residuals)]
+            h = self.middle(h, temb, attend)
+            if mid_residual is not None:
+                h = h + mid_residual.to(h.dtype)
+            first = 0
+        else:
+            h, skips = self.encode(h, temb, attend, max_level=cache_level)
+            if down_residuals is not None:
+                # the shallow skips are a prefix of the full stack
+                skips = [s + r.to(s.dtype)
+                         for s, r in zip(skips, down_residuals)]
+            h, first = deep_cache.to(dtype), resume
 
-        for idx, blk in enumerate(self.up_blocks):
+        for idx in range(first, n):
+            if idx == resume:
+                cache = h
+            blk = self.up_blocks[idx]
             for j, res in enumerate(blk.resnets):
                 h = res(torch.cat([h, skips.pop()], dim=1), temb)
                 if len(blk.attentions):
@@ -253,10 +293,12 @@ class UNet2DCondition(UNetEncoder):
                 h = blk.upsamplers[0](h)
 
         eps = self.conv_out(self.conv_norm_out(h))
+        out = (eps, cache) if return_deep_cache else eps
         if capture_keys:
             missing = [k for k in capture_keys if tuple(k) not in captured]
             if missing:
                 raise ValueError(f"capture_keys name no cross-attention "
-                                 f"layer of this UNet: {missing}")
-            return eps, captured
-        return eps
+                                 f"layer of this {'shallow ' if first else ''}"
+                                 f"forward: {missing}")
+            return out, captured
+        return out

@@ -1,13 +1,17 @@
-"""DDIM and Euler-Ancestral schedulers: the port of those parts of
+"""DDIM (with inversion), Euler-Ancestral and LCM samplers: the port of
 ``theatergen_tpu/ops/scheduler.py``.  The tables are built in numpy exactly
-as there, so timesteps, alphas and sigmas match bit for bit; the steps run
-on tensors of any device and take their noise explicitly.
+as there, so timesteps, alphas and sigmas match bit for bit.  A loop moves
+a schedule's tables to its device once per run (:func:`device_tables`,
+:meth:`Sampler.on`) and indexes them per step, so a step copies nothing
+from the host; the steps run on tensors of any device and take their
+noise explicitly.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import math
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -156,6 +160,45 @@ def ddim_step(tables: DeviceTables, model_output: torch.Tensor, i: int,
     return prev + sigma * noise
 
 
+def make_inversion_schedule(cfg: SchedulerConfig,
+                            num_steps: int) -> DDIMSchedule:
+    """Ascending timesteps for DDIM inversion: the i-th inverse step maps
+    x at the previous (smaller) timestep to x at ``timesteps[i]``, so
+    ``alpha_prod`` holds the target alpha and ``alpha_prod_prev`` the
+    source one (``alphas_cumprod[0]`` for the clean first source)."""
+    acp = alphas_cumprod_for(cfg).astype(np.float32)
+    ts = uniform_timesteps(cfg, num_steps)[::-1].copy()
+    src = np.concatenate([[0], ts[:-1]])
+    alpha_src = np.where(np.arange(len(ts)) == 0, acp[0], acp[src])
+    return DDIMSchedule(
+        timesteps=ts, alphas_cumprod=acp, alpha_prod=acp[ts],
+        alpha_prod_prev=alpha_src.astype(np.float32),
+        num_train_timesteps=cfg.num_train_timesteps,
+        prediction_type=cfg.prediction_type)
+
+
+def ddim_inverse_step(tables: DeviceTables, model_output: torch.Tensor,
+                      i: int, sample: torch.Tensor) -> torch.Tensor:
+    """One DDIM inversion update (ascending schedule of
+    :func:`make_inversion_schedule`)."""
+    a_t = tables.alpha_prod[i].to(sample.dtype)
+    a_src = tables.alpha_prod_prev[i].to(sample.dtype)
+    x0, eps = x0_eps_from_pred(tables.prediction_type, a_src, model_output,
+                               sample)
+    return torch.sqrt(a_t) * x0 + torch.sqrt(1.0 - a_t) * eps
+
+
+def add_noise(sched: DDIMSchedule, sample: torch.Tensor,
+              noise: torch.Tensor, t) -> torch.Tensor:
+    """Forward-process noising at train timestep ``t``, an int or a tensor
+    whose entries broadcast over ``sample``'s leading axes."""
+    acp = torch.as_tensor(sched.alphas_cumprod, device=sample.device,
+                          dtype=sample.dtype)
+    a = acp[torch.as_tensor(t, dtype=torch.long, device=sample.device)]
+    a = a.reshape(a.shape + (1,) * (sample.ndim - a.ndim))
+    return torch.sqrt(a) * sample + torch.sqrt(1.0 - a) * noise
+
+
 # ---------------------------------------------------------------------------
 # Euler-Ancestral (SDXL's sampler)
 # ---------------------------------------------------------------------------
@@ -199,37 +242,264 @@ def make_euler_ancestral_schedule(cfg: SchedulerConfig,
     )
 
 
-def _sigma(sched: EulerAncestralSchedule, i: int,
-           like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(float(sched.sigmas[i]), dtype=like.dtype,
-                        device=like.device)
+@dataclasses.dataclass(frozen=True)
+class EATables:
+    """An Euler-Ancestral schedule's tables on one device: ``timesteps``
+    [S] int64 and ``sigmas`` [S+1] float32."""
+
+    timesteps: torch.Tensor
+    sigmas: torch.Tensor
+    prediction_type: str = "epsilon"
 
 
-def ea_scale_model_input(sched: EulerAncestralSchedule, sample: torch.Tensor,
+def ea_device_tables(sched: EulerAncestralSchedule, device) -> EATables:
+    return EATables(
+        torch.as_tensor(sched.timesteps, dtype=torch.long, device=device),
+        torch.as_tensor(sched.sigmas, dtype=torch.float32, device=device),
+        sched.prediction_type)
+
+
+def ea_scale_model_input(tables: EATables, sample: torch.Tensor,
                          i: int) -> torch.Tensor:
-    sigma = _sigma(sched, i, sample)
+    sigma = tables.sigmas[i].to(sample.dtype)
     return sample / torch.sqrt(sigma ** 2 + 1.0)
 
 
-def ea_step(sched: EulerAncestralSchedule, model_output: torch.Tensor,
-            i: int, sample: torch.Tensor,
-            noise: torch.Tensor) -> torch.Tensor:
+def ea_step(tables: EATables, model_output: torch.Tensor, i: int,
+            sample: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
     """One ancestral Euler update of the raw (unscaled) latent ``sample``
-    at loop position ``i``; ``noise`` is the step's unit-normal draw."""
-    s_from = _sigma(sched, i, sample)
-    s_to = _sigma(sched, i + 1, sample)
-    if sched.prediction_type == "epsilon":
+    at loop position ``i``, the sigmas indexed from ``tables``
+    (:func:`ea_device_tables`); ``noise`` is the step's unit-normal
+    draw."""
+    s_from = tables.sigmas[i].to(sample.dtype)
+    s_to = tables.sigmas[i + 1].to(sample.dtype)
+    if tables.prediction_type == "epsilon":
         x0 = sample - s_from * model_output
-    elif sched.prediction_type == "v_prediction":
+    elif tables.prediction_type == "v_prediction":
         x0 = (sample / (s_from ** 2 + 1.0)
               - model_output * s_from / torch.sqrt(s_from ** 2 + 1.0))
-    elif sched.prediction_type == "sample":
+    elif tables.prediction_type == "sample":
         x0 = model_output
     else:
         raise ValueError(
-            f"unknown prediction_type {sched.prediction_type!r}")
+            f"unknown prediction_type {tables.prediction_type!r}")
     var = torch.clamp(s_from ** 2 - s_to ** 2, min=0.0)
     s_up = torch.sqrt(s_to ** 2 * var / torch.clamp(s_from ** 2, min=1e-12))
     s_down = torch.sqrt(torch.clamp(s_to ** 2 - s_up ** 2, min=0.0))
     derivative = (sample - x0) / torch.clamp(s_from, min=1e-12)
     return sample + derivative * (s_down - s_from) + noise * s_up
+
+
+# ---------------------------------------------------------------------------
+# LCM (Latent Consistency Models, LCM-LoRA)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LCMSchedule:
+    """Latent Consistency Model tables (host numpy): guidance-free, one
+    UNet evaluation a step, 4-8 steps in place of 50 once an LCM(-LoRA)
+    checkpoint is merged (``models/lora.py``).
+
+    ``timesteps`` [S] int32 descending; ``alpha_prod`` [S] and
+    ``alpha_prod_prev`` [S] (the next loop position's, the last entry
+    ``alphas_cumprod[0]``) float32; ``c_skip`` and ``c_out`` [S] float32,
+    the boundary-condition weights at ``timesteps · timestep_scaling``."""
+
+    timesteps: np.ndarray
+    alpha_prod: np.ndarray
+    alpha_prod_prev: np.ndarray
+    c_skip: np.ndarray
+    c_out: np.ndarray
+    timestep_scaling: float = 10.0
+    sigma_data: float = 0.5
+    init_noise_sigma: float = 1.0
+
+    @property
+    def num_steps(self) -> int:
+        return int(self.timesteps.shape[0])
+
+
+def make_lcm_schedule(cfg: SchedulerConfig, num_steps: int,
+                      original_inference_steps: int = 50,
+                      timestep_scaling: float = 10.0,
+                      sigma_data: float = 0.5) -> LCMSchedule:
+    """diffusers ``LCMScheduler.set_timesteps``: the distillation grid is
+    ``arange(1, K+1)·(T/K) − 1`` (K = ``original_inference_steps``);
+    sampling picks ``floor(linspace(0, K, num_steps, endpoint=False))``
+    indices into the reversed grid."""
+    t_train = cfg.num_train_timesteps
+    skipping = t_train // original_inference_steps
+    origin = np.arange(1, original_inference_steps + 1) * skipping - 1
+    idx = np.floor(np.linspace(0, len(origin), num_steps,
+                               endpoint=False)).astype(np.int64)
+    ts = origin[::-1][idx].astype(np.int32)
+    acp = alphas_cumprod_for(cfg)
+    # the boundary-condition weights in fp32, as the JAX step computes them
+    f32 = np.float32
+    scaled_t = ts.astype(f32) * f32(timestep_scaling)
+    sd2 = f32(sigma_data ** 2)
+    return LCMSchedule(
+        timesteps=ts,
+        alpha_prod=acp[ts].astype(f32),
+        alpha_prod_prev=np.concatenate([acp[ts[1:]], [acp[0]]]).astype(f32),
+        c_skip=(sd2 / (scaled_t ** 2 + sd2)).astype(f32),
+        c_out=(scaled_t / np.sqrt(scaled_t ** 2 + sd2)).astype(f32),
+        timestep_scaling=timestep_scaling, sigma_data=sigma_data)
+
+
+@dataclasses.dataclass(frozen=True)
+class LCMTables:
+    """An LCM schedule's per-step tables on one device."""
+
+    timesteps: torch.Tensor        # [S] int64
+    alpha_prod: torch.Tensor       # [S] float32
+    alpha_prod_prev: torch.Tensor  # [S] float32
+    c_skip: torch.Tensor           # [S] float32
+    c_out: torch.Tensor            # [S] float32
+
+
+def lcm_device_tables(sched: LCMSchedule, device) -> LCMTables:
+    def put(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    return LCMTables(put(sched.timesteps, torch.long), put(sched.alpha_prod),
+                     put(sched.alpha_prod_prev), put(sched.c_skip),
+                     put(sched.c_out))
+
+
+def lcm_step(tables: LCMTables, model_output: torch.Tensor, i: int,
+             sample: torch.Tensor, noise: Optional[torch.Tensor],
+             last: bool) -> torch.Tensor:
+    """One consistency step: x0 from eps, the boundary-condition blend,
+    then re-noised to the next grid timestep with ``noise`` (the step's
+    unit-normal draw), except on the ``last`` step, which returns the
+    blend and needs no noise.  fp32 inside, ``sample``'s dtype out."""
+    a_t, a_prev = tables.alpha_prod[i], tables.alpha_prod_prev[i]
+    x = sample.float()
+    eps = model_output.float()
+    x0 = (x - torch.sqrt(1.0 - a_t) * eps) / torch.sqrt(a_t)
+    denoised = tables.c_out[i] * x0 + tables.c_skip[i] * x
+    if last:
+        return denoised.to(sample.dtype)
+    if noise is None:
+        raise ValueError("an LCM step before the last needs noise")
+    out = (torch.sqrt(a_prev) * denoised
+           + torch.sqrt(1.0 - a_prev) * noise.float())
+    return out.to(sample.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Sampler: one interface over DDIM, Euler-Ancestral and LCM for the loops
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Sampler:
+    """The denoise loops' stepping interface (host tables); ``kind``
+    selects the math.  A loop calls :meth:`on` once per run and steps the
+    returned :class:`DeviceSampler`."""
+
+    kind: str                              # "ddim" | "euler_ancestral" | "lcm"
+    ddim: Optional[DDIMSchedule] = None
+    ea: Optional[EulerAncestralSchedule] = None
+    lcm: Optional[LCMSchedule] = None
+
+    @property
+    def schedule(self):
+        return self.ddim or self.ea or self.lcm
+
+    @property
+    def num_steps(self) -> int:
+        return self.schedule.num_steps
+
+    @property
+    def timesteps(self) -> np.ndarray:
+        return self.schedule.timesteps
+
+    @property
+    def init_noise_sigma(self) -> float:
+        return float(self.schedule.init_noise_sigma)
+
+    @property
+    def needs_noise(self) -> bool:
+        """Whether its steps draw noise (ancestral and consistency steps)."""
+        return self.kind in ("euler_ancestral", "lcm")
+
+    def draws(self, i: int) -> bool:
+        """Whether step ``i`` takes noise: every Euler-Ancestral step, and
+        every LCM step but the last, which returns the denoised blend."""
+        return self.needs_noise and not (self.kind == "lcm"
+                                         and i == self.num_steps - 1)
+
+    def on(self, device) -> "DeviceSampler":
+        if self.kind == "euler_ancestral":
+            tables = ea_device_tables(self.ea, device)
+        elif self.kind == "lcm":
+            tables = lcm_device_tables(self.lcm, device)
+        else:
+            tables = device_tables(self.ddim, device)
+        return DeviceSampler(self.kind, self.num_steps, tables)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceSampler:
+    """A :class:`Sampler`'s tables on one device, made once per run."""
+
+    kind: str
+    num_steps: int
+    tables: Union[DeviceTables, EATables, LCMTables]
+
+    @property
+    def timesteps(self) -> torch.Tensor:
+        return self.tables.timesteps
+
+    def scale_model_input(self, sample: torch.Tensor,
+                          i: int) -> torch.Tensor:
+        if self.kind == "euler_ancestral":
+            return ea_scale_model_input(self.tables, sample, i)
+        return sample
+
+    def step(self, model_output: torch.Tensor, i: int, sample: torch.Tensor,
+             noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One update at loop position ``i``; ``noise`` is the step's
+        unit-normal draw, which the ancestral and consistency steps need
+        (not LCM's last step) and DDIM ignores."""
+        if self.kind == "euler_ancestral":
+            if noise is None:
+                raise ValueError("an Euler-Ancestral step needs noise")
+            return ea_step(self.tables, model_output, i, sample,
+                           noise.to(sample.dtype))
+        if self.kind == "lcm":
+            return lcm_step(self.tables, model_output, i, sample, noise,
+                            last=i == self.num_steps - 1)
+        return ddim_step(self.tables, model_output, i, sample)
+
+
+SAMPLER_KINDS = ("ddim", "euler_ancestral", "lcm")
+
+
+def make_sampler(cfg: SchedulerConfig, num_steps: int, *,
+                 kind: str = "ddim", fast_after_steps: Optional[int] = None,
+                 fast_rate: int = 2) -> Sampler:
+    if kind == "euler_ancestral":
+        return Sampler(kind=kind,
+                       ea=make_euler_ancestral_schedule(cfg, num_steps))
+    if kind == "lcm":
+        return Sampler(kind=kind, lcm=make_lcm_schedule(cfg, num_steps))
+    if kind != "ddim":
+        raise ValueError(f"unknown sampler {kind!r}; expected one of "
+                         f"{SAMPLER_KINDS}")
+    return Sampler(kind="ddim", ddim=make_schedule(
+        cfg, num_steps, fast_after_steps=fast_after_steps,
+        fast_rate=fast_rate))
+
+
+def cfg_cutoff_steps(num_steps: int, fraction: Optional[float]) -> int:
+    """Steps to run with full CFG before switching to cond-only:
+    ``None`` (or ≥ 1) keeps CFG for every step; otherwise
+    ``ceil(fraction · num_steps)`` clamped to [1, num_steps], so guidance
+    always shapes the high-noise start."""
+    if fraction is None or fraction >= 1.0:
+        return num_steps
+    return max(1, min(num_steps, int(math.ceil(fraction * num_steps))))

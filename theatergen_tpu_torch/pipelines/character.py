@@ -1,15 +1,17 @@
-"""Per-character generation: the IP-Adapter-conditioned DDIM/CFG pass with
+"""Per-character generation: the IP-Adapter-conditioned CFG pass with
 reference-attention capture.
 
-Port of ``theatergen_tpu/pipelines/character.py`` on its default path
+Port of ``theatergen_tpu/pipelines/character.py`` without latent guidance
 (``theater.py`` builds it with ``use_ip=True, capture_ref_attn=True``):
 the IP UNet conditions on the projected CLIP image features of the
 character, ``ip_scale`` weights them (0.4 on a character-DB hit, 0.0 on a
 miss), the whole latent trajectory is kept on the device, and the
 guidance keys' cross-attention maps of the character's word token are
-captured each step, for the mask and the detection of a turn.  Latent
-guidance, CFG cutoff, DeepCache and the SDXL bundle are later slices and
-raise ``NotImplementedError``.
+captured each step, for the mask and the detection of a turn.  The runner
+steps the config's sampler (DDIM, Euler-Ancestral or LCM) and takes the
+JAX package's knobs: CFG cutoff, DeepCache, and LCM's cond-only steps.
+Latent guidance and the SDXL bundle are later slices and raise
+``NotImplementedError``.
 
 NHWC at the boundary, as in the JAX package: latents ``[1, h, w, 4]``,
 images ``[B, H, W, 3]`` in [0, 1].
@@ -26,7 +28,7 @@ import torch.nn.functional as F
 from ..ops import guidance as guidance_ops
 from ..ops import scheduler as sched_ops
 from .bundle import Bundle
-from .sd import cfg_combine
+from .sd import cfg_combine, check_noise, step_noise
 
 # CLIP's image normalisation
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
@@ -93,80 +95,113 @@ def make_character_pipeline(bundle: Bundle, num_steps: int, *,
                             guidance_scale: Optional[float] = None,
                             cfg_cutoff_fraction: Optional[float] = None,
                             deepcache_interval: Optional[int] = None):
-    """Build the per-character runner; returns ``(run, sched)``.
+    """Build the per-character runner; returns ``(run, sampler)``.
 
     ``run(input_latents [1, h, w, 4], context [2, L(+n), C], ip_scale,
-    word_token=0) -> CharacterResult``; ``ip_scale`` is a float or a 0-dim
-    tensor, made a tensor on the device once per run, so one runner serves
-    a DB hit and a miss.  The reference maps are captured at the prompt
-    position ``word_token``: in a turn the last token of the character's
-    phrase (the JAX runner's ``gin.word_token[0]``, set by
-    ``Theater._character_prep``), 0 where no phrase is given.  The loop
-    copies nothing from the host per step: the timesteps and alphas are
-    indexed from tables on the device."""
+    word_token=0, generator=None, *, noise=None) -> CharacterResult``;
+    ``ip_scale`` is a float or a 0-dim tensor, made a tensor on the device
+    once per run, so one runner serves a DB hit and a miss.  The reference
+    maps are captured at the prompt position ``word_token``: in a turn the
+    last token of the character's phrase (the JAX runner's
+    ``gin.word_token[0]``, set by ``Theater._character_prep``), 0 where no
+    phrase is given.  The sampler is ``cfg.pipeline.scheduler_type``'s; an
+    Euler-Ancestral or LCM step draws its noise from ``generator`` (NHWC
+    ``[1, h, w, 4]`` per step, on the generator's device) unless ``noise``
+    (``[S, 1, h, w, 4]``) is injected.
+
+    ``cfg_cutoff_fraction``: CFG for the first ``ceil(frac·S)`` steps,
+    then cond-only, the reference maps taken from the cond row (index 0)
+    there.  LCM runs every step cond-only.  ``deepcache_interval``: a full
+    UNet forward every N-th step (step 0 always), a shallow forward from
+    the cached deep feature in between; a shallow step's reference maps
+    are the last full step's (the captured layers lie in the skipped deep
+    blocks), and at the cutoff the cache keeps its cond rows.  The loop
+    copies nothing from the host per step: the sampler's tables are
+    indexed on the device."""
     cfg = bundle.cfg
     if guided:
-        raise NotImplementedError("latent guidance is not ported yet")
-    if deepcache_interval is not None and deepcache_interval > 1:
-        raise NotImplementedError("DeepCache is not ported yet")
-    if cfg_cutoff_fraction is not None and cfg_cutoff_fraction < 1.0:
-        raise NotImplementedError("CFG cutoff is not ported yet")
-    if cfg.unet.addition_embed_type is not None or bundle.text2 is not None:
-        raise NotImplementedError("the SDXL character pass is not ported yet")
-    if cfg.pipeline.scheduler_type != "ddim":
         raise NotImplementedError(
-            f"scheduler {cfg.pipeline.scheduler_type!r} is not ported for "
-            f"the character pass")
+            "latent guidance is not ported yet (ROADMAP §1 item 6)")
+    if cfg.unet.addition_embed_type is not None or bundle.text2 is not None:
+        raise NotImplementedError(
+            "the SDXL character pass is not ported yet (ROADMAP §1 item 5)")
     unet = bundle.unet_ip if use_ip else bundle.unet
     if unet is None:
         raise ValueError("make_character_pipeline: use_ip needs a bundle "
                          "with the IP UNet (init_bundle(..., with_ip=True))")
-    sched = sched_ops.make_schedule(
-        cfg.scheduler, num_steps,
+    sampler = sched_ops.make_sampler(
+        cfg.scheduler, num_steps, kind=cfg.pipeline.scheduler_type,
         fast_after_steps=cfg.pipeline.fast_after_steps,
         fast_rate=cfg.pipeline.fast_rate)
     gs = cfg.pipeline.guidance_scale if guidance_scale is None \
         else guidance_scale
     keys = tuple(cfg.guidance.attn_keys) if capture_ref_attn else ()
     text_len = cfg.text.max_length
+    s_total = sampler.num_steps
+    # LCM(-LoRA) distils CFG into the weights: every step is cond-only
+    cutoff = (0 if sampler.kind == "lcm" else
+              sched_ops.cfg_cutoff_steps(s_total, cfg_cutoff_fraction))
+    dc = deepcache_interval if deepcache_interval and \
+        deepcache_interval > 1 else None
 
     @torch.no_grad()
     def run(input_latents: torch.Tensor, context: torch.Tensor,
-            ip_scale=0.0, word_token: int = 0) -> CharacterResult:
+            ip_scale=0.0, word_token: int = 0,
+            generator: Optional[torch.Generator] = None, *,
+            noise: Optional[torch.Tensor] = None) -> CharacterResult:
         dev = bundle.device
-        tables = sched_ops.device_tables(sched, dev)
+        steps = sampler.on(dev)
+        check_noise(noise, s_total, input_latents.shape)
         kwargs = {}
         if use_ip:
             kwargs["ip_scale"] = torch.as_tensor(ip_scale, dtype=torch.float32,
                                                  device=dev)
         context = context.to(dev)
         lat = input_latents.to(dev, torch.float32).permute(0, 3, 1, 2)
-        s_total = sched.num_steps
+        b = lat.shape[0]
         traj = torch.empty((s_total + 1,) + tuple(input_latents.shape),
                            dtype=torch.float32, device=dev)
-        refs = None
+        refs = ref_prev = cache = None
         for i in range(s_total):
             traj[i] = lat.permute(0, 2, 3, 1)
-            t = tables.timesteps[i].expand(2 * lat.shape[0])
-            out = unet(torch.cat([lat, lat], dim=0), t, context,
-                       capture_keys=keys, **kwargs)
-            if keys:
-                eps, captured = out
-                maps = guidance_ops.attn_collection_to_maps(
-                    captured, keys, cond_batch_index=1, text_len=text_len)
-                if refs is None:
-                    refs = tuple(torch.empty((s_total,) + m.shape[:2],
-                                             dtype=torch.float32, device=dev)
-                                 for m in maps)
-                for r, m in zip(refs, maps):
-                    r[i] = m[:, :, word_token]
+            cfg_on = i < cutoff
+            if i == cutoff and cache is not None:
+                cache = cache[b:]
+            scaled = steps.scale_model_input(lat, i)
+            if cfg_on:
+                x_in, ctx, cond_idx = torch.cat([scaled, scaled]), context, 1
             else:
-                eps = out
-            eps = cfg_combine(eps.float(), gs)
-            lat = sched_ops.ddim_step(tables, eps, i, lat)
+                x_in, ctx, cond_idx = scaled, context[b:], 0
+            t = steps.timesteps[i].expand(x_in.shape[0])
+            if dc and i % dc:
+                eps = unet(x_in, t, ctx, deep_cache=cache, **kwargs)
+                ref = ref_prev
+            else:
+                out = unet(x_in, t, ctx, capture_keys=keys,
+                           return_deep_cache=bool(dc), **kwargs)
+                ref = None
+                if keys:
+                    out, captured = out
+                    maps = guidance_ops.attn_collection_to_maps(
+                        captured, keys, cond_batch_index=cond_idx,
+                        text_len=text_len)
+                    ref = ref_prev = [m[:, :, word_token] for m in maps]
+                eps, cache = out if dc else (out, None)
+            if keys:
+                if refs is None:
+                    refs = tuple(torch.empty((s_total,) + r.shape,
+                                             dtype=torch.float32, device=dev)
+                                 for r in ref)
+                for r, m in zip(refs, ref):
+                    r[i] = m
+            eps = eps.float()
+            if cfg_on:
+                eps = cfg_combine(eps, gs)
+            n = (step_noise(i, input_latents.shape, dev, generator, noise)
+                 if sampler.draws(i) else None)
+            lat = steps.step(eps, i, lat, n)
         final = lat.permute(0, 2, 3, 1)
         traj[s_total] = final
         return CharacterResult(final, traj, refs)
 
-    return run, sched
-
+    return run, sampler

@@ -2,28 +2,35 @@
 replacement.
 
 Port of ``theatergen_tpu/pipelines/final.py::make_final_pipeline`` on its
-default path (SD1.5, DDIM, CFG, guidance off).  It starts from the
-composed trajectory's t = T slot.  Each step runs:
+SD1.5 path without latent guidance.  It starts from the composed
+trajectory's t = T slot.  Each step runs:
 
 - the ControlNet on the lineart hint with the text-only context, inside
   the ``control_guidance_start``/``end`` window;
 - its residuals into the IP UNet (``ip_scale`` 0.1 in a turn), CFG and
-  the DDIM step;
+  the sampler's step (DDIM, Euler-Ancestral or LCM);
 - for steps ``i < frozen_steps``, the masked region replaced by the
   composed trajectory's next latent:
   ``latents_all[i+1]·fm + nxt·(1−fm)``.
 
-``frozen_steps`` and ``ip_scale`` become tensors on the device once per
-run, and the DDIM tables are indexed on the device, so a step copies
-nothing from the host.  The window is fixed by the step index alone, so
-it is decided on the host.  A step outside it skips the ControlNet: its
-residuals there are zero in the JAX package, and adding zero changes
-nothing.  The hint is embedded once per run, not once per step.
+The JAX package's knobs: CFG cutoff (cond-only steps after it, the
+ControlNet at batch 1 too), DeepCache on the UNet (the ControlNet still
+runs every step; a shallow forward uses only its shallow residuals), the
+ControlNet interval (its forward on every N-th step, the residuals reused
+in between) and LCM's cond-only steps.
 
-Latent guidance, CFG cutoff, DeepCache, the ControlNet interval, LCM and
-the SDXL inputs (``extra_cond``, ``adapter_feats``) are later slices and
-raise ``NotImplementedError``.  NHWC at the boundary, as in the JAX
-package.
+``frozen_steps`` and ``ip_scale`` become tensors on the device once per
+run, and the sampler's tables are indexed on the device, so a step copies
+nothing from the host.  The window is fixed by the step index alone, so
+it is decided on the host.  The JAX package multiplies the residuals by
+the window's 0/1 factor; the port skips them where it is 0, and skips the
+ControlNet forward where no step that would use its residuals lies in the
+window: adding zero changes nothing.  The hint is embedded once per run,
+not once per step.
+
+Latent guidance and the SDXL inputs (``extra_cond``, ``adapter_feats``)
+are later slices and raise ``NotImplementedError``.  NHWC at the
+boundary, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -35,7 +42,7 @@ import torch
 
 from ..ops import scheduler as sched_ops
 from .bundle import Bundle
-from .sd import cfg_combine
+from .sd import cfg_combine, check_noise, step_noise
 
 
 def control_window(num_steps: int, start: float, end: float) -> list:
@@ -57,29 +64,30 @@ def make_final_pipeline(bundle: Bundle, num_steps: int, *,
                         cfg_cutoff_fraction: Optional[float] = None,
                         deepcache_interval: Optional[int] = None,
                         controlnet_interval: Optional[int] = None):
-    """Build the final-pass runner; returns ``(run, sched)``.
+    """Build the final-pass runner; returns ``(run, sampler)``.
 
     ``run(latents_all [S+1, 1, h, w, 4], frozen_mask [h, w], frozen_steps,
     context [2, L(+n), C], cn_context [2, L, C], cond_image [H, W, 3],
-    ip_scale) -> (final [1, h, w, 4], trajectory [S+1, 1, h, w, 4])``.
-    ``frozen_steps`` and ``ip_scale`` are numbers or 0-dim tensors;
-    ``context`` carries the IP tokens where ``use_ip``; ``cond_image`` is
-    the hint in [0, 1]."""
+    ip_scale, generator=None, *, noise=None) -> (final [1, h, w, 4],
+    trajectory [S+1, 1, h, w, 4])``.  ``frozen_steps`` and ``ip_scale`` are
+    numbers or 0-dim tensors; ``context`` carries the IP tokens where
+    ``use_ip``; ``cond_image`` is the hint in [0, 1].  An Euler-Ancestral
+    or LCM step draws its noise from ``generator`` unless ``noise`` (``[S,
+    1, h, w, 4]``) is injected.
+
+    ``cfg_cutoff_fraction`` and ``deepcache_interval`` as in
+    ``character.make_character_pipeline``; at the cutoff the DeepCache
+    cache and (where the cutoff is past step 0) the ControlNet cache keep
+    their cond rows.  ``controlnet_interval``: the ControlNet forward on
+    every N-th step, its residuals reused until the next; the window's
+    factor applies per step, outside the cache."""
     cfg = bundle.cfg
     if guided:
-        raise NotImplementedError("latent guidance is not ported yet")
-    if cfg_cutoff_fraction is not None and cfg_cutoff_fraction < 1.0:
-        raise NotImplementedError("CFG cutoff is not ported yet")
-    if deepcache_interval is not None and deepcache_interval > 1:
-        raise NotImplementedError("DeepCache is not ported yet")
-    if controlnet_interval is not None and controlnet_interval > 1:
-        raise NotImplementedError("the ControlNet interval is not ported yet")
-    if cfg.unet.addition_embed_type is not None or bundle.text2 is not None:
-        raise NotImplementedError("the SDXL final pass is not ported yet")
-    if cfg.pipeline.scheduler_type != "ddim":
         raise NotImplementedError(
-            f"scheduler {cfg.pipeline.scheduler_type!r} is not ported for "
-            f"the final pass")
+            "latent guidance is not ported yet (ROADMAP §1 item 6)")
+    if cfg.unet.addition_embed_type is not None or bundle.text2 is not None:
+        raise NotImplementedError(
+            "the SDXL final pass is not ported yet (ROADMAP §1 item 5)")
     unet = bundle.unet_ip if use_ip else bundle.unet
     if unet is None:
         raise ValueError("make_final_pipeline: use_ip needs a bundle with "
@@ -89,27 +97,41 @@ def make_final_pipeline(bundle: Bundle, num_steps: int, *,
         raise ValueError("make_final_pipeline: use_controlnet needs a bundle "
                          "with the ControlNet (init_bundle(..., "
                          "with_controlnet=True))")
-    sched = sched_ops.make_schedule(
-        cfg.scheduler, num_steps,
+    sampler = sched_ops.make_sampler(
+        cfg.scheduler, num_steps, kind=cfg.pipeline.scheduler_type,
         fast_after_steps=cfg.pipeline.fast_after_steps,
         fast_rate=cfg.pipeline.fast_rate)
     gs = cfg.pipeline.guidance_scale if guidance_scale is None \
         else guidance_scale
-    s_total = sched.num_steps
+    s_total = sampler.num_steps
     window = control_window(s_total, control_guidance_start,
                             control_guidance_end)
+    cutoff = (0 if sampler.kind == "lcm" else
+              sched_ops.cfg_cutoff_steps(s_total, cfg_cutoff_fraction))
+    dc = deepcache_interval if deepcache_interval and \
+        deepcache_interval > 1 else None
+    cn_every = controlnet_interval if controlnet_interval and \
+        controlnet_interval > 1 else 1
+    # ControlNet forwards: step i runs it where its residuals serve some
+    # step of i's span (the steps up to the next forward) inside the window
+    cn_runs = [controlnet is not None and i % cn_every == 0
+               and any(window[i:i + cn_every]) for i in range(s_total)]
 
     @torch.no_grad()
     def run(latents_all: torch.Tensor, frozen_mask: torch.Tensor,
             frozen_steps, context: torch.Tensor, cn_context: torch.Tensor,
-            cond_image: torch.Tensor, ip_scale=0.1, *,
+            cond_image: torch.Tensor, ip_scale=0.1,
+            generator: Optional[torch.Generator] = None, *,
+            noise: Optional[torch.Tensor] = None,
             extra_cond: Optional[dict] = None,
             adapter_feats: Optional[tuple] = None):
         if extra_cond is not None or adapter_feats is not None:
             raise NotImplementedError(
-                "extra_cond and adapter_feats (SDXL) are not ported yet")
+                "extra_cond and adapter_feats (SDXL) are not ported yet "
+                "(ROADMAP §1 item 5)")
         dev = bundle.device
-        tables = sched_ops.device_tables(sched, dev)
+        steps = sampler.on(dev)
+        check_noise(noise, s_total, latents_all.shape[1:])
         frozen = torch.as_tensor(frozen_steps, dtype=torch.long, device=dev)
         kwargs = {}
         if use_ip:
@@ -121,29 +143,57 @@ def make_final_pipeline(bundle: Bundle, num_steps: int, *,
         fm = fm[None, None]
         context, cn_context = context.to(dev), cn_context.to(dev)
         cond_embed = None
-        if controlnet is not None and any(window):
+        if any(cn_runs):
             cond = cond_image.to(dev, torch.float32).permute(2, 0, 1)[None]
             cond_embed = controlnet.embed_hint(cond)
         lat = comp[0]
+        b = lat.shape[0]
         traj = torch.empty((s_total + 1,) + tuple(latents_all.shape[1:]),
                            dtype=torch.float32, device=dev)
+        cache = cn_cache = None
         for i in range(s_total):
             traj[i] = lat.permute(0, 2, 3, 1)
-            t = tables.timesteps[i].expand(2 * lat.shape[0])
-            lat_in = torch.cat([lat, lat], dim=0)
+            cfg_on = i < cutoff
+            if i == cutoff:
+                if cache is not None:
+                    cache = cache[b:]
+                if cn_cache is not None:
+                    cn_cache = (tuple(r[b:] for r in cn_cache[0]),
+                                cn_cache[1][b:])
+            scaled = steps.scale_model_input(lat, i)
+            if cfg_on:
+                x_in, ctx, cn_ctx = (torch.cat([scaled, scaled]), context,
+                                     cn_context)
+            else:
+                x_in, ctx, cn_ctx = scaled, context[b:], cn_context[b:]
+            t = steps.timesteps[i].expand(x_in.shape[0])
+            if cn_runs[i]:
+                cn_cache = controlnet(x_in, t, cn_ctx,
+                                      conditioning_scale=controlnet_scale,
+                                      cond_embed=cond_embed)
+            elif i % cn_every == 0:
+                cn_cache = None
             res = {}
-            if cond_embed is not None and window[i]:
-                down, mid = controlnet(lat_in, t, cn_context,
-                                       conditioning_scale=controlnet_scale,
-                                       cond_embed=cond_embed)
-                res = dict(down_residuals=down, mid_residual=mid)
-            eps = unet(lat_in, t, context, **kwargs, **res)
-            eps = cfg_combine(eps.float(), gs)
-            nxt = sched_ops.ddim_step(tables, eps, i, lat)
+            if cn_cache is not None and window[i]:
+                res = dict(down_residuals=cn_cache[0],
+                           mid_residual=cn_cache[1])
+            if dc and i % dc:
+                eps = unet(x_in, t, ctx, deep_cache=cache, **kwargs, **res)
+            elif dc:
+                eps, cache = unet(x_in, t, ctx, return_deep_cache=True,
+                                  **kwargs, **res)
+            else:
+                eps = unet(x_in, t, ctx, **kwargs, **res)
+            eps = eps.float()
+            if cfg_on:
+                eps = cfg_combine(eps, gs)
+            n = (step_noise(i, latents_all.shape[1:], dev, generator, noise)
+                 if sampler.draws(i) else None)
+            nxt = steps.step(eps, i, lat, n)
             lat = torch.where(frozen > i, comp[i + 1] * fm + nxt * (1.0 - fm),
                               nxt)
         final = lat.permute(0, 2, 3, 1)
         traj[s_total] = final
         return final, traj
 
-    return run, sched
+    return run, sampler

@@ -1,9 +1,12 @@
-"""Core txt2img pipeline: CFG over a Python loop of DDIM steps.
+"""Core txt2img pipeline: CFG over a Python loop of DDIM steps, with the
+JAX package's step knobs (CFG cutoff, DeepCache), the guidance-free LCM
+loop and DDIM inversion.
 
-Port of ``theatergen_tpu/pipelines/sd.py`` (DDIM only).  The functions keep
-the JAX package's NHWC layout at their boundary (latents ``[B, h, w, 4]``,
-images ``[B, H, W, 3]`` in [0, 1]); the modules run NCHW inside.  Every
-random draw takes an explicit ``torch.Generator``.
+Port of ``theatergen_tpu/pipelines/sd.py``.  The functions keep the JAX
+package's NHWC layout at their boundary (latents ``[B, h, w, 4]``, images
+``[B, H, W, 3]`` in [0, 1]); the modules run NCHW inside.  Every random
+draw takes an explicit ``torch.Generator``, or noise injected by the
+caller (:func:`step_noise`).
 """
 
 from __future__ import annotations
@@ -33,20 +36,57 @@ def cfg_combine(eps: torch.Tensor, scale: float) -> torch.Tensor:
     return eps_u + scale * (eps_c - eps_u)
 
 
+def step_noise(i: int, shape, device, generator=None,
+               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Step ``i``'s unit-normal noise as NCHW fp32 on ``device``:
+    ``noise[i]`` (``[S, *shape]``, NHWC) where injected, else an NHWC draw
+    of ``shape`` from ``generator`` on its own device."""
+    if noise is not None:
+        n = noise[i]
+    elif generator is not None:
+        n = torch.randn(tuple(shape), generator=generator,
+                        device=generator.device, dtype=torch.float32)
+    else:
+        raise ValueError("this sampler draws noise each step: pass a "
+                         "generator or the noise")
+    return n.to(device, torch.float32).permute(0, 3, 1, 2)
+
+
+def check_noise(noise: Optional[torch.Tensor], steps: int, shape) -> None:
+    if noise is not None and tuple(noise.shape) != (steps,) + tuple(shape):
+        raise ValueError(f"noise shape {tuple(noise.shape)}, want "
+                         f"{(steps,) + tuple(shape)}")
+
+
 @torch.no_grad()
 def denoise(unet, sched: DDIMSchedule, latents: torch.Tensor,
             context: torch.Tensor, guidance_scale: float, *,
-            collect_trajectory: bool = False
+            collect_trajectory: bool = False,
+            cfg_cutoff_steps: Optional[int] = None,
+            deepcache_interval: Optional[int] = None
             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Run the DDIM/CFG loop.  ``unet(sample NCHW, t [2B], context)`` gives
-    eps; ``latents`` is NHWC fp32.  Returns ``(final, trajectory or None)``,
-    where ``trajectory[s]`` is the latent entering step s and the last entry
-    the final latent (``[S+1, B, h, w, C]``, preallocated).  The timesteps
-    and alphas are indexed from tables on the device: no host copy per
+    """Run the DDIM/CFG loop.  ``unet(sample NCHW, t [2B], context, **kw)``
+    gives eps (and takes ``return_deep_cache``/``deep_cache`` with
+    DeepCache); ``latents`` is NHWC fp32.  Returns ``(final, trajectory or
+    None)``, where ``trajectory[s]`` is the latent entering step s and the
+    last entry the final latent (``[S+1, B, h, w, C]``, preallocated).
+
+    ``cfg_cutoff_steps``: CFG for the first N steps, cond-only (the cond
+    half of ``context``, batch B) after; ``None`` or ≥ S keeps CFG
+    throughout.  ``deepcache_interval``: a full UNet forward on every N-th
+    step (step 0 always), refreshing the deep-feature cache, and a shallow
+    forward from the cache in between; at the cutoff the cache keeps its
+    cond rows.  ``None`` or 1 runs every step in full.  The timesteps and
+    alphas are indexed from tables on the device: no host copy per
     step."""
     s_total = sched.num_steps
     lat = latents.permute(0, 3, 1, 2).float()
+    b = lat.shape[0]
     tables = sched_ops.device_tables(sched, lat.device)
+    cutoff = s_total if cfg_cutoff_steps is None else min(
+        int(cfg_cutoff_steps), s_total)
+    use_dc = deepcache_interval is not None and deepcache_interval > 1
+    cache = None
     traj = None
     if collect_trajectory:
         traj = torch.empty((s_total + 1,) + tuple(latents.shape),
@@ -54,14 +94,48 @@ def denoise(unet, sched: DDIMSchedule, latents: torch.Tensor,
     for i in range(s_total):
         if traj is not None:
             traj[i] = lat.permute(0, 2, 3, 1)
-        t = tables.timesteps[i].expand(2 * lat.shape[0])
-        eps = unet(torch.cat([lat, lat], dim=0), t, context)
-        eps = cfg_combine(eps.float(), guidance_scale)
+        cfg_on = i < cutoff
+        if i == cutoff and cache is not None:
+            cache = cache[b:]
+        x_in, ctx = ((torch.cat([lat, lat], dim=0), context) if cfg_on
+                     else (lat, context[context.shape[0] // 2:]))
+        t = tables.timesteps[i].expand(x_in.shape[0])
+        if not use_dc:
+            eps = unet(x_in, t, ctx)
+        elif i % deepcache_interval == 0:
+            eps, cache = unet(x_in, t, ctx, return_deep_cache=True)
+        else:
+            eps = unet(x_in, t, ctx, deep_cache=cache)
+        eps = eps.float()
+        if cfg_on:
+            eps = cfg_combine(eps, guidance_scale)
         lat = sched_ops.ddim_step(tables, eps, i, lat)
     final = lat.permute(0, 2, 3, 1)
     if traj is not None:
         traj[s_total] = final
     return final, traj
+
+
+@torch.no_grad()
+def lcm_denoise(unet, sampler: sched_ops.Sampler, latents: torch.Tensor,
+                context_cond: torch.Tensor,
+                generator: Optional[torch.Generator] = None, *,
+                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The guidance-free LCM loop (LCM / LCM-LoRA): one cond-only UNet
+    evaluation per step (``context_cond`` [B, L, C]), each step but the
+    last re-noised with step i's noise, ``noise[i]`` (``[S, B, h, w, C]``)
+    where given, else an NHWC draw from ``generator``.  NHWC fp32 in and
+    out."""
+    check_noise(noise, sampler.num_steps, latents.shape)
+    lat = latents.permute(0, 3, 1, 2).float()
+    run = sampler.on(lat.device)
+    for i in range(sampler.num_steps):
+        t = run.timesteps[i].expand(lat.shape[0])
+        eps = unet(lat, t, context_cond)
+        n = (step_noise(i, latents.shape, lat.device, generator, noise)
+             if sampler.draws(i) else None)
+        lat = run.step(eps.float(), i, lat, n)
+    return lat.permute(0, 2, 3, 1)
 
 
 @torch.no_grad()
@@ -96,30 +170,73 @@ class Text2Img:
 
     >>> pipe = Text2Img(bundle, num_steps=50)
     >>> img = pipe(torch.Generator("cuda").manual_seed(0), "a cat")
-    """
+
+    ``sampler="lcm"`` runs the guidance-free LCM loop (one UNet evaluation
+    a step, 4-8 steps) for LCM(-LoRA)-merged weights (``models/lora.py``);
+    the DDIM loop takes DeepCache from ``cfg.pipeline.deepcache_interval``.
+    A request draws its starting latents from the generator, then (LCM)
+    each step's noise."""
 
     def __init__(self, bundle: Bundle, num_steps: int = 50,
-                 guidance_scale: Optional[float] = None):
+                 guidance_scale: Optional[float] = None,
+                 sampler: str = "ddim"):
         cfg = bundle.cfg
-        if cfg.pipeline.scheduler_type != "ddim":
-            raise NotImplementedError(
-                f"scheduler {cfg.pipeline.scheduler_type!r} is not ported yet")
+        if sampler not in ("ddim", "lcm"):
+            raise ValueError(
+                f"Text2Img supports sampler 'ddim' or 'lcm', got {sampler!r}"
+                " (Euler-Ancestral lives in pipelines/sdxl.py's loop)")
         self.bundle = bundle
-        self.sched = sched_ops.make_schedule(
-            cfg.scheduler, num_steps,
+        self.sampler_kind = sampler
+        self.sampler = sched_ops.make_sampler(
+            cfg.scheduler, num_steps, kind=sampler,
             fast_after_steps=cfg.pipeline.fast_after_steps,
             fast_rate=cfg.pipeline.fast_rate)
+        self.sched = self.sampler.ddim
         self.guidance_scale = (cfg.pipeline.guidance_scale
                                if guidance_scale is None else guidance_scale)
 
     def __call__(self, generator: torch.Generator, prompt,
-                 negative_prompt=None) -> torch.Tensor:
+                 negative_prompt=None, *,
+                 noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``noise`` (LCM only) replaces the per-step draws."""
         b = self.bundle
         cfg = b.cfg
         context = encode_prompts(b, prompt, negative_prompt)
-        lat = seeded_latents(generator, context.shape[0] // 2,
-                             cfg.pipeline.latent_height,
+        batch = context.shape[0] // 2
+        lat = seeded_latents(generator, batch, cfg.pipeline.latent_height,
                              cfg.pipeline.latent_width, device=b.device)
-        final, _ = denoise(b.unet, self.sched, lat, context,
-                           self.guidance_scale)
+        if self.sampler_kind == "lcm":
+            final = lcm_denoise(b.unet, self.sampler, lat, context[batch:],
+                                generator, noise=noise)
+        else:
+            final, _ = denoise(
+                b.unet, self.sched, lat, context, self.guidance_scale,
+                deepcache_interval=cfg.pipeline.deepcache_interval)
         return decode_with(b.vae, cfg.vae.scaling_factor, final)
+
+
+@torch.no_grad()
+def invert(bundle: Bundle, image_latents: torch.Tensor,
+           context: torch.Tensor, num_steps: int,
+           guidance_scale: float = 1.0
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """DDIM inversion of clean latents ``[B, h, w, 4]`` under ``context``
+    (``[2B, L, C]``, uncond ++ cond, combined at ``guidance_scale``).
+    Returns ``(noised latents, trajectory [S+1, B, h, w, 4])``, the
+    trajectory's first entry the input."""
+    sched = sched_ops.make_inversion_schedule(bundle.cfg.scheduler,
+                                              num_steps)
+    lat = image_latents.to(bundle.device, torch.float32).permute(0, 3, 1, 2)
+    tables = sched_ops.device_tables(sched, lat.device)
+    traj = torch.empty((num_steps + 1,) + tuple(image_latents.shape),
+                       dtype=torch.float32, device=lat.device)
+    context = context.to(lat.device)
+    for i in range(num_steps):
+        traj[i] = lat.permute(0, 2, 3, 1)
+        t = tables.timesteps[i].expand(2 * lat.shape[0])
+        eps = bundle.unet(torch.cat([lat, lat], dim=0), t, context)
+        eps = cfg_combine(eps.float(), guidance_scale)
+        lat = sched_ops.ddim_inverse_step(tables, eps, i, lat)
+    final = lat.permute(0, 2, 3, 1)
+    traj[num_steps] = final
+    return final, traj

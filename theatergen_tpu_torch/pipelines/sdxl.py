@@ -5,8 +5,10 @@ Port of ``theatergen_tpu/pipelines/sdxl.py`` (``encode_prompts_xl``,
 ``default_time_ids``, ``denoise_xl``, ``Text2ImgXL``).  As in
 ``pipelines/sd.py``, latents ``[B, h, w, 4]`` and images ``[B, H, W, 3]``
 are NHWC at the boundary and every random draw comes from an explicit
-``torch.Generator`` (or, in tests, from injected noise).  The LCM route and
-T2I-Adapter conditioning join with their slices.
+``torch.Generator`` (or, in tests, from injected noise).  ``Text2ImgXL``
+also runs the guidance-free LCM loop (``sd.lcm_denoise``) for
+LCM-LoRA-XL-merged weights; T2I-Adapter conditioning joins with the SDXL
+turn's slice.
 """
 
 from __future__ import annotations
@@ -81,15 +83,14 @@ def denoise_xl(unet, sched: EulerAncestralSchedule,
     pooled_text=, time_ids=)`` gives eps.  Step i's ancestral noise is
     ``noise[i]`` (``[S, B, h, w, C]``) where given, else a unit-normal NHWC
     draw from ``generator`` on its device.  Returns ``(final,
-    trajectory or None)`` as ``sd.denoise`` does."""
+    trajectory or None)`` as ``sd.denoise`` does.  The sigmas and
+    timesteps are indexed from tables on the device."""
     s_total = sched.num_steps
     if noise is None and generator is None:
         raise ValueError("denoise_xl: pass a generator or the noise")
-    if noise is not None and tuple(noise.shape) != (s_total,) + tuple(
-            latents.shape):
-        raise ValueError(f"denoise_xl: noise shape {tuple(noise.shape)}, "
-                         f"want {(s_total,) + tuple(latents.shape)}")
+    sd.check_noise(noise, s_total, latents.shape)
     lat = latents.permute(0, 3, 1, 2).float()
+    tables = sched_ops.ea_device_tables(sched, lat.device)
     traj = None
     if collect_trajectory:
         traj = torch.empty((s_total + 1,) + tuple(latents.shape),
@@ -97,19 +98,13 @@ def denoise_xl(unet, sched: EulerAncestralSchedule,
     for i in range(s_total):
         if traj is not None:
             traj[i] = lat.permute(0, 2, 3, 1)
-        scaled = sched_ops.ea_scale_model_input(sched, lat, i)
-        t = torch.full((2 * lat.shape[0],), int(sched.timesteps[i]),
-                       dtype=torch.long, device=lat.device)
+        scaled = sched_ops.ea_scale_model_input(tables, lat, i)
+        t = tables.timesteps[i].expand(2 * lat.shape[0])
         eps = unet(torch.cat([scaled, scaled], dim=0), t, context,
                    pooled_text=pooled, time_ids=time_ids)
         eps = sd.cfg_combine(eps.float(), guidance_scale)
-        if noise is not None:
-            n = noise[i]
-        else:
-            n = torch.randn(tuple(latents.shape), generator=generator,
-                            device=generator.device, dtype=lat.dtype)
-        n = n.to(lat.device, lat.dtype).permute(0, 3, 1, 2)
-        lat = sched_ops.ea_step(sched, eps, i, lat, n)
+        n = sd.step_noise(i, latents.shape, lat.device, generator, noise)
+        lat = sched_ops.ea_step(tables, eps, i, lat, n)
     final = lat.permute(0, 2, 3, 1)
     if traj is not None:
         traj[s_total] = final
@@ -124,45 +119,68 @@ class Text2ImgXL:
 
     ``denoising_end`` truncates the sampling loop at a fraction of the
     schedule (base/refiner-style splits); ``output_type="latent"`` then
-    also returns the final latent.
+    also returns the final latent.  With ``cfg.pipeline.scheduler_type ==
+    "lcm"`` the request runs the guidance-free LCM loop on the cond rows
+    (context, pooled text and time ids), for LCM-LoRA-XL-merged weights;
+    ``denoising_end`` is not defined for it.
     """
 
     def __init__(self, bundle: Bundle, num_steps: int = 30,
                  guidance_scale: Optional[float] = None,
                  denoising_end: Optional[float] = None):
         cfg = bundle.cfg
-        if cfg.pipeline.scheduler_type == "lcm":
-            raise NotImplementedError("the LCM sampler is not ported yet")
         self.bundle = bundle
-        run = (num_steps if denoising_end is None
-               else max(1, int(round(num_steps * denoising_end))))
-        full = sched_ops.make_euler_ancestral_schedule(cfg.scheduler,
-                                                       num_steps)
-        self.sched = dataclasses.replace(
-            full, timesteps=full.timesteps[:run],
-            sigmas=full.sigmas[:run + 1])
+        self.is_lcm = cfg.pipeline.scheduler_type == "lcm"
+        if self.is_lcm:
+            if denoising_end is not None:
+                raise ValueError("denoising_end is a base/refiner split of "
+                                 "the CFG schedule; not defined for the LCM "
+                                 "sampler")
+            self.sched = sched_ops.make_sampler(cfg.scheduler, num_steps,
+                                                kind="lcm")
+        else:
+            run = (num_steps if denoising_end is None
+                   else max(1, int(round(num_steps * denoising_end))))
+            full = sched_ops.make_euler_ancestral_schedule(cfg.scheduler,
+                                                           num_steps)
+            self.sched = dataclasses.replace(
+                full, timesteps=full.timesteps[:run],
+                sigmas=full.sigmas[:run + 1])
         self.guidance_scale = (cfg.pipeline.guidance_scale
                                if guidance_scale is None else guidance_scale)
 
     def __call__(self, generator: torch.Generator, prompt,
                  negative_prompt=None, hint=None,
-                 output_type: str = "image"):
+                 output_type: str = "image", *,
+                 noise: Optional[torch.Tensor] = None):
+        """``noise`` replaces the per-step draws (``[S, B, h, w, 4]``)."""
         if hint is not None:
-            raise NotImplementedError("T2I-Adapter hints are not ported yet")
+            raise NotImplementedError("T2I-Adapter hints are not ported yet "
+                                      "(ROADMAP §1 item 5)")
         if output_type not in ("image", "latent"):
             raise ValueError(f"output_type must be 'image' or 'latent', got "
                              f"{output_type!r}")
         b = self.bundle
         cfg = b.cfg
         context, pooled = encode_prompts_xl(b, prompt, negative_prompt)
-        lat = sd.seeded_latents(generator, context.shape[0] // 2,
+        batch = context.shape[0] // 2
+        lat = sd.seeded_latents(generator, batch,
                                 cfg.pipeline.latent_height,
                                 cfg.pipeline.latent_width, device=b.device)
         lat = lat * self.sched.init_noise_sigma
         time_ids = default_time_ids(cfg.pipeline.height, cfg.pipeline.width,
                                     context.shape[0], device=b.device)
-        final, _ = denoise_xl(b.unet, self.sched, generator, lat, context,
-                              pooled, time_ids, self.guidance_scale)
+        if self.is_lcm:
+            # CFG is distilled into LCM(-LoRA) weights: the cond rows only
+            pooled_c, tids_c = pooled[batch:], time_ids[batch:]
+            final = sd.lcm_denoise(
+                lambda x, t, c: b.unet(x, t, c, pooled_text=pooled_c,
+                                       time_ids=tids_c),
+                self.sched, lat, context[batch:], generator, noise=noise)
+        else:
+            final, _ = denoise_xl(b.unet, self.sched, generator, lat,
+                                  context, pooled, time_ids,
+                                  self.guidance_scale, noise=noise)
         img = sd.decode_with(b.vae, cfg.vae.scaling_factor, final)
         if output_type == "latent":
             return img, final

@@ -20,13 +20,25 @@ reference's ``theatergen.run``, ``theatergen.py:278-488``, with
 - a new character's image and features go to the DB after the final pass
   is dispatched.
 
-Every random draw of a turn comes from one ``torch.Generator`` seeded from
-the turn's seed, in a fixed order: per character attempt the background
+The runners take ``cfg.pipeline``'s sampler and knobs (``scheduler_type``,
+``cfg_cutoff_fraction``, ``deepcache_interval``, ``controlnet_interval``),
+as the JAX Theater builds them; the starting latents are scaled by the
+sampler's ``init_noise_sigma``.
+
+The random draws of a turn come from ``torch.Generator``s seeded from the
+turn's seed.  The starting latents come from one generator seeded with
+the seed itself, in a fixed order: per character attempt the background
 and then the foreground noise, then the composition's background noise
-(or, in a turn without characters, its starting latents).  Everything
-stays on the bundle's device until the turn's images are fetched.  The
-batched character mode, meshes and latent guidance raise until their
-ROADMAP items land.
+(or, in a turn without characters, its starting latents).  A sampler that
+draws noise each step (Euler-Ancestral, LCM) takes it from a stream of its
+own (:func:`noise_generator`): ``(seed, 1, character index, attempt)`` for
+a character attempt (the index of the character's first occurrence in the
+turn's spec), ``(seed, 2)`` for the final pass and ``(seed, 3)`` for a
+turn without characters.  DDIM draws nothing per step.  These streams
+cannot reproduce ``jax.random``'s, so parity with the JAX package goes
+through injected noise.  Everything stays on the bundle's device until
+the turn's images are fetched.  The batched character mode, meshes and
+latent guidance raise until their ROADMAP items land.
 """
 
 from __future__ import annotations
@@ -59,6 +71,15 @@ ATTN_AGG_START = 10
 MAX_REGEN_ATTEMPTS = 3
 # the final pass's fixed negative-prompt prefix (theatergen.py:363)
 FINAL_NEG_PREFIX = "incohesive, edge shadow, blurry, "
+
+
+def noise_generator(device, seed: int, *stream: int) -> torch.Generator:
+    """The per-step noise stream ``(seed, *stream)`` of a turn's sampler, a
+    generator on ``device`` seeded by numpy's ``SeedSequence`` of the
+    tuple."""
+    state = np.random.SeedSequence([seed, *stream]).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(state))
 
 
 def aggregate_attn(ref_attn: Sequence[torch.Tensor], num_steps: int
@@ -319,19 +340,29 @@ class Theater:
                     detected=detected_ok, token_pos=prep["token_pos"],
                     img_embed=img_embed, hit=prep["hit"])
 
+    def _noise_gen(self, seed: int, *stream: int):
+        """The sampler's per-step noise stream, or None where it draws
+        none (DDIM)."""
+        if not self.char_sched.needs_noise:
+            return None
+        return noise_generator(self.bundle.device, seed, *stream)
+
     def _generate_character(self, plan: parse.ObjectPlan, extra_neg: str,
-                            gen: torch.Generator) -> dict:
+                            gen: torch.Generator, seed: int,
+                            idx: int) -> dict:
         """One character with detect-and-regenerate (theatergen.py:43-201):
-        a fresh draw per attempt, up to MAX_REGEN_ATTEMPTS."""
+        a fresh draw per attempt, up to MAX_REGEN_ATTEMPTS; attempt ``a``
+        steps with the noise stream ``(seed, 1, idx, a)``."""
         prep = self._character_prep(plan, extra_neg)
         detected_ok = False
         result = image = agg = detection = None
-        for _ in range(MAX_REGEN_ATTEMPTS):
+        for attempt in range(MAX_REGEN_ATTEMPTS):
             init_lat = self._char_input_latents(gen, prep["centered"])
             with self.timer.phase("char.denoise_decode", sync=True):
-                result = self.char_run(init_lat, prep["ctx"],
-                                       prep["ip_scale"],
-                                       word_token=prep["word_token"])
+                result = self.char_run(
+                    init_lat, prep["ctx"], prep["ip_scale"],
+                    prep["word_token"], self._noise_gen(seed, 1, idx,
+                                                        attempt))
                 image = self._decode_img(result.latents)
                 agg = self._aggregate_attn(result.ref_attn)
             with self.timer.phase("char.detect"):
@@ -384,12 +415,13 @@ class Theater:
                            self.char_sched.num_steps)
         gen = torch.Generator(device=b.device).manual_seed(seed)
 
-        order, unique_plans, _ = _dedup_plans(plan)
+        order, unique_plans, unique_idx = _dedup_plans(plan)
         cache: Dict[Tuple[str, int], dict] = {}
-        for oplan in unique_plans:
+        for oplan, idx in zip(unique_plans, unique_idx):
             with self.timer.phase("character"):
                 cache[(oplan.prompt, oplan.obj_id)] = (
-                    self._generate_character(oplan, extra_neg, gen))
+                    self._generate_character(oplan, extra_neg, gen, seed,
+                                             idx))
         chars = [cache[key] for key in order]
 
         if not chars:
@@ -398,7 +430,8 @@ class Theater:
                                        parse.DEFAULT_OVERALL_NEGATIVE_PROMPT)
             ctx = ip_context(b, ctx, self._placeholder_ip_features(),
                              self._uncond_ip)
-            res = self.char_run(self._bg_latents(gen), ctx, 0.0)
+            res = self.char_run(self._bg_latents(gen), ctx, 0.0, 0,
+                                self._noise_gen(seed, 3))
             img = self._decode_img(res.latents)[0].float().cpu().numpy()
             return TurnResult(img, [], img, time.time() - t_start, [], [])
 
@@ -407,7 +440,7 @@ class Theater:
             final, _ = self.final_run(
                 fargs["composed"], fargs["frozen_mask"], frozen_steps,
                 fargs["ctx"], fargs["cn_ctx"], fargs["cond_img"],
-                cfg.pipeline.ip_scale_final)
+                cfg.pipeline.ip_scale_final, self._noise_gen(seed, 2))
             image = self._decode_img(final)
             # the deferred DB writes: their feature programs precede the
             # final pass in the device queue

@@ -53,3 +53,21 @@ class PhaseTimer:
                 "p90_s": float(np.percentile(arr, 90)),
             }
         return out
+
+
+@contextlib.contextmanager
+def trace(log_dir: str) -> Iterator[None]:
+    """A ``torch.profiler`` trace of the enclosed block (host operators,
+    and the card's kernels where CUDA is available), written as a Chrome
+    trace ``trace.json`` into ``log_dir`` when the block ends."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
