@@ -45,13 +45,24 @@ Phases, in order (any failure exits non-zero):
      UNet check, then ``Text2ImgXL(bundle, num_steps=30)`` on two prompts at
      1024 px, Euler-Ancestral, CFG 7.5, and one 4-step LCM request (the
      config's ``scheduler_type`` replaced);
+  7b. the SDXL turn's models: ``init_bundle(sdxl_config(), with_ip=True,
+     with_vision=True, with_t2i_adapter=True)``, the T2I-Adapter's
+     features of a seeded 1024² hint, the XL IP UNet with pooled text,
+     time ids and those features as ``level_residuals`` against
+     ``plain_path()``, its wall and device ms per evaluation beside the
+     base UNet's and its host-side op table, and 30-step ``Text2ImgXL``
+     requests with and without the hint in turns;
   8. the IP-Adapter character pass:
      ``init_bundle(sd15_config(), with_ip=True, with_vision=True)``, the IP
      UNet with the kernels against ``plain_path()`` (``THEATERGEN_FUSED_GN``
      at "1"), ``encode_ip_image`` of a seeded 512² image, ``ip_context``,
      then ``make_character_pipeline(bundle, 50, use_ip=True,
      capture_ref_attn=True)`` requests at ip_scale 0.4 and 0.0 with the
-     switch at "1", and one at 0.4 with the switch at "0";
+     switch at "1", and one at 0.4 with the switch at "0"; then the W8A8
+     character pass (``sd15_config()`` with ``unet.quantized``,
+     ``with_ip=True, with_vision=True``, ``THEATERGEN_FUSED_INT8`` at
+     "1"): its IP UNet against ``plain_path()`` and within
+     W8A8_FLOAT_BOUND of the float IP UNet, and one request;
   9. the back half of a turn at 512 px:
      ``init_bundle(sd15_config(), with_ip=True, with_vision=True,
      with_controlnet=True)``, the ControlNet and the IP UNet with its
@@ -81,7 +92,11 @@ Phases, in order (any failure exits non-zero):
      the CLI's knobs (TURN_KNOBS): ``--deepcache 3 --cfg_cutoff 0.5
      --cn_interval 2`` with ``--profile`` (its trace checked on disk) and
      without, ``--scheduler lcm`` at 4 steps, and Euler-Ancestral with
-     v-prediction and zero terminal SNR at 30 steps.
+     v-prediction and zero terminal SNR at 30 steps; then the SDXL
+     dialogue, ``--sd_version xl --box_canvas 512``: 1024 px, 30
+     Euler-Ancestral steps, the T2I-Adapter in place of the ControlNet,
+     each turn's launches against its attempts × the XL character request
+     plus one XL final request.
 Every launch counter is set to 0 just before each request (or turn) and
 read just after it, and must equal the launches per request of each
 kernel: the constants of the SD1.5, W8A8 and SDXL requests under the
@@ -123,6 +138,7 @@ from theatergen_tpu_torch import theater
 from theatergen_tpu_torch.config import sd15_config, sdxl_config
 from theatergen_tpu_torch.models.layers import (GroupNorm, QuantLinear,
                                                  plain_path)
+from theatergen_tpu_torch.models import t2i_adapter
 from theatergen_tpu_torch.models.lora import apply_lora_unet
 from theatergen_tpu_torch.ops.attention import multi_head_attention
 from theatergen_tpu_torch.ops import flash_attention as fa
@@ -154,6 +170,17 @@ FINAL, FINAL_768, CHAR_768 = "sd15_512_final", "sd15_768_final", "sd15_768_ip"
 SD15_1024, SP2_768, SP4_768 = "sd15_1024", "sd15_768_sp2", "sd15_768_sp4"
 # a whole story turn through the CLI (dialogue_0 of data/sample/story.json)
 TURN = "sd15_512_turn"
+# the SDXL turn (--sd_version xl): the XL IP UNet of the character pass,
+# the final pass on it with the T2I-Adapter's features (no ControlNet), a
+# Text2ImgXL request with a hint, and dialogue_0 through the CLI at 1024 px
+XL_CHAR, XL_FINAL = "sdxl_1024_ip", "sdxl_1024_final"
+XL_HINT, XL_TURN = "sdxl_1024_hint", "sdxl_1024_turn"
+# CMIGBench authors its layout boxes on a 512² canvas; the XL turn scales
+# them to its 1024² one (the CLI's --box_canvas)
+XL_BOX_CANVAS = 512
+# the W8A8 character pass: the quantized IP UNet at 512 px, its eps within
+# this bound of the float IP UNet of the same seed (relative to max|ref|)
+CHAR_W8A8, W8A8_FLOAT_BOUND = "sd15_512_ip_w8a8", 3e-2
 # batch-1 evaluations (no CFG: the CFG cutoff's tail, every LCM step) of
 # SD1.5 at 512 px and SDXL at 1024 px
 SD15_B1, SDXL_B1 = "sd15_512_cond", "sdxl_1024_cond"
@@ -784,12 +811,20 @@ def eval_launches(ucfg, side: int, batch: int, shallow: bool = False,
     ``gn.routes`` under the current switch for a bf16 GroupNorm), walking
     the modules in forward order.  ``shallow``: DeepCache's shallow
     forward, the first ``cache_level`` levels of the encoder (without
-    their last downsampler) and the last ``cache_level`` up blocks.
-    ``quant_matmul`` is not derived here (its W8A8 requests keep
-    QMM_PER_EVAL)."""
+    their last downsampler) and the last ``cache_level`` up blocks.  A
+    quantized UNet's ``quant_matmul`` launches, under
+    ``THEATERGEN_FUSED_INT8`` "1", are its ``QuantLinear`` calls: the time
+    embedding's two, each resnet's ``time_emb_proj``, and per transformer
+    layer the two attentions' q, k, v and out projections, the FF's two
+    linears and, with IP tokens, ``to_k_ip``/``to_v_ip``."""
     got = collections.Counter()
     boc, n, lpb = ucfg.block_out_channels, len(ucfg.block_out_channels), \
         ucfg.layers_per_block
+    qmm = ucfg.quantized and qz.FUSED_MODE == "1"
+
+    def linears(k):
+        if qmm:
+            got["quant_matmul"] += k
 
     def norm(c, level):
         s = side >> level
@@ -800,6 +835,7 @@ def eval_launches(ucfg, side: int, batch: int, shallow: bool = False,
     def resnet(cin, cout, level):
         norm(cin, level)
         norm(cout, level)
+        linears(1)
 
     def transformer(level, ch):
         norm(ch, level)
@@ -811,12 +847,15 @@ def eval_launches(ucfg, side: int, batch: int, shallow: bool = False,
                 got[FLASH_COUNTERS[fa.COUNTERS[route]]] += 1
             m, k = batch * hw, 4 * ch
             if ucfg.quantized:
+                linears(8 + 2 + (2 if ucfg.ip_num_tokens else 0))
                 continue
             if ucfg.fused_ff and gg.ff_supported(m, ch, k):
                 got["ff_geglu"] += 1
             elif gg.supported(m, k, ch):
                 got["geglu_matmul"] += 1
 
+    if not encoder_only:
+        linears(2)
     levels = cache_level if shallow else n
     skips, h_ch = [boc[0]], boc[0]
     for i in range(levels):
@@ -904,6 +943,21 @@ def derivation_check() -> None:
                 sd.controlnet.unet, px, 2, encoder_only=True)
             want[model] = (got, dict(PER_EVAL[model],
                                      group_norm=GN_PER_EVAL[model]))
+        # the XL IP UNet: SDXL's sites (the IP tokens add no kernel site);
+        # W8A8 under THEATERGEN_FUSED_INT8=1: the SD1.5 UNet's 184
+        # quantized linears, and 16 × 2 more IP projections in the IP UNet
+        want[XL_CHAR] = (eval_launches(path_cfg(XL_CHAR)[0], 128, 2),
+                         want[SDXL][1])
+        prev_q, qz.FUSED_MODE = qz.FUSED_MODE, "1"
+        try:
+            q = dataclasses.replace(sd.unet, quantized=True)
+            w8 = dict(flash_attention=10, group_norm=61)
+            want[W8A8] = (eval_launches(q, 64, 2),
+                          dict(w8, quant_matmul=QMM_PER_EVAL))
+            want[CHAR_W8A8] = (eval_launches(path_cfg(CHAR_W8A8)[0], 64, 2),
+                               dict(w8, quant_matmul=QMM_PER_EVAL + 32))
+        finally:
+            qz.FUSED_MODE = prev_q
         bad = [m for m, (got, ref) in want.items() if counts(**got) != counts(
             **ref)]
         for model, (got, _) in want.items():
@@ -1231,16 +1285,30 @@ def sdxl_path(records, profiling: bool) -> dict:
     return out
 
 
+def path_cfg(model: str):
+    """(the IP UNet's config, the latent side, the ControlNet's config or
+    None) of a character or final path: SD1.5 at 512 or 768 px (W8A8 for
+    CHAR_W8A8), or SDXL at 1024 px, whose final pass takes the
+    T2I-Adapter in place of the ControlNet."""
+    cfg = sdxl_config() if model in (XL_CHAR, XL_FINAL) else sd15_config()
+    ucfg = dataclasses.replace(cfg.unet,
+                               ip_num_tokens=cfg.ip_adapter.num_tokens,
+                               quantized=model == CHAR_W8A8)
+    side = cfg.pipeline.latent_height
+    if model in (CHAR_768, FINAL_768):
+        side = 768 // 8
+    cn = cfg.controlnet.unet if model in (FINAL, FINAL_768) else None
+    return ucfg, side, cn
+
+
 def path_want(model: str, steps: int = SD15_STEPS, **knobs) -> dict:
     """Launches of one request of a character or final path (the final
     pass's ControlNet forwards included) under the step plan of
     ``knobs`` (step_plan), from request_want."""
-    cfg = sd15_config()
-    side = (768 if model in (CHAR_768, FINAL_768) else 512) // 8
-    cn = cfg.controlnet.unet if model in (FINAL, FINAL_768) else None
+    ucfg, side, cn = path_cfg(model)
     if cn is None:
         knobs.pop("cn_interval", None)
-    return request_want(cfg.unet, side, step_plan(steps, **knobs), cn)
+    return request_want(ucfg, side, step_plan(steps, **knobs), cn)
 
 
 def character_request(bundle, run, image, i: int, scale: float,
@@ -1284,7 +1352,7 @@ def character_request(bundle, run, image, i: int, scale: float,
     return seconds, res
 
 
-def character_path(records, profiling: bool) -> dict:
+def character_path(records, profiling: bool) -> tuple:
     """The IP-Adapter character pass: the IP UNet check with the switch at
     "1", encode_ip_image, then the 50-step requests of CHAR_REQUESTS (two
     at "1", one at "0"); with ``profiling`` also the GroupNorm A/B (device
@@ -1305,11 +1373,10 @@ def character_path(records, profiling: bool) -> dict:
     ip_scale = torch.tensor(0.4, device="cuda")
     # as the SD1.5 check: bf16 through 16 blocks, plus the kernel's single
     # rounding after the SiLU at 61 norms
-    rel, _ = unet_reference_phase(bundle, 5e-2, bundle.unet_ip,
-                                  ip_scale=ip_scale)
+    rel, ip_eps = unet_reference_phase(bundle, 5e-2, bundle.unet_ip,
+                                       ip_scale=ip_scale)
 
-    g = torch.Generator(device="cuda").manual_seed(7)
-    image = torch.rand(1, 512, 512, 3, device="cuda", generator=g)
+    image = ip_image()
     embeds = character.encode_ip_image(bundle, image)
     torch.cuda.synchronize()
     ok = (tuple(embeds.shape) == (1, cfg.vision.projection_dim)
@@ -1339,7 +1406,153 @@ def character_path(records, profiling: bool) -> dict:
                                               0.4, [])[0])
         out.update(host_ab(bundle, ip_scale=ip_scale))
     gn.FUSED_MODE = prev_mode
-    return out
+    return out, ip_eps
+
+
+def ip_image():
+    """The character requests' seeded 512² reference image."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    return torch.rand(1, 512, 512, 3, device="cuda", generator=g)
+
+
+def w8a8_character_path(records, float_ip_eps) -> dict:
+    """The character pass on the W8A8 IP UNet:
+    ``init_bundle(sd15_config()`` with ``unet.quantized``, ``with_ip=True,
+    with_vision=True)`` (the float weights of the same seed, quantized),
+    ``THEATERGEN_FUSED_INT8`` at "1".  Its IP UNet with the kernels is held
+    to ``plain_path()`` as the W8A8 UNet is, and to the float IP UNet's eps
+    (``float_ip_eps``, same inputs) within W8A8_FLOAT_BOUND; then one
+    50-step request at ip_scale 0.4, its launches from request_want."""
+    prev_mode, qz.FUSED_MODE = qz.FUSED_MODE, "1"
+    cfg = sd15_config()
+    cfg = dataclasses.replace(cfg, unet=dataclasses.replace(
+        cfg.unet, quantized=True))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bundle = init_bundle(cfg, seed=0, device="cuda", with_ip=True,
+                         with_vision=True)
+    torch.cuda.synchronize()
+    n_q = sum(isinstance(m, QuantLinear) for m in bundle.unet_ip.modules())
+    log(f"  init_bundle(sd15_config(), quantized=True, with_ip=True, "
+        f"with_vision=True): {time.perf_counter() - t0:.3f} s, "
+        f"{n_q} QuantLinear in the IP UNet, weights "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB")
+    rel, eps = unet_reference_phase(bundle, 5e-2, bundle.unet_ip,
+                                    ip_scale=torch.tensor(0.4, device="cuda"))
+    rel_float = ((eps - float_ip_eps).abs().max()
+                 / float_ip_eps.abs().max()).item()
+    ok = rel_float <= W8A8_FLOAT_BOUND
+    log(f"  W8A8 IP UNet eps vs the float IP UNet of the same seed: "
+        f"max|diff|/max|ref| {rel_float:.3e} (bound {W8A8_FLOAT_BOUND:g})  "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the W8A8 IP UNet is off the float IP UNet")
+    run, _ = character.make_character_pipeline(
+        bundle, SD15_STEPS, use_ip=True, capture_ref_attn=True)
+    seconds, _ = character_request(bundle, run, ip_image(), 0, 0.4, records,
+                                   CHAR_W8A8)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  seconds per request {seconds:.3f}; peak memory "
+        f"{peak / 2 ** 30:.3f} GiB")
+    qz.FUSED_MODE = prev_mode
+    return dict(seconds_per_request=seconds, peak_bytes=peak,
+                unet_kernels_vs_plain_rel=rel, unet_vs_float_rel=rel_float)
+
+
+def xl_path(records) -> dict:
+    """The SDXL turn's models on one bundle, ``init_bundle(sdxl_config(),
+    with_ip=True, with_vision=True, with_t2i_adapter=True)``: the
+    T2I-Adapter's features of a seeded 1024² hint (no kernel), the XL IP
+    UNet with pooled text, time ids and those features as level residuals
+    against ``plain_path()`` (the SDXL bound); the wall ms per evaluation
+    of the base and the IP UNet with the residuals, in turns; two 30-step
+    ``Text2ImgXL`` requests with the hint and two without, in turns (ABBA),
+    each with the SDXL request's launches; then each UNet's device ms per
+    evaluation and the IP UNet's host-side op table (torch.profiler)."""
+    cfg = sdxl_config()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bundle = init_bundle(cfg, seed=0, device="cuda", with_ip=True,
+                         with_vision=True, with_t2i_adapter=True)
+    torch.cuda.synchronize()
+    n_ada = sum(p.numel() for p in bundle.t2i_adapter.parameters()) / 1e6
+    log(f"  init_bundle(sdxl_config(), with_ip=True, with_vision=True, "
+        f"with_t2i_adapter=True): {time.perf_counter() - t0:.3f} s, "
+        f"T2I-Adapter {n_ada:.1f} M params, weights "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB")
+    g = torch.Generator(device="cuda").manual_seed(9)
+    hint = torch.rand(cfg.pipeline.height, cfg.pipeline.width, 3,
+                      device="cuda", generator=g)
+    reset_counts()
+    feats = sdxl.adapter_features(bundle, hint)
+    torch.cuda.synchronize()
+    adapter_ms = time_ms(lambda: sdxl.adapter_features(bundle, hint), 5)
+    shapes = [tuple(f.shape) for f in feats]
+    side = cfg.pipeline.latent_height
+    want_shapes = [(1, c, side >> i, side >> i)
+                   for i, c in enumerate(cfg.unet.block_out_channels)]
+    ok = (shapes == want_shapes and read_counts() == counts()
+          and all(bool(torch.isfinite(f).all()) for f in feats))
+    log(f"  T2I-Adapter features of the 1024² hint: {shapes}, "
+        f"{adapter_ms:.3f} ms a call, no kernel launched: "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("T2I-Adapter: bad features")
+    ip_scale = torch.tensor(0.4, device="cuda")
+    lev = t2i_adapter.tile_features(feats, 2)
+    # the SDXL UNet's bound: 70 blocks of bf16 that the two paths round
+    # differently; the adapter's features enter both alike
+    rel, _ = unet_reference_phase(bundle, 5e-2, bundle.unet_ip,
+                                  ip_scale=ip_scale, level_residuals=lev)
+    x, t, ctx, cond = unet_inputs(bundle, 5, 501, 77 + 4)
+    evals = {
+        "unet": lambda: bundle.unet(x, t, ctx[:, :77], level_residuals=lev,
+                                    **cond),
+        "unet_ip": lambda: bundle.unet_ip(x, t, ctx, ip_scale=ip_scale,
+                                          level_residuals=lev, **cond)}
+    # wall ms per evaluation (5 back to back, the loop's pace), the base
+    # and the IP UNet in turns, before any profiler runs in this phase
+    wall = collections.defaultdict(list)
+    with torch.no_grad():
+        for name in ("unet", "unet_ip", "unet_ip", "unet"):
+            wall[name].append(time_ms(evals[name], 5, 1))
+    pipe = sdxl.Text2ImgXL(bundle, num_steps=SDXL_STEPS)
+    want = counts(flash_attention=70 * SDXL_STEPS,
+                  geglu_matmul=70 * SDXL_STEPS,
+                  group_norm=gn_want(SDXL, SDXL_STEPS))
+    # the hinted request, and the same request without the hint, in turns
+    seconds = collections.defaultdict(list)
+    for i, hinted in enumerate((True, False, False, True)):
+        seconds["hint" if hinted else "no_hint"] += run_requests(
+            XL_HINT if hinted else SDXL,
+            (lambda gen, p: pipe(gen, p, hint=hint)) if hinted else pipe,
+            [PROMPTS[i % 2]], want, cfg.pipeline.height, records)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  seconds per request with and without the hint, in turns: "
+        f"{json.dumps(seconds)}; peak memory {peak / 2 ** 30:.3f} GiB")
+    with torch.no_grad():
+        device = {name: device_ms(fn) for name, fn in evals.items()}
+        host_table(evals["unet_ip"])
+    eval_ms = dict(device=device, wall=dict(wall))
+    log(f"  evaluation with level residuals, batch 2, ms: "
+        f"{json.dumps(eval_ms)}")
+    return dict(seconds_per_request=dict(seconds), peak_bytes=peak,
+                unet_kernels_vs_plain_rel=rel, eval_ms=eval_ms,
+                adapter_ms=adapter_ms)
+
+
+def host_table(fn, rows: int = 15) -> None:
+    """The host side of one call of ``fn``: torch.profiler's ops by their
+    own CPU time, with their device time beside it."""
+    from torch.profiler import ProfilerActivity, profile as prof
+    fn()
+    torch.cuda.synchronize()
+    with prof(activities=[ProfilerActivity.CPU,
+                          ProfilerActivity.CUDA]) as p:
+        fn()
+        torch.cuda.synchronize()
+    log(p.key_averages().table(sort_by="self_cpu_time_total",
+                               row_limit=rows))
 
 
 def final_inputs(bundle, seed: int):
@@ -1762,38 +1975,43 @@ def final_paths(records) -> dict:
     return out
 
 
-def turn_want(attempts: int, steps: int = SD15_STEPS, **knobs) -> dict:
+def turn_want(attempts: int, steps: int = SD15_STEPS, xl: bool = False,
+              **knobs) -> dict:
     """Launches of one turn: each character attempt is a character
     request, and the turn ends in one final request, each of ``steps``
-    under the step plan of ``knobs``."""
-    per_attempt = path_want(CHAR, steps, **knobs)
-    final_req = path_want(FINAL, steps, **knobs)
+    under the step plan of ``knobs`` (SD1.5's paths, or with ``xl`` the
+    SDXL turn's)."""
+    per_attempt = path_want(XL_CHAR if xl else CHAR, steps, **knobs)
+    final_req = path_want(XL_FINAL if xl else FINAL, steps, **knobs)
     return {k: attempts * per_attempt[k] + final_req[k] for k in COUNTERS}
 
 
 def turn_path(records, label: str = "", flags=(), steps: int = SD15_STEPS,
-              knobs=None) -> dict:
+              knobs=None, xl: bool = False) -> dict:
     """The serial story loop through the port's CLI,
     ``cli.generate.main``, over dialogue_0 of data/sample/story.json:
-    SD1.5 at 512 px, full width and depth on random weights, ``steps``
-    steps (50 DDIM by default; ``flags`` adds the CLI's knob flags and
-    ``knobs`` their step plan), frozen_step_ratio 0.5, into an output tree
-    and character DB under build/chip_smoke_turn[_label]/ (emptied first:
-    the CLI resumes by existence).  Every counter is set to 0 just before
+    SD1.5 at 512 px (or, with ``xl``, SDXL at 1024 px, ``flags`` carrying
+    ``--sd_version xl``), full width and depth on random weights,
+    ``steps`` steps (50 DDIM by default; ``flags`` adds the CLI's knob
+    flags and ``knobs`` their step plan), frozen_step_ratio 0.5, into an
+    output tree and character DB under build/chip_smoke_turn[_xl][_label]/
+    (emptied first: the CLI resumes by existence).  Every counter is set to 0 just before
     each turn and read just after it (Theater.run_turn wrapped here); the
     turn's character attempts are read from its PhaseTimer.  Fails unless
     every turn ran (none quarantined), its images are finite, in [0, 1]
-    and 512², the DB hits are TURN_HITS, each turn's launches are
-    turn_want, and, with ``--profile``, the trace directory holds a
-    non-empty file."""
+    and of the canvas's side, the DB hits are TURN_HITS, each turn's
+    launches are turn_want, and, with ``--profile``, the trace directory
+    holds a non-empty file."""
     from theatergen_tpu_torch.cli import generate
     from theatergen_tpu_torch.db import CharacterDB
 
     knobs = knobs or {}
-    model = TURN + (f"_{label}" if label else "")
+    side = 1024 if xl else 512
+    model = (XL_TURN if xl else TURN) + (f"_{label}" if label else "")
     t_phase = time.perf_counter()
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
-                        "chip_smoke_turn" + (f"_{label}" if label else ""))
+                        "chip_smoke_turn" + ("_xl" if xl else "")
+                        + (f"_{label}" if label else ""))
     shutil.rmtree(root, ignore_errors=True)
     out_dir, db_dir = os.path.join(root, "out"), os.path.join(root, "db")
     turns, real = [], theater.Theater.run_turn
@@ -1810,7 +2028,7 @@ def turn_path(records, label: str = "", flags=(), steps: int = SD15_STEPS,
         attempts = self.timer.counts()["char.denoise_decode"] - before
         images = [res.image] + res.so_images
         ok_images = all(
-            im.shape == (512, 512, 3) and bool(np.isfinite(im).all())
+            im.shape == (side, side, 3) and bool(np.isfinite(im).all())
             and im.min() >= 0.0 and im.max() <= 1.0 for im in images)
         turns.append(dict(seconds=res.seconds, wall_s=wall,
                           attempts=attempts, launches=got,
@@ -1819,7 +2037,7 @@ def turn_path(records, label: str = "", flags=(), steps: int = SD15_STEPS,
         log(f"  turn {len(turns)}: {wall:.3f} s  characters "
             f"{len(res.so_images)}  attempts {attempts}  DB hits "
             f"{res.db_hits}  detections {res.detections}  launches {got}  "
-            f"images finite, in [0, 1], 512²: {ok_images}")
+            f"images finite, in [0, 1], {side}²: {ok_images}")
         return res
 
     torch.cuda.reset_peak_memory_stats()
@@ -1855,7 +2073,7 @@ def turn_path(records, label: str = "", flags=(), steps: int = SD15_STEPS,
         if t["db_hits"] != TURN_HITS[i]:
             bad.append(f"turn {i + 1}: DB hits {t['db_hits']}, want "
                        f"{TURN_HITS[i]}")
-        want = turn_want(t["attempts"], steps, **knobs)
+        want = turn_want(t["attempts"], steps, xl, **knobs)
         if t["launches"] != want:
             bad.append(f"turn {i + 1}: launches {t['launches']}, want "
                        f"{want}")
@@ -1863,9 +2081,9 @@ def turn_path(records, label: str = "", flags=(), steps: int = SD15_STEPS,
         turn_dir = os.path.join(out_dir, "story", "run0", "dialogue_0",
                                 f"turn {t_idx + 1}")
         for name in sorted(os.listdir(turn_dir)):
-            if png.read_png(os.path.join(turn_dir, name)).shape != (512, 512,
-                                                                    3):
-                bad.append(f"turn {t_idx + 1}/{name}: not 512²")
+            if png.read_png(os.path.join(turn_dir, name)).shape != (side,
+                                                                    side, 3):
+                bad.append(f"turn {t_idx + 1}/{name}: not {side}²")
     if len(turns) != 4:
         bad.append(f"{len(turns)} turns ran")
     trace = None
@@ -2111,9 +2329,21 @@ def main() -> int:
     paths[SDXL] = sdxl_path(records, args.profile)
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"[main path] the SDXL turn's models: the T2I-Adapter, the XL IP "
+        f"UNet with micro-conditioning and level residuals, Text2ImgXL with "
+        f"a hint, 1024 px, {SDXL_STEPS} Euler-Ancestral steps, CFG 7.5")
+    paths[XL_CHAR] = xl_path(records)
+    gc.collect()
+    torch.cuda.empty_cache()
     log(f"[main path] IP-Adapter character pass, SD1.5 512 px, "
         f"{SD15_STEPS} DDIM steps, CFG 7.5, bf16 UNet, fp32 ViT-H/14 tower")
-    paths[CHAR] = character_path(records, args.profile)
+    paths[CHAR], ip_eps = character_path(records, args.profile)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[main path] W8A8 IP-Adapter character pass, SD1.5 512 px, "
+        f"{SD15_STEPS} DDIM steps, THEATERGEN_FUSED_INT8=1")
+    paths[CHAR_W8A8] = w8a8_character_path(records, ip_eps)
+    del ip_eps
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[main path] the back half of a turn: masks, composition, collage, "
@@ -2134,6 +2364,16 @@ def main() -> int:
             f"{steps} steps")
         paths[f"{TURN}_{label}"] = turn_path(records, label, flags, steps,
                                              knobs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[main path] the SDXL story dialogue through the CLI: dialogue_0 "
+        f"with --sd_version xl --box_canvas {XL_BOX_CANVAS}, 4 turns, 1024 "
+        f"px, {SDXL_STEPS} Euler-Ancestral steps, CFG 7.5, the T2I-Adapter "
+        f"on the lineart in the final pass")
+    paths[XL_TURN] = turn_path(
+        records, flags=["--sd_version", "xl", "--box_canvas",
+                        str(XL_BOX_CANVAS)],
+        steps=SDXL_STEPS, knobs=dict(sampler="euler_ancestral"), xl=True)
     paths["sp_shards_equal"] = sp_shards
     paths["wrapper_host_us_per_call"] = host_us
     log(f"[done] {time.perf_counter() - t_start:.1f} s after the build began")

@@ -34,6 +34,7 @@ from theatergen_tpu_torch.ops import guidance as tguid
 from theatergen_tpu_torch.pipelines import character as tchar
 from theatergen_tpu_torch.pipelines.bundle import init_bundle
 
+import test_torch_port_xl_turn as xl_tests
 from test_torch_port_models import random_params
 
 torch.set_num_threads(1)
@@ -290,6 +291,14 @@ def test_knobs_run(kw):
 
 
 def test_xl_bundle_raises():
+    """An SDXL bundle's character pass runs: with pooled text and time
+    ids, exact CFG and Euler-Ancestral it matches the JAX runner
+    (test_torch_port_xl_turn.py's bounds).  What raises is a run without
+    the micro-conditioning, in the XL UNet."""
+    xl_tests.test_character_runner_with_extra_cond_matches(
+        "euler_ancestral", None, None)
     tb = init_bundle(tcfg.tiny_xl_config(), 0, device="cpu", with_ip=True)
-    with pytest.raises(NotImplementedError):
-        tchar.make_character_pipeline(tb, 2)
+    run, _ = tchar.make_character_pipeline(tb, 2)
+    with pytest.raises(ValueError, match="pooled_text"):
+        run(torch.zeros(1, 8, 8, 4), torch.zeros(2, 20, 80), 0.4,
+            noise=torch.zeros(2, 1, 8, 8, 4))

@@ -45,6 +45,7 @@ from theatergen_tpu_torch.pipelines import final as tfinal
 from theatergen_tpu_torch.pipelines import sd as tsd
 from theatergen_tpu_torch.pipelines.bundle import init_bundle
 
+import test_torch_port_xl_turn as xl_tests
 from test_torch_port_models import random_params
 
 torch.set_num_threads(1)
@@ -609,20 +610,16 @@ def test_final_knobs_run(kw):
 
 
 def test_unported_final_inputs_raise():
-    """SDXL's extra_cond and adapter_feats, an SDXL bundle, and a bundle
-    without the ControlNet or the IP UNet raise; an LCM bundle runs and
-    matches the JAX runner."""
+    """A bundle without the ControlNet or the IP UNet raises.  The SDXL
+    inputs and bundles run: the final pass on the tiny XL bundle with
+    pooled text, time ids and the T2I-Adapter's features, exact CFG and
+    Euler-Ancestral, matches the JAX runner (test_torch_port_xl_turn.py's
+    bound and frozen-region check).  An LCM bundle runs and matches the
+    JAX runner."""
     _, tb = _bundles()
     la, fm, ctx, cn_ctx, cond = _final_inputs()
-    run, _ = tfinal.make_final_pipeline(tb, 2)
-    for kw in (dict(extra_cond={}), dict(adapter_feats=())):
-        with pytest.raises(NotImplementedError):
-            run(_t(la[:3]), _t(fm), 0, _t(ctx), _t(cn_ctx), _t(cond), 0.1,
-                **kw)
-    xl = init_bundle(tcfg.tiny_xl_config(), 0, device="cpu", with_ip=True,
-                     with_controlnet=True)
-    with pytest.raises(NotImplementedError):
-        tfinal.make_final_pipeline(xl, 2)
+    xl_tests.test_final_runner_xl_matches("euler_ancestral", None, None,
+                                          False)
     # an LCM bundle runs (cond-only steps, consistency noise): held to the
     # JAX runner with its draws injected, bound 1e-5·max|ref| (no CFG)
     jb, _ = _bundles()

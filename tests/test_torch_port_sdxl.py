@@ -62,12 +62,13 @@ def xl():
 
 
 def test_xl_configs_match_the_jax_package():
-    """Every part the port carries, field for field (the JAX configs' IP,
-    guidance and ControlNet parts join with their slices)."""
+    """Every part the port carries, field for field: the IP-Adapter XL
+    (2048-wide at full size), the guidance keys and the ControlNet
+    included."""
     for fn in ("tiny_xl_config", "sdxl_config"):
         j, t = getattr(jcfg, fn)(), getattr(tcfg, fn)()
         for part in ("unet", "vae", "text", "text2", "scheduler",
-                     "pipeline"):
+                     "pipeline", "ip_adapter", "guidance", "controlnet"):
             assert (dataclasses.asdict(getattr(t, part))
                     == dataclasses.asdict(getattr(j, part))), (fn, part)
 
@@ -275,8 +276,9 @@ def test_sdxl_slice_matches(xl):
 
 def test_text2img_xl_runs_end_to_end(xl):
     """The entry point a user calls: seeded, deterministic, [B, H, W, 3]
-    in [0, 1]; denoising_end runs a prefix of the schedule; the
-    T2I-Adapter hint refuses (the SDXL turn's slice)."""
+    in [0, 1]; denoising_end runs a prefix of the schedule; a T2I-Adapter
+    hint refuses on a bundle without the adapter (with one it runs:
+    test_torch_port_xl_turn.py)."""
     tb = xl["tb"]
     pipe = tsdxl.Text2ImgXL(tb, num_steps=3)
     a = pipe(torch.Generator().manual_seed(5), "a knight")
@@ -289,7 +291,7 @@ def test_text2img_xl_runs_end_to_end(xl):
     img, lat = half(torch.Generator().manual_seed(5), ["a", "b"],
                     output_type="latent")
     assert img.shape == (2, 16, 16, 3) and lat.shape == (2, 8, 8, 4)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="adapter"):
         pipe(torch.Generator().manual_seed(5), "a knight",
              hint=torch.zeros(16, 16, 3))
 

@@ -299,7 +299,7 @@ def test_pending_save_is_a_hit_and_frozen_steps(tmp_path, monkeypatch):
         ("a green dragon ", (290, 100, 150, 220))])
     seen = []
     real = tt.final_run
-    tt.final_run = lambda *a: seen.append(a[2]) or real(*a)
+    tt.final_run = lambda *a, **k: seen.append(a[2]) or real(*a, **k)
     res = tt.run_turn(spec, 1, frozen_step_ratio=2.0)
     assert res.db_hits == [False, True]
     assert seen == [STEPS]
@@ -412,12 +412,41 @@ def test_cli_quarantines_a_failing_turn(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flag", [
     ["--dp_dialogues", "2"], ["--mesh", "dp=2"], ["--batch_chars"],
-    ["--snapshot", "snap"], ["--weights", "w"], ["--guidance"],
-    ["--sd_version", "xl"]])
+    ["--snapshot", "snap"], ["--weights", "w"], ["--guidance"]])
 def test_cli_unported_flags_raise(tmp_path, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tgen.main(_cli(tmp_path, *flag))
     assert not (tmp_path / "out").exists()
+
+
+def test_cli_sd_version_xl_runs(tmp_path, monkeypatch):
+    """``--sd_version xl --tiny --device cpu``: the tiny XL bundle with
+    the T2I-Adapter and no ControlNet, as the JAX CLI builds it, writes
+    dialogue_0's 4-turn tree (16² images), the DB and the run log."""
+    seen = []
+    real = tgen.build_theater
+    monkeypatch.setattr(tgen, "build_theater",
+                        lambda args: seen.append(real(args)) or seen[-1])
+    tgen.main(_cli(tmp_path, "--sd_version", "xl"))
+    (b,) = seen
+    assert b.cfg.unet.addition_embed_type == "text_time"
+    assert b.t2i_adapter is not None and b.controlnet is None
+    run = tmp_path / "out" / "story" / "run0" / "dialogue_0"
+    chars = [2, 1, 1, 2]
+    for t_idx, n in enumerate(chars):
+        files = sorted(os.listdir(run / f"turn {t_idx + 1}"))
+        assert files == ["img_0.png"] + [f"so_0_{i}.png" for i in range(n)]
+        img = png.read_png(str(run / f"turn {t_idx + 1}" / "img_0.png"))
+        assert img.shape == (16, 16, 3)
+    db = tmp_path / "db" / "story" / "dialogue_0"
+    assert sorted(f for f in os.listdir(db) if f.endswith(".png")) == [
+        "0.png", "1.png", "2.png"]
+    events = _log(tmp_path)
+    turns = [e for e in events if e["event"] == "turn"]
+    assert [e["db_hits"] for e in turns] == [[False, False], [True], [True],
+                                             [True, False]]
+    assert not [e for e in events if e["event"] == "quarantine"]
+    assert [e["event"] for e in events][-2:] == ["dialogue", "summary"]
 
 
 @pytest.mark.parametrize("flag,part,field,value", [

@@ -22,12 +22,17 @@ isolation.  The sampler knobs of the JAX package's CLI apply to the config
 (:func:`apply_pipeline_overrides`): ``--cfg_cutoff``, ``--deepcache``,
 ``--cn_interval``, ``--scheduler``, ``--prediction_type`` and
 ``--zero_snr``; ``--profile`` writes a ``torch.profiler`` trace of the
-first dialogue (host and device) to ``<save dir>/profile``.  Runs on the
-card unless ``--device`` names another device::
+first dialogue (host and device) to ``<save dir>/profile``.
+``--sd_version xl`` runs the SDXL turn (``sdxl_config()``, or
+``tiny_xl_config()`` under ``--tiny``) with the T2I-Adapter in place of the
+ControlNet, as the JAX CLI builds it.  Runs on the card unless
+``--device`` names another device::
 
     python -m theatergen_tpu_torch.cli.generate --tiny --device cpu \\
         --dataset_path data/sample --max_dialogues 1 --num_steps 4 \\
         --deepcache 2 --cfg_cutoff 0.5 --cn_interval 2
+    python -m theatergen_tpu_torch.cli.generate --sd_version xl \\
+        --dataset_path data/sample --max_dialogues 1 --box_canvas 512
 """
 
 from __future__ import annotations
@@ -46,8 +51,8 @@ import numpy as np
 # flags of the JAX driver that raise here, and the ROADMAP §1 item that
 # brings each
 UNPORTED_FLAGS = {
-    "dp_dialogues": 9, "mesh": 9, "batch_chars": 9, "snapshot": 7,
-    "weights": 7, "guidance": 6}
+    "dp_dialogues": 7, "mesh": 7, "batch_chars": 7, "snapshot": 3,
+    "weights": 3, "guidance": 5}
 
 
 def turn_seed(seed_offset: int, dialogue_base: int, turn_idx: int,
@@ -150,10 +155,6 @@ def check_ported(args) -> None:
         if value not in (None, False):
             raise NotImplementedError(
                 f"--{flag} is not ported yet (ROADMAP §1 item {item})")
-    if args.sd_version == "xl":
-        raise NotImplementedError(
-            "--sd_version xl: the SDXL turn is not ported yet (ROADMAP §1 "
-            "item 5)")
 
 
 def load_dataset(dataset_path: str, task: str) -> dict:
@@ -186,18 +187,24 @@ def apply_pipeline_overrides(cfg, *, cfg_cutoff=None, deepcache=None,
 
 def build_theater(args):
     """The turn's bundle: random weights from seed 0 with the IP UNet, the
-    vision tower and the ControlNet, on ``args.device``, under the
-    config's knob overrides."""
-    from ..config import sd15_config, tiny_config
+    vision tower and the ControlNet (SD1.5) or the T2I-Adapter (SDXL), on
+    ``args.device``, under the config's knob overrides."""
+    from ..config import sd15_config, sdxl_config, tiny_config, tiny_xl_config
     from ..pipelines.bundle import init_bundle
 
+    is_xl = args.sd_version == "xl"
+    if args.tiny:
+        cfg = tiny_xl_config() if is_xl else tiny_config()
+    else:
+        cfg = sdxl_config() if is_xl else sd15_config()
     cfg = apply_pipeline_overrides(
-        tiny_config() if args.tiny else sd15_config(),
+        cfg,
         cfg_cutoff=args.cfg_cutoff, deepcache=args.deepcache,
         scheduler=args.scheduler, cn_interval=args.cn_interval,
         prediction_type=args.prediction_type, zero_snr=args.zero_snr)
     return init_bundle(cfg, 0, device=args.device, with_ip=True,
-                       with_vision=True, with_controlnet=True)
+                       with_vision=True, with_controlnet=not is_xl,
+                       with_t2i_adapter=is_xl)
 
 
 def main(argv: Optional[list] = None) -> None:

@@ -286,9 +286,9 @@ def sd15_config() -> TheaterConfig:
 
 def tiny_xl_config(latent_size: int = 8) -> TheaterConfig:
     """Miniature SDXL-shaped config: per-level depths/heads, text_time
-    micro-conditioning, dual text towers, EulerAncestral, and a ControlNet
-    on the XL UNet.  The JAX package's twin also carries an IP-Adapter XL
-    part, which joins with its slice."""
+    micro-conditioning, dual text towers, EulerAncestral, the IP-Adapter
+    projecting to the two towers' width, guidance keys on the 2-level
+    UNet, and a ControlNet on the XL UNet."""
     base = tiny_config(latent_size)
     text2 = dataclasses.replace(
         base.text, hidden_size=48, num_heads=2, intermediate_size=96,
@@ -306,10 +306,16 @@ def tiny_xl_config(latent_size: int = 8) -> TheaterConfig:
         addition_time_embed_dim=8,
         projection_class_embeddings_input_dim=32 + 6 * 8,
     )
+    ip = dataclasses.replace(base.ip_adapter, cross_attention_dim=ctx_dim)
     pipe = dataclasses.replace(base.pipeline,
                                scheduler_type="euler_ancestral")
+    # 2-level UNet: attention lives at level 1, so in up_blocks 0
+    guidance = dataclasses.replace(
+        base.guidance,
+        attn_keys=(("mid", 0, 0, 0), ("up", 0, 0, 0), ("up", 0, 1, 0)))
     return dataclasses.replace(
-        base, unet=unet, text2=text2, pipeline=pipe,
+        base, unet=unet, text2=text2, pipeline=pipe, ip_adapter=ip,
+        guidance=guidance,
         controlnet=ControlNetConfig(unet=unet,
                                     conditioning_embed_channels=(8, 16)))
 
@@ -318,8 +324,10 @@ def sdxl_config() -> TheaterConfig:
     """SDXL base stack: 1024×1024, EulerAncestral 30 steps, two text
     towers, ``text_time`` micro-conditioning, head dim 64 at every level,
     and the split FF (``fused_ff=False``: GEGLU up-projection, then the
-    ``geglu_matmul`` kernel).  The JAX package's twin also sets an
-    IP-Adapter XL config; it joins with the IP-Adapter slice."""
+    ``geglu_matmul`` kernel), and the IP-Adapter XL projecting to the
+    2048-wide context.  The default ControlNet and guidance keys are the
+    JAX twin's too: the XL turn conditions its final pass on the
+    T2I-Adapter, and the guidance keys name layers the XL UNet has."""
     unet = UNetConfig(
         sample_size=128,
         block_out_channels=(320, 640, 1280),
@@ -342,4 +350,5 @@ def sdxl_config() -> TheaterConfig:
         height=1024, width=1024, num_steps=30,
         scheduler_type="euler_ancestral",
     )
-    return TheaterConfig(unet=unet, text2=text2, pipeline=pipe)
+    ip = IPAdapterConfig(cross_attention_dim=2048)
+    return TheaterConfig(unet=unet, text2=text2, pipeline=pipe, ip_adapter=ip)

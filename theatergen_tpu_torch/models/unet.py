@@ -21,8 +21,10 @@ package quantizes (attention projections, the FF, ``time_emb_proj`` and
 ``layers.QuantLinear``s.  ``down_residuals`` (one per skip) and
 ``mid_residual``, a ControlNet's outputs, are added to the skips and to
 the mid block's output.  DeepCache's cached and shallow forwards are
-``forward``'s ``return_deep_cache``/``deep_cache``; T2I-Adapter residuals
-come with a later slice.
+``forward``'s ``return_deep_cache``/``deep_cache``.  ``level_residuals``
+(one per level, a T2I-Adapter's features) are added to the hidden state
+at the end of each encoder level, after its last skip and before its
+downsampler.
 
 :class:`UNetEncoder` holds ``conv_in``, the time embedding, the down
 blocks and the mid block, and runs them; the UNet and
@@ -134,12 +136,15 @@ class UNetEncoder(nn.Module):
 
     def encode(self, h: torch.Tensor, temb: torch.Tensor, attend,
                cond_hint: Optional[torch.Tensor] = None,
-               max_level: Optional[int] = None):
+               max_level: Optional[int] = None,
+               level_residuals: Optional[Sequence[torch.Tensor]] = None):
         """conv_in (plus a ControlNet's ``cond_hint`` right after it) and
         the down blocks; ``attend(module, h, place, block, index)`` runs
         each transformer.  ``max_level`` stops after that many levels,
         without their last downsampler (a DeepCache shallow forward).
-        Returns ``(h, skips)``."""
+        ``level_residuals[i]`` is added to ``h`` at the end of level ``i``
+        (after its skips, so they stay without it; before its
+        downsampler), for each level that runs.  Returns ``(h, skips)``."""
         h = self.conv_in(h)
         if cond_hint is not None:
             h = h + cond_hint.to(h.dtype)
@@ -151,6 +156,8 @@ class UNetEncoder(nn.Module):
                 if len(blk.attentions):
                     h = attend(blk.attentions[j], h, "down", i, j)
                 skips.append(h)
+            if level_residuals is not None and i < len(level_residuals):
+                h = h + level_residuals[i].to(h.dtype)
             if hasattr(blk, "downsamplers") and i < len(blocks) - 1:
                 h = blk.downsamplers[0](h)
                 skips.append(h)
@@ -218,6 +225,7 @@ class UNet2DCondition(UNetEncoder):
                 time_ids: Optional[torch.Tensor] = None,
                 down_residuals: Optional[Sequence[torch.Tensor]] = None,
                 mid_residual: Optional[torch.Tensor] = None,
+                level_residuals: Optional[Sequence[torch.Tensor]] = None,
                 deep_cache: Optional[torch.Tensor] = None,
                 return_deep_cache: bool = False, cache_level: int = 1):
         """DeepCache (arXiv 2312.00858), as the JAX package's UNet:
@@ -230,7 +238,8 @@ class UNet2DCondition(UNetEncoder):
         - ``deep_cache=cache``: the shallow forward.  The encoder runs its
           first ``cache_level`` levels (fresh skips, ``down_residuals``
           added to that prefix; the deeper ones and ``mid_residual`` go
-          unused), ``cache`` takes the place of the mid block and every
+          unused; ``level_residuals`` added at the levels that run),
+          ``cache`` takes the place of the mid block and every
           deeper block, and the last ``cache_level`` up blocks run.  From
           the cache of the same ``(sample, t, context)`` this is the full
           forward; from an earlier step's cache it is DeepCache's
@@ -262,7 +271,8 @@ class UNet2DCondition(UNetEncoder):
         attend = attender(context, ip_scale, capture_keys, captured)
         cache = None
         if deep_cache is None:
-            h, skips = self.encode(h, temb, attend)
+            h, skips = self.encode(h, temb, attend,
+                                   level_residuals=level_residuals)
             if down_residuals is not None:
                 if len(down_residuals) != len(skips):
                     raise ValueError(f"{len(down_residuals)} down residuals "
@@ -274,7 +284,8 @@ class UNet2DCondition(UNetEncoder):
                 h = h + mid_residual.to(h.dtype)
             first = 0
         else:
-            h, skips = self.encode(h, temb, attend, max_level=cache_level)
+            h, skips = self.encode(h, temb, attend, max_level=cache_level,
+                                   level_residuals=level_residuals)
             if down_residuals is not None:
                 # the shallow skips are a prefix of the full stack
                 skips = [s + r.to(s.dtype)

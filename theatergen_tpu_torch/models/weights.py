@@ -4,8 +4,9 @@ state dicts.
 ``from_flax(kind, params)`` takes a flax tree (nested dicts of arrays) of
 the JAX package's UNet (SDXL's ``add_embedding`` and the IP UNet's
 ``attn2.to_k_ip``/``to_v_ip`` included), ControlNet, VAE, text tower (either of
-SDXL's two, ``text_projection`` included), CLIP vision tower or IP-Adapter
-projector (``image_proj``, ``mlp_proj``, ``resampler``) and returns the
+SDXL's two, ``text_projection`` included), CLIP vision tower, IP-Adapter
+projector (``image_proj``, ``mlp_proj``, ``resampler``) or T2I-Adapter
+(``t2i_adapter``) and returns the
 port's state dict as numpy arrays.  It is written from the two packages'
 naming rules:
 
@@ -16,9 +17,11 @@ naming rules:
   ``net.0``, ``layers_3`` (CLIP) → ``encoder.layers.3``,
   ``layers_0_attn`` (Resampler) → ``layers.0.attn``,
   ``controlnet_down_blocks_3`` → ``controlnet_down_blocks.3``, ``blocks_5``
-  (the ControlNet's hint embedding) → ``blocks.5``; the UNet's and the
-  ControlNet's ``encoder``/``mid`` wrapper scopes vanish, the VAE's ``post_quant_conv``
-  and ``quant_conv`` move out of its decoder/encoder, the JAX GroupNorm
+  (the ControlNet's hint embedding) → ``blocks.5``, ``in_conv_2`` and
+  ``body_2_1`` (the T2I-Adapter) → ``in_conv.2`` and ``body.2.1``; the
+  UNet's and the ControlNet's ``encoder``/``mid`` wrapper scopes vanish,
+  the VAE's ``post_quant_conv`` and ``quant_conv`` move out of its
+  decoder/encoder, the JAX GroupNorm
   wrapper's inner ``norm`` scope is dropped, and the vision tower's
   ``patch_embedding``, ``class_embedding`` and ``position_embedding`` move
   into ``embeddings``;
@@ -37,7 +40,7 @@ from typing import Dict, Mapping
 import numpy as np
 
 KINDS = ("unet", "controlnet", "vae", "text", "vision", "image_proj",
-         "mlp_proj", "resampler")
+         "mlp_proj", "resampler", "t2i_adapter")
 
 _SCOPE_RULES = (
     (re.compile(r"(down_blocks|up_blocks)_(\d+)_"
@@ -50,7 +53,9 @@ _SCOPE_RULES = (
     (re.compile(r"layers_(\d+)"), r"encoder.layers.\1"),
     (re.compile(r"layers_(\d+)_(attn|ff_norm|ff_1|ff_2)"), r"layers.\1.\2"),
     (re.compile(r"token_embedding"), r"embeddings.token_embedding"),
-    (re.compile(r"(blocks|controlnet_down_blocks)_(\d+)"), r"\1.\2"),
+    (re.compile(r"(blocks|controlnet_down_blocks|in_conv)_(\d+)"),
+     r"\1.\2"),
+    (re.compile(r"body_(\d+)_(\d+)"), r"body.\1.\2"),
 )
 
 

@@ -2,8 +2,9 @@
 
 Port of ``theatergen_tpu/pipelines/bundle.py`` for the txt2img slices
 (SD1.5; SDXL adds the second text tower ``text2``), the IP-Adapter
-character pass (``unet_ip``, ``image_proj`` and the CLIP vision tower) and
-the final pass (``controlnet``).
+character pass (``unet_ip``, ``image_proj`` and the CLIP vision tower), the
+final pass (``controlnet``) and the SDXL turn's structure conditioning
+(``t2i_adapter``).
 :func:`init_bundle` builds the modules on the target device with seeded
 random weights (no checkpoint ships with the repo); :meth:`Bundle.load_flax`
 loads the JAX package's parameter trees through ``models/weights.py``.  A
@@ -26,6 +27,7 @@ from ..models.clip import CLIPTextEncoder, CLIPVisionEncoder
 from ..models.controlnet import ControlNet
 from ..models.ip_adapter import ImageProjModel, MLPProjModel, Resampler
 from ..models.layers import QuantLinear, get_dtype
+from ..models.t2i_adapter import T2IAdapter
 from ..models.unet import UNet2DCondition
 from ..models.vae import AutoencoderKL
 from ..models.weights import from_flax
@@ -49,6 +51,8 @@ class Bundle:
     ip_variant: str = "base"                # "base" | "plus" | "full"
     vision: Optional[CLIPVisionEncoder] = None
     controlnet: Optional[ControlNet] = None
+    # the SDXL turn's final-pass conditioning, in place of the ControlNet
+    t2i_adapter: Optional[T2IAdapter] = None
 
     @property
     def device(self) -> torch.device:
@@ -68,7 +72,8 @@ class Bundle:
                   unet_ip: Optional[Mapping] = None,
                   image_proj: Optional[Mapping] = None,
                   vision: Optional[Mapping] = None,
-                  controlnet: Optional[Mapping] = None) -> "Bundle":
+                  controlnet: Optional[Mapping] = None,
+                  t2i_adapter: Optional[Mapping] = None) -> "Bundle":
         """Load JAX-package param trees (nested dicts of arrays); every key
         must match (``load_state_dict(strict=True)``)."""
         for name, kind, tree in (
@@ -77,7 +82,8 @@ class Bundle:
                 ("unet_ip", "unet", unet_ip),
                 ("image_proj", PROJ_KINDS[self.ip_variant], image_proj),
                 ("vision", "vision", vision),
-                ("controlnet", "controlnet", controlnet)):
+                ("controlnet", "controlnet", controlnet),
+                ("t2i_adapter", "t2i_adapter", t2i_adapter)):
             if tree is None:
                 continue
             module = getattr(self, name)
@@ -144,6 +150,7 @@ def init_bundle(cfg: TheaterConfig, seed: int = 0, *,
                 device="cuda", tokenizer_assets: Optional[str] = None,
                 with_ip: bool = False, with_vision: bool = False,
                 with_controlnet: bool = False,
+                with_t2i_adapter: bool = False,
                 ip_variant: str = "base") -> Bundle:
     """Random-weight bundle built directly on ``device`` (default the card;
     there is no fallback to the CPU: pass ``device="cpu"`` to ask for it).
@@ -152,8 +159,10 @@ def init_bundle(cfg: TheaterConfig, seed: int = 0, *,
     ``ip_num_tokens`` = ``num_tokens``, ``resampler_queries`` or 1 for the
     base, plus and full variants) and the variant's projector;
     ``with_vision`` adds the CLIP vision tower; ``with_controlnet`` the
-    ControlNet of ``cfg.controlnet``, drawn last, so the other parts keep
-    the weights of a bundle without it."""
+    ControlNet of ``cfg.controlnet``; ``with_t2i_adapter`` the T2I-Adapter
+    of the UNet's levels at the VAE's scale, in the UNet's dtype.  The
+    ControlNet and then the adapter are drawn last, so every other part
+    keeps the weights of a bundle without them."""
     if ip_variant not in PROJ_KINDS:
         raise ValueError(f"ip_variant must be one of {tuple(PROJ_KINDS)}, "
                          f"got {ip_variant!r}")
@@ -198,4 +207,8 @@ def init_bundle(cfg: TheaterConfig, seed: int = 0, *,
         b.controlnet = _build(ControlNet, cfg.controlnet,
                               get_dtype(cfg.controlnet.unet.dtype), device,
                               gen)
+    if with_t2i_adapter:
+        b.t2i_adapter = _build(T2IAdapter, cfg.unet,
+                               get_dtype(cfg.unet.dtype), device, gen,
+                               downscale=cfg.pipeline.vae_scale)
     return b

@@ -10,7 +10,8 @@ guidance keys' cross-attention maps of the character's word token are
 captured each step, for the mask and the detection of a turn.  The runner
 steps the config's sampler (DDIM, Euler-Ancestral or LCM) and takes the
 JAX package's knobs: CFG cutoff, DeepCache, and LCM's cond-only steps.
-Latent guidance and the SDXL bundle are later slices and raise
+On an SDXL bundle it takes the micro-conditioning (``extra_cond``: pooled
+text and time ids).  Latent guidance is a later slice and raises
 ``NotImplementedError``.
 
 NHWC at the boundary, as in the JAX package: latents ``[1, h, w, 4]``,
@@ -98,7 +99,8 @@ def make_character_pipeline(bundle: Bundle, num_steps: int, *,
     """Build the per-character runner; returns ``(run, sampler)``.
 
     ``run(input_latents [1, h, w, 4], context [2, L(+n), C], ip_scale,
-    word_token=0, generator=None, *, noise=None) -> CharacterResult``;
+    word_token=0, generator=None, *, noise=None, extra_cond=None) ->
+    CharacterResult``;
     ``ip_scale`` is a float or a 0-dim tensor, made a tensor on the device
     once per run, so one runner serves a DB hit and a miss.  The reference
     maps are captured at the prompt position ``word_token``: in a turn the
@@ -107,7 +109,10 @@ def make_character_pipeline(bundle: Bundle, num_steps: int, *,
     phrase is given.  The sampler is ``cfg.pipeline.scheduler_type``'s; an
     Euler-Ancestral or LCM step draws its noise from ``generator`` (NHWC
     ``[1, h, w, 4]`` per step, on the generator's device) unless ``noise``
-    (``[S, 1, h, w, 4]``) is injected.
+    (``[S, 1, h, w, 4]``) is injected.  ``extra_cond`` (an SDXL bundle's
+    ``{"pooled_text": [2, P], "time_ids": [2, 6]}``, uncond row first) goes
+    to every UNet evaluation; a cond-only evaluation takes its trailing
+    rows, as the JAX runner does.
 
     ``cfg_cutoff_fraction``: CFG for the first ``ceil(frac·S)`` steps,
     then cond-only, the reference maps taken from the cond row (index 0)
@@ -121,10 +126,7 @@ def make_character_pipeline(bundle: Bundle, num_steps: int, *,
     cfg = bundle.cfg
     if guided:
         raise NotImplementedError(
-            "latent guidance is not ported yet (ROADMAP §1 item 6)")
-    if cfg.unet.addition_embed_type is not None or bundle.text2 is not None:
-        raise NotImplementedError(
-            "the SDXL character pass is not ported yet (ROADMAP §1 item 5)")
+            "latent guidance is not ported yet (ROADMAP §1 item 5)")
     unet = bundle.unet_ip if use_ip else bundle.unet
     if unet is None:
         raise ValueError("make_character_pipeline: use_ip needs a bundle "
@@ -148,7 +150,8 @@ def make_character_pipeline(bundle: Bundle, num_steps: int, *,
     def run(input_latents: torch.Tensor, context: torch.Tensor,
             ip_scale=0.0, word_token: int = 0,
             generator: Optional[torch.Generator] = None, *,
-            noise: Optional[torch.Tensor] = None) -> CharacterResult:
+            noise: Optional[torch.Tensor] = None,
+            extra_cond: Optional[dict] = None) -> CharacterResult:
         dev = bundle.device
         steps = sampler.on(dev)
         check_noise(noise, s_total, input_latents.shape)
@@ -159,6 +162,7 @@ def make_character_pipeline(bundle: Bundle, num_steps: int, *,
         context = context.to(dev)
         lat = input_latents.to(dev, torch.float32).permute(0, 3, 1, 2)
         b = lat.shape[0]
+        cond_cfg, cond_1 = trailing_rows(extra_cond, dev, 2 * b, b)
         traj = torch.empty((s_total + 1,) + tuple(input_latents.shape),
                            dtype=torch.float32, device=dev)
         refs = ref_prev = cache = None
@@ -170,15 +174,17 @@ def make_character_pipeline(bundle: Bundle, num_steps: int, *,
             scaled = steps.scale_model_input(lat, i)
             if cfg_on:
                 x_in, ctx, cond_idx = torch.cat([scaled, scaled]), context, 1
+                xc = cond_cfg
             else:
                 x_in, ctx, cond_idx = scaled, context[b:], 0
+                xc = cond_1
             t = steps.timesteps[i].expand(x_in.shape[0])
             if dc and i % dc:
-                eps = unet(x_in, t, ctx, deep_cache=cache, **kwargs)
+                eps = unet(x_in, t, ctx, deep_cache=cache, **xc, **kwargs)
                 ref = ref_prev
             else:
                 out = unet(x_in, t, ctx, capture_keys=keys,
-                           return_deep_cache=bool(dc), **kwargs)
+                           return_deep_cache=bool(dc), **xc, **kwargs)
                 ref = None
                 if keys:
                     out, captured = out
@@ -205,3 +211,12 @@ def make_character_pipeline(bundle: Bundle, num_steps: int, *,
         return CharacterResult(final, traj, refs)
 
     return run, sampler
+
+
+def trailing_rows(extra_cond: Optional[dict], device, *rows: int):
+    """For each batch size in ``rows``, ``extra_cond``'s tensors cut to
+    their trailing rows on ``device`` (empty dicts without it)."""
+    if not extra_cond:
+        return tuple({} for _ in rows)
+    ec = {k: v.to(device) for k, v in extra_cond.items()}
+    return tuple({k: v[-n:] for k, v in ec.items()} for n in rows)

@@ -1,14 +1,17 @@
 """The final composed-scene pass: ControlNet, the IP UNet and frozen-latent
 replacement.
 
-Port of ``theatergen_tpu/pipelines/final.py::make_final_pipeline`` on its
-SD1.5 path without latent guidance.  It starts from the composed
-trajectory's t = T slot.  Each step runs:
+Port of ``theatergen_tpu/pipelines/final.py::make_final_pipeline``
+without latent guidance.  It starts from the composed trajectory's t = T
+slot.  Each step runs:
 
 - the ControlNet on the lineart hint with the text-only context, inside
   the ``control_guidance_start``/``end`` window;
 - its residuals into the IP UNet (``ip_scale`` 0.1 in a turn), CFG and
-  the sampler's step (DDIM, Euler-Ancestral or LCM);
+  the sampler's step (DDIM, Euler-Ancestral or LCM); on an SDXL bundle
+  the UNet also takes the micro-conditioning (``extra_cond``) and, where
+  the turn conditions on the T2I-Adapter in place of the ControlNet, the
+  adapter's features (``adapter_feats``) as level residuals;
 - for steps ``i < frozen_steps``, the masked region replaced by the
   composed trajectory's next latent:
   ``latents_all[i+1]·fm + nxt·(1−fm)``.
@@ -28,9 +31,8 @@ ControlNet forward where no step that would use its residuals lies in the
 window: adding zero changes nothing.  The hint is embedded once per run,
 not once per step.
 
-Latent guidance and the SDXL inputs (``extra_cond``, ``adapter_feats``)
-are later slices and raise ``NotImplementedError``.  NHWC at the
-boundary, as in the JAX package.
+Latent guidance is a later slice and raises ``NotImplementedError``.
+NHWC at the boundary, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -40,8 +42,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..models.t2i_adapter import tile_features
 from ..ops import scheduler as sched_ops
 from .bundle import Bundle
+from .character import trailing_rows
 from .sd import cfg_combine, check_noise, step_noise
 
 
@@ -68,12 +72,18 @@ def make_final_pipeline(bundle: Bundle, num_steps: int, *,
 
     ``run(latents_all [S+1, 1, h, w, 4], frozen_mask [h, w], frozen_steps,
     context [2, L(+n), C], cn_context [2, L, C], cond_image [H, W, 3],
-    ip_scale, generator=None, *, noise=None) -> (final [1, h, w, 4],
-    trajectory [S+1, 1, h, w, 4])``.  ``frozen_steps`` and ``ip_scale`` are
-    numbers or 0-dim tensors; ``context`` carries the IP tokens where
-    ``use_ip``; ``cond_image`` is the hint in [0, 1].  An Euler-Ancestral
+    ip_scale, generator=None, *, noise=None, extra_cond=None,
+    adapter_feats=None) -> (final [1, h, w, 4], trajectory [S+1, 1, h, w,
+    4])``.  ``frozen_steps`` and ``ip_scale`` are numbers or 0-dim
+    tensors; ``context`` carries the IP tokens where ``use_ip``;
+    ``cond_image`` is the hint in [0, 1].  An Euler-Ancestral
     or LCM step draws its noise from ``generator`` unless ``noise`` (``[S,
-    1, h, w, 4]``) is injected.
+    1, h, w, 4]``) is injected.  ``extra_cond`` (SDXL's pooled text and
+    time ids, ``[2, ...]`` each, uncond row first) and ``adapter_feats``
+    (the T2I-Adapter's per-level features of the hint, batch 1) go to
+    every UNet evaluation, the features repeated across the CFG batch; a
+    cond-only evaluation takes ``extra_cond``'s trailing rows and the
+    features as they are.  The ControlNet takes neither.
 
     ``cfg_cutoff_fraction`` and ``deepcache_interval`` as in
     ``character.make_character_pipeline``; at the cutoff the DeepCache
@@ -84,10 +94,7 @@ def make_final_pipeline(bundle: Bundle, num_steps: int, *,
     cfg = bundle.cfg
     if guided:
         raise NotImplementedError(
-            "latent guidance is not ported yet (ROADMAP §1 item 6)")
-    if cfg.unet.addition_embed_type is not None or bundle.text2 is not None:
-        raise NotImplementedError(
-            "the SDXL final pass is not ported yet (ROADMAP §1 item 5)")
+            "latent guidance is not ported yet (ROADMAP §1 item 5)")
     unet = bundle.unet_ip if use_ip else bundle.unet
     if unet is None:
         raise ValueError("make_final_pipeline: use_ip needs a bundle with "
@@ -125,10 +132,6 @@ def make_final_pipeline(bundle: Bundle, num_steps: int, *,
             noise: Optional[torch.Tensor] = None,
             extra_cond: Optional[dict] = None,
             adapter_feats: Optional[tuple] = None):
-        if extra_cond is not None or adapter_feats is not None:
-            raise NotImplementedError(
-                "extra_cond and adapter_feats (SDXL) are not ported yet "
-                "(ROADMAP §1 item 5)")
         dev = bundle.device
         steps = sampler.on(dev)
         check_noise(noise, s_total, latents_all.shape[1:])
@@ -148,6 +151,12 @@ def make_final_pipeline(bundle: Bundle, num_steps: int, *,
             cond_embed = controlnet.embed_hint(cond)
         lat = comp[0]
         b = lat.shape[0]
+        cond_cfg, cond_1 = trailing_rows(extra_cond, dev, 2 * b, b)
+        lev_cfg = lev_1 = None
+        if adapter_feats is not None:
+            feats = tuple(f.to(dev) for f in adapter_feats)
+            lev_cfg, lev_1 = (tile_features(feats, 2 * b),
+                              tile_features(feats, b))
         traj = torch.empty((s_total + 1,) + tuple(latents_all.shape[1:]),
                            dtype=torch.float32, device=dev)
         cache = cn_cache = None
@@ -164,8 +173,10 @@ def make_final_pipeline(bundle: Bundle, num_steps: int, *,
             if cfg_on:
                 x_in, ctx, cn_ctx = (torch.cat([scaled, scaled]), context,
                                      cn_context)
+                xc = dict(cond_cfg, level_residuals=lev_cfg)
             else:
                 x_in, ctx, cn_ctx = scaled, context[b:], cn_context[b:]
+                xc = dict(cond_1, level_residuals=lev_1)
             t = steps.timesteps[i].expand(x_in.shape[0])
             if cn_runs[i]:
                 cn_cache = controlnet(x_in, t, cn_ctx,
@@ -173,9 +184,9 @@ def make_final_pipeline(bundle: Bundle, num_steps: int, *,
                                       cond_embed=cond_embed)
             elif i % cn_every == 0:
                 cn_cache = None
-            res = {}
+            res = dict(xc)
             if cn_cache is not None and window[i]:
-                res = dict(down_residuals=cn_cache[0],
+                res.update(down_residuals=cn_cache[0],
                            mid_residual=cn_cache[1])
             if dc and i % dc:
                 eps = unet(x_in, t, ctx, deep_cache=cache, **kwargs, **res)

@@ -7,8 +7,8 @@ Port of ``theatergen_tpu/pipelines/sdxl.py`` (``encode_prompts_xl``,
 are NHWC at the boundary and every random draw comes from an explicit
 ``torch.Generator`` (or, in tests, from injected noise).  ``Text2ImgXL``
 also runs the guidance-free LCM loop (``sd.lcm_denoise``) for
-LCM-LoRA-XL-merged weights; T2I-Adapter conditioning joins with the SDXL
-turn's slice.
+LCM-LoRA-XL-merged weights, and takes a T2I-Adapter hint
+(:func:`adapter_features`) where the bundle carries the adapter.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..models.t2i_adapter import tile_features
 from ..ops import scheduler as sched_ops
 from ..ops.scheduler import EulerAncestralSchedule
 from . import sd
@@ -68,6 +69,19 @@ def default_time_ids(height: int, width: int, batch: int,
     ids = torch.tensor([[height, width, 0, 0, height, width]],
                        dtype=torch.float32, device=device)
     return ids.expand(batch, 6)
+
+
+@torch.no_grad()
+def adapter_features(bundle: Bundle, hint: torch.Tensor
+                     ) -> Tuple[torch.Tensor, ...]:
+    """The T2I-Adapter's per-level features (NCHW, batch 1, the UNet's
+    dtype) of one hint ``[H, W, 3]`` in [0, 1] (the JAX package runs the
+    adapter on ``hint[None]``)."""
+    if bundle.t2i_adapter is None:
+        raise ValueError("a T2I-Adapter hint needs a bundle with the "
+                         "adapter (init_bundle(..., with_t2i_adapter=True))")
+    x = hint.to(bundle.device, torch.float32).permute(2, 0, 1)[None]
+    return bundle.t2i_adapter(x)
 
 
 @torch.no_grad()
@@ -122,7 +136,10 @@ class Text2ImgXL:
     also returns the final latent.  With ``cfg.pipeline.scheduler_type ==
     "lcm"`` the request runs the guidance-free LCM loop on the cond rows
     (context, pooled text and time ids), for LCM-LoRA-XL-merged weights;
-    ``denoising_end`` is not defined for it.
+    ``denoising_end`` is not defined for it.  A ``hint`` ``[H, W, 3]`` in
+    [0, 1] runs the bundle's T2I-Adapter once; its features go to every
+    UNet evaluation as ``level_residuals``, repeated across the CFG batch
+    (the LCM loop's cond-only batch takes them as they are).
     """
 
     def __init__(self, bundle: Bundle, num_steps: int = 30,
@@ -154,9 +171,6 @@ class Text2ImgXL:
                  output_type: str = "image", *,
                  noise: Optional[torch.Tensor] = None):
         """``noise`` replaces the per-step draws (``[S, B, h, w, 4]``)."""
-        if hint is not None:
-            raise NotImplementedError("T2I-Adapter hints are not ported yet "
-                                      "(ROADMAP §1 item 5)")
         if output_type not in ("image", "latent"):
             raise ValueError(f"output_type must be 'image' or 'latent', got "
                              f"{output_type!r}")
@@ -164,6 +178,7 @@ class Text2ImgXL:
         cfg = b.cfg
         context, pooled = encode_prompts_xl(b, prompt, negative_prompt)
         batch = context.shape[0] // 2
+        feats = None if hint is None else adapter_features(b, hint)
         lat = sd.seeded_latents(generator, batch,
                                 cfg.pipeline.latent_height,
                                 cfg.pipeline.latent_width, device=b.device)
@@ -173,14 +188,18 @@ class Text2ImgXL:
         if self.is_lcm:
             # CFG is distilled into LCM(-LoRA) weights: the cond rows only
             pooled_c, tids_c = pooled[batch:], time_ids[batch:]
+            res = None if feats is None else tile_features(feats, batch)
             final = sd.lcm_denoise(
                 lambda x, t, c: b.unet(x, t, c, pooled_text=pooled_c,
-                                       time_ids=tids_c),
+                                       time_ids=tids_c, level_residuals=res),
                 self.sched, lat, context[batch:], generator, noise=noise)
         else:
-            final, _ = denoise_xl(b.unet, self.sched, generator, lat,
-                                  context, pooled, time_ids,
-                                  self.guidance_scale, noise=noise)
+            res = None if feats is None else tile_features(feats, 2 * batch)
+            final, _ = denoise_xl(
+                lambda x, t, c, **kw: b.unet(x, t, c, level_residuals=res,
+                                             **kw),
+                self.sched, generator, lat, context, pooled, time_ids,
+                self.guidance_scale, noise=noise)
         img = sd.decode_with(b.vae, cfg.vae.scaling_factor, final)
         if output_type == "latent":
             return img, final

@@ -20,6 +20,13 @@ reference's ``theatergen.run``, ``theatergen.py:278-488``, with
 - a new character's image and features go to the DB after the final pass
   is dispatched.
 
+On an SDXL bundle (``unet.addition_embed_type == "text_time"``) the turn
+encodes each prompt with both text towers and passes the pooled text and
+the full-frame time ids (``extra_cond``) to every character attempt, the
+background-only turn and the final pass; a bundle with the T2I-Adapter
+conditions the final pass on the adapter's features of the lineart hint,
+in place of the ControlNet (JAX ``theater.py:157-160``).
+
 The runners take ``cfg.pipeline``'s sampler and knobs (``scheduler_type``,
 ``cfg_cutoff_fraction``, ``deepcache_interval``, ``controlnet_interval``),
 as the JAX Theater builds them; the starting latents are scaled by the
@@ -55,7 +62,7 @@ from .ops import geometry as G
 from .ops import latents as L
 from .ops.lineart import dog_lineart
 from .perception import detector as det
-from .pipelines import sd
+from .pipelines import sd, sdxl
 from .pipelines.bundle import Bundle
 from .pipelines.character import (encode_ip_image, ip_context,
                                   make_character_pipeline,
@@ -181,19 +188,24 @@ class Theater:
                  mesh=None, batch_characters: bool = False):
         if guided:
             raise NotImplementedError(
-                "latent guidance is not ported yet (ROADMAP §1 item 6)")
+                "latent guidance is not ported yet (ROADMAP §1 item 5)")
         if mesh is not None or batch_characters:
             raise NotImplementedError(
                 "the batched character mode and meshes are not ported yet "
-                "(ROADMAP §1 item 9)")
+                "(ROADMAP §1 item 7)")
         if bundle.unet_ip is None:
             raise ValueError("Theater: the bundle needs the IP UNet "
                              "(init_bundle(..., with_ip=True))")
         cfg = bundle.cfg
         self.bundle, self.db, self.task, self.cfg = bundle, db, task, cfg
         self.num_steps = num_steps or cfg.pipeline.num_steps
+        # SDXL: two text towers and micro-conditioning; the T2I-Adapter,
+        # where the bundle has it, conditions the final pass in place of
+        # the ControlNet
         self.is_xl = cfg.unet.addition_embed_type == "text_time"
-        self.use_controlnet = use_controlnet and bundle.controlnet is not None
+        self.use_t2i = self.is_xl and bundle.t2i_adapter is not None
+        self.use_controlnet = (use_controlnet and not self.use_t2i
+                               and bundle.controlnet is not None)
         pl = cfg.pipeline
         self.char_run, self.char_sched = make_character_pipeline(
             bundle, self.num_steps, use_ip=True, capture_ref_attn=True,
@@ -241,11 +253,16 @@ class Theater:
         return emb.reshape(1, -1)
 
     def _encode_text(self, prompt: str, negative: str):
-        """(context [2, L, C], extra_cond); SD1.5's single tower."""
-        if self.is_xl:
-            raise NotImplementedError(
-                "the SDXL turn is not ported yet (ROADMAP §1 item 5)")
-        return sd.encode_prompts(self.bundle, prompt, negative), None
+        """(context [2, L, C], extra_cond): SD1.5's single tower and None,
+        or SDXL's two towers and ``{pooled_text [2, P], time_ids [2, 6]}``
+        (full-frame at the canvas size)."""
+        if not self.is_xl:
+            return sd.encode_prompts(self.bundle, prompt, negative), None
+        ctx, pooled = sdxl.encode_prompts_xl(self.bundle, prompt, negative)
+        pl = self.cfg.pipeline
+        tids = sdxl.default_time_ids(pl.height, pl.width, ctx.shape[0],
+                                     device=self.bundle.device)
+        return ctx, dict(pooled_text=pooled, time_ids=tids)
 
     def _decode_img(self, latents: torch.Tensor) -> torch.Tensor:
         return sd.decode_with(self.bundle.vae, self.cfg.vae.scaling_factor,
@@ -281,7 +298,7 @@ class Theater:
                 so_prompt = f"{so_prompt} | {plan.phrase}"  # guidance.py:33-36
                 token_pos = find_phrase_token_indices(
                     b.tokenizer, so_prompt, plan.word, cfg.text.max_length)
-            text_ctx, _ = self._encode_text(so_prompt, neg)
+            text_ctx, extra_cond = self._encode_text(so_prompt, neg)
 
         pending = self._pending_saves.get(plan.obj_id)
         if pending is not None:
@@ -302,7 +319,8 @@ class Theater:
             hit, ip_scale = False, 0.0
             img_embed = self._placeholder_ip_features()
         ctx = ip_context(b, text_ctx, img_embed, self._uncond_ip)
-        return dict(ctx=ctx, ip_scale=ip_scale, img_embed=img_embed,
+        return dict(ctx=ctx, extra_cond=extra_cond, ip_scale=ip_scale,
+                    img_embed=img_embed,
                     word_token=token_pos[-1] if token_pos else 0,
                     token_pos=token_pos, hit=hit, centered=centered)
 
@@ -362,7 +380,8 @@ class Theater:
                 result = self.char_run(
                     init_lat, prep["ctx"], prep["ip_scale"],
                     prep["word_token"], self._noise_gen(seed, 1, idx,
-                                                        attempt))
+                                                        attempt),
+                    extra_cond=prep["extra_cond"])
                 image = self._decode_img(result.latents)
                 agg = self._aggregate_attn(result.ref_attn)
             with self.timer.phase("char.detect"):
@@ -426,12 +445,14 @@ class Theater:
 
         if not chars:
             # background only: plain txt2img on the overall prompt
-            ctx, _ = self._encode_text(plan.overall_prompt or plan.bg_prompt,
-                                       parse.DEFAULT_OVERALL_NEGATIVE_PROMPT)
+            ctx, extra_cond = self._encode_text(
+                plan.overall_prompt or plan.bg_prompt,
+                parse.DEFAULT_OVERALL_NEGATIVE_PROMPT)
             ctx = ip_context(b, ctx, self._placeholder_ip_features(),
                              self._uncond_ip)
             res = self.char_run(self._bg_latents(gen), ctx, 0.0, 0,
-                                self._noise_gen(seed, 3))
+                                self._noise_gen(seed, 3),
+                                extra_cond=extra_cond)
             img = self._decode_img(res.latents)[0].float().cpu().numpy()
             return TurnResult(img, [], img, time.time() - t_start, [], [])
 
@@ -440,7 +461,9 @@ class Theater:
             final, _ = self.final_run(
                 fargs["composed"], fargs["frozen_mask"], frozen_steps,
                 fargs["ctx"], fargs["cn_ctx"], fargs["cond_img"],
-                cfg.pipeline.ip_scale_final, self._noise_gen(seed, 2))
+                cfg.pipeline.ip_scale_final, self._noise_gen(seed, 2),
+                extra_cond=fargs["extra_cond"],
+                adapter_feats=fargs["adapter_feats"])
             image = self._decode_img(final)
             # the deferred DB writes: their feature programs precede the
             # final pass in the device queue
@@ -486,12 +509,16 @@ class Theater:
         if extra_neg:
             neg = f"{extra_neg}, {neg}"
         neg = FINAL_NEG_PREFIX + neg
-        overall_ctx, _ = self._encode_text(plan.overall_prompt, neg)
+        overall_ctx, extra_cond = self._encode_text(plan.overall_prompt, neg)
         ctx = ip_context(b, overall_ctx, chars[0]["img_embed"],
                          self._uncond_ip)
+        adapter_feats = (sdxl.adapter_features(b, cond_img) if self.use_t2i
+                         else None)
         # The JAX package also looks up each object's token positions in the
         # overall prompt here (theater.py:833-856); they feed only the
         # latent-guidance inputs, which the final runner reads with guidance
-        # on (ROADMAP §1 item 6), so the lookup waits for that item.
+        # on (ROADMAP §1 item 5), so the lookup waits for that item.
         return dict(composed=composed, frozen_mask=frozen_mask, ctx=ctx,
-                    cn_ctx=overall_ctx, cond_img=cond_img), collage
+                    cn_ctx=overall_ctx, cond_img=cond_img,
+                    extra_cond=extra_cond,
+                    adapter_feats=adapter_feats), collage
