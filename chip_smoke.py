@@ -96,7 +96,22 @@ Phases, in order (any failure exits non-zero):
      dialogue, ``--sd_version xl --box_canvas 512``: 1024 px, 30
      Euler-Ancestral steps, the T2I-Adapter in place of the ControlNet,
      each turn's launches against its attempts × the XL character request
-     plus one XL final request.
+     plus one XL final request;
+ 12. the checkpoint-loaded turn (``checkpoint_path``): a synthetic
+     full-width SD1.5 checkpoint directory in the published names (fp16
+     UNet, VAE, text tower, ControlNet, ViT-H and ``ip-adapter_sd15.bin``;
+     fp32 sam-vit-base and lineart annotator) under build/, its bytes and
+     write seconds; ``load_bundle`` against the fp16-rounded source bit for
+     bit, a snapshot round trip bit for bit, both cold starts timed; the
+     loaded IP UNet against ``plain_path()``; SAM at 1024² and the
+     annotator at 512² timed, launching no port kernel (the annotator
+     also on cuDNN's default algorithms: its time and how far two calls
+     part there; on the deterministic ones two calls must be equal); then
+     dialogue_0 through the CLI with ``--weights``, with ``--weights
+     --snapshot`` (saved) and with ``--snapshot`` (loaded), each under the
+     turn gates,
+     SAM run once per kept character, the loaded run's images equal to
+     the first run's bit for bit; the directory deleted.
 Every launch counter is set to 0 just before each request (or turn) and
 read just after it, and must equal the launches per request of each
 kernel: the constants of the SD1.5, W8A8 and SDXL requests under the
@@ -126,6 +141,7 @@ import shutil
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import dataclasses
 
@@ -143,12 +159,16 @@ from theatergen_tpu_torch.models.lora import apply_lora_unet
 from theatergen_tpu_torch.ops.attention import multi_head_attention
 from theatergen_tpu_torch.ops import flash_attention as fa
 from theatergen_tpu_torch.ops import geometry
+from theatergen_tpu_torch.ops import lineart as lineart_ops
 from theatergen_tpu_torch.ops import geglu_matmul as gg
 from theatergen_tpu_torch.ops import groupnorm as gn
 from theatergen_tpu_torch.ops import quant as qz
 from theatergen_tpu_torch.ops import quant_matmul as qm
+from theatergen_tpu_torch.perception import sam as sam_lib
+from theatergen_tpu_torch.perception.sam_hf import SamHFConfig
 from theatergen_tpu_torch.pipelines import character, final, sd, sdxl
-from theatergen_tpu_torch.pipelines.bundle import init_bundle
+from theatergen_tpu_torch.pipelines.bundle import (build_lineart, build_sam,
+                                                   init_bundle)
 from theatergen_tpu_torch.utils import png
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
@@ -175,6 +195,9 @@ TURN = "sd15_512_turn"
 # Text2ImgXL request with a hint, and dialogue_0 through the CLI at 1024 px
 XL_CHAR, XL_FINAL = "sdxl_1024_ip", "sdxl_1024_final"
 XL_HINT, XL_TURN = "sdxl_1024_hint", "sdxl_1024_turn"
+# the checkpoint-loaded story turn: a synthetic SD1.5 checkpoint directory
+# (the bundle of seed 0, SAM and the annotator drawn from CKPT_SEED)
+CKPT, CKPT_SEED = "sd15_512_checkpoint", 12
 # CMIGBench authors its layout boxes on a 512² canvas; the XL turn scales
 # them to its 1024² one (the CLI's --box_canvas)
 XL_BOX_CANVAS = 512
@@ -1987,7 +2010,7 @@ def turn_want(attempts: int, steps: int = SD15_STEPS, xl: bool = False,
 
 
 def turn_path(records, label: str = "", flags=(), steps: int = SD15_STEPS,
-              knobs=None, xl: bool = False) -> dict:
+              knobs=None, xl: bool = False, images=None) -> dict:
     """The serial story loop through the port's CLI,
     ``cli.generate.main``, over dialogue_0 of data/sample/story.json:
     SD1.5 at 512 px (or, with ``xl``, SDXL at 1024 px, ``flags`` carrying
@@ -2001,7 +2024,8 @@ def turn_path(records, label: str = "", flags=(), steps: int = SD15_STEPS,
     every turn ran (none quarantined), its images are finite, in [0, 1]
     and of the canvas's side, the DB hits are TURN_HITS, each turn's
     launches are turn_want, and, with ``--profile``, the trace directory
-    holds a non-empty file."""
+    holds a non-empty file.  ``images``, a list, receives each turn's
+    images (the turn's, then its characters')."""
     from theatergen_tpu_torch.cli import generate
     from theatergen_tpu_torch.db import CharacterDB
 
@@ -2026,14 +2050,16 @@ def turn_path(records, label: str = "", flags=(), steps: int = SD15_STEPS,
         got = read_counts()
         add_launches(records, model, got)
         attempts = self.timer.counts()["char.denoise_decode"] - before
-        images = [res.image] + res.so_images
+        images_ = [res.image] + res.so_images
         ok_images = all(
             im.shape == (side, side, 3) and bool(np.isfinite(im).all())
-            and im.min() >= 0.0 and im.max() <= 1.0 for im in images)
+            and im.min() >= 0.0 and im.max() <= 1.0 for im in images_)
         turns.append(dict(seconds=res.seconds, wall_s=wall,
                           attempts=attempts, launches=got,
                           db_hits=res.db_hits, detections=res.detections,
                           images_ok=ok_images))
+        if images is not None:
+            images.append(images_)
         log(f"  turn {len(turns)}: {wall:.3f} s  characters "
             f"{len(res.so_images)}  attempts {attempts}  DB hits "
             f"{res.db_hits}  detections {res.detections}  launches {got}  "
@@ -2106,6 +2132,245 @@ def turn_path(records, label: str = "", flags=(), steps: int = SD15_STEPS,
                 phase_summary=dialogue["phase_summary"], peak_bytes=peak,
                 store=store, flags=list(flags), steps=steps,
                 phase_seconds=phase_s, profile_trace_bytes=trace)
+
+
+def loaded_mismatches(src, loaded) -> tuple:
+    """The entries of the bundle ``load_bundle`` read from ``src``'s
+    checkpoint directory that differ from their source: the fp16 files'
+    the source rounded to fp16 and cast to the module's dtype, SAM's and
+    the annotator's (fp32 files) the source itself, the IP UNet the UNet
+    file's entries and the IP file's to_k_ip/to_v_ip.  Returns (names,
+    elements compared)."""
+    bad, n = [], 0
+    unet = src.unet.state_dict()
+    for field in ("unet", "unet_ip", "vae", "text", "vision", "controlnet",
+                  "image_proj", "sam", "lineart"):
+        ref = getattr(src, field).state_dict()
+        for k, v in getattr(loaded, field).state_dict().items():
+            want = unet[k] if field == "unet_ip" and "_ip." not in k \
+                else ref[k]
+            if field not in ("sam", "lineart"):
+                want = want.to(torch.float16)
+            n += v.numel()
+            if not torch.equal(v, want.to(v.dtype)):
+                bad.append(f"{field}.{k}")
+    return bad, n
+
+
+def snapshot_mismatches(a, b) -> list:
+    """Modules or entries of two bundles that differ in presence, dtype or
+    any bit."""
+    from theatergen_tpu_torch.models.snapshot import MODULE_FIELDS
+
+    bad = []
+    for f in MODULE_FIELDS:
+        ma, mb = getattr(a, f), getattr(b, f)
+        if (ma is None) != (mb is None) or type(ma) is not type(mb):
+            bad.append(f)
+        elif ma is not None:
+            sb = mb.state_dict()
+            bad += [f"{f}.{k}" for k, v in ma.state_dict().items()
+                    if sb[k].dtype != v.dtype or not torch.equal(sb[k], v)]
+    return bad
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def checkpoint_path(records, default_dialogue_s: float) -> dict:
+    """The checkpoint-loaded story turn.  A full-width SD1.5 checkpoint
+    directory in the published names (``export.export_checkpoint_dir`` of
+    ``init_bundle(sd15_config(), seed=0, with_ip=True, with_vision=True,
+    with_controlnet=True)`` with a seeded sam-vit-base ``SamHF`` and
+    ``LineartGenerator``: fp16 diffusers/transformers files and
+    ``ip-adapter_sd15.bin``, fp32 ``sam.safetensors`` and
+    ``lineart.safetensors``, no tokenizer assets) is written under build/;
+    ``load_bundle`` of it must equal the fp16-rounded source cast to each
+    module's dtype bit for bit; its snapshot must round-trip bit for bit
+    (the cold starts timed, each ending in ``synchronize()``); its IP UNet
+    must be within 5e-2·max|ref| of ``plain_path()``; SAM (1024² input)
+    and the annotator (512²) are timed and launch none of the port's
+    kernels.  Then dialogue_0 through the CLI with ``--weights DIR``, with
+    ``--weights DIR --snapshot SNAP`` (saved) and with ``--snapshot SNAP``
+    (loaded), each under turn_path's gates, SAM run once per kept
+    character (the ``char.masks`` count), each character's mask area
+    printed; the loaded run's images must equal the first run's bit for
+    bit.  The directory is deleted at the end.  ``default_dialogue_s``:
+    the random-weight dialogue's seconds in this run, printed beside."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, "build", "chip_smoke_checkpoint")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        return _checkpoint_phase(root, records, default_dialogue_s)
+    finally:
+        # up to ~12 GB of files: never left behind by a gate that fails
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _checkpoint_phase(root: str, records, default_dialogue_s: float
+                      ) -> dict:
+    """The body of :func:`checkpoint_path`, its files under ``root``."""
+    from theatergen_tpu_torch.models import export, snapshot, weights
+
+    ckpt = os.path.join(root, "weights")
+    snap_dir = os.path.join(root, "snapshot")
+    cli_snap = os.path.join(root, "cli_snapshot")
+    free = shutil.disk_usage(root).free
+    log(f"  disk free under build/: {free / 2 ** 30:.1f} GiB")
+    cfg = sd15_config()
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(CKPT_SEED)
+    src = init_bundle(cfg, seed=0, device="cuda", with_ip=True,
+                      with_vision=True, with_controlnet=True)
+    src.sam = build_sam(cfg, "cuda", gen, hf_cfg=SamHFConfig())
+    src.lineart = build_lineart("cuda", gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sizes = export.export_checkpoint_dir(src, ckpt)
+    write_s = time.perf_counter() - t0
+    log(f"  checkpoint directory written: {sum(sizes.values())} bytes in "
+        f"{write_s:.3f} s ({json.dumps(sizes)})")
+
+    t0 = time.perf_counter()
+    loaded = weights.load_bundle(cfg, ckpt)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    bad, n = loaded_mismatches(src, loaded)
+    log(f"  load_bundle cold start: {load_s:.3f} s; {n} elements against "
+        f"the fp16-rounded source: {'bit for bit' if not bad else bad[:5]}")
+    if bad:
+        raise SystemExit(f"load_bundle: {len(bad)} entries differ from the "
+                         f"source, {bad[:5]}")
+    del src
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    snapshot.save_bundle_snapshot(loaded, snap_dir)
+    save_s = time.perf_counter() - t0
+    snap_bytes = dir_bytes(snap_dir)
+    t0 = time.perf_counter()
+    snapped = snapshot.load_bundle_snapshot(cfg, snap_dir)
+    torch.cuda.synchronize()
+    snap_load_s = time.perf_counter() - t0
+    bad = snapshot_mismatches(loaded, snapped)
+    log(f"  snapshot: saved in {save_s:.3f} s, {snap_bytes} bytes; "
+        f"load_bundle_snapshot cold start {snap_load_s:.3f} s; round trip "
+        f"{'bit for bit' if not bad else bad[:5]}")
+    if bad:
+        raise SystemExit(f"snapshot round trip: {bad[:5]} differ")
+    del snapped
+    shutil.rmtree(snap_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rel, _ = unet_reference_phase(loaded, 5e-2, loaded.unet_ip,
+                                  ip_scale=torch.tensor(0.4, device="cuda"))
+    image = ip_image()
+    size = sam_lib.sam_input_size(loaded.sam)
+    img_s = geometry.resize_bilinear(image[0].permute(2, 0, 1), size,
+                                     size).permute(1, 2, 0)
+    box = torch.tensor([0.1, 0.2, 0.6, 0.9], device="cuda")
+
+    def segment():
+        return sam_lib.segment_with_box(loaded.sam, img_s, box,
+                                    out_sizes=(64, 512))
+
+    reset_counts()
+    with torch.no_grad():
+        (m_lat, m_pix), conf = segment()
+        lines = loaded.lineart(image)
+    torch.cuda.synchronize()
+    got = read_counts()
+    ok = (not any(got.values()) and tuple(m_lat.shape) == (64, 64)
+          and tuple(m_pix.shape) == (512, 512)
+          and bool(((m_pix == 0) | (m_pix == 1)).all())
+          and tuple(lines.shape) == (1, 512, 512, 3)
+          and bool(torch.isfinite(lines).all())
+          and 0.0 <= float(lines.min()) and float(lines.max()) <= 1.0)
+    with torch.no_grad():
+        sam_ms = time_ms(segment, 5, 1)
+        lineart_ms = time_ms(lambda: loaded.lineart(image), 10, 2)
+        det = [loaded.lineart(image) for _ in range(2)]
+        # the annotator on cuDNN's default algorithms, for comparison
+        with mock.patch.object(lineart_ops, "_deterministic_convolutions",
+                               contextlib.nullcontext):
+            dflt = [loaded.lineart(image) for _ in range(2)]
+            lineart_default_ms = time_ms(lambda: loaded.lineart(image), 10,
+                                         2)
+    det_equal = torch.equal(det[0], det[1])
+    default_diff = float((dflt[0] - dflt[1]).abs().max())
+    log(f"  SAM ({size}² input, fp32): {sam_ms:.3f} ms a character, mask "
+        f"area {float(m_pix.mean()):.4f}, IoU score {float(conf):.4f}; "
+        f"annotator (512², fp32): {lineart_ms:.3f} ms a hint, two calls "
+        f"{'equal' if det_equal else 'DIFFER'}; on cuDNN's default "
+        f"algorithms {lineart_default_ms:.3f} ms, two calls {default_diff} "
+        f"apart; launches of the port's kernels {got}  "
+        f"{'ok' if ok and det_equal else 'FAIL'}")
+    if not ok:
+        raise SystemExit("SAM or the annotator: bad output, or they "
+                         "launched the port's kernels")
+    if not det_equal:
+        raise SystemExit("the annotator gave other bits on a second "
+                         "identical call")
+    del loaded, m_lat, m_pix, lines, det, dflt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    runs, images = {}, {}
+    for label, flags in (("weights", ["--weights", ckpt]),
+                         ("snapshot_save", ["--weights", ckpt, "--snapshot",
+                                            cli_snap]),
+                         ("snapshot_load", ["--snapshot", cli_snap])):
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[main path] dialogue_0 through the CLI with {' '.join(flags)}")
+        areas, real_segment = [], sam_lib.segment_with_box
+
+        def counted_segment(*a, **k):
+            res = real_segment(*a, **k)
+            areas.append(torch.stack([m.float().mean() for m in res[0]]))
+            return res
+
+        before, images[label] = sam_lib.segments, []
+        sam_lib.segment_with_box = counted_segment
+        try:
+            runs[label] = turn_path(records, f"ckpt_{label}", flags,
+                                    images=images[label])
+        finally:
+            sam_lib.segment_with_box = real_segment
+        segments = sam_lib.segments - before
+        masks = runs[label]["phase_summary"]["char.masks"]["count"]
+        runs[label].update(sam_segments=segments, mask_areas=[
+            [round(float(x), 4) for x in a] for a in areas])
+        log(f"  SAM ran {segments} times, char.masks {masks}; mask areas "
+            f"(latent, pixel) per character {runs[label]['mask_areas']}")
+        if segments != masks:
+            raise SystemExit(f"{label}: SAM ran {segments} times for {masks} "
+                             f"characters")
+    same = {label: all(np.array_equal(a, b) for t, u in zip(
+        images[label], images["weights"]) for a, b in zip(t, u))
+        and len(images[label]) == len(images["weights"])
+        for label in ("snapshot_save", "snapshot_load")}
+    log(f"  images against the --weights run, bit for bit: {same}; "
+        f"dialogue seconds "
+        f"{ {k: r['dialogue_seconds'] for k, r in runs.items()} }, the "
+        f"random-weight default turn's {default_dialogue_s}")
+    if not all(same.values()):
+        raise SystemExit(f"the --snapshot runs' images differ: {same}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"  {CKPT}: {phase_s:.1f} s for the phase")
+    return dict(checkpoint_bytes=sizes, checkpoint_write_s=write_s,
+                load_bundle_s=load_s, snapshot_bytes=snap_bytes,
+                snapshot_save_s=save_s, load_bundle_snapshot_s=snap_load_s,
+                ip_unet_kernels_vs_plain_rel=rel, sam_ms=sam_ms,
+                lineart_ms=lineart_ms, lineart_default_ms=lineart_default_ms,
+                lineart_default_rerun_diff=default_diff, runs=runs,
+                images_equal=same,
+                phase_seconds=phase_s)
 
 
 def request_ab(model: str, one_request) -> dict:
@@ -2374,6 +2639,14 @@ def main() -> int:
         records, flags=["--sd_version", "xl", "--box_canvas",
                         str(XL_BOX_CANVAS)],
         steps=SDXL_STEPS, knobs=dict(sampler="euler_ancestral"), xl=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[main path] the checkpoint-loaded story turn: a synthetic SD1.5 "
+        f"checkpoint directory in the published names (with sam-vit-base "
+        f"and the lineart annotator), load_bundle, snapshots, and "
+        f"dialogue_0 through the CLI with --weights and --snapshot, 512 px, "
+        f"{SD15_STEPS} DDIM steps, SAM masks and the annotator's hint")
+    paths[CKPT] = checkpoint_path(records, paths[TURN]["dialogue_seconds"])
     paths["sp_shards_equal"] = sp_shards
     paths["wrapper_host_us_per_call"] = host_us
     log(f"[done] {time.perf_counter() - t_start:.1f} s after the build began")

@@ -349,7 +349,10 @@ def test_compose_program_matches(zero_offsets):
     within 1e-4 (the sketch's bound), frozen mask equal.  The composed
     trajectory equals the JAX program's where the layout boxes need no
     shift; with shifts it equals the JAX composition of trajectories
-    shifted on their h and w axes (see test_align_with_boxes_matches)."""
+    shifted on their h and w axes (see test_align_with_boxes_matches).
+    With an annotator the hint is the annotator's output on the collage,
+    ``[1, H, W, 3]`` in, the rest unchanged (its parity with the JAX
+    annotator: test_torch_port_turn.py's perception turns)."""
     args = _program_inputs(zero_offsets)
     jrun = jth._compose_program(None)
     cj = jrun(None, *(jnp.asarray(a) for a in args))
@@ -367,8 +370,13 @@ def test_compose_program_matches(zero_offsets):
                                           jnp.asarray(_np(ma)),
                                           jnp.asarray(bg))
         np.testing.assert_array_equal(_np(ct[0]), np.asarray(want))
-    with pytest.raises(NotImplementedError):
-        tth._compose_program(object())
+    seen = []
+    cl = tth._compose_program(lambda x: seen.append(x.shape) or 1.0 - x)(
+        *(_t(a) for a in args))
+    assert seen == [(1, *ct[1].shape)]
+    np.testing.assert_array_equal(_np(cl[2]), 1.0 - _np(ct[1]))
+    for i in (0, 1, 3):
+        np.testing.assert_array_equal(_np(cl[i]), _np(ct[i]))
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 """Rules of the PyTorch port that hold whatever the numbers: it imports
-neither JAX nor the JAX package, its entry points default to the card and
+neither JAX nor the JAX package (nor transformers or safetensors, which the
+card's machine lacks), its entry points default to the card and
 refuse to fall back to the CPU, and its kernels build from the repo's own
 sources."""
 
@@ -30,15 +31,16 @@ def _modules():
 
 def test_port_imports_no_jax():
     """A fresh interpreter imports every module of the port (and
-    chip_smoke.py's source compiles) with neither jax nor theatergen_tpu
-    in sys.modules."""
+    chip_smoke.py's source compiles) with none of jax, theatergen_tpu,
+    transformers and safetensors in sys.modules."""
     code = (
         "import sys, importlib\n"
         f"for m in {_modules()!r}:\n"
         "    importlib.import_module(m)\n"
         f"compile(open({str(ROOT / 'chip_smoke.py')!r}).read(), 'chip_smoke.py', 'exec')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'theatergen_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'theatergen_tpu', 'transformers', "
+        "'safetensors'))\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -65,8 +67,8 @@ def test_source_names_no_jax(path):
         s = line.strip()
         if s.startswith(("import ", "from ")):
             head = s.split()[1].split(".")[0]
-            assert head not in ("jax", "jaxlib", "flax", "theatergen_tpu"), (
-                path, line)
+            assert head not in ("jax", "jaxlib", "flax", "theatergen_tpu",
+                                "transformers", "safetensors"), (path, line)
 
 
 def test_init_bundle_needs_the_card_unless_asked():
@@ -184,3 +186,29 @@ def test_port_modules_of_the_final_slice():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             init_bundle(tiny_config(), 0, with_ip=True, with_vision=True,
                         with_controlnet=True)
+
+
+def test_port_modules_of_the_checkpoint_slice():
+    """The checkpoint slice's modules are among those the import rules
+    above cover, and its entry points default to the card too:
+    ``load_bundle``, ``load_bundle_snapshot`` and ``init_bundle`` with a
+    segmenter."""
+    import tempfile
+
+    from theatergen_tpu_torch.models import snapshot, weights
+
+    mods = _modules()
+    for m in ("models.weights", "models.export", "models.snapshot",
+              "perception.sam", "perception.sam_hf", "ops.lineart"):
+        assert f"theatergen_tpu_torch.{m}" in mods
+    if torch.cuda.is_available():
+        return
+    with tempfile.TemporaryDirectory() as d:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            weights.load_bundle(tiny_config(), d)
+        snapshot.save_bundle_snapshot(
+            init_bundle(tiny_config(), 0, device="cpu"), d + "/snap")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            snapshot.load_bundle_snapshot(tiny_config(), d + "/snap")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_bundle(tiny_config(), 0, with_sam=True)

@@ -40,6 +40,10 @@ from theatergen_tpu.models.ip_adapter import ImageProjModel as JImageProj
 from theatergen_tpu.models.unet import UNet2DCondition as JUNet
 from theatergen_tpu.models.vae import AutoencoderKL as JVAE
 from theatergen_tpu.ops import latents as JL
+from theatergen_tpu.ops.lineart import LineartGenerator as JLineartGenerator
+from theatergen_tpu.perception import sam_hf as jsam_hf
+from theatergen_tpu.perception.sam import SAMLite as JSAMLite
+from theatergen_tpu.perception.sam_hf import SamHF as JSamHF
 from theatergen_tpu.perception import detector as jdet
 from theatergen_tpu.pipelines import sd as jsd
 from theatergen_tpu.pipelines.bundle import Bundle as JBundle
@@ -49,7 +53,9 @@ from theatergen_tpu_torch import db as tdb
 from theatergen_tpu_torch import theater as tth
 from theatergen_tpu_torch.cli import generate as tgen
 from theatergen_tpu_torch.ops import latents as TL
-from theatergen_tpu_torch.pipelines.bundle import init_bundle
+from theatergen_tpu_torch.perception import sam as tsam
+from theatergen_tpu_torch.pipelines.bundle import (build_lineart, build_sam,
+                                                   init_bundle, sam_hf_config)
 from theatergen_tpu_torch.utils import png
 
 from test_torch_port_models import random_params
@@ -68,9 +74,18 @@ DATA = pathlib.Path(__file__).resolve().parent.parent / "data" / "sample"
 IMG_TOL = 1e-4
 
 
+def _bundles(perception: str = ""):
+    """A JAX bundle and the port's bundle on the same random weights, one
+    pair per ``perception``: a segmenter ("sam_lite", "sam_hf") and/or the
+    lineart annotator ("lineart"), "+"-joined, on the same weights too."""
+    return _cached_bundles(perception)
+
+
 @functools.lru_cache(maxsize=None)
-def _bundles():
-    """A JAX bundle and the port's bundle on the same random weights."""
+def _cached_bundles(perception: str):
+    if perception:
+        jb, tb = _cached_bundles("")
+        return _with_perception(jb, tb, perception)
     zeros = functools.partial(jnp.zeros, dtype=jnp.float32)
     text = JText(CFG.text)
     tp = random_params(text, 3, jnp.zeros((1, 16), jnp.int32))
@@ -98,6 +113,36 @@ def _bundles():
     return jb, tb
 
 
+def _with_perception(jb, tb, perception: str):
+    """Copies of the two bundles (the same UNets, towers and caches) with
+    the JAX package's SAMLite or SamHF (tiny) and its full-width
+    LineartGenerator on seeded weights, and the port's on the same."""
+    parts = perception.split("+")
+    tb = dataclasses.replace(tb)
+    jkw = {}
+    if "sam_lite" in parts:
+        jsam = JSAMLite(CFG.sam)
+        sp = random_params(jsam, 20, jnp.zeros((1, 64, 64, 3)),
+                           jnp.zeros((1, 1, 4)))
+        tb.sam = build_sam(tcfg.tiny_config(), "cpu")
+    if "sam_hf" in parts:
+        jsam = JSamHF(jsam_hf.tiny_sam_hf_config())
+        sp = random_params(jsam, 21, jnp.zeros((1, 64, 64, 3)),
+                           jnp.zeros((1, 1, 4)))
+        tb.sam = build_sam(tcfg.tiny_config(), "cpu",
+                           hf_cfg=sam_hf_config(tcfg.tiny_config()))
+    if tb.sam is not None:
+        jkw.update(sam=jsam, sam_params=sp)
+        tb.load_flax(sam=sp)
+    if "lineart" in parts:
+        jl = JLineartGenerator()
+        lp = random_params(jl, 22, jnp.zeros((1, PL.height, PL.width, 3)))
+        jkw.update(lineart=jl, lineart_params=lp)
+        tb.lineart = build_lineart("cpu")
+        tb.load_flax(lineart=lp)
+    return dataclasses.replace(jb, **jkw), tb
+
+
 class Noise:
     """A numpy noise stream: the k-th request gets seed 100 + k."""
 
@@ -122,10 +167,10 @@ def _jax_align_shifts_hw(monkeypatch):
     monkeypatch.setattr(JL, "align_with_boxes", _align_hw(JL.align_with_boxes))
 
 
-def _theaters(tmp_path, monkeypatch):
+def _theaters(tmp_path, monkeypatch, perception: str = ""):
     """(JAX Theater, port Theater, records) on fresh DBs, fed one noise
     stream each; records hold each side's character records."""
-    jb, tb = _bundles()
+    jb, tb = _bundles(perception) if perception else _bundles()
     jn, tn = Noise(), Noise()
     rec = {"jax": [], "port": []}
     jt = jth.Theater(jb, jdb.CharacterDB(str(tmp_path / "jax_db")),
@@ -143,9 +188,9 @@ def _theaters(tmp_path, monkeypatch):
 
     def compose_eager(*a):
         with jax.disable_jit():
-            return jth._compose_program(None)(*a)
+            return jth._compose_program(jb.lineart)(*a)
 
-    monkeypatch.setitem(jb._jits, f"theater_compose_{id(None)}",
+    monkeypatch.setitem(jb._jits, f"theater_compose_{id(jb.lineart)}",
                         compose_eager)
     monkeypatch.setattr(jsd, "seeded_latents",
                         lambda rng, b, hh, ww, c=4, dtype=None: jnp.asarray(
@@ -227,6 +272,46 @@ def test_run_turn_matches_over_dialogue_0(tmp_path, monkeypatch):
         tr = tt.run_turn(spec, seed, frozen_step_ratio=0.5)
         assert tr.db_hits == hits[t_idx]
         _compare(jr, tr, rec, noise, jt, tt, len(hits[t_idx]))
+
+
+@pytest.mark.parametrize("perception", ["sam_lite", "sam_hf", "lineart",
+                                        "sam_hf+lineart"])
+def test_run_turn_with_perception_matches(tmp_path, monkeypatch, perception):
+    """Turns 1 and 4 of dialogue_0 (turn 4: one DB hit, one miss) with a
+    segmenter (SAMLite, or the tiny SamHF, its box in pixels) making the
+    character masks from the decoded image resized to its side and the
+    detection box, and/or the annotator drawing the ControlNet hint: masks
+    equal, images within IMG_TOL of the JAX Theater's, SAM run once per
+    character.  The JAX segmenter runs jitted (eager, it compiles op by
+    op).  On a constant collage (every mask empty) the annotator's
+    instance norms divide rounding noise by sqrt(eps) layer after layer
+    and two summation orders part at O(1), so the annotator is compared on
+    turns whose collage is not constant, which the test asserts."""
+    jt, tt, rec, noise = _theaters(tmp_path, monkeypatch, perception)
+    assert (tt.bundle.sam is None) == ("sam" not in perception)
+    jitted = {}
+    real = jth.sam_lib.segment_with_box
+
+    def segment(sam, params, img, box, out_sizes=(64, 512)):
+        if out_sizes not in jitted:
+            jitted[out_sizes] = jax.jit(lambda p, i, b: real(
+                sam, p, i, b, out_sizes=out_sizes))
+        return jitted[out_sizes](params, img, box)
+
+    monkeypatch.setattr(jth.sam_lib, "segment_with_box", segment)
+    specs = _specs()
+    for t_idx in (0, 3):
+        seed = tgen.turn_seed(0, 0, t_idx, 0)
+        jr = jt.run_turn(specs[t_idx], seed, frozen_step_ratio=0.5)
+        before = tsam.segments
+        tr = tt.run_turn(specs[t_idx], seed, frozen_step_ratio=0.5)
+        chars = len(tr.so_images)
+        assert chars == 2
+        assert tsam.segments - before == (chars if "sam" in perception
+                                          else 0)
+        if "lineart" in perception:
+            assert tr.collage.std() > 0.01
+        _compare(jr, tr, rec, noise, jt, tt, chars)
 
 
 def test_forced_regeneration_matches(tmp_path, monkeypatch):
@@ -412,11 +497,84 @@ def test_cli_quarantines_a_failing_turn(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flag", [
     ["--dp_dialogues", "2"], ["--mesh", "dp=2"], ["--batch_chars"],
-    ["--snapshot", "snap"], ["--weights", "w"], ["--guidance"]])
+    ["--guidance"]])
 def test_cli_unported_flags_raise(tmp_path, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tgen.main(_cli(tmp_path, *flag))
     assert not (tmp_path / "out").exists()
+
+
+def _weights_dir(tmp_path):
+    """A synthetic checkpoint directory in the published names (fp16, as
+    most SD1.5 files ship) from a seeded tiny bundle, with the tiny SamHF
+    and the annotator."""
+    from theatergen_tpu_torch.models import export
+
+    cfg = tcfg.tiny_config()
+    b = init_bundle(cfg, 9, device="cpu", with_ip=True, with_vision=True,
+                    with_controlnet=True)
+    b.sam = build_sam(cfg, "cpu", torch.Generator().manual_seed(10),
+                      hf_cfg=sam_hf_config(cfg))
+    b.lineart = build_lineart("cpu", torch.Generator().manual_seed(11))
+    d = tmp_path / "weights"
+    export.export_checkpoint_dir(b, str(d))
+    return str(d), b
+
+
+def _pngs(root):
+    return {p.relative_to(root): p.read_bytes()
+            for p in sorted(root.rglob("*.png"))}
+
+
+def test_cli_weights_and_snapshot(tmp_path, monkeypatch, capsys):
+    """``--weights DIR --snapshot SNAP``: the bundle loads from the
+    directory (SamHF and the annotator on the turn's path, each module the
+    fp16 file's), runs dialogue_0 whole and is saved; a second run with
+    ``--snapshot SNAP`` loads it back and writes the same PNGs byte for
+    byte, SAM running once per character in each."""
+    d, src = _weights_dir(tmp_path)
+    snap = str(tmp_path / "snap")
+    seen = []
+    real = tgen.build_theater
+    monkeypatch.setattr(tgen, "build_theater",
+                        lambda args: seen.append(real(args)) or seen[-1])
+    trees = []
+    for run, flags in enumerate((["--weights", d, "--snapshot", snap],
+                                 ["--snapshot", snap])):
+        before = tsam.segments
+        tgen.main(_cli(tmp_path / f"run{run}", *flags))
+        out = capsys.readouterr().out
+        assert ("bundle snapshot saved" in out) == (run == 0)
+        assert ("loading bundle snapshot" in out) == (run == 1)
+        b = seen[-1]
+        assert type(b.sam).__name__ == "SamHF" and b.lineart is not None
+        assert torch.equal(b.sam.mask_decoder.iou_token.weight,
+                           src.sam.mask_decoder.iou_token.weight)
+        assert torch.equal(b.unet.conv_in.weight,
+                           src.unet.conv_in.weight.half().float())
+        root = tmp_path / f"run{run}"
+        events = [json.loads(line) for line in (
+            root / "out" / "story" / "run0" / "run_log.jsonl"
+        ).read_text().splitlines()]
+        turns = [e for e in events if e["event"] == "turn"]
+        assert [e["characters"] for e in turns] == [2, 1, 1, 2]
+        assert not [e for e in events if e["event"] == "quarantine"]
+        assert tsam.segments - before == 6
+        trees.append(_pngs(root / "out"))
+    assert trees[0] and trees[0] == trees[1]
+
+
+def test_cli_snapshot_of_random_weights(tmp_path, capsys):
+    """``--snapshot`` without ``--weights`` saves the random-weight
+    bundle, and the next run loads it: the same PNGs byte for byte."""
+    snap = str(tmp_path / "snap")
+    trees = []
+    for run in range(2):
+        tgen.main(_cli(tmp_path / f"run{run}", "--snapshot", snap))
+        out = capsys.readouterr().out
+        assert ("loading bundle snapshot" in out) == (run == 1)
+        trees.append(_pngs(tmp_path / f"run{run}" / "out"))
+    assert len(trees[0]) == 10 and trees[0] == trees[1]
 
 
 def test_cli_sd_version_xl_runs(tmp_path, monkeypatch):

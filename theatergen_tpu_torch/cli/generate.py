@@ -25,7 +25,14 @@ isolation.  The sampler knobs of the JAX package's CLI apply to the config
 first dialogue (host and device) to ``<save dir>/profile``.
 ``--sd_version xl`` runs the SDXL turn (``sdxl_config()``, or
 ``tiny_xl_config()`` under ``--tiny``) with the T2I-Adapter in place of the
-ControlNet, as the JAX CLI builds it.  Runs on the card unless
+ControlNet, as the JAX CLI builds it.  ``--weights DIR`` loads the bundle
+from a directory of published checkpoints (``models/weights.py::
+load_bundle``: ``unet.safetensors``, ``vae.safetensors``,
+``text_encoder.safetensors``, ``controlnet.safetensors``,
+``image_encoder.safetensors``, ``ip-adapter_sd15.bin``,
+``sam.safetensors``, ``lineart.safetensors``, tokenizer assets); ``--snapshot
+DIR`` loads a bundle snapshot from DIR where one is there, and otherwise
+builds or loads the bundle and saves it there.  Runs on the card unless
 ``--device`` names another device::
 
     python -m theatergen_tpu_torch.cli.generate --tiny --device cpu \\
@@ -33,6 +40,8 @@ ControlNet, as the JAX CLI builds it.  Runs on the card unless
         --deepcache 2 --cfg_cutoff 0.5 --cn_interval 2
     python -m theatergen_tpu_torch.cli.generate --sd_version xl \\
         --dataset_path data/sample --max_dialogues 1 --box_canvas 512
+    python -m theatergen_tpu_torch.cli.generate --weights ckpt \\
+        --snapshot ckpt_snap --dataset_path data/sample --max_dialogues 1
 """
 
 from __future__ import annotations
@@ -51,8 +60,7 @@ import numpy as np
 # flags of the JAX driver that raise here, and the ROADMAP §1 item that
 # brings each
 UNPORTED_FLAGS = {
-    "dp_dialogues": 7, "mesh": 7, "batch_chars": 7, "snapshot": 3,
-    "weights": 3, "guidance": 5}
+    "dp_dialogues": 6, "mesh": 6, "batch_chars": 6, "guidance": 4}
 
 
 def turn_seed(seed_offset: int, dialogue_base: int, turn_idx: int,
@@ -135,9 +143,14 @@ def make_parser() -> argparse.ArgumentParser:
                          "dialogue to <save dir>/profile")
     ap.add_argument("--no_guidance", action="store_true",
                     help="(deprecated: guidance is off by default)")
+    ap.add_argument("--weights", default=None,
+                    help="directory of published checkpoints to load the "
+                         "bundle from (default: random weights)")
+    ap.add_argument("--snapshot", default=None,
+                    help="bundle snapshot directory: loaded where it holds "
+                         "one, else written after the bundle is built")
     # the JAX driver's other flags parse, and raise (UNPORTED_FLAGS)
-    for flag in ("weights", "snapshot", "mesh"):
-        ap.add_argument(f"--{flag}", default=None)
+    ap.add_argument("--mesh", default=None)
     for flag in ("guidance", "batch_chars"):
         ap.add_argument(f"--{flag}", action="store_true", default=None)
     ap.add_argument("--dp_dialogues", type=int, default=None)
@@ -186,10 +199,14 @@ def apply_pipeline_overrides(cfg, *, cfg_cutoff=None, deepcache=None,
 
 
 def build_theater(args):
-    """The turn's bundle: random weights from seed 0 with the IP UNet, the
-    vision tower and the ControlNet (SD1.5) or the T2I-Adapter (SDXL), on
-    ``args.device``, under the config's knob overrides."""
+    """The turn's bundle on ``args.device``, under the config's knob
+    overrides, as the JAX CLI builds it: the snapshot in ``args.snapshot``
+    where it holds one; else ``load_bundle`` of ``args.weights``, or random
+    weights from seed 0 with the IP UNet, the vision tower and the
+    ControlNet (SD1.5) or the T2I-Adapter (SDXL), then saved to
+    ``args.snapshot`` where it is given."""
     from ..config import sd15_config, sdxl_config, tiny_config, tiny_xl_config
+    from ..models import snapshot, weights
     from ..pipelines.bundle import init_bundle
 
     is_xl = args.sd_version == "xl"
@@ -202,9 +219,21 @@ def build_theater(args):
         cfg_cutoff=args.cfg_cutoff, deepcache=args.deepcache,
         scheduler=args.scheduler, cn_interval=args.cn_interval,
         prediction_type=args.prediction_type, zero_snr=args.zero_snr)
-    return init_bundle(cfg, 0, device=args.device, with_ip=True,
-                       with_vision=True, with_controlnet=not is_xl,
-                       with_t2i_adapter=is_xl)
+    snap = args.snapshot
+    if snap and os.path.exists(os.path.join(snap, "bundle_meta.json")):
+        print(f"loading bundle snapshot: {snap}")
+        return snapshot.load_bundle_snapshot(
+            cfg, snap, tokenizer_assets=args.weights, device=args.device)
+    if args.weights:
+        bundle = weights.load_bundle(cfg, args.weights, device=args.device)
+    else:
+        bundle = init_bundle(cfg, 0, device=args.device, with_ip=True,
+                             with_vision=True, with_controlnet=not is_xl,
+                             with_t2i_adapter=is_xl)
+    if snap:
+        snapshot.save_bundle_snapshot(bundle, snap)
+        print(f"bundle snapshot saved: {snap} (the next run loads it)")
+    return bundle
 
 
 def main(argv: Optional[list] = None) -> None:

@@ -135,6 +135,27 @@ class IPAdapterConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SAMConfig:
+    """The promptable segmenter of the character masks (the reference's
+    ``models/sam.py``).  ``backend`` "lite" builds the weightless
+    ``perception.sam.SAMLite`` at these widths; "hf" the checkpoint-faithful
+    ``perception.sam_hf.SamHF`` (sam-vit-base, or its tiny instance where
+    ``image_size <= 64``)."""
+
+    image_size: int = 512
+    patch_size: int = 16
+    encoder_dim: int = 768
+    encoder_layers: int = 12
+    encoder_heads: int = 12
+    prompt_embed_dim: int = 256
+    decoder_layers: int = 2
+    decoder_heads: int = 8
+    num_mask_outputs: int = 3
+    dtype: str = "float32"
+    backend: str = "lite"
+
+
+@dataclasses.dataclass(frozen=True)
 class SchedulerConfig:
     """DDIM with SD1.5 betas."""
 
@@ -214,6 +235,7 @@ class TheaterConfig:
         default_factory=ControlNetConfig)
     ip_adapter: IPAdapterConfig = dataclasses.field(
         default_factory=IPAdapterConfig)
+    sam: SAMConfig = dataclasses.field(default_factory=SAMConfig)
     scheduler: SchedulerConfig = dataclasses.field(
         default_factory=SchedulerConfig)
     guidance: GuidanceConfig = dataclasses.field(
@@ -254,6 +276,11 @@ def tiny_config(latent_size: int = 8) -> TheaterConfig:
         resampler_depth=1, resampler_dim=32, resampler_heads=2,
         resampler_queries=4,
     )
+    sam = SAMConfig(
+        image_size=64, patch_size=16, encoder_dim=32, encoder_layers=2,
+        encoder_heads=2, prompt_embed_dim=32, decoder_layers=1,
+        decoder_heads=2,
+    )
     pipe = PipelineConfig(
         height=latent_size * 2, width=latent_size * 2, num_steps=4,
         max_objects=3, vae_scale=2,
@@ -269,7 +296,7 @@ def tiny_config(latent_size: int = 8) -> TheaterConfig:
         # one stride-2 stage to match the tiny VAE's scale-2 latents
         controlnet=ControlNetConfig(unet=unet,
                                     conditioning_embed_channels=(8, 16)),
-        ip_adapter=ip, pipeline=pipe, guidance=guidance)
+        ip_adapter=ip, sam=sam, pipeline=pipe, guidance=guidance)
 
 
 def sd15_config() -> TheaterConfig:

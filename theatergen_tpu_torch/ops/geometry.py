@@ -1,7 +1,8 @@
 """Box and mask geometry as plain tensor functions.
 
 The port of the parts of ``theatergen_tpu/ops/geometry.py`` that the
-composition, the collage and the attention-mask fallback call.  Boxes are
+composition, the collage, the attention-mask fallback and SAM's mask
+selection call.  Boxes are
 ``[x_min, y_min, x_max, y_max]``, normalised to [0, 1] unless noted.  Box
 coordinates and shifts may be tensors on the device: nothing here copies a
 value to the host.
@@ -118,6 +119,27 @@ def shift2d(x: torch.Tensor, dy, dx, dims: Tuple[int, int] = (-2, -1)
     shape = [1] * x.ndim
     shape[ay], shape[ax] = x.shape[ay], x.shape[ax]
     return out * keep.reshape(shape).to(x.dtype)
+
+
+def iou(mask: torch.Tensor, masks: torch.Tensor, eps: float = 1e-6
+        ) -> torch.Tensor:
+    """IoU of ``mask [h, w]`` against each of ``masks [n, h, w]``, nonzero
+    counting as inside; fp32 ``[n]``."""
+    a, b = mask[None].bool(), masks.bool()
+    inter = (a & b).sum((1, 2)).float()
+    return inter / ((a | b).sum((1, 2)).float() + eps)
+
+
+def downsample_max(mask: torch.Tensor, out_h: int, out_w: int
+                   ) -> torch.Tensor:
+    """Max-pool the trailing two axes down to ``(out_h, out_w)`` by whole
+    factors."""
+    h, w = mask.shape[-2:]
+    if h % out_h or w % out_w:
+        raise ValueError(f"downsample_max: {(h, w)} is not a whole multiple "
+                         f"of {(out_h, out_w)}")
+    x = mask.reshape(*mask.shape[:-2], out_h, h // out_h, out_w, w // out_w)
+    return x.amax((-3, -1))
 
 
 def upsample_nearest(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:

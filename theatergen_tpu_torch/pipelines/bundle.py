@@ -3,11 +3,14 @@
 Port of ``theatergen_tpu/pipelines/bundle.py`` for the txt2img slices
 (SD1.5; SDXL adds the second text tower ``text2``), the IP-Adapter
 character pass (``unet_ip``, ``image_proj`` and the CLIP vision tower), the
-final pass (``controlnet``) and the SDXL turn's structure conditioning
-(``t2i_adapter``).
+final pass (``controlnet``), the SDXL turn's structure conditioning
+(``t2i_adapter``), the character masks' segmenter (``sam``) and the lineart
+annotator (``lineart``).
 :func:`init_bundle` builds the modules on the target device with seeded
-random weights (no checkpoint ships with the repo); :meth:`Bundle.load_flax`
-loads the JAX package's parameter trees through ``models/weights.py``.  A
+random weights (no checkpoint ships with the repo);
+``models/weights.py::load_bundle`` loads published checkpoints into them
+and ``models/snapshot.py`` saves and reloads a whole bundle;
+:meth:`Bundle.load_flax` loads the JAX package's parameter trees.  A
 config with ``unet.quantized`` builds W8A8 UNets: their int8 weights are
 the float bundle's of the same seed, quantized, and ``load_flax`` takes a
 ``quantize_params`` tree.
@@ -31,6 +34,9 @@ from ..models.t2i_adapter import T2IAdapter
 from ..models.unet import UNet2DCondition
 from ..models.vae import AutoencoderKL
 from ..models.weights import from_flax
+from ..ops.lineart import LineartGenerator
+from ..perception.sam import SAMLite
+from ..perception.sam_hf import SamHF, SamHFConfig, tiny_sam_hf_config
 from ..utils.tokenizer import load_tokenizer
 
 
@@ -53,6 +59,13 @@ class Bundle:
     controlnet: Optional[ControlNet] = None
     # the SDXL turn's final-pass conditioning, in place of the ControlNet
     t2i_adapter: Optional[T2IAdapter] = None
+    # the character masks' segmenter (SAMLite or SamHF); None: the
+    # attention fallback
+    sam: Optional[nn.Module] = None
+    # the lineart annotator (LineartGenerator); None: dog_lineart
+    lineart: Optional[nn.Module] = None
+    # an open-vocabulary detector; none is ported (ROADMAP §1 item 2)
+    detector: Any = None
 
     @property
     def device(self) -> torch.device:
@@ -73,9 +86,14 @@ class Bundle:
                   image_proj: Optional[Mapping] = None,
                   vision: Optional[Mapping] = None,
                   controlnet: Optional[Mapping] = None,
-                  t2i_adapter: Optional[Mapping] = None) -> "Bundle":
+                  t2i_adapter: Optional[Mapping] = None,
+                  sam: Optional[Mapping] = None,
+                  lineart: Optional[Mapping] = None) -> "Bundle":
         """Load JAX-package param trees (nested dicts of arrays); every key
-        must match (``load_state_dict(strict=True)``)."""
+        must match (``load_state_dict(strict=True)``).  ``sam`` is the tree
+        of the bundle's segmenter (``SAMLite`` or ``SamHF``), ``lineart``
+        that of its annotator."""
+        sam_kind = "sam_hf" if isinstance(self.sam, SamHF) else "sam_lite"
         for name, kind, tree in (
                 ("unet", "unet", unet), ("vae", "vae", vae),
                 ("text", "text", text), ("text2", "text", text2),
@@ -83,7 +101,8 @@ class Bundle:
                 ("image_proj", PROJ_KINDS[self.ip_variant], image_proj),
                 ("vision", "vision", vision),
                 ("controlnet", "controlnet", controlnet),
-                ("t2i_adapter", "t2i_adapter", t2i_adapter)):
+                ("t2i_adapter", "t2i_adapter", t2i_adapter),
+                ("sam", sam_kind, sam), ("lineart", "lineart", lineart)):
             if tree is None:
                 continue
             module = getattr(self, name)
@@ -136,13 +155,21 @@ def _seeded_init(module: nn.Module, gen: torch.Generator,
                 p.normal_(0.0, getattr(m, "init_std", 0.02), generator=gen)
 
 
-def _build(cls, cfg, dtype: torch.dtype, device: torch.device,
-           gen: torch.Generator, **kwargs) -> nn.Module:
+def build_module(cls, cfg, dtype: torch.dtype, device,
+                 gen: Optional[torch.Generator] = None, **kwargs
+                 ) -> nn.Module:
+    """``cls(cfg, **kwargs)`` (``cls(**kwargs)`` where ``cfg`` is None) in
+    ``dtype`` on ``device``, in eval mode and without gradients: its
+    parameters drawn from ``gen``, or left uninitialised without one (on
+    the meta device, a skeleton without storage)."""
     with torch.device("meta"):
-        module = cls(cfg, **kwargs)
-    module = module.to(dtype=dtype).to_empty(device=device)
-    with torch.no_grad():
-        _seeded_init(module, gen, dtype)
+        module = cls(**kwargs) if cfg is None else cls(cfg, **kwargs)
+    module = module.to(dtype=dtype)
+    if torch.device(device).type != "meta":
+        module = module.to_empty(device=device)
+        if gen is not None:
+            with torch.no_grad():
+                _seeded_init(module, gen, dtype)
     return module.eval().requires_grad_(False)
 
 
@@ -150,18 +177,22 @@ def init_bundle(cfg: TheaterConfig, seed: int = 0, *,
                 device="cuda", tokenizer_assets: Optional[str] = None,
                 with_ip: bool = False, with_vision: bool = False,
                 with_controlnet: bool = False,
-                with_t2i_adapter: bool = False,
+                with_t2i_adapter: bool = False, with_sam: bool = False,
                 ip_variant: str = "base") -> Bundle:
     """Random-weight bundle built directly on ``device`` (default the card;
-    there is no fallback to the CPU: pass ``device="cpu"`` to ask for it).
+    there is no fallback to the CPU: pass ``device="cpu"`` to ask for it;
+    on ``"meta"`` a skeleton without weights).
 
     ``with_ip`` adds the IP-Adapter UNet (``unet_ip``, its own weights,
     ``ip_num_tokens`` = ``num_tokens``, ``resampler_queries`` or 1 for the
     base, plus and full variants) and the variant's projector;
     ``with_vision`` adds the CLIP vision tower; ``with_controlnet`` the
     ControlNet of ``cfg.controlnet``; ``with_t2i_adapter`` the T2I-Adapter
-    of the UNet's levels at the VAE's scale, in the UNet's dtype.  The
-    ControlNet and then the adapter are drawn last, so every other part
+    of the UNet's levels at the VAE's scale, in the UNet's dtype;
+    ``with_sam`` the segmenter of ``cfg.sam.backend``: ``SAMLite`` at
+    ``cfg.sam``'s widths ("lite") or ``SamHF`` ("hf": sam-vit-base, the
+    tiny instance where ``cfg.sam.image_size <= 64``).  The ControlNet, the
+    adapter and then the segmenter are drawn last, so every other part
     keeps the weights of a bundle without them."""
     if ip_variant not in PROJ_KINDS:
         raise ValueError(f"ip_variant must be one of {tuple(PROJ_KINDS)}, "
@@ -170,17 +201,18 @@ def init_bundle(cfg: TheaterConfig, seed: int = 0, *,
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("init_bundle: no CUDA device; pass device='cpu' "
                            "to build the bundle on the CPU")
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = (None if device.type == "meta"
+           else torch.Generator(device=device).manual_seed(seed))
     b = Bundle(
         cfg=cfg,
         tokenizer=load_tokenizer(tokenizer_assets, cfg.text.vocab_size),
-        unet=_build(UNet2DCondition, cfg.unet, get_dtype(cfg.unet.dtype),
-                    device, gen),
-        vae=_build(AutoencoderKL, cfg.vae, get_dtype(cfg.vae.dtype),
-                   device, gen),
-        text=_build(CLIPTextEncoder, cfg.text, get_dtype(cfg.text.dtype),
-                    device, gen),
-        text2=(None if cfg.text2 is None else _build(
+        unet=build_module(UNet2DCondition, cfg.unet,
+                          get_dtype(cfg.unet.dtype), device, gen),
+        vae=build_module(AutoencoderKL, cfg.vae, get_dtype(cfg.vae.dtype),
+                         device, gen),
+        text=build_module(CLIPTextEncoder, cfg.text,
+                          get_dtype(cfg.text.dtype), device, gen),
+        text2=(None if cfg.text2 is None else build_module(
             CLIPTextEncoder, cfg.text2, get_dtype(cfg.text2.dtype), device,
             gen)),
     )
@@ -195,20 +227,48 @@ def init_bundle(cfg: TheaterConfig, seed: int = 0, *,
         else:
             n_tokens, proj, kw = ip.num_tokens, ImageProjModel, {}
         b.ip_variant = ip_variant
-        b.unet_ip = _build(
+        b.unet_ip = build_module(
             UNet2DCondition,
             dataclasses.replace(cfg.unet, ip_num_tokens=n_tokens),
             get_dtype(cfg.unet.dtype), device, gen)
-        b.image_proj = _build(proj, ip, torch.float32, device, gen, **kw)
+        b.image_proj = build_module(proj, ip, torch.float32, device, gen,
+                                    **kw)
     if with_vision:
-        b.vision = _build(CLIPVisionEncoder, cfg.vision,
-                          get_dtype(cfg.vision.dtype), device, gen)
+        b.vision = build_module(CLIPVisionEncoder, cfg.vision,
+                                get_dtype(cfg.vision.dtype), device, gen)
     if with_controlnet:
-        b.controlnet = _build(ControlNet, cfg.controlnet,
-                              get_dtype(cfg.controlnet.unet.dtype), device,
-                              gen)
+        b.controlnet = build_module(ControlNet, cfg.controlnet,
+                                    get_dtype(cfg.controlnet.unet.dtype),
+                                    device, gen)
     if with_t2i_adapter:
-        b.t2i_adapter = _build(T2IAdapter, cfg.unet,
-                               get_dtype(cfg.unet.dtype), device, gen,
-                               downscale=cfg.pipeline.vae_scale)
+        b.t2i_adapter = build_module(T2IAdapter, cfg.unet,
+                                     get_dtype(cfg.unet.dtype), device, gen,
+                                     downscale=cfg.pipeline.vae_scale)
+    if with_sam:
+        b.sam = build_sam(cfg, device, gen)
     return b
+
+
+def sam_hf_config(cfg: TheaterConfig) -> SamHFConfig:
+    """The ``SamHF`` of a config: sam-vit-base, or the tiny instance where
+    ``cfg.sam.image_size <= 64``."""
+    return (tiny_sam_hf_config() if cfg.sam.image_size <= 64
+            else SamHFConfig())
+
+
+def build_sam(cfg: TheaterConfig, device, gen=None,
+              hf_cfg: Optional[SamHFConfig] = None) -> nn.Module:
+    """The segmenter of ``cfg.sam.backend`` (see :func:`init_bundle`), or
+    a ``SamHF`` of ``hf_cfg`` where it is given."""
+    if hf_cfg is None and cfg.sam.backend == "hf":
+        hf_cfg = sam_hf_config(cfg)
+    if hf_cfg is not None:
+        return build_module(SamHF, hf_cfg, torch.float32, device, gen)
+    return build_module(SAMLite, cfg.sam, get_dtype(cfg.sam.dtype), device,
+                        gen)
+
+
+def build_lineart(device, gen=None, **kwargs) -> nn.Module:
+    """The lineart annotator (``LineartGenerator(**kwargs)``), fp32."""
+    return build_module(LineartGenerator, None, torch.float32, device, gen,
+                        **kwargs)

@@ -126,7 +126,7 @@ def make_character_pipeline(bundle: Bundle, num_steps: int, *,
     cfg = bundle.cfg
     if guided:
         raise NotImplementedError(
-            "latent guidance is not ported yet (ROADMAP §1 item 5)")
+            "latent guidance is not ported yet (ROADMAP §1 item 4)")
     unet = bundle.unet_ip if use_ip else bundle.unet
     if unet is None:
         raise ValueError("make_character_pipeline: use_ip needs a bundle "

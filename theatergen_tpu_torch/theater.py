@@ -10,10 +10,12 @@ reference's ``theatergen.run``, ``theatergen.py:278-488``, with
   maps of its word token captured at every step;
 - its image is detected from those maps (``perception.detector``) and
   regenerated from fresh noise up to :data:`MAX_REGEN_ATTEMPTS` times;
-- its mask comes from the step-mean maps (:func:`_attn_mask_fallback`;
-  the port has no segmenter yet);
+- its mask comes from the bundle's segmenter (``perception.sam``: the
+  image resized to the segmenter's side, the detection box as the prompt),
+  or without one from the step-mean maps (:func:`_attn_mask_fallback`);
 - the composition program (:func:`_compose_program`) aligns, composes and
-  collages the characters over ``max_objects`` padded slots, and the
+  collages the characters over ``max_objects`` padded slots and draws the
+  lineart hint (the bundle's annotator, or ``dog_lineart``), and the
   ControlNet final pass denoises the composed scene with the first
   character's IP features, the masked region frozen for the first
   ``frozen_step_ratio`` of the steps;
@@ -62,6 +64,7 @@ from .ops import geometry as G
 from .ops import latents as L
 from .ops.lineart import dog_lineart
 from .perception import detector as det
+from .perception import sam as sam_lib
 from .pipelines import sd, sdxl
 from .pipelines.bundle import Bundle
 from .pipelines.character import (encode_ip_image, ip_context,
@@ -126,24 +129,24 @@ def _attn_mask_fallback(maps: Sequence[torch.Tensor], hint: torch.Tensor,
 
 def _compose_program(lineart_module=None):
     """Alignment, trajectory composition, the pixel collage, the lineart
-    hint and the frozen mask, as one function.  Only the default path's
-    weightless lineart (``dog_lineart``) is ported: a lineart annotator
-    needs a checkpoint.
+    hint (``lineart_module``, the annotator, on the collage; without one
+    the weightless ``dog_lineart``) and the frozen mask, as one function.
 
     ``run(traj [K, S+1, 1, h, w, 4], masks_lat [K, h, w], masks_pix [K, H,
     W], images [K, H, W, 3], boxes [K, 4], valid [K], bg_lat [1, h, w, 4])
     -> (composed [S+1, 1, h, w, 4], collage [H, W, 3], cond_img [H, W, 3],
     frozen_mask [h, w])``."""
-    if lineart_module is not None:
-        raise NotImplementedError(
-            "a lineart annotator needs a checkpoint; only dog_lineart is "
-            "ported")
 
     def run(traj, masks_lat, masks_pix, images, boxes, valid, bg_lat):
         traj_a, masks_a, _ = L.align_with_boxes(traj, masks_lat, boxes)
         composed, fg_idx = L.compose_trajectories(traj_a, masks_a, bg_lat)
         collage, _ = L.collage_images(images, masks_pix, boxes, valid)
-        return composed, collage, dog_lineart(collage), (fg_idx > 0).float()
+        if lineart_module is not None:
+            with torch.no_grad():
+                cond_img = lineart_module(collage[None])[0]
+        else:
+            cond_img = dog_lineart(collage)
+        return composed, collage, cond_img, (fg_idx > 0).float()
 
     return run
 
@@ -188,11 +191,11 @@ class Theater:
                  mesh=None, batch_characters: bool = False):
         if guided:
             raise NotImplementedError(
-                "latent guidance is not ported yet (ROADMAP §1 item 5)")
+                "latent guidance is not ported yet (ROADMAP §1 item 4)")
         if mesh is not None or batch_characters:
             raise NotImplementedError(
                 "the batched character mode and meshes are not ported yet "
-                "(ROADMAP §1 item 7)")
+                "(ROADMAP §1 item 6)")
         if bundle.unet_ip is None:
             raise ValueError("Theater: the bundle needs the IP UNet "
                              "(init_bundle(..., with_ip=True))")
@@ -274,11 +277,22 @@ class Theater:
         return aggregate_attn(ref_attn, self.char_sched.num_steps)
 
     def _extract_masks(self, agg_maps, image, box_hint):
-        """(latent mask [h, w], pixel mask [H, W]) from the thresholded
-        step-mean maps (the port has no segmenter yet)."""
+        """(latent mask [h, w], pixel mask [H, W]): the bundle's segmenter
+        on ``image [1, H, W, 3]`` resized to its side, prompted with
+        ``box_hint`` (the reference's ``sam_refine_attn``), or without one
+        the thresholded step-mean maps."""
         pl = self.cfg.pipeline
-        return _attn_mask_fallback(agg_maps, box_hint, pl.latent_height,
-                                   pl.latent_width, pl.height, pl.width)
+        h, H = pl.latent_height, pl.height
+        sam = self.bundle.sam
+        if sam is not None:
+            size = sam_lib.sam_input_size(sam)
+            img_s = G.resize_bilinear(image[0].permute(2, 0, 1), size,
+                                      size).permute(1, 2, 0)
+            (m_lat, m_pix), _ = sam_lib.segment_with_box(
+                sam, img_s, box_hint, out_sizes=(h, H))
+            return m_lat, m_pix
+        return _attn_mask_fallback(agg_maps, box_hint, h, pl.latent_width,
+                                   H, pl.width)
 
     # -------------------------------------------------------------- character
 
@@ -497,7 +511,8 @@ class Theater:
             [plan.object_plans[i].box for i in range(n)] + [(0.0,) * 4] * pad,
             dtype=torch.float32, device=dev)
         with self.timer.phase("compose", sync=True):
-            composed, collage, cond_img, frozen_mask = _compose_program()(
+            composed, collage, cond_img, frozen_mask = _compose_program(
+                b.lineart)(
                 stack("trajectory"), stack("mask_lat"), stack("mask_pix"),
                 torch.stack([chars[i]["image"][0] for i in range(n)]
                             + [torch.zeros_like(chars[0]["image"][0])] * pad),
@@ -517,7 +532,7 @@ class Theater:
         # The JAX package also looks up each object's token positions in the
         # overall prompt here (theater.py:833-856); they feed only the
         # latent-guidance inputs, which the final runner reads with guidance
-        # on (ROADMAP §1 item 5), so the lookup waits for that item.
+        # on (ROADMAP §1 item 4), so the lookup waits for that item.
         return dict(composed=composed, frozen_mask=frozen_mask, ctx=ctx,
                     cn_ctx=overall_ctx, cond_img=cond_img,
                     extra_cond=extra_cond,
