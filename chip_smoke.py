@@ -24,6 +24,10 @@ Phases, in order (any failure exits non-zero):
      also cold (its input read from device memory, not L2), and the host
      µs per call of the flash, FF, geglu_matmul, quant_matmul and
      group_norm wrappers at one or two path shapes each;
+  4b. each kernel's gradient (``grad_gate_phase``, latent guidance's
+     batch-1 shapes): the wrapper under autograd launches its kernel once
+     forward, within the bound of its plain version, and none backward,
+     whose gradients equal the plain version's bit for bit;
   5. SD1.5: ``init_bundle(sd15_config())``, one full-size UNet evaluation
      with the kernels against the same UNet under ``plain_path()``, then
      ``Text2Img(bundle, num_steps=50)`` on three prompts at 512 px, CFG 7.5;
@@ -51,7 +55,9 @@ Phases, in order (any failure exits non-zero):
      time ids and those features as ``level_residuals`` against
      ``plain_path()``, its wall and device ms per evaluation beside the
      base UNet's and its host-side op table, and 30-step ``Text2ImgXL``
-     requests with and without the hint in turns;
+     requests with and without the hint in turns; then a guided XL
+     character request (``XL_GUIDED_STEPS`` Euler-Ancestral steps, every
+     one guided) beside the unguided one from the same draws;
   8. the IP-Adapter character pass:
      ``init_bundle(sd15_config(), with_ip=True, with_vision=True)``, the IP
      UNet with the kernels against ``plain_path()`` (``THEATERGEN_FUSED_GN``
@@ -88,11 +94,16 @@ Phases, in order (any failure exits non-zero):
  11. a whole story dialogue through the CLI, ``cli.generate.main``: the 4
      turns of dialogue_0 of data/sample/story.json at 512 px, 50 steps,
      its own random-weight bundle, output tree and character DB; each
-     turn's launches against its character attempts; then the same with
+     turn's launches against its character attempts; then latent guidance
+     (``guided_path``): the energy's gradient through the SD1.5 IP UNet
+     with the kernels against ``plain_path()`` and an fp32 copy, one
+     guidance iteration's times, and dialogue_0 with ``--guidance``, each
+     turn's launches with one cond-only evaluation per recorded
+     iteration, its images other than the unguided run's; then the same with
      the CLI's knobs (TURN_KNOBS): ``--deepcache 3 --cfg_cutoff 0.5
-     --cn_interval 2`` with ``--profile`` (its trace checked on disk) and
-     without, ``--scheduler lcm`` at 4 steps, and Euler-Ancestral with
-     v-prediction and zero terminal SNR at 30 steps; then the SDXL
+     --cn_interval 2``, ``--scheduler lcm`` at 4 steps with ``--profile``
+     (its trace checked on disk), and Euler-Ancestral with v-prediction
+     and zero terminal SNR at 30 steps; then the SDXL
      dialogue, ``--sd_version xl --box_canvas 512``: 1024 px, 30
      Euler-Ancestral steps, the T2I-Adapter in place of the ControlNet,
      each turn's launches against its attempts × the XL character request
@@ -132,6 +143,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import copy
 import gc
 import json
 import math
@@ -164,9 +176,11 @@ from theatergen_tpu_torch.ops import geglu_matmul as gg
 from theatergen_tpu_torch.ops import groupnorm as gn
 from theatergen_tpu_torch.ops import quant as qz
 from theatergen_tpu_torch.ops import quant_matmul as qm
+from theatergen_tpu_torch.ops import recompute
 from theatergen_tpu_torch.perception import sam as sam_lib
 from theatergen_tpu_torch.perception.sam_hf import SamHFConfig
 from theatergen_tpu_torch.pipelines import character, final, sd, sdxl
+from theatergen_tpu_torch.pipelines import guidance as guidance_lib
 from theatergen_tpu_torch.pipelines.bundle import (build_lineart, build_sam,
                                                    init_bundle)
 from theatergen_tpu_torch.utils import png
@@ -304,15 +318,12 @@ SD15_STEPS, SDXL_STEPS = 50, 30
 # rank LORA_RANK, and SDXL)
 DEEPCACHE_INTERVAL, LCM_STEPS, LORA_RANK = 3, 4, 64
 # the CLI's knob runs over dialogue_0: (label, flags, steps, the step plan's
-# knobs); the first also writes the --profile trace (checked, then deleted:
-# about 1 GB), so the second times the same knobs without the profiler
+# knobs); the 4-step LCM run also writes the --profile trace (checked, then
+# deleted), the shortest run to trace, so the guided dialogue has room
 TURN_KNOBS = (
-    ("a", ["--deepcache", "3", "--cfg_cutoff", "0.5", "--cn_interval", "2",
-           "--profile"], 50, dict(deepcache=3, cutoff=0.5, cn_interval=2)),
-    ("a_unprofiled", ["--deepcache", "3", "--cfg_cutoff", "0.5",
-                      "--cn_interval", "2"], 50,
-     dict(deepcache=3, cutoff=0.5, cn_interval=2)),
-    ("b", ["--scheduler", "lcm"], 4, dict(sampler="lcm")),
+    ("a", ["--deepcache", "3", "--cfg_cutoff", "0.5", "--cn_interval", "2"],
+     50, dict(deepcache=3, cutoff=0.5, cn_interval=2)),
+    ("b", ["--scheduler", "lcm", "--profile"], 4, dict(sampler="lcm")),
     ("c", ["--scheduler", "euler_ancestral", "--prediction_type",
            "v_prediction", "--zero_snr"], 30,
      dict(sampler="euler_ancestral")))
@@ -353,6 +364,39 @@ AB_PAIRS = {CHAR: 12, SDXL: 8}
 PROMPTS = ["a red knight rides through a dark forest",
            "a girl with a blue umbrella on a rainy street",
            "two cats asleep on a wooden table"]
+# latent guidance (--guidance): the kernels' gradient gates at the guided
+# UNets' batch-1 shapes, (kernel record, model, shape); flash (B, S, H, D),
+# ff_geglu (M, D, K), geglu_matmul (M, K, N), group_norm (B, C, HW, act)
+GRAD_SHAPES = (
+    [("flash_attention", SD15_B1, (1, 4096, 8, 40)),
+     ("flash_attention", SD15_B1, (1, 1024, 8, 80)),
+     ("flash_attention", SDXL_B1, (1, 4096, 10, 64)),
+     ("flash_attention", SDXL_B1, (1, 1024, 20, 64)),
+     ("ff_geglu", SD15_B1, (4096, 320, 1280)),
+     ("ff_geglu", SD15_B1, (1024, 640, 2560)),
+     ("ff_geglu", SD15_B1, (256, 1280, 5120)),
+     ("geglu_matmul", SDXL_B1, (4096, 2560, 640)),
+     ("geglu_matmul", SDXL_B1, (1024, 5120, 1280))]
+    + [("group_norm", SD15_B1, (1, c, hw, "silu")) for (c, hw), _ in
+       GN_SD15_SITES] + [("group_norm", SD15_B1, (1, 1280, 256, None))])
+# the energy's latent gradient through the full SD1.5 IP UNet (beside
+# unet_reference_phase's 5e-2 on the eps).  Kernels against plain_path():
+# bounds on max|diff|/max|ref| and on the cosine.  The energy is a top-k
+# mean, so a rounding that moves an attention entry across the k-th
+# largest sends its gradient elsewhere: on an H100 80GB HBM3 at 700 W the
+# bf16 plain path's own gradient is 0.159-0.187 (max) and 0.083-0.120
+# (L2) from an fp32 UNet's over three inputs, and the max bound is set
+# above that noise.  Against the fp32 UNet: the kernels' L2 distance
+# within ENERGY_FP32_RATIO of the bf16 plain path's, and the cosine at
+# least ENERGY_FP32_COS (with flash's branch detached: 0.212 against
+# 0.122, cosine 0.977; the FF's: 0.736, 0.677;
+# scripts/torch_guidance_grad.py)
+ENERGY_GRAD_BOUND, ENERGY_COS_BOUND = 0.5, 0.98
+ENERGY_FP32_RATIO, ENERGY_FP32_COS = 1.75, 0.985
+# the guided dialogue and the guided SDXL character request (10
+# Euler-Ancestral steps at 1024 px, every one guided: guidance_steps 25)
+GUIDED_TURN, XL_GUIDED, XL_GUIDED_STEPS = "sd15_512_turn_guided", \
+    "sdxl_1024_ip_guided", 10
 # kernel -> (module, its launch counter)
 COUNTERS = {"flash_attention": (fa, "launches"),
             "flash_attention_long": (fa, "launches_long"),
@@ -1559,9 +1603,12 @@ def xl_path(records) -> dict:
     eval_ms = dict(device=device, wall=dict(wall))
     log(f"  evaluation with level residuals, batch 2, ms: "
         f"{json.dumps(eval_ms)}")
+    log(f"  latent guidance in the XL character pass, {XL_GUIDED_STEPS} "
+        f"Euler-Ancestral steps at 1024 px:")
+    guided = xl_guided_request(bundle, ip_image(), records)
     return dict(seconds_per_request=dict(seconds), peak_bytes=peak,
                 unet_kernels_vs_plain_rel=rel, eval_ms=eval_ms,
-                adapter_ms=adapter_ms)
+                adapter_ms=adapter_ms, guided_request=guided)
 
 
 def host_table(fn, rows: int = 15) -> None:
@@ -2010,7 +2057,8 @@ def turn_want(attempts: int, steps: int = SD15_STEPS, xl: bool = False,
 
 
 def turn_path(records, label: str = "", flags=(), steps: int = SD15_STEPS,
-              knobs=None, xl: bool = False, images=None) -> dict:
+              knobs=None, xl: bool = False, images=None,
+              guided: bool = False) -> dict:
     """The serial story loop through the port's CLI,
     ``cli.generate.main``, over dialogue_0 of data/sample/story.json:
     SD1.5 at 512 px (or, with ``xl``, SDXL at 1024 px, ``flags`` carrying
@@ -2025,7 +2073,10 @@ def turn_path(records, label: str = "", flags=(), steps: int = SD15_STEPS,
     and of the canvas's side, the DB hits are TURN_HITS, each turn's
     launches are turn_want, and, with ``--profile``, the trace directory
     holds a non-empty file.  ``images``, a list, receives each turn's
-    images (the turn's, then its characters')."""
+    images (the turn's, then its characters').  With ``guided``
+    (``--guidance`` in ``flags``) each turn's guidance iterations are
+    recorded per pass and step, and its launches are turn_want plus one
+    cond-only IP UNet evaluation per iteration."""
     from theatergen_tpu_torch.cli import generate
     from theatergen_tpu_torch.db import CharacterDB
 
@@ -2043,10 +2094,11 @@ def turn_path(records, label: str = "", flags=(), steps: int = SD15_STEPS,
     def counted_turn(self, spec, seed, **kw):
         before = self.timer.counts().get("char.denoise_decode", 0)
         reset_counts()
-        t0 = time.perf_counter()
-        res = real(self, spec, seed, **kw)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with guidance_log() as calls:
+            t0 = time.perf_counter()
+            res = real(self, spec, seed, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
         got = read_counts()
         add_launches(records, model, got)
         attempts = self.timer.counts()["char.denoise_decode"] - before
@@ -2057,13 +2109,16 @@ def turn_path(records, label: str = "", flags=(), steps: int = SD15_STEPS,
         turns.append(dict(seconds=res.seconds, wall_s=wall,
                           attempts=attempts, launches=got,
                           db_hits=res.db_hits, detections=res.detections,
-                          images_ok=ok_images))
+                          images_ok=ok_images,
+                          guidance_iterations=passes_of(calls)))
         if images is not None:
             images.append(images_)
         log(f"  turn {len(turns)}: {wall:.3f} s  characters "
             f"{len(res.so_images)}  attempts {attempts}  DB hits "
             f"{res.db_hits}  detections {res.detections}  launches {got}  "
-            f"images finite, in [0, 1], {side}²: {ok_images}")
+            f"images finite, in [0, 1], {side}²: {ok_images}"
+            + (f"  guidance iterations per pass and step "
+               f"{turns[-1]['guidance_iterations']}" if guided else ""))
         return res
 
     torch.cuda.reset_peak_memory_stats()
@@ -2100,6 +2155,13 @@ def turn_path(records, label: str = "", flags=(), steps: int = SD15_STEPS,
             bad.append(f"turn {i + 1}: DB hits {t['db_hits']}, want "
                        f"{TURN_HITS[i]}")
         want = turn_want(t["attempts"], steps, xl, **knobs)
+        iters = sum(map(sum, t["guidance_iterations"]))
+        per_iter = guided_iter_want(XL_CHAR if xl else CHAR)
+        want = {k: want[k] + iters * per_iter[k] for k in COUNTERS}
+        if guided != bool(iters) or (guided and len(
+                t["guidance_iterations"]) != t["attempts"] + 1):
+            bad.append(f"turn {i + 1}: guidance ran in "
+                       f"{len(t['guidance_iterations'])} passes")
         if t["launches"] != want:
             bad.append(f"turn {i + 1}: launches {t['launches']}, want "
                        f"{want}")
@@ -2498,6 +2560,393 @@ def profile(bundle, encode) -> None:
     log(f"  wall ms per part: {json.dumps(parts)}")
 
 
+# ---------------------------------------------------------------------------
+# latent guidance: gradients through the kernels, the energy's gradient, and
+# the guided requests
+# ---------------------------------------------------------------------------
+
+
+def _grad_inputs(gen, name: str, shape) -> tuple:
+    """(wrapper call, plain call, bf16 inputs, which need a gradient) of a
+    kernel at a GRAD_SHAPES shape; the activation needs one, the weights
+    not (the guided UNet's modules need none)."""
+    if name == "flash_attention":
+        qkv = [randn(gen, *shape) for _ in range(3)]
+        return (fa.flash_attention, fa.flash_attention_plain, qkv,
+                [True] * 3)
+    if name == "ff_geglu":
+        m, d, k = shape
+        ins = [randn(gen, m, d), randn(gen, 2 * k, d, scale=d ** -0.5),
+               randn(gen, 2 * k, scale=0.1), randn(gen, d, k, scale=k ** -0.5)]
+        return gg.ff_matmul, gg.ff_matmul_plain, ins, [True] + [False] * 3
+    if name == "geglu_matmul":
+        m, k, n = shape
+        ins = [randn(gen, m, 2 * k), randn(gen, n, k, scale=k ** -0.5)]
+        return gg.geglu_matmul, gg.geglu_matmul_plain, ins, [True, False]
+    b, c, hw, act = shape
+    side = int(hw ** 0.5)
+    ins = [randn(gen, b, c, side, side),
+           (1.0 + 0.2 * torch.randn(c, device="cuda", generator=gen)).to(
+               torch.bfloat16), randn(gen, c, scale=0.1)]
+    return (lambda *a: gn.fused_group_norm(*a, act=act),
+            lambda *a: gn.fused_group_norm_plain(*a, act=act), ins,
+            [True, False, False])
+
+
+def grad_gate_phase(gen, records) -> list:
+    """Gate (a): each kernel's autograd Function at the guided UNets'
+    batch-1 shapes (GRAD_SHAPES).  The forward launches one kernel and
+    stays within TOL of the plain version (fp32 copies of the inputs); the
+    backward under one upstream gradient launches none and gives the
+    plain version's gradients on the same bf16 inputs bit for bit (the
+    backward is that version, recomputed).  Times: the kernel forward plus
+    the recomputing backward, against the plain forward plus its backward
+    (CUDA events, 5 calls each).  Rows go to each kernel's record under
+    ``grad_gates``."""
+    by_name = {r["name"]: r for r in records}
+    rows = []
+    for name, model, shape in GRAD_SHAPES:
+        wrapper, plain, ins, needs = _grad_inputs(gen, name, shape)
+        mod, attr = COUNTERS[name]
+
+        def fwd_bwd(fn):
+            leaves = [x.detach().requires_grad_(n) for x, n in zip(ins, needs)]
+            out = fn(*leaves)
+            return out, torch.autograd.grad(
+                out, [x for x, n in zip(leaves, needs) if n], grad_out)
+
+        n0 = getattr(mod, attr)
+        leaves = [x.detach().requires_grad_(n) for x, n in zip(ins, needs)]
+        out = wrapper(*leaves)
+        torch.cuda.synchronize()
+        fwd_launches = getattr(mod, attr) - n0
+        ref32 = plain(*[x.float() for x in ins])
+        err = (out.float() - ref32).abs().max().item()
+        check(err, ref32.abs().max().item(),
+              f"{name} forward under autograd {model} {list(shape)}")
+        grad_out = randn(gen, *out.shape)
+        got = torch.autograd.grad(
+            out, [x for x, n in zip(leaves, needs) if n], grad_out)
+        torch.cuda.synchronize()
+        bwd_launches = getattr(mod, attr) - n0 - fwd_launches
+        _, want = fwd_bwd(plain)
+        equal = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+        nonzero = all(bool(a.abs().max() > 0) for a in got)
+        row = dict(model=model, shape=list(shape), fwd_err=err,
+                   fwd_launches=fwd_launches, bwd_launches=bwd_launches,
+                   grads_bit_equal=equal,
+                   kernel_fwd_bwd_ms=time_ms(lambda: fwd_bwd(wrapper), 5, 1),
+                   plain_fwd_bwd_ms=time_ms(lambda: fwd_bwd(plain), 5, 1),
+                   kernel_fwd_ms=time_ms(lambda: wrapper(*[
+                       x.detach().requires_grad_(n)
+                       for x, n in zip(ins, needs)]), 5, 1))
+        rows.append(row)
+        ok = (fwd_launches == 1 and bwd_launches == 0 and equal and nonzero)
+        log(f"  gradient gate {name} {model} {list(shape)}: forward "
+            f"{fwd_launches} launch, backward {bwd_launches}; gradients "
+            f"equal to the plain version's bit for bit: {equal}; kernel "
+            f"forward + plain backward {row['kernel_fwd_bwd_ms']:.5f} ms "
+            f"(forward {row['kernel_fwd_ms']:.5f}), plain forward + "
+            f"backward {row['plain_fwd_bwd_ms']:.5f}  "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"{name}: the gradient gate failed at "
+                             f"{list(shape)}")
+        by_name[name].setdefault("grad_gates", []).append(row)
+        del ins, leaves, out, got, want, ref32, grad_out
+    torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def guidance_log():
+    """Record every guidance update of the block: a list of (step,
+    iterations), appended by a wrapper around
+    ``pipelines.guidance.guidance_update`` (the runners call it through
+    the module)."""
+    calls, real = [], guidance_lib.guidance_update
+
+    def logged(*a, **kw):
+        out = real(*a, **kw)
+        calls.append((a[4] if len(a) > 4 else kw["step_index"], out[2]))
+        return out
+
+    guidance_lib.guidance_update = logged
+    try:
+        yield calls
+    finally:
+        guidance_lib.guidance_update = real
+
+
+def passes_of(calls) -> list:
+    """Per guided pass (a runner's call), its iterations per step: a pass
+    starts at step 0."""
+    out = []
+    for step, n in calls:
+        if step == 0 or not out:
+            out.append([])
+        out[-1].append(n)
+    return out
+
+
+def guided_iter_want(model: str) -> dict:
+    """Launches of one guidance iteration of a character or final path:
+    one full cond-only evaluation of its IP UNet (no ControlNet)."""
+    ucfg, side, _ = path_cfg(model)
+    return counts(**eval_launches(ucfg, side, 1))
+
+
+def guided_inputs(n_obj: int, cfg, device="cuda", refs=None):
+    """Seeded GuidanceInputs of ``n_obj`` layout boxes with two tokens
+    each (``max_objects`` slots, 8 token positions)."""
+    k, p = cfg.pipeline.max_objects, 8
+    boxes = torch.zeros(k, 4)
+    pos = torch.zeros(k, p, dtype=torch.long)
+    valid = torch.zeros(k, p, dtype=torch.bool)
+    for i in range(n_obj):
+        boxes[i] = torch.tensor([0.05 + 0.45 * i, 0.15, 0.5 + 0.45 * i, 0.95])
+        pos[i, :2] = torch.tensor([4 + 3 * i, 5 + 3 * i])
+        valid[i, :2] = True
+    gin = guidance_lib.GuidanceInputs(
+        boxes, pos, valid, torch.arange(k) < n_obj, pos[:, 1].clone(), refs)
+    return gin.to(device)
+
+
+def energy_grad_phase() -> dict:
+    """Gate (b): the guidance energy's latent gradient through one
+    full-size SD1.5 IP UNet (batch 1, cond-only, capture at the guidance
+    keys, two objects with step-aggregated reference maps) with the
+    kernels against ``plain_path()``: max|diff|/max|ref| within
+    ENERGY_GRAD_BOUND, cosine at least ENERGY_COS_BOUND; against the same
+    UNet in fp32 (plain), the kernels' relative L2 distance within
+    ENERGY_FP32_RATIO times the bf16 plain path's and the cosine at least
+    ENERGY_FP32_COS; a nonzero fp32 gradient, and the launches of one
+    cond-only evaluation in the forward (counters 0 just before, read
+    after the backward: the backward launches none).  Then the times: one guidance iteration (energy
+    forward with the kernels plus the recomputing backward) against one
+    unguided batch-1 evaluation (no_grad), the forward alone, and the
+    share of the backward in each kernel's plain recompute (CUDA events
+    around each ``recompute.plain_vjp`` call)."""
+    cfg = sd15_config()
+    gcfg = cfg.guidance
+    bundle = init_bundle(cfg, seed=0, device="cuda", with_ip=True)
+    unet = bundle.unet_ip
+    g = torch.Generator(device="cuda").manual_seed(41)
+    side = cfg.pipeline.latent_height
+    lat = torch.randn(1, 4, side, side, device="cuda", generator=g)
+    ctx = torch.randn(1, 77 + 4, cfg.unet.cross_attention_dim,
+                      device="cuda", generator=g)
+    t = torch.tensor(801, device="cuda")
+    ip_scale = torch.tensor(0.4, device="cuda")
+    with torch.no_grad():
+        _, cap = unet(lat, t.expand(1), ctx, capture_keys=gcfg.attn_keys,
+                      ip_scale=ip_scale)
+    refs = tuple(torch.rand((cfg.pipeline.max_objects,)
+                            + tuple(cap[tuple(k)].shape[1:3]),
+                            device="cuda", generator=g)
+                 for k in gcfg.attn_keys)
+    gin = guided_inputs(2, cfg, refs=refs)
+    energy = guidance_lib.unet_energy_fn(unet, cfg, ip_scale=ip_scale)
+
+    def grad(energy=energy):
+        leaf = lat.clone().requires_grad_(True)
+        e = energy(leaf, t, ctx, gin) * gcfg.loss_scale
+        return e, torch.autograd.grad(e, leaf)[0]
+
+    reset_counts()
+    e_k, g_k = grad()
+    torch.cuda.synchronize()
+    got = read_counts()
+    want = guided_iter_want(CHAR)
+    with plain_path():
+        e_p, g_p = grad()
+        e_32, g_32 = grad(guidance_lib.unet_energy_fn(
+            copy.deepcopy(unet).float(), cfg, ip_scale=ip_scale))
+        torch.cuda.synchronize()
+    plain_launches = read_counts()
+
+    def rel_l2(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    def cosine(a, b):
+        return F.cosine_similarity(a.flatten(), b.flatten(), dim=0).item()
+
+    rel = ((g_k - g_p).abs().max() / g_p.abs().max()).item()
+    cos = cosine(g_k, g_p)
+    l2_k, l2_p = rel_l2(g_k, g_32), rel_l2(g_p, g_32)
+    cos_32 = cosine(g_k, g_32)
+    norm = g_32.norm().item()
+    ok = (got == want and plain_launches == got and rel <= ENERGY_GRAD_BOUND
+          and cos >= ENERGY_COS_BOUND and l2_k <= ENERGY_FP32_RATIO * l2_p
+          and cos_32 >= ENERGY_FP32_COS and norm > 0
+          and g_k.dtype == torch.float32
+          and bool(torch.isfinite(g_k).all()))
+    log(f"  energy {e_k.item():.5f} (plain path {e_p.item():.5f}, fp32 "
+        f"{e_32.item():.5f}); latent gradient, kernels vs plain path: "
+        f"max|diff|/max|ref| {rel:.3e} (bound {ENERGY_GRAD_BOUND}), cosine "
+        f"{cos:.6f} (bound {ENERGY_COS_BOUND}); against the fp32 UNet: "
+        f"relative L2 {l2_k:.4e} (plain path {l2_p:.4e}, bound "
+        f"{ENERGY_FP32_RATIO}x), cosine {cos_32:.6f} (bound "
+        f"{ENERGY_FP32_COS}); norm {g_k.norm().item():.4e} (fp32 "
+        f"{norm:.4e}), dtype {g_k.dtype}; launches of the forward and "
+        f"backward {got}, want one cond-only evaluation's {want}, none "
+        f"under plain_path  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the energy's gradient through the kernels "
+                         "disagrees with the plain path's")
+    del g_32
+    torch.cuda.empty_cache()
+
+    def unguided():
+        with torch.no_grad():
+            return unet(lat, t.expand(1), ctx, ip_scale=ip_scale)
+
+    def forward():
+        leaf = lat.clone().requires_grad_(True)
+        return energy(leaf, t, ctx, gin)
+
+    def wall_ms(fn, n=5):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    times = dict(iteration_ms=time_ms(grad, 5, 1),
+                 iteration_wall_ms=wall_ms(grad),
+                 forward_ms=time_ms(forward, 5, 1),
+                 unguided_eval_ms=time_ms(unguided, 5, 1),
+                 unguided_eval_wall_ms=wall_ms(unguided),
+                 iteration_device_ms=device_ms(grad),
+                 unguided_eval_device_ms=device_ms(unguided))
+    times["backward_ms"] = times["iteration_ms"] - times["forward_ms"]
+    spans, real = [], recompute.plain_vjp
+
+    def timed(plain, *a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(plain, *a, **kw)
+        end.record()
+        spans.append((plain.__name__, start, end))
+        return out
+
+    recompute.plain_vjp = timed
+    try:
+        grad()
+        torch.cuda.synchronize()
+    finally:
+        recompute.plain_vjp = real
+    recompute_ms = collections.defaultdict(float)
+    calls = collections.Counter()
+    for name, start, end in spans:
+        recompute_ms[name] += start.elapsed_time(end)
+        calls[name] += 1
+    share = {k: v / times["backward_ms"] for k, v in recompute_ms.items()}
+    log(f"  one guidance iteration {times['iteration_ms']:.3f} ms "
+        f"(wall {times['iteration_wall_ms']:.3f}, device "
+        f"{times['iteration_device_ms']:.3f}): forward "
+        f"{times['forward_ms']:.3f}, backward {times['backward_ms']:.3f}; "
+        f"one unguided batch-1 evaluation {times['unguided_eval_ms']:.3f} "
+        f"ms (wall {times['unguided_eval_wall_ms']:.3f}, device "
+        f"{times['unguided_eval_device_ms']:.3f})")
+    log(f"  plain recomputes in the backward: calls {dict(calls)}, ms "
+        f"{json.dumps(recompute_ms)}, share of the backward "
+        f"{json.dumps(share)}")
+    out = dict(energy=e_k.item(), energy_plain=e_p.item(), grad_rel=rel,
+               grad_cos=cos, grad_rel_l2_fp32=l2_k,
+               plain_rel_l2_fp32=l2_p, grad_cos_fp32=cos_32,
+               grad_norm=g_k.norm().item(), launches=got, times=times,
+               recompute_ms=dict(recompute_ms), recompute_calls=dict(calls),
+               recompute_share=share)
+    return out
+
+
+def xl_guided_request(bundle, image, records) -> dict:
+    """One guided SDXL character request at 1024 px through the XL IP UNet
+    (XL_GUIDED_STEPS Euler-Ancestral steps, all guided, one layout box),
+    and the unguided request from the same latents and noise: wall time,
+    iterations per step, launches equal to the unguided request's plus one
+    cond-only XL IP UNet evaluation per iteration, guided images finite
+    and other than the unguided ones."""
+    cfg = bundle.cfg
+    side = cfg.pipeline.latent_height
+    text, pooled = sdxl.encode_prompts_xl(bundle, PROMPTS[0])
+    ctx = character.ip_context(bundle, text,
+                               character.encode_ip_image(bundle, image))
+    extra = dict(pooled_text=pooled, time_ids=sdxl.default_time_ids(
+        cfg.pipeline.height, cfg.pipeline.width, 2, "cuda"))
+    g = torch.Generator(device="cuda").manual_seed(300)
+    lat = torch.randn(1, side, side, 4, device="cuda", generator=g)
+    lat = lat * character.make_character_pipeline(
+        bundle, XL_GUIDED_STEPS)[1].init_noise_sigma
+    gin = guided_inputs(1, cfg)
+    base = path_want(XL_CHAR, XL_GUIDED_STEPS, sampler="euler_ancestral")
+    per_iter = guided_iter_want(XL_CHAR)
+    out, images = {}, {}
+    for guided in (True, False):
+        run, _ = character.make_character_pipeline(
+            bundle, XL_GUIDED_STEPS, use_ip=True, guided=guided,
+            capture_ref_attn=True)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with guidance_log() as calls:
+            t0 = time.perf_counter()
+            res = run(lat, ctx, 0.4, 5,
+                      torch.Generator(device="cuda").manual_seed(301),
+                      extra_cond=extra, gin=gin if guided else None)
+            img = sd.decode_with(bundle.vae, cfg.vae.scaling_factor,
+                                 res.latents)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        got = read_counts()
+        iters = [n for _, n in calls]
+        want = {k: base[k] + sum(iters) * per_iter[k] for k in COUNTERS}
+        add_launches(records, XL_GUIDED if guided else XL_CHAR, got)
+        images[guided] = img
+        finite = bool(torch.isfinite(img).all())
+        label = "guided" if guided else "unguided"
+        log(f"  XL character request, {label}, {XL_GUIDED_STEPS} steps: "
+            f"{seconds:.3f} s  iterations per step {iters}  launches {got}"
+            f"  want {want}  peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB  image "
+            f"finite {finite}")
+        if got != want or not finite:
+            raise SystemExit(f"the {label} XL character request failed")
+        out[label] = dict(seconds=seconds, iterations=iters, launches=got,
+                          peak_bytes=torch.cuda.max_memory_allocated())
+    diff = (images[True] - images[False]).abs().max().item()
+    log(f"  guided vs unguided XL image: max|diff| {diff:.4f}  "
+        f"{'ok' if diff > 1e-3 else 'FAIL'}")
+    if diff <= 1e-3:
+        raise SystemExit("the guided XL request gave the unguided image")
+    out["image_max_diff"] = diff
+    return out
+
+
+def guided_path(records, unguided_images) -> dict:
+    """Latent guidance on the card: gate (b) (energy_grad_phase), then
+    dialogue_0 through the CLI with ``--guidance`` (turn_path with the
+    guidance iterations in each turn's launches), its images against the
+    unguided dialogue's (the same seeds)."""
+    out = dict(energy_grad=energy_grad_phase())
+    gc.collect()
+    torch.cuda.empty_cache()
+    images = []
+    out["dialogue"] = turn_path(records, "guided", ["--guidance"],
+                                images=images, guided=True)
+    diffs = [float(np.abs(g[0] - u[0]).max())
+             for g, u in zip(images, unguided_images)]
+    log(f"  guided vs unguided dialogue_0, max|diff| per turn's image: "
+        f"{diffs}  {'ok' if all(d > 1e-3 for d in diffs) else 'FAIL'}")
+    if len(diffs) != 4 or not all(d > 1e-3 for d in diffs):
+        raise SystemExit("a guided turn gave the unguided image")
+    out["image_max_diff"] = diffs
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -2575,6 +3024,10 @@ def main() -> int:
     sp_shards = sp_shards_phase(gen)
     host_us = host_us_phase(gen)
     torch.cuda.synchronize()
+    log("[gradients] each kernel's autograd Function at the guided UNets' "
+        "batch-1 shapes: forward against the plain version, backward equal "
+        "to the plain version's gradients bit for bit")
+    grad_gates = grad_gate_phase(gen, records)
 
     log(f"[main path] SD1.5 Text2Img, 512 px, {SD15_STEPS} DDIM steps, "
         f"CFG 7.5, bf16")
@@ -2621,7 +3074,16 @@ def main() -> int:
     log(f"[main path] a story dialogue through the CLI: dialogue_0 of "
         f"data/sample/story.json, 4 turns, SD1.5 512 px, {SD15_STEPS} DDIM "
         f"steps, CFG 7.5, frozen_step_ratio 0.5")
-    paths[TURN] = turn_path(records)
+    unguided_images = []
+    paths[TURN] = turn_path(records, images=unguided_images)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[main path] latent guidance: the energy's gradient through the "
+        f"SD1.5 IP UNet against plain_path(), then dialogue_0 through the "
+        f"CLI with --guidance, 512 px, {SD15_STEPS} DDIM steps, guidance in "
+        f"the first 25 steps of every character and final pass")
+    paths[GUIDED_TURN] = guided_path(records, unguided_images)
+    del unguided_images
     for label, flags, steps, knobs in TURN_KNOBS:
         gc.collect()
         torch.cuda.empty_cache()
@@ -2648,6 +3110,7 @@ def main() -> int:
         f"{SD15_STEPS} DDIM steps, SAM masks and the annotator's hint")
     paths[CKPT] = checkpoint_path(records, paths[TURN]["dialogue_seconds"])
     paths["sp_shards_equal"] = sp_shards
+    paths["grad_gates"] = len(grad_gates)
     paths["wrapper_host_us_per_call"] = host_us
     log(f"[done] {time.perf_counter() - t_start:.1f} s after the build began")
     log(json.dumps({"main_path": paths, "card": card}))

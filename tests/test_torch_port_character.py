@@ -261,13 +261,6 @@ def test_character_pass_without_ip_or_capture():
     assert torch.isfinite(res.trajectory).all()
 
 
-@pytest.mark.parametrize("kw", [dict(guided=True)])
-def test_unported_knobs_raise(kw):
-    tb = init_bundle(tcfg.tiny_config(), 0, device="cpu", with_ip=True)
-    with pytest.raises(NotImplementedError):
-        tchar.make_character_pipeline(tb, 2, **kw)
-
-
 @pytest.mark.parametrize("kw", [dict(deepcache_interval=2),
                                 dict(cfg_cutoff_fraction=0.5)])
 def test_knobs_run(kw):

@@ -955,3 +955,123 @@ def test_text2img_knob_request_launches_on_card(sd15_bundle, knob):
     torch.cuda.synchronize()
     assert cs.read_counts() == cs.request_want(b.cfg.unet, 64, plan)
     assert torch.isfinite(img).all() and 0 <= img.min() and img.max() <= 1
+
+
+# ---------------------------------------------------------------------------
+# gradients through the kernels (latent guidance): each wrapper's autograd
+# Function launches its kernel in the forward and recomputes the plain
+# version in the backward, so its input gradients are the plain version's
+# bit for bit
+# ---------------------------------------------------------------------------
+
+
+def _grad_gate(wrapper, plain, inputs, needs, counter, **kw):
+    """Forward: one launch, within 1e-2·max|ref| of the plain version on
+    fp32 copies; backward under one upstream gradient: no launch, the
+    gradients equal to those of the plain version on the same bf16
+    inputs."""
+    leaves = [x.detach().requires_grad_(n) for x, n in zip(inputs, needs)]
+    n0 = counter()
+    out = wrapper(*leaves, **kw)
+    torch.cuda.synchronize()
+    assert counter() == n0 + 1 and out.grad_fn is not None
+    ref32 = plain(*[x.float() for x in inputs], **kw)
+    assert (out.float() - ref32).abs().max() <= 1e-2 * ref32.abs().max()
+    g = torch.randn(out.shape, device=out.device,
+                    generator=torch.Generator(device=out.device).manual_seed(
+                        31)).to(out.dtype)
+    got = torch.autograd.grad(out, [x for x, n in zip(leaves, needs) if n], g)
+    torch.cuda.synchronize()
+    assert counter() == n0 + 1
+    ref_leaves = [x.detach().requires_grad_(n) for x, n in zip(inputs, needs)]
+    want = torch.autograd.grad(plain(*ref_leaves, **kw),
+                               [x for x, n in zip(ref_leaves, needs) if n], g)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+        assert a.abs().max() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,h,d,all_inputs", [
+    (4096, 8, 40, False), (1024, 8, 80, False), (4096, 10, 64, False),
+    (1024, 8, 80, True)])
+def test_flash_gradient_is_the_plain_version_on_card(s, h, d, all_inputs):
+    """The guided UNet's batch-1 self-attention (SD1.5 levels 0-1, SDXL
+    level 1): the gradient of q (and of k, v) bit for bit."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(32)
+    qkv = [torch.randn(1, s, h, d, device=dev, generator=g,
+                       dtype=torch.bfloat16) for _ in range(3)]
+    _grad_gate(tfa.flash_attention, tfa.flash_attention_plain, qkv,
+               [True, all_inputs, all_inputs], lambda: tfa.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d,all_inputs", [
+    (4096, 320, False), (1024, 640, False), (256, 1280, False),
+    (1024, 640, True)])
+def test_ff_gradient_is_the_plain_version_on_card(m, d, all_inputs):
+    """ff_matmul at the guided SD1.5 UNet's batch-1 rows: the gradient of
+    x (and of the weights) bit for bit."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(33)
+    k = 4 * d
+    ins = [torch.randn(m, d, device=dev, generator=g).bfloat16(),
+           (torch.randn(2 * k, d, device=dev, generator=g)
+            * d ** -0.5).bfloat16(),
+           (torch.randn(2 * k, device=dev, generator=g) * 0.1).bfloat16(),
+           (torch.randn(d, k, device=dev, generator=g) * k ** -0.5).bfloat16()]
+    _grad_gate(tgg.ff_matmul, tgg.ff_matmul_plain, ins,
+               [True] + [all_inputs] * 3, lambda: tgg.ff_launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,all_inputs", [
+    (4096, 2560, 640, False), (1024, 5120, 1280, False),
+    (1024, 5120, 1280, True)])
+def test_geglu_gradient_is_the_plain_version_on_card(m, k, n, all_inputs):
+    """geglu_matmul at the guided SDXL UNet's batch-1 rows: the gradient
+    of hg (and of w) bit for bit."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(34)
+    ins = [torch.randn(m, 2 * k, device=dev, generator=g).bfloat16(),
+           (torch.randn(n, k, device=dev, generator=g) * k ** -0.5).bfloat16()]
+    _grad_gate(tgg.geglu_matmul, tgg.geglu_matmul_plain, ins,
+               [True, all_inputs], lambda: tgg.geglu_launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,hw,act,all_inputs", [
+    (320, 4096, "silu", False), (1280, 256, None, False),
+    (640, 1024, "silu", True)])
+def test_group_norm_gradient_is_the_plain_version_on_card(c, hw, act,
+                                                          all_inputs):
+    """fused_group_norm at guided SD1.5 batch-1 sites, with and without
+    SiLU: the gradient of x (and of scale and bias) bit for bit."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(35)
+    s = int(hw ** 0.5)
+    ins = [torch.randn(1, c, s, s, device=dev, generator=g).bfloat16(),
+           (1 + 0.2 * torch.randn(c, device=dev, generator=g)).bfloat16(),
+           (0.1 * torch.randn(c, device=dev, generator=g)).bfloat16()]
+    _grad_gate(tgn.fused_group_norm, tgn.fused_group_norm_plain, ins,
+               [True, all_inputs, all_inputs], lambda: tgn.launches,
+               act=act)
+
+
+@pytest.mark.cuda
+def test_quant_matmul_refuses_a_gradient_on_card():
+    """quant_matmul has no gradient: a CUDA input that requires grad
+    raises before any launch; under no_grad the same call launches."""
+    dev = _card()
+    x = torch.randn(128, 320, device=dev).bfloat16().requires_grad_(True)
+    w_q = torch.randint(-127, 128, (320, 320), dtype=torch.int8, device=dev)
+    scale = torch.rand(320, device=dev) + 0.5
+    n0 = tqm.launches
+    with pytest.raises(RuntimeError, match="no gradient"):
+        tqm.quant_matmul(x, w_q, scale)
+    assert tqm.launches == n0
+    with torch.no_grad():
+        out = tqm.quant_matmul(x, w_q, scale)
+    torch.cuda.synchronize()
+    assert tqm.launches == n0 + 1 and out.grad_fn is None

@@ -588,13 +588,6 @@ def test_back_half_matches():
     np.testing.assert_allclose(_np(img_t), np.asarray(img_j), atol=1e-4)
 
 
-@pytest.mark.parametrize("kw", [dict(guided=True)])
-def test_unported_final_knobs_raise(kw):
-    _, tb = _bundles()
-    with pytest.raises(NotImplementedError):
-        tfinal.make_final_pipeline(tb, 2, **kw)
-
-
 @pytest.mark.parametrize("kw", [
     dict(cfg_cutoff_fraction=0.5), dict(deepcache_interval=2),
     dict(controlnet_interval=2)])

@@ -416,8 +416,7 @@ def test_character_runner_captures_the_word_token(tmp_path, monkeypatch):
 def test_theater_refuses_unported_modes():
     _, tb = _bundles()
     db = None
-    for kw in (dict(guided=True), dict(mesh=object()),
-               dict(batch_characters=True)):
+    for kw in (dict(mesh=object()), dict(batch_characters=True)):
         with pytest.raises(NotImplementedError):
             tth.Theater(tb, db, **kw)
     with pytest.raises(ValueError):
@@ -496,8 +495,7 @@ def test_cli_quarantines_a_failing_turn(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--dp_dialogues", "2"], ["--mesh", "dp=2"], ["--batch_chars"],
-    ["--guidance"]])
+    ["--dp_dialogues", "2"], ["--mesh", "dp=2"], ["--batch_chars"]])
 def test_cli_unported_flags_raise(tmp_path, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tgen.main(_cli(tmp_path, *flag))

@@ -23,6 +23,8 @@ isolation.  The sampler knobs of the JAX package's CLI apply to the config
 ``--cn_interval``, ``--scheduler``, ``--prediction_type`` and
 ``--zero_snr``; ``--profile`` writes a ``torch.profiler`` trace of the
 first dialogue (host and device) to ``<save dir>/profile``.
+``--guidance`` turns latent guidance on (``Theater(guided=True)``) unless
+``--no_guidance`` is given too, as in the JAX CLI.
 ``--sd_version xl`` runs the SDXL turn (``sdxl_config()``, or
 ``tiny_xl_config()`` under ``--tiny``) with the T2I-Adapter in place of the
 ControlNet, as the JAX CLI builds it.  ``--weights DIR`` loads the bundle
@@ -59,8 +61,7 @@ import numpy as np
 
 # flags of the JAX driver that raise here, and the ROADMAP §1 item that
 # brings each
-UNPORTED_FLAGS = {
-    "dp_dialogues": 6, "mesh": 6, "batch_chars": 6, "guidance": 4}
+UNPORTED_FLAGS = {"dp_dialogues": 5, "mesh": 5, "batch_chars": 5}
 
 
 def turn_seed(seed_offset: int, dialogue_base: int, turn_idx: int,
@@ -141,6 +142,11 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--profile", action="store_true",
                     help="write a torch.profiler trace of the first "
                          "dialogue to <save dir>/profile")
+    ap.add_argument("--guidance", action="store_true",
+                    help="latent guidance: descend the latents on the "
+                         "cross-attention energy in the character and "
+                         "final passes (off by default, as the reference "
+                         "ships it)")
     ap.add_argument("--no_guidance", action="store_true",
                     help="(deprecated: guidance is off by default)")
     ap.add_argument("--weights", default=None,
@@ -151,20 +157,16 @@ def make_parser() -> argparse.ArgumentParser:
                          "one, else written after the bundle is built")
     # the JAX driver's other flags parse, and raise (UNPORTED_FLAGS)
     ap.add_argument("--mesh", default=None)
-    for flag in ("guidance", "batch_chars"):
-        ap.add_argument(f"--{flag}", action="store_true", default=None)
+    ap.add_argument("--batch_chars", action="store_true", default=None)
     ap.add_argument("--dp_dialogues", type=int, default=None)
     return ap
 
 
 def check_ported(args) -> None:
-    """Raise NotImplementedError for a flag whose feature the port lacks
-    (``--guidance`` counts only without ``--no_guidance``, as the JAX
-    package's CLI reads the pair)."""
+    """Raise NotImplementedError for a flag whose feature the port
+    lacks."""
     for flag, item in UNPORTED_FLAGS.items():
         value = getattr(args, flag)
-        if flag == "guidance" and args.no_guidance:
-            value = None
         if value not in (None, False):
             raise NotImplementedError(
                 f"--{flag} is not ported yet (ROADMAP §1 item {item})")
@@ -271,8 +273,9 @@ def _run(args, bundle, dataset: dict, dialogues: list, save_dir: str,
         for d_idx, dialogue in enumerate(dialogues):
             db = CharacterDB(os.path.join(
                 args.database_path_base, args.task, str(dialogue)))
-            theater = Theater(bundle, db, task=args.task,
-                              num_steps=args.num_steps)
+            theater = Theater(
+                bundle, db, task=args.task, num_steps=args.num_steps,
+                guided=args.guidance and not args.no_guidance)
             base = (args.freeze_dialogue_seed
                     if args.freeze_dialogue_seed is not None else d_idx)
             profiling = args.profile and not profiled

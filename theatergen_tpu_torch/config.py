@@ -172,10 +172,14 @@ class SchedulerConfig:
 
 @dataclasses.dataclass(frozen=True)
 class GuidanceConfig:
-    """Latent cross-attention guidance.  Only ``attn_keys`` is read by the
-    ported paths: the layers whose maps the character pass captures."""
+    """Latent cross-attention guidance (the reference's
+    ``utils/guidance.py``, ``models/pipelines.py:62-128``): ``attn_keys``
+    are the layers whose maps the character pass captures and the energy
+    reads; the rest weight the energy (``ops/guidance.py``) and bound its
+    descent (``pipelines/guidance.py``)."""
 
-    # (place, block_index, transformer_index, layer)
+    # (place, block_index, transformer_index, layer); the reference's
+    # DEFAULT_GUIDANCE_ATTN_KEYS, models/pipelines.py:21
     attn_keys: Tuple[Tuple[str, int, int, int], ...] = (
         ("mid", 0, 0, 0), ("up", 1, 0, 0), ("up", 1, 1, 0), ("up", 1, 2, 0),
     )

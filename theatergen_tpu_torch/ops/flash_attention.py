@@ -8,8 +8,9 @@ D]``.  On a CUDA tensor it launches the hand-written kernel of
 (batch·head, 128 query rows), K and V tiles of 128 keys (64 at d = 160)
 through a TMA ring, QK^T and PV on wgmma, online softmax in fp32
 registers, head dims 40, 64, 80 and 160, Sq ≠ Sk with masked q rows) or
-raises.  On a CPU tensor it runs :func:`flash_attention_plain`, the same
-function in plain PyTorch.
+raises; under autograd its gradient is the plain version's, recomputed in
+the backward (:class:`FlashAttentionFn`).  On a CPU tensor it runs
+:func:`flash_attention_plain`, the same function in plain PyTorch.
 
 The JAX package picks one of four Pallas kernels for an attention call
 (its ``route``), under four environment switches that this module reads
@@ -46,6 +47,7 @@ from typing import Optional
 import torch
 
 from .. import _build
+from . import recompute
 from .attention import multi_head_attention
 
 LOG2E = 1.4426950408889634
@@ -206,9 +208,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention ``[B, Sq, H, D]`` x ``[B, Sk, H, D]`` → ``[B, Sq, H, D]``.
     ``route`` names the JAX route the call stands for, and so the counter
     a launch adds to; without it the call counts as self-attention does
-    under the default switches: row 1 up to 4096 keys, row 2 past it."""
+    under the default switches: row 1 up to 4096 keys, row 2 past it.
+    Under autograd (``recompute.needs_grad``) the launch goes through
+    :class:`FlashAttentionFn`, whose backward is the plain version's."""
     if not q.is_cuda:
         return flash_attention_plain(q, k, v)
+    if recompute.needs_grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, route)
+    return _launch(q, k, v, route)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The kernel's forward, and the gradient of
+    :func:`flash_attention_plain` recomputed from the saved q, k, v (the
+    JAX package's ``_flash_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, route):
+        ctx.save_for_backward(q, k, v)
+        return _launch(q, k, v, route)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return recompute.plain_vjp(flash_attention_plain, ctx.saved_tensors,
+                                   ctx.needs_input_grad[:3],
+                                   grad_out) + (None,)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            route: Optional[str]) -> torch.Tensor:
+    """One launch of the kernel on CUDA tensors, counted on ``route``'s
+    counter."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     if route is None:

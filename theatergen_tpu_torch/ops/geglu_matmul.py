@@ -17,7 +17,9 @@ reaches device memory; :func:`ff_plan` picks its launch;
 ``csrc/geglu_matmul.cu``: the same cluster design without the
 up-projection, each CTA gating its own 64 inner columns of a chunk once
 and sharing the bf16 piece; :func:`geglu_plan` picks its launch; see the
-notes there) or raises.  On a CPU tensor it runs its plain
+notes there) or raises; under autograd its gradient is the plain
+version's, recomputed in the backward (:class:`FFMatmulFn`,
+:class:`GegluMatmulFn`).  On a CPU tensor it runs its plain
 version (:func:`ff_matmul_plain`, :func:`geglu_matmul_plain`).
 """
 
@@ -29,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from . import recompute
 
 # model widths D with a compiled kernel instance (csrc/ff_geglu.cu)
 KERNEL_WIDTHS = (320, 640, 1280)
@@ -191,9 +194,35 @@ def _ff_lib():
 
 def ff_matmul(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
               w2: torch.Tensor) -> torch.Tensor:
-    """``[..., D]`` → ``[..., D]``; leading dims of ``x`` flatten into M."""
+    """``[..., D]`` → ``[..., D]``; leading dims of ``x`` flatten into M.
+    Under autograd (``recompute.needs_grad``) the launch goes through
+    :class:`FFMatmulFn`, whose backward is the plain version's."""
     if not x.is_cuda:
         return ff_matmul_plain(x, w1, b1, w2)
+    if recompute.needs_grad(x, w1, b1, w2):
+        return FFMatmulFn.apply(x, w1, b1, w2)
+    return _ff_launch(x, w1, b1, w2)
+
+
+class FFMatmulFn(torch.autograd.Function):
+    """``ff_matmul``'s kernel forward, and the gradient of
+    :func:`ff_matmul_plain` recomputed from the saved inputs (the JAX
+    package's ``ff_matmul`` VJP)."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2):
+        ctx.save_for_backward(x, w1, b1, w2)
+        return _ff_launch(x, w1, b1, w2)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return recompute.plain_vjp(ff_matmul_plain, ctx.saved_tensors,
+                                   ctx.needs_input_grad, grad_out)
+
+
+def _ff_launch(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+               w2: torch.Tensor) -> torch.Tensor:
+    """One launch of the FF kernel on CUDA tensors, after its checks."""
     d = x.shape[-1]
     k = w2.shape[1]
     if x.dtype != torch.bfloat16:
@@ -319,9 +348,34 @@ def _geglu_lib():
 
 def geglu_matmul(hg: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``[..., 2K]`` × ``w [N, K]`` → ``[..., N]``; leading dims of ``hg``
-    flatten into M; :func:`geglu_launch_plan` picks the launch."""
+    flatten into M; :func:`geglu_launch_plan` picks the launch.  Under
+    autograd (``recompute.needs_grad``) the launch goes through
+    :class:`GegluMatmulFn`, whose backward is the plain version's."""
     if not hg.is_cuda:
         return geglu_matmul_plain(hg, w)
+    if recompute.needs_grad(hg, w):
+        return GegluMatmulFn.apply(hg, w)
+    return _geglu_launch(hg, w)
+
+
+class GegluMatmulFn(torch.autograd.Function):
+    """``geglu_matmul``'s kernel forward, and the gradient of
+    :func:`geglu_matmul_plain` recomputed from the saved inputs (the JAX
+    package's ``geglu_matmul`` VJP)."""
+
+    @staticmethod
+    def forward(ctx, hg, w):
+        ctx.save_for_backward(hg, w)
+        return _geglu_launch(hg, w)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return recompute.plain_vjp(geglu_matmul_plain, ctx.saved_tensors,
+                                   ctx.needs_input_grad, grad_out)
+
+
+def _geglu_launch(hg: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One launch of the geglu kernel on CUDA tensors, after its checks."""
     n, k = w.shape
     if hg.dtype != torch.bfloat16:
         raise TypeError(f"geglu_matmul: hg must be bfloat16, got {hg.dtype}")

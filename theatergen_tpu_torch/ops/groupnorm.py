@@ -7,9 +7,10 @@
 statistics with the centred variance E[(x - mean)²], ``rsqrt(var + eps)``,
 ``(x - mean) · (inv · scale) + bias`` in fp32, SiLU in fp32 where asked,
 and one rounding to x's dtype at the end.  On a CUDA tensor it launches the
-hand-written kernel of ``csrc/group_norm.cu`` or raises.  On a CPU tensor
-it runs :func:`fused_group_norm_plain`, the same function in plain
-PyTorch.
+hand-written kernel of ``csrc/group_norm.cu`` or raises; under autograd its
+gradient is the plain version's, recomputed in the backward
+(:class:`FusedGroupNormFn`).  On a CPU tensor it runs
+:func:`fused_group_norm_plain`, the same function in plain PyTorch.
 
 The kernel's bound is bytes: x read once and the output written once,
 ``4·B·C·H·W`` bytes at 3.35 TB/s (:func:`min_bytes`).  Its design: one
@@ -41,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from . import recompute
 
 # the port's default when THEATERGEN_FUSED_GN is unset.  The JAX package's
 # is "0".  On an H100 (chip_smoke.py --profile; PERF.md §6) the kernel won
@@ -221,11 +223,39 @@ def fused_group_norm(x: torch.Tensor, scale: torch.Tensor,
                      eps: float = 1e-5,
                      act: Optional[str] = None) -> torch.Tensor:
     """GroupNorm (optionally + SiLU) of ``x [B, C, H, W]`` over
-    ``num_groups`` channel groups."""
+    ``num_groups`` channel groups.  Under autograd
+    (``recompute.needs_grad``) the launch goes through
+    :class:`FusedGroupNormFn`, whose backward is the plain version's."""
     _check_act(act)
     if not x.is_cuda:
         return fused_group_norm_plain(x, scale, bias, num_groups=num_groups,
                                       eps=eps, act=act)
+    if recompute.needs_grad(x, scale, bias):
+        return FusedGroupNormFn.apply(x, scale, bias, num_groups, eps, act)
+    return _launch(x, scale, bias, num_groups, eps, act)
+
+
+class FusedGroupNormFn(torch.autograd.Function):
+    """The kernel's forward, and the gradient of
+    :func:`fused_group_norm_plain` recomputed from the saved x, scale and
+    bias (the JAX package's ``_gn_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, num_groups, eps, act):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.kw = dict(num_groups=num_groups, eps=eps, act=act)
+        return _launch(x, scale, bias, num_groups, eps, act)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return recompute.plain_vjp(
+            fused_group_norm_plain, ctx.saved_tensors,
+            ctx.needs_input_grad[:3], grad_out, **ctx.kw) + (None,) * 3
+
+
+def _launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+            num_groups: int, eps: float, act: Optional[str]) -> torch.Tensor:
+    """One launch of the kernel on CUDA tensors, after its checks."""
     if x.dtype != torch.bfloat16:
         raise TypeError(f"fused_group_norm: x must be bfloat16, got {x.dtype}")
     if x.ndim < 3 or not supported(x.shape, x.dtype, num_groups):

@@ -12,7 +12,8 @@ a CUDA tensor it launches the hand-written kernel of
 ``csrc/quant_matmul.cu`` (a thread-block cluster along N quantises each
 row block once per column group, s8 ``wgmma`` fed by a TMA ring, split-K
 where the tiles leave SMs idle; see the note there; :func:`qmm_plan`
-picks the launch) or raises.  On a CPU tensor it runs
+picks the launch) or raises; it has no gradient, and raises on CUDA
+inputs that need one.  On a CPU tensor it runs
 :func:`quant_matmul_plain`, the same function in plain PyTorch.
 """
 
@@ -24,6 +25,7 @@ from typing import Optional
 import torch
 
 from .. import _build
+from . import recompute
 
 # K must be a multiple of this (16-byte rows for TMA and the row-scale
 # loads)
@@ -176,9 +178,17 @@ def _lib():
 def quant_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``[..., K]`` × ``w_q [N, K]`` → ``[..., N]`` in x's dtype; leading
-    dims of ``x`` flatten into M; :func:`launch_plan` picks the launch."""
+    dims of ``x`` flatten into M; :func:`launch_plan` picks the launch.
+    It has no gradient, as the JAX package's W8A8 path has none (its
+    Pallas ``quant_matmul`` has no ``custom_vjp``, ``ops/quant.py`` casts
+    to int8): on CUDA inputs that need one it raises."""
     if not x.is_cuda:
         return quant_matmul_plain(x, w_q, w_scale, bias)
+    if recompute.needs_grad(x, w_scale, bias):
+        raise RuntimeError(
+            "quant_matmul has no gradient (the W8A8 path is inference "
+            "only, as in the JAX package); call it under torch.no_grad() "
+            "or on inputs that do not require grad")
     n, k = w_q.shape
     if x.dtype != torch.bfloat16:
         raise TypeError(f"quant_matmul: x must be bfloat16, got {x.dtype}")

@@ -199,6 +199,13 @@ def add_noise(sched: DDIMSchedule, sample: torch.Tensor,
     return torch.sqrt(a) * sample + torch.sqrt(1.0 - a) * noise
 
 
+def guidance_step_scale(sched: DDIMSchedule, i: int) -> np.float32:
+    """Gradient-descent scale of latent guidance at loop position ``i``:
+    ``sqrt(1 - alpha_prod_t)`` (the reference's DDIM scale,
+    ``models/pipelines.py:106-119``), in fp32."""
+    return np.sqrt(np.float32(1.0) - sched.alpha_prod[i])
+
+
 # ---------------------------------------------------------------------------
 # Euler-Ancestral (SDXL's sampler)
 # ---------------------------------------------------------------------------
@@ -432,6 +439,16 @@ class Sampler:
         return self.needs_noise and not (self.kind == "lcm"
                                          and i == self.num_steps - 1)
 
+    def guidance_step_scale(self, i: int) -> np.float32:
+        """Latent guidance's gradient scale at loop position ``i``:
+        ``sqrt(1 - alpha)`` for DDIM and LCM, ``sigma²`` for
+        Euler-Ancestral (fp32, from the host tables)."""
+        if self.kind == "euler_ancestral":
+            return self.ea.sigmas[i] ** 2
+        if self.kind == "lcm":
+            return np.sqrt(np.float32(1.0) - self.lcm.alpha_prod[i])
+        return guidance_step_scale(self.ddim, i)
+
     def on(self, device) -> "DeviceSampler":
         if self.kind == "euler_ancestral":
             tables = ea_device_tables(self.ea, device)
@@ -459,6 +476,13 @@ class DeviceSampler:
         if self.kind == "euler_ancestral":
             return ea_scale_model_input(self.tables, sample, i)
         return sample
+
+    def guidance_step_scale(self, i: int) -> torch.Tensor:
+        """:meth:`Sampler.guidance_step_scale` from the device tables: a
+        0-dim fp32 tensor, so a guided step copies nothing from the host."""
+        if self.kind == "euler_ancestral":
+            return self.tables.sigmas[i] ** 2
+        return torch.sqrt(1.0 - self.tables.alpha_prod[i])
 
     def step(self, model_output: torch.Tensor, i: int, sample: torch.Tensor,
              noise: Optional[torch.Tensor] = None) -> torch.Tensor:

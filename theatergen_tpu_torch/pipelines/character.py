@@ -1,18 +1,20 @@
 """Per-character generation: the IP-Adapter-conditioned CFG pass with
-reference-attention capture.
+optional latent guidance and reference-attention capture.
 
-Port of ``theatergen_tpu/pipelines/character.py`` without latent guidance
-(``theater.py`` builds it with ``use_ip=True, capture_ref_attn=True``):
-the IP UNet conditions on the projected CLIP image features of the
-character, ``ip_scale`` weights them (0.4 on a character-DB hit, 0.0 on a
-miss), the whole latent trajectory is kept on the device, and the
-guidance keys' cross-attention maps of the character's word token are
-captured each step, for the mask and the detection of a turn.  The runner
-steps the config's sampler (DDIM, Euler-Ancestral or LCM) and takes the
-JAX package's knobs: CFG cutoff, DeepCache, and LCM's cond-only steps.
-On an SDXL bundle it takes the micro-conditioning (``extra_cond``: pooled
-text and time ids).  Latent guidance is a later slice and raises
-``NotImplementedError``.
+Port of ``theatergen_tpu/pipelines/character.py`` (``theater.py`` builds
+it with ``use_ip=True, capture_ref_attn=True``): the IP UNet conditions on
+the projected CLIP image features of the character, ``ip_scale`` weights
+them (0.4 on a character-DB hit, 0.0 on a miss), the whole latent
+trajectory is kept on the device, and the guidance keys' cross-attention
+maps of the character's word token are captured each step, for the mask
+and the detection of a turn.  The runner steps the config's sampler
+(DDIM, Euler-Ancestral or LCM) and takes the JAX package's knobs: CFG
+cutoff, DeepCache, and LCM's cond-only steps.  On an SDXL bundle it takes
+the micro-conditioning (``extra_cond``: pooled text and time ids).  With
+``guided`` each step ``i < guidance_steps`` first descends the latents on
+the guidance energy (``pipelines/guidance.py``; the reference's
+``latent_backward_guidance``), through a full cond-only UNet forward
+whatever DeepCache does.
 
 NHWC at the boundary, as in the JAX package: latents ``[1, h, w, 4]``,
 images ``[B, H, W, 3]`` in [0, 1].
@@ -28,6 +30,7 @@ import torch.nn.functional as F
 
 from ..ops import guidance as guidance_ops
 from ..ops import scheduler as sched_ops
+from . import guidance as guidance_lib
 from .bundle import Bundle
 from .sd import cfg_combine, check_noise, step_noise
 
@@ -99,8 +102,8 @@ def make_character_pipeline(bundle: Bundle, num_steps: int, *,
     """Build the per-character runner; returns ``(run, sampler)``.
 
     ``run(input_latents [1, h, w, 4], context [2, L(+n), C], ip_scale,
-    word_token=0, generator=None, *, noise=None, extra_cond=None) ->
-    CharacterResult``;
+    word_token=0, generator=None, *, noise=None, extra_cond=None,
+    gin=None) -> CharacterResult``;
     ``ip_scale`` is a float or a 0-dim tensor, made a tensor on the device
     once per run, so one runner serves a DB hit and a miss.  The reference
     maps are captured at the prompt position ``word_token``: in a turn the
@@ -122,11 +125,17 @@ def make_character_pipeline(bundle: Bundle, num_steps: int, *,
     are the last full step's (the captured layers lie in the skipped deep
     blocks), and at the cutoff the cache keeps its cond rows.  The loop
     copies nothing from the host per step: the sampler's tables are
-    indexed on the device."""
+    indexed on the device.
+
+    ``guided``: before each step ``i < cfg.guidance.guidance_steps``, the
+    guidance update (``guidance.guidance_update``) of the latents on the
+    energy of ``gin`` (a ``GuidanceInputs``, required then), through a
+    full cond-only UNet forward on the cond context ``context[1:2]`` (an
+    SDXL bundle's cond rows of ``extra_cond``), its loss threaded from
+    step to step; the trajectory holds the guided latents.  Only the
+    update records a graph."""
     cfg = bundle.cfg
-    if guided:
-        raise NotImplementedError(
-            "latent guidance is not ported yet (ROADMAP §1 item 4)")
+    gcfg = cfg.guidance
     unet = bundle.unet_ip if use_ip else bundle.unet
     if unet is None:
         raise ValueError("make_character_pipeline: use_ip needs a bundle "
@@ -151,7 +160,9 @@ def make_character_pipeline(bundle: Bundle, num_steps: int, *,
             ip_scale=0.0, word_token: int = 0,
             generator: Optional[torch.Generator] = None, *,
             noise: Optional[torch.Tensor] = None,
-            extra_cond: Optional[dict] = None) -> CharacterResult:
+            extra_cond: Optional[dict] = None,
+            gin: Optional[guidance_lib.GuidanceInputs] = None
+            ) -> CharacterResult:
         dev = bundle.device
         steps = sampler.on(dev)
         check_noise(noise, s_total, input_latents.shape)
@@ -163,10 +174,23 @@ def make_character_pipeline(bundle: Bundle, num_steps: int, *,
         lat = input_latents.to(dev, torch.float32).permute(0, 3, 1, 2)
         b = lat.shape[0]
         cond_cfg, cond_1 = trailing_rows(extra_cond, dev, 2 * b, b)
+        energy = None
+        if guided:
+            if gin is None:
+                raise ValueError("a guided character run needs gin "
+                                 "(GuidanceInputs)")
+            gin = gin.to(dev)
+            energy = guidance_lib.unet_energy_fn(unet, cfg, **cond_1,
+                                                 **kwargs)
+        gloss = None
         traj = torch.empty((s_total + 1,) + tuple(input_latents.shape),
                            dtype=torch.float32, device=dev)
         refs = ref_prev = cache = None
         for i in range(s_total):
+            if energy is not None and i < gcfg.guidance_steps:
+                lat, gloss, _ = guidance_lib.guidance_update(
+                    energy, steps, gcfg, lat, i, context[b:], gin,
+                    prev_loss=gloss)
             traj[i] = lat.permute(0, 2, 3, 1)
             cfg_on = i < cutoff
             if i == cutoff and cache is not None:

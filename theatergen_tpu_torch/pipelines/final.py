@@ -1,9 +1,8 @@
 """The final composed-scene pass: ControlNet, the IP UNet and frozen-latent
 replacement.
 
-Port of ``theatergen_tpu/pipelines/final.py::make_final_pipeline``
-without latent guidance.  It starts from the composed trajectory's t = T
-slot.  Each step runs:
+Port of ``theatergen_tpu/pipelines/final.py::make_final_pipeline``.  It
+starts from the composed trajectory's t = T slot.  Each step runs:
 
 - the ControlNet on the lineart hint with the text-only context, inside
   the ``control_guidance_start``/``end`` window;
@@ -31,7 +30,11 @@ ControlNet forward where no step that would use its residuals lies in the
 window: adding zero changes nothing.  The hint is embedded once per run,
 not once per step.
 
-Latent guidance is a later slice and raises ``NotImplementedError``.
+With ``guided``, each step ``i < guidance_steps`` first descends the
+latents on the guidance energy (``pipelines/guidance.py``): the overall
+layout's boxes and, per character, attention transfer from its reference
+maps, through a full cond-only UNet forward without the ControlNet's
+residuals (the JAX package's ``unet_apply(..., capture=True)``).
 NHWC at the boundary, as in the JAX package.
 """
 
@@ -44,6 +47,7 @@ import torch
 
 from ..models.t2i_adapter import tile_features
 from ..ops import scheduler as sched_ops
+from . import guidance as guidance_lib
 from .bundle import Bundle
 from .character import trailing_rows
 from .sd import cfg_combine, check_noise, step_noise
@@ -73,8 +77,8 @@ def make_final_pipeline(bundle: Bundle, num_steps: int, *,
     ``run(latents_all [S+1, 1, h, w, 4], frozen_mask [h, w], frozen_steps,
     context [2, L(+n), C], cn_context [2, L, C], cond_image [H, W, 3],
     ip_scale, generator=None, *, noise=None, extra_cond=None,
-    adapter_feats=None) -> (final [1, h, w, 4], trajectory [S+1, 1, h, w,
-    4])``.  ``frozen_steps`` and ``ip_scale`` are numbers or 0-dim
+    adapter_feats=None, gin=None) -> (final [1, h, w, 4], trajectory [S+1,
+    1, h, w, 4])``.  ``frozen_steps`` and ``ip_scale`` are numbers or 0-dim
     tensors; ``context`` carries the IP tokens where ``use_ip``;
     ``cond_image`` is the hint in [0, 1].  An Euler-Ancestral
     or LCM step draws its noise from ``generator`` unless ``noise`` (``[S,
@@ -90,11 +94,15 @@ def make_final_pipeline(bundle: Bundle, num_steps: int, *,
     cache and (where the cutoff is past step 0) the ControlNet cache keep
     their cond rows.  ``controlnet_interval``: the ControlNet forward on
     every N-th step, its residuals reused until the next; the window's
-    factor applies per step, outside the cache."""
+    factor applies per step, outside the cache.
+
+    ``guided``: before each step ``i < cfg.guidance.guidance_steps``, the
+    guidance update of the latents on the energy of ``gin`` (required
+    then), through a full cond-only UNet forward on ``context[1:2]`` with
+    the adapter's features but no ControlNet residuals, its loss threaded
+    from step to step; the frozen-mask replacement follows the step."""
     cfg = bundle.cfg
-    if guided:
-        raise NotImplementedError(
-            "latent guidance is not ported yet (ROADMAP §1 item 4)")
+    gcfg = cfg.guidance
     unet = bundle.unet_ip if use_ip else bundle.unet
     if unet is None:
         raise ValueError("make_final_pipeline: use_ip needs a bundle with "
@@ -131,7 +139,8 @@ def make_final_pipeline(bundle: Bundle, num_steps: int, *,
             generator: Optional[torch.Generator] = None, *,
             noise: Optional[torch.Tensor] = None,
             extra_cond: Optional[dict] = None,
-            adapter_feats: Optional[tuple] = None):
+            adapter_feats: Optional[tuple] = None,
+            gin: Optional[guidance_lib.GuidanceInputs] = None):
         dev = bundle.device
         steps = sampler.on(dev)
         check_noise(noise, s_total, latents_all.shape[1:])
@@ -157,10 +166,24 @@ def make_final_pipeline(bundle: Bundle, num_steps: int, *,
             feats = tuple(f.to(dev) for f in adapter_feats)
             lev_cfg, lev_1 = (tile_features(feats, 2 * b),
                               tile_features(feats, b))
+        energy = None
+        if guided:
+            if gin is None:
+                raise ValueError("a guided final run needs gin "
+                                 "(GuidanceInputs)")
+            gin = gin.to(dev)
+            # no ControlNet residuals, as the JAX energy's forward
+            energy = guidance_lib.unet_energy_fn(
+                unet, cfg, **cond_1, level_residuals=lev_1, **kwargs)
+        gloss = None
         traj = torch.empty((s_total + 1,) + tuple(latents_all.shape[1:]),
                            dtype=torch.float32, device=dev)
         cache = cn_cache = None
         for i in range(s_total):
+            if energy is not None and i < gcfg.guidance_steps:
+                lat, gloss, _ = guidance_lib.guidance_update(
+                    energy, steps, gcfg, lat, i, context[b:], gin,
+                    prev_loss=gloss)
             traj[i] = lat.permute(0, 2, 3, 1)
             cfg_on = i < cutoff
             if i == cutoff:

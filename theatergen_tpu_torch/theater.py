@@ -46,8 +46,16 @@ turn's spec), ``(seed, 2)`` for the final pass and ``(seed, 3)`` for a
 turn without characters.  DDIM draws nothing per step.  These streams
 cannot reproduce ``jax.random``'s, so parity with the JAX package goes
 through injected noise.  Everything stays on the bundle's device until
-the turn's images are fetched.  The batched character mode, meshes and
-latent guidance raise until their ROADMAP items land.
+the turn's images are fetched.
+
+With ``guided`` (the CLI's ``--guidance``) every character attempt, the
+background-only turn and the final pass descend their latents on the
+guidance energy (``pipelines/guidance.py``): a character on its centred
+box and its phrase's tokens, the final pass on the layout's boxes and each
+object's tokens in the overall prompt, with attention transfer from each
+character's reference maps, per step (``attn_transfer="per_step"``, the
+reference's) or their step mean (``"aggregate"``).  The batched character
+mode and meshes raise until their ROADMAP item lands.
 """
 
 from __future__ import annotations
@@ -71,6 +79,7 @@ from .pipelines.character import (encode_ip_image, ip_context,
                                   make_character_pipeline,
                                   uncond_ip_features)
 from .pipelines.final import make_final_pipeline
+from .pipelines.guidance import GuidanceInputs
 from .utils import parse
 from .utils.profiling import PhaseTimer
 from .utils.tokenizer import find_phrase_token_indices
@@ -81,6 +90,8 @@ ATTN_AGG_START = 10
 MAX_REGEN_ATTEMPTS = 3
 # the final pass's fixed negative-prompt prefix (theatergen.py:363)
 FINAL_NEG_PREFIX = "incohesive, edge shadow, blurry, "
+# token positions kept per object in the guidance inputs (a fixed pad)
+MAX_PHRASE_TOKENS = 8
 
 
 def noise_generator(device, seed: int, *stream: int) -> torch.Generator:
@@ -188,19 +199,27 @@ class Theater:
     def __init__(self, bundle: Bundle, db: CharacterDB, *,
                  task: str = "story", num_steps: Optional[int] = None,
                  guided: bool = False, use_controlnet: bool = True,
-                 mesh=None, batch_characters: bool = False):
-        if guided:
-            raise NotImplementedError(
-                "latent guidance is not ported yet (ROADMAP §1 item 4)")
+                 attn_transfer: str = "per_step", mesh=None,
+                 batch_characters: bool = False):
+        # guided=False is the reference's released behaviour: it defines
+        # latent_backward_guidance but its benchmark path never calls it
+        # (models/pipelines.py:62-128); guided=True opts in.
+        # attn_transfer: the final pass matches each step's saved
+        # reference maps ("per_step", utils/guidance.py:220-233) or their
+        # mean over steps >= ATTN_AGG_START ("aggregate")
+        if attn_transfer not in ("per_step", "aggregate"):
+            raise ValueError(f"attn_transfer {attn_transfer!r}: expected "
+                             f"'per_step' or 'aggregate'")
         if mesh is not None or batch_characters:
             raise NotImplementedError(
                 "the batched character mode and meshes are not ported yet "
-                "(ROADMAP §1 item 6)")
+                "(ROADMAP §1 item 5)")
         if bundle.unet_ip is None:
             raise ValueError("Theater: the bundle needs the IP UNet "
                              "(init_bundle(..., with_ip=True))")
         cfg = bundle.cfg
         self.bundle, self.db, self.task, self.cfg = bundle, db, task, cfg
+        self.guided, self.attn_transfer = guided, attn_transfer
         self.num_steps = num_steps or cfg.pipeline.num_steps
         # SDXL: two text towers and micro-conditioning; the T2I-Adapter,
         # where the bundle has it, conditions the final pass in place of
@@ -211,12 +230,13 @@ class Theater:
                                and bundle.controlnet is not None)
         pl = cfg.pipeline
         self.char_run, self.char_sched = make_character_pipeline(
-            bundle, self.num_steps, use_ip=True, capture_ref_attn=True,
+            bundle, self.num_steps, use_ip=True, guided=guided,
+            capture_ref_attn=True,
             cfg_cutoff_fraction=pl.cfg_cutoff_fraction,
             deepcache_interval=pl.deepcache_interval)
         self.final_run, _ = make_final_pipeline(
             bundle, self.num_steps, use_ip=True,
-            use_controlnet=self.use_controlnet,
+            use_controlnet=self.use_controlnet, guided=guided,
             cfg_cutoff_fraction=pl.cfg_cutoff_fraction,
             deepcache_interval=pl.deepcache_interval,
             controlnet_interval=pl.controlnet_interval)
@@ -270,6 +290,51 @@ class Theater:
     def _decode_img(self, latents: torch.Tensor) -> torch.Tensor:
         return sd.decode_with(self.bundle.vae, self.cfg.vae.scaling_factor,
                               latents)
+
+    def _guidance_inputs(self, boxes, prompts_token_pos,
+                         ref_attn=None) -> GuidanceInputs:
+        """Per-object boxes and token positions padded to ``max_objects``
+        slots, the token axis to a fixed MAX_PHRASE_TOKENS (each object's
+        last positions), the word token an object's last position; with
+        ``ref_attn`` (per object a tuple of per-key maps, ``[heads, HW]``
+        aggregated or ``[S, heads, HW]`` per step, or None), per key the
+        objects' maps stacked ``[K, heads, HW]`` or ``[S, K, heads, HW]``,
+        zeros in the empty slots.  On the bundle's device."""
+        dev = self.bundle.device
+        k, p = self.cfg.pipeline.max_objects, MAX_PHRASE_TOKENS
+        boxes_a = np.zeros((k, 4), np.float32)
+        pos = np.zeros((k, p), np.int64)
+        pos_valid = np.zeros((k, p), bool)
+        valid = np.zeros((k,), bool)
+        word = np.zeros((k,), np.int64)
+        for i, (b, tp) in enumerate(zip(boxes, prompts_token_pos)):
+            if i >= k:
+                break
+            boxes_a[i] = np.asarray(b, np.float32)
+            for j, t in enumerate(tp[-p:]):
+                pos[i, j] = t
+                pos_valid[i, j] = True
+            valid[i] = True
+            word[i] = tp[-1] if tp else 0
+        refs = None
+        if ref_attn is not None:
+            refs = []
+            for ki in range(len(self.cfg.guidance.attn_keys)):
+                maps = [ref_attn[i][ki] if i < len(ref_attn)
+                        and ref_attn[i] is not None else None
+                        for i in range(k)]
+                like = next(m for m in maps if m is not None)
+                maps = [(m if m is not None else torch.zeros_like(like))
+                        .to(dev, torch.float32) for m in maps]
+                refs.append(torch.stack(maps, dim=1 if like.ndim == 3
+                                        else 0))
+            refs = tuple(refs)
+
+        def put(a):
+            return torch.as_tensor(a, device=dev)
+
+        return GuidanceInputs(put(boxes_a), put(pos), put(pos_valid),
+                              put(valid), put(word), refs)
 
     def _aggregate_attn(self, ref_attn) -> List[torch.Tensor]:
         """Step mean of the reference maps from ATTN_AGG_START, at the
@@ -333,10 +398,12 @@ class Theater:
             hit, ip_scale = False, 0.0
             img_embed = self._placeholder_ip_features()
         ctx = ip_context(b, text_ctx, img_embed, self._uncond_ip)
+        gin = (self._guidance_inputs([centered.tolist()], [token_pos])
+               if self.guided else None)
         return dict(ctx=ctx, extra_cond=extra_cond, ip_scale=ip_scale,
                     img_embed=img_embed,
                     word_token=token_pos[-1] if token_pos else 0,
-                    token_pos=token_pos, hit=hit, centered=centered)
+                    token_pos=token_pos, hit=hit, centered=centered, gin=gin)
 
     def _char_input_latents(self, gen: torch.Generator,
                             centered: torch.Tensor) -> torch.Tensor:
@@ -395,7 +462,7 @@ class Theater:
                     init_lat, prep["ctx"], prep["ip_scale"],
                     prep["word_token"], self._noise_gen(seed, 1, idx,
                                                         attempt),
-                    extra_cond=prep["extra_cond"])
+                    extra_cond=prep["extra_cond"], gin=prep["gin"])
                 image = self._decode_img(result.latents)
                 agg = self._aggregate_attn(result.ref_attn)
             with self.timer.phase("char.detect"):
@@ -464,9 +531,11 @@ class Theater:
                 parse.DEFAULT_OVERALL_NEGATIVE_PROMPT)
             ctx = ip_context(b, ctx, self._placeholder_ip_features(),
                              self._uncond_ip)
+            gin = (self._guidance_inputs([(0.0, 0.0, 1.0, 1.0)], [[1]])
+                   if self.guided else None)
             res = self.char_run(self._bg_latents(gen), ctx, 0.0, 0,
                                 self._noise_gen(seed, 3),
-                                extra_cond=extra_cond)
+                                extra_cond=extra_cond, gin=gin)
             img = self._decode_img(res.latents)[0].float().cpu().numpy()
             return TurnResult(img, [], img, time.time() - t_start, [], [])
 
@@ -477,7 +546,7 @@ class Theater:
                 fargs["ctx"], fargs["cn_ctx"], fargs["cond_img"],
                 cfg.pipeline.ip_scale_final, self._noise_gen(seed, 2),
                 extra_cond=fargs["extra_cond"],
-                adapter_feats=fargs["adapter_feats"])
+                adapter_feats=fargs["adapter_feats"], gin=fargs["gin"])
             image = self._decode_img(final)
             # the deferred DB writes: their feature programs precede the
             # final pass in the device queue
@@ -529,11 +598,35 @@ class Theater:
                          self._uncond_ip)
         adapter_feats = (sdxl.adapter_features(b, cond_img) if self.use_t2i
                          else None)
-        # The JAX package also looks up each object's token positions in the
-        # overall prompt here (theater.py:833-856); they feed only the
-        # latent-guidance inputs, which the final runner reads with guidance
-        # on (ROADMAP §1 item 4), so the lookup waits for that item.
+        gin = self._overall_guidance(plan, chars) if self.guided else None
         return dict(composed=composed, frozen_mask=frozen_mask, ctx=ctx,
                     cn_ctx=overall_ctx, cond_img=cond_img,
-                    extra_cond=extra_cond,
-                    adapter_feats=adapter_feats), collage
+                    extra_cond=extra_cond, adapter_feats=adapter_feats,
+                    gin=gin), collage
+
+    def _overall_guidance(self, plan: parse.TurnPlan,
+                          chars: List[dict]) -> GuidanceInputs:
+        """The final pass's guidance inputs: each object's layout box, its
+        token positions in the overall prompt and its character's
+        reference maps (per step, or their step mean under
+        ``attn_transfer="aggregate"``).  Duplicate objects are pluralised
+        in the overall prompt (``parse.convert_spec``), so an object's
+        tokens are its group word's ("two cats" → "cats"), and token 1
+        where the word is not found."""
+        b, cfg = self.bundle, self.cfg
+        group_word = {}
+        for phrase, word, _ in plan.overall_phrases:
+            for name in plan.objects:
+                if name == phrase or parse.strip_article(name) in phrase:
+                    group_word.setdefault(name, word)
+        token_pos, boxes, refs = [], [], []
+        for i, oplan in enumerate(plan.object_plans[:cfg.pipeline.max_objects]):
+            word = group_word.get(oplan.phrase, oplan.word)
+            tp = find_phrase_token_indices(b.tokenizer, plan.overall_prompt,
+                                           word, cfg.text.max_length)
+            token_pos.append(tp or [1])
+            boxes.append(oplan.box)
+            refs.append(chars[i]["ref_attn"])
+        if self.attn_transfer == "aggregate":
+            refs = [tuple(self._aggregate_attn(r)) for r in refs]
+        return self._guidance_inputs(boxes, token_pos, refs)
