@@ -123,6 +123,20 @@ Phases, in order (any failure exits non-zero):
      turn gates,
      SAM run once per kept character, the loaded run's images equal to
      the first run's bit for bit; the directory deleted.
+ 11b. (before 12) batched characters and dialogue waves
+     (``batched_paths``), after the kernels' batch-6 rows and the batch-4
+     and -8 checks of phase 3: the full-width turn bundle; one IP UNet
+     evaluation at batch 6 (three characters, ip_scale 0.4 / 0.0 / 0.4,
+     each captured at its own word token) against three batch-2
+     evaluations and ``plain_path()`` within BATCH_BOUND, its launches,
+     and the device and wall ms of both; the turn server
+     (``serve.TheaterServer``, 50 DDIM steps, ``wave_policy="always"``)
+     over dialogue_0 and dialogue_1, each turn of both submitted together,
+     dialogue_1's through the HTTP facade on 127.0.0.1: 8 turns in 4
+     waves on the worker thread, each wave's launches ``wave_want``
+     (character batch, serial rejoins, final batch); then the CLI with
+     ``--dp_dialogues 2`` at WAVE_CLI_STEPS steps, each wave turn's
+     launches ``wave_want``.
 Every launch counter is set to 0 just before each request (or turn) and
 read just after it, and must equal the launches per request of each
 kernel: the constants of the SD1.5, W8A8 and SDXL requests under the
@@ -221,6 +235,25 @@ CHAR_W8A8, W8A8_FLOAT_BOUND = "sd15_512_ip_w8a8", 3e-2
 # batch-1 evaluations (no CFG: the CFG cutoff's tail, every LCM step) of
 # SD1.5 at 512 px and SDXL at 1024 px
 SD15_B1, SDXL_B1 = "sd15_512_cond", "sdxl_1024_cond"
+# a turn's characters as one batch (--batch_chars, the dialogue waves'
+# character pass): three characters under CFG are one IP UNet evaluation
+# at batch 6; (ip_scale, word token) of each (a DB hit, a miss, a hit)
+CHAR_B6, BATCH_CHARS = "sd15_512_ip_b6", ((0.4, 5), (0.0, 7), (0.4, 9))
+# its eps and captured maps against three batch-2 evaluations and against
+# plain_path(), relative to max|ref|: the UNet-level bf16 bound of
+# unet_reference_phase.  Batch size alone moves a bf16 UNet this far (on
+# an H100 80GB HBM3 at 700 W, this script: the plain path's own batch 6
+# against batch 2 1.298e-2 on eps and 1.972e-2 on the maps, the kernels'
+# 1.488e-2 and 3.280e-2), and a batch that ignores the per-row scale (the
+# planted fault, 0.4 on the miss's rows) reads 3.628e-1 and 7.763e-1
+BATCH_BOUND = 5e-2
+# the other batches the waves of dialogue_0 and dialogue_1 run: two
+# characters or two final passes (batch 4) and four characters (batch 8)
+WAVE_BATCHES = (4, 8)
+# the turn server over both dialogues (50 DDIM steps, one wave a turn) and
+# the CLI's --dp_dialogues 2 run (WAVE_CLI_STEPS steps)
+SERVE, WAVE_CLI, WAVE_CLI_STEPS = "sd15_512_serve", "sd15_512_wave_cli", 10
+DIALOGUES = ("dialogue_0", "dialogue_1")
 # (model, shape, calls per UNet evaluation of that model); batch 1 with
 # CFG, so 2 rows.  SD1.5: 10 transformer blocks at 64²/32²/16²/8²;
 # SDXL: 10 blocks at 64² (4 down, 6 up) and 60 at 32² (20 down, 10 mid,
@@ -228,7 +261,8 @@ SD15_B1, SDXL_B1 = "sd15_512_cond", "sdxl_1024_cond"
 FLASH_SHAPES = [(SD15, (2, 4096, 8, 40), 5), (SD15, (2, 1024, 8, 80), 5),
                 (SDXL, (2, 4096, 10, 64), 10), (SDXL, (2, 1024, 20, 64), 60),
                 (SD15_1024, (2, 1024, 8, 160), 5),
-                (SD15_B1, (1, 4096, 8, 40), 5), (SD15_B1, (1, 1024, 8, 80), 5)]
+                (SD15_B1, (1, 4096, 8, 40), 5), (SD15_B1, (1, 1024, 8, 80), 5),
+                (CHAR_B6, (6, 4096, 8, 40), 5), (CHAR_B6, (6, 1024, 8, 80), 5)]
 # the long route (past 4096 tokens): SD1.5 at 768 px, level 0 (96²), 5 calls
 # in the IP UNet and 2 in the ControlNet per final-pass evaluation
 FLASH_LONG_SHAPES = [(FINAL_768, (2, 9216, 8, 40), 7)]
@@ -250,9 +284,12 @@ FF_SHAPES = [(SD15, (8192, 320, 1280), 5), (SD15, (2048, 640, 2560), 5),
              (FINAL_768, (4608, 640, 2560), 7),
              (FINAL_768, (1152, 1280, 5120), 7),
              (SD15_B1, (4096, 320, 1280), 5), (SD15_B1, (1024, 640, 2560), 5),
-             (SD15_B1, (256, 1280, 5120), 5)]
+             (SD15_B1, (256, 1280, 5120), 5),
+             (CHAR_B6, (24576, 320, 1280), 5), (CHAR_B6, (6144, 640, 2560), 5),
+             (CHAR_B6, (1536, 1280, 5120), 5), (CHAR_B6, (384, 1280, 5120), 1)]
 # batch 1 (SD1.5 cond-only): the mid block's 64 rows take neither FF
-# kernel (no row block of 128 or more divides 64), as in the JAX package
+# kernel (no row block of 128 or more divides 64), as in the JAX package;
+# at CFG batch 2n the mid block's 128n rows take it
 GEGLU_SHAPES = [(SDXL, (8192, 2560, 640), 10), (SDXL, (2048, 5120, 1280), 60),
                 (SDXL_B1, (4096, 2560, 640), 10),
                 (SDXL_B1, (1024, 5120, 1280), 60)]
@@ -284,6 +321,7 @@ GN_SD15_SITES = (
     ((1920, 1024), 1), ((640, 256), 1), ((1280, 256), 11), ((1920, 256), 1),
     ((2560, 256), 2), ((1280, 64), 12), ((2560, 64), 3))
 GN_SHAPES = [(CHAR, (2, c, hw), n) for (c, hw), n in GN_SD15_SITES] + [
+    (CHAR_B6, (6, c, hw), n) for (c, hw), n in GN_SD15_SITES] + [
     (SD15_B1, (1, c, hw), n) for (c, hw), n in GN_SD15_SITES] + [
     (SDXL, (2, c, hw), n) for (c, hw), n in (
         ((320, 16384), 8), ((320, 4096), 1), ((640, 4096), 11),
@@ -854,7 +892,10 @@ def _record(name, source, replaces, tpu_function, rows) -> dict:
             "sequence-parallel ranks), batch 1 with CFG; sd15_512_cond and "
             "sdxl_1024_cond: one batch-1 evaluation without CFG (the CFG "
             "cutoff's tail, every LCM step), whose launches are the LCM "
-            "requests'",
+            "requests'; sd15_512_ip_b6: one IP UNet evaluation of three "
+            "batched characters (batch 6 under CFG), whose launches are the "
+            "batched evaluation's (the turn server's and the wave CLI's "
+            "batches of 4, 6 and 8 count in the totals)",
         per_model=per_model, shapes=rows)
 
 
@@ -2745,7 +2786,8 @@ def energy_grad_phase() -> dict:
                             + tuple(cap[tuple(k)].shape[1:3]),
                             device="cuda", generator=g)
                  for k in gcfg.attn_keys)
-    gin = guided_inputs(2, cfg, refs=refs)
+    # the energy takes B problems on a leading axis: here one
+    gin = guidance_lib.stack_inputs([guided_inputs(2, cfg, refs=refs)])
     energy = guidance_lib.unet_energy_fn(unet, cfg, ip_scale=ip_scale)
 
     def grad(energy=energy):
@@ -2947,6 +2989,478 @@ def guided_path(records, unguided_images) -> dict:
     return out
 
 
+def batch_shapes_phase(gen) -> dict:
+    """The kernels at the other batches of the dialogue waves
+    (WAVE_BATCHES: batch 4 for two characters or two final passes, 8 for
+    four characters), at every site of the SD1.5 IP UNet (the ControlNet's
+    sites are among them) that routes to a kernel, each against its plain
+    version within the bound of the timed shapes (batch 6 is timed with
+    the others).  Returns the count of shapes checked per kernel."""
+    ucfg = path_cfg(CHAR)[0]
+    checked = collections.Counter()
+    for b in WAVE_BATCHES:
+        for s_, d in ((4096, 40), (1024, 80)):
+            q, k, v = (randn(gen, b, s_, 8, d) for _ in range(3))
+            out = fa.flash_attention(q, k, v, route="packed")
+            ref = fa.flash_attention_plain(q.float(), k.float(), v.float())
+            check((out.float() - ref).abs().max().item(),
+                  ref.abs().max().item(), f"flash B={b} S={s_} d={d}")
+            checked["flash_attention"] += 1
+            del q, k, v, out, ref
+        for level, ch in enumerate(ucfg.block_out_channels):
+            m, kk = b * (64 >> level) ** 2, 4 * ch
+            if not gg.ff_supported(m, ch, kk):
+                continue
+            x = randn(gen, m, ch)
+            w1 = randn(gen, 2 * kk, ch, scale=ch ** -0.5)
+            b1 = randn(gen, 2 * kk, scale=0.1)
+            w2 = randn(gen, ch, kk, scale=kk ** -0.5)
+            out = gg.ff_matmul(x, w1, b1, w2)
+            ref = gg.ff_matmul_plain(x.float(), w1.float(), b1.float(),
+                                     w2.float())
+            check((out.float() - ref).abs().max().item(),
+                  ref.abs().max().item(), f"ff B={b} M={m} D={ch}")
+            checked["ff_geglu"] += 1
+        for (c, hw), _ in GN_SD15_SITES:
+            side = int(hw ** 0.5)
+            if not gn.routes((b, c, side, side), torch.bfloat16, 32):
+                continue
+            x = randn(gen, b, c, side, side)
+            wt = (1.0 + 0.2 * torch.randn(c, device="cuda",
+                                          generator=gen)).to(torch.bfloat16)
+            bias = randn(gen, c, scale=0.1)
+            out = gn.fused_group_norm(x, wt, bias, act="silu")
+            ref = gn.fused_group_norm_plain(x.float(), wt.float(),
+                                            bias.float(), act="silu")
+            check((out.float() - ref).abs().max().item(),
+                  ref.abs().max().item(), f"group_norm B={b} C={c} HW={hw}")
+            checked["group_norm"] += 1
+        torch.cuda.empty_cache()
+    log(f"  shapes checked at batches {WAVE_BATCHES}: {dict(checked)}")
+    return dict(checked)
+
+
+def batch_want(model: str, batch: int, steps: int = SD15_STEPS) -> dict:
+    """Launches of one batched request of ``batch`` elements (CFG
+    throughout, so UNet evaluations at 2·batch rows): the character runner
+    (CHAR) or the final runner with its ControlNet (FINAL)."""
+    ucfg, side, cn = path_cfg(model)
+    per = eval_launches(ucfg, side, 2 * batch)
+    if cn is not None:
+        per += eval_launches(cn, side, 2 * batch, encoder_only=True)
+    return counts(**{k: v * steps for k, v in per.items()})
+
+
+def wave_want(jobs: int, serial_attempts: int, finals: int,
+              steps: int = SD15_STEPS) -> dict:
+    """Launches of one wave (or batched turn): the character batch of
+    ``jobs`` elements, ``serial_attempts`` batch-1 character requests (a
+    failed detection's rejoin of the serial loop) and the final batch of
+    ``finals`` dialogues (0: the turn's own batch-1 final request)."""
+    parts = [batch_want(CHAR, jobs, steps)]
+    parts += [path_want(CHAR, steps)] * serial_attempts
+    parts.append(batch_want(FINAL, finals, steps) if finals
+                 else path_want(FINAL, steps))
+    return {k: sum(p[k] for p in parts) for k in COUNTERS}
+
+
+def batched_eval_phase(bundle, records) -> dict:
+    """Three characters (BATCH_CHARS: ip_scale 0.4, 0.0, 0.4, each maps
+    captured at its own word token) in one full-width IP UNet evaluation
+    at batch 6 against the same inputs as three batch-2 evaluations (eps
+    and each element's captured maps) and against ``plain_path()``, each
+    within BATCH_BOUND·max|ref|; the plain path's own batch-6 against
+    batch-2 distance printed beside it as the yardstick; a planted fault
+    that the gate must catch (the batch-6 evaluation with the hits' 0.4
+    on every row, the miss's included, as a runner that ignored the [B]
+    scale would give); launches against eval_launches at batch 6; device
+    and wall ms of the batch-6 evaluation beside the three batch-2
+    ones."""
+    cfg = bundle.cfg
+    unet = bundle.unet_ip
+    n = len(BATCH_CHARS)
+    g = torch.Generator(device="cuda").manual_seed(61)
+    x = torch.randn(2 * n, 4, 64, 64, device="cuda", generator=g)
+    t = torch.full((2 * n,), 981, device="cuda", dtype=torch.long)
+    ctx = torch.randn(2 * n, 77 + cfg.ip_adapter.num_tokens,
+                      cfg.unet.cross_attention_dim, device="cuda",
+                      generator=g)
+    scales = torch.tensor([s for s, _ in BATCH_CHARS], device="cuda")
+    keys = tuple(cfg.guidance.attn_keys)
+    words = torch.tensor([wt for _, wt in BATCH_CHARS], device="cuda")
+
+    def batch6(ip=torch.cat([scales, scales])):
+        return unet(x, t, ctx, ip_scale=ip, capture_keys=keys)
+
+    def rows(i):
+        return torch.tensor([i, n + i], device="cuda")
+
+    def batch2(i):
+        r = rows(i)
+        return unet(x[r], t[r], ctx[r], ip_scale=scales[i], capture_keys=keys)
+
+    def apart(six, twos_) -> tuple:
+        """(eps, maps): the max over the elements of the eps distance and
+        of the captured-map distances, each relative to the batch-2
+        reference's max."""
+        eps6_, cap6_ = six
+        eps_errs, map_errs = [], []
+        for i, (eps2, cap2) in enumerate(twos_):
+            ref = eps2.float()
+            eps_errs.append(((eps6_[rows(i)].float() - ref).abs().max()
+                             / ref.abs().max()).item())
+            for key in keys:
+                m6 = cap6_[tuple(key)][n + i, :, :, words[i]].float()
+                m2 = cap2[tuple(key)][1, :, :, words[i]].float()
+                map_errs.append((m6 - m2).abs().max().item()
+                                / max(m2.abs().max().item(), 1e-6))
+        return max(eps_errs), max(map_errs)
+
+    with torch.no_grad():
+        reset_counts()
+        six = batch6()
+        torch.cuda.synchronize()
+        got = read_counts()
+        add_launches(records, CHAR_B6, got)
+        want = counts(**eval_launches(path_cfg(CHAR)[0], 64, 2 * n))
+        reset_counts()
+        twos = [batch2(i) for i in range(n)]
+        torch.cuda.synchronize()
+        got2 = read_counts()
+        want2 = counts(**{k: n * v for k, v in eval_launches(
+            path_cfg(CHAR)[0], 64, 2).items()})
+        # the planted fault: one 0-dim scale, the hits', for every row
+        sep_control = apart(batch6(scales[0]), twos)
+        with plain_path():
+            six_p = batch6()
+            sep_yard = apart(six_p, [batch2(i) for i in range(n)])
+    eps6, eps_p = six[0].float(), six_p[0].float()
+    sep_b2 = apart(six, twos)
+    rel_b2, rel_yard, rel_control = (max(sep_b2), max(sep_yard),
+                                     max(sep_control))
+    rel_plain = ((eps6 - eps_p).abs().max() / eps_p.abs().max()).item()
+    ok = (rel_b2 <= BATCH_BOUND and rel_plain <= BATCH_BOUND
+          and rel_control > BATCH_BOUND
+          and bool(torch.isfinite(eps6).all()))
+
+    def pair(sep):
+        return f"{max(sep):.3e} (eps {sep[0]:.3e}, maps {sep[1]:.3e})"
+
+    log(f"  IP UNet at batch 6 (ip_scale {scales.tolist()}, word tokens "
+        f"{words.tolist()}): eps and captured maps vs three batch-2 "
+        f"evaluations max|diff|/max|ref| {pair(sep_b2)} (bound "
+        f"{BATCH_BOUND:g}; the plain path's own batch 6 vs batch 2 "
+        f"{pair(sep_yard)}); vs plain path {rel_plain:.3e} (bound "
+        f"{BATCH_BOUND:g}); the planted fault (0.4 on every row) "
+        f"{pair(sep_control)} (must exceed {BATCH_BOUND:g})  "
+        f"{'ok' if ok else 'FAIL'}")
+    log(f"  launches of the batch-6 evaluation {got} (derived {want}); of "
+        f"three batch-2 ones {got2} (derived {want2})")
+    if not ok:
+        raise SystemExit("the batch-6 IP UNet disagrees with three batch-2 "
+                         "evaluations or its plain path, or the gate missed "
+                         "the planted per-row scale fault")
+    if got != want or got2 != want2:
+        raise SystemExit("batched evaluation: launches differ from their "
+                         "derivation")
+
+    def three():
+        for i in range(n):
+            batch2(i)
+
+    with torch.no_grad():
+        dev6, dev2 = device_ms(batch6), device_ms(three)
+        wall6 = _wall_ms(batch6)
+        wall2 = _wall_ms(three)
+    log(f"  one batch-6 evaluation: device {dev6:.3f} ms, wall {wall6:.3f} "
+        f"ms; three batch-2 evaluations: device {dev2:.3f} ms, wall "
+        f"{wall2:.3f} ms")
+    return dict(rel_vs_batch2=rel_b2, rel_vs_plain=rel_plain,
+                plain_rel_b6_vs_b2=rel_yard, planted_fault_rel=rel_control,
+                eps_maps_vs_batch2=sep_b2, plain_eps_maps_b6_vs_b2=sep_yard,
+                planted_fault_eps_maps=sep_control, launches=got,
+                device_ms_b6=dev6, wall_ms_b6=wall6, device_ms_3xb2=dev2,
+                wall_ms_3xb2=wall2)
+
+
+def _wall_ms(fn, iters: int = 10) -> float:
+    """Wall ms of one call of ``fn``, ending in a synchronize, over
+    ``iters`` calls after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def dialogue_specs(dialogue: str) -> list:
+    """The four turn specs of a dialogue of data/sample/story.json, as the
+    CLI builds them (its 512² authoring canvas)."""
+    from theatergen_tpu_torch.cli import generate
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                        "sample", "story.json")
+    with open(path) as f:
+        data = json.load(f)[dialogue]
+    return [generate.build_spec(data[f"turn {t + 1}"]) for t in range(4)]
+
+
+def wave_counts(theaters) -> int:
+    """Character passes recorded so far by these Theaters' timers."""
+    return sum(th.timer.counts().get("char.denoise_decode", 0)
+               for th in theaters)
+
+
+def serve_phase(bundle, records, serial_dialogue_s: float) -> dict:
+    """The turn server over the full-width bundle: a TheaterServer (50
+    DDIM steps, wave_policy "always", waves of two) with one session per
+    dialogue of DIALOGUES; each turn of both is submitted together, the
+    second dialogue's through the HTTP facade on 127.0.0.1, so every turn
+    index is one wave.  Every counter is set to 0 just before a wave's
+    submits and read after both turns returned; each wave's launches must
+    be wave_want of its character jobs, the serial attempts its timers
+    recorded beyond the batch, and two final passes.  Checks 8 turns in 4
+    waves, the images (the HTTP turn's PNG read back), and that the waves
+    ran on the worker thread: each wave there runs under a stream of its
+    own (not the thread's default), and every kernel launch of the waves
+    must name that stream, as the wrappers read
+    ``torch.cuda.current_stream()``."""
+    import threading
+    import urllib.request
+
+    from theatergen_tpu_torch import serve
+    from theatergen_tpu_torch.cli import generate
+    from theatergen_tpu_torch.utils.parse import convert_spec
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_serve")
+    shutil.rmtree(root, ignore_errors=True)
+    seen, real_wave = [], serve.run_turn_wave
+    side = torch.cuda.Stream()
+    # the stream argument (the last) of every kernel launch in the waves
+    launch_streams = collections.Counter()
+    libs = [(fa, "_lib"), (gg, "_ff_lib"), (gg, "_geglu_lib"), (gn, "_lib")]
+    real_libs = [getattr(m, a) for m, a in libs]
+
+    def stream_spy(real_lib):
+        def lib():
+            fn = real_lib()
+
+            def call(*args):
+                launch_streams[args[-1]] += 1
+                return fn(*args)
+            return call
+        return lib
+
+    def spied(*a, **k):
+        seen.append(threading.current_thread().name)
+        own = torch.cuda.current_stream()
+        side.wait_stream(own)
+        with torch.cuda.stream(side):
+            out = real_wave(*a, **k)
+        own.wait_stream(side)
+        return out
+
+    server = serve.TheaterServer(bundle, os.path.join(root, "db"),
+                                 num_steps=SD15_STEPS, wave_policy="always",
+                                 batch_window_s=30.0, max_wave=2)
+    httpd = serve.serve_http(server, os.path.join(root, "out"), port=0)
+    http_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    http_thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    specs = [dialogue_specs(d) for d in DIALOGUES]
+    waves, bad = [], []
+    serve.run_turn_wave = spied
+    for (m, a), real_lib in zip(libs, real_libs):
+        setattr(m, a, stream_spy(real_lib))
+    try:
+        server.open_session(DIALOGUES[0])
+        req = urllib.request.Request(
+            base + "/sessions", json.dumps({"id": DIALOGUES[1]}).encode(),
+            {"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            if r.status != 201:
+                raise SystemExit(f"serve: POST /sessions gave {r.status}")
+        ths = [server.sessions[d].theater for d in DIALOGUES]
+        for t_idx in range(4):
+            seeds = [generate.turn_seed(0, d, t_idx, 0) for d in range(2)]
+            jobs = sum(len({(p.prompt, p.obj_id) for p in convert_spec(
+                sp[t_idx], 512, 512).object_plans}) for sp in specs)
+            before = wave_counts(ths)
+            http_out = {}
+
+            def post(t_idx=t_idx, seed=seeds[1]):
+                body = json.dumps(dict(specs[1][t_idx], seed=seed)).encode()
+                rq = urllib.request.Request(
+                    f"{base}/sessions/{DIALOGUES[1]}/turns", body,
+                    {"Content-Type": "application/json"})
+                with urllib.request.urlopen(rq, timeout=600) as r:
+                    http_out.update(json.loads(r.read()), status=r.status)
+
+            reset_counts()
+            t0 = time.perf_counter()
+            fut = server.submit(DIALOGUES[0], specs[0][t_idx], seeds[0])
+            client = threading.Thread(target=post)
+            client.start()
+            res = fut.result(timeout=600)
+            client.join(600)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = read_counts()
+            add_launches(records, SERVE, got)
+            serial = wave_counts(ths) - before - 1
+            want = wave_want(jobs, serial, 2)
+            img = png.read_png(http_out["image"]) if "image" in http_out \
+                else None
+            ok_img = (res.image.shape == (512, 512, 3)
+                      and bool(np.isfinite(res.image).all())
+                      and img is not None and img.shape == (512, 512, 3))
+            waves.append(dict(seconds=wall, jobs=jobs, serial_attempts=serial,
+                              launches=got, http_status=http_out.get(
+                                  "status"), db_hits=res.db_hits))
+            log(f"  wave {t_idx + 1}: {wall:.3f} s  character jobs {jobs}  "
+                f"serial attempts {serial}  launches {got}  {DIALOGUES[0]} "
+                f"DB hits {res.db_hits}  {DIALOGUES[1]} over HTTP: status "
+                f"{http_out.get('status')}, {http_out.get('image')}  images "
+                f"ok {ok_img}")
+            if not ok_img:
+                bad.append(f"wave {t_idx + 1}: bad image")
+            if got != want:
+                bad.append(f"wave {t_idx + 1}: launches {got}, want {want}")
+        stats = server.stats()
+    finally:
+        serve.run_turn_wave = real_wave
+        for (m, a), real_lib in zip(libs, real_libs):
+            setattr(m, a, real_lib)
+        httpd.shutdown()
+        httpd.server_close()
+        server.close()
+    threads = sorted(set(seen))
+    streams = {f"{st:#x}": n for st, n in launch_streams.items()}
+    log(f"  server stats {stats}; waves ran on threads {threads}; kernel "
+        f"launches by stream {streams} (the waves' stream "
+        f"{side.cuda_stream:#x})")
+    if stats["turns"] != 8 or stats["waves"] != 4:
+        bad.append(f"{stats['turns']} turns in {stats['waves']} waves, "
+                   f"want 8 in 4")
+    if threads != ["theater-serve-worker"] or len(seen) != 4:
+        bad.append(f"waves ran on {threads}")
+    if set(launch_streams) != {side.cuda_stream}:
+        bad.append(f"kernels launched on streams {streams}, not only the "
+                   f"waves' {side.cuda_stream:#x}")
+    total = sum(wv["seconds"] for wv in waves)
+    log(f"  seconds per wave {[round(wv['seconds'], 3) for wv in waves]}; "
+        f"{total:.3f} s for both dialogues, {total / 2:.3f} s per dialogue "
+        f"(the serial CLI dialogue_0: {serial_dialogue_s} s)")
+    log(f"  serve checks: {'ok' if not bad else 'FAIL ' + '; '.join(bad)}")
+    if bad:
+        raise SystemExit("the turn server failed: " + "; ".join(bad))
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(waves=waves, seconds_per_dialogue=total / 2, stats=stats,
+                launches_by_stream=streams)
+
+
+def wave_cli_phase(records) -> dict:
+    """``cli.generate.main`` with ``--dp_dialogues 2`` over both dialogues
+    (WAVE_CLI_STEPS DDIM steps, 512 px, frozen_step_ratio 0.5) into
+    build/chip_smoke_wave/.  Every counter is set to 0 just before each
+    wave turn (``run_turn_wave``, wrapped here) and read just after it;
+    its launches must be wave_want.  Checks the 8 turn events, no
+    quarantine, one wave event and the PNG tree."""
+    from theatergen_tpu_torch.cli import generate
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_wave")
+    shutil.rmtree(root, ignore_errors=True)
+    out_dir, db_dir = os.path.join(root, "out"), os.path.join(root, "db")
+    turns, bad, real_wave = [], [], theater.run_turn_wave
+
+    def counted(theaters, specs, seeds, **kw):
+        from theatergen_tpu_torch.utils.parse import convert_spec
+        jobs = sum(len({(p.prompt, p.obj_id) for p in convert_spec(
+            sp, 512, 512).object_plans}) for sp in specs)
+        before = wave_counts(theaters)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = real_wave(theaters, specs, seeds, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_counts()
+        add_launches(records, WAVE_CLI, got)
+        serial = wave_counts(theaters) - before - 1
+        want = wave_want(jobs, serial, len(specs), WAVE_CLI_STEPS)
+        turns.append(dict(seconds=wall, jobs=jobs, serial_attempts=serial,
+                          launches=got))
+        log(f"  wave turn {len(turns)}: {wall:.3f} s  character jobs {jobs}"
+            f"  serial attempts {serial}  launches {got}")
+        if got != want:
+            bad.append(f"wave turn {len(turns)}: launches {got}, want "
+                       f"{want}")
+        return res
+
+    theater.run_turn_wave = counted
+    t0 = time.perf_counter()
+    try:
+        generate.main([
+            "--dataset_path", os.path.join(os.path.dirname(
+                os.path.abspath(__file__)), "data", "sample"),
+            "--task", "story", "--dp_dialogues", "2",
+            "--num_steps", str(WAVE_CLI_STEPS), "--frozen_step_ratio", "0.5",
+            "--base_save_dir", out_dir, "--database_path_base", db_dir])
+    finally:
+        theater.run_turn_wave = real_wave
+    phase_s = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "story", "run0", "run_log.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    logged = [e for e in events if e["event"] == "turn"]
+    (wave,) = [e for e in events if e["event"] == "wave"]
+    if len(logged) != 8 or len(turns) != 4:
+        bad.append(f"{len(logged)} turn events over {len(turns)} waves")
+    if any(e["event"] == "quarantine" for e in events):
+        bad.append("a turn was quarantined")
+    for e in logged:
+        turn_dir = os.path.join(out_dir, "story", "run0", e["dialogue"],
+                                e["turn"])
+        for name in sorted(os.listdir(turn_dir)):
+            im = png.read_png(os.path.join(turn_dir, name))
+            if im.shape != (512, 512, 3):
+                bad.append(f"{e['dialogue']}/{e['turn']}/{name}: {im.shape}")
+    log(f"  --dp_dialogues 2: wave {wave['seconds']} s for both dialogues "
+        f"({WAVE_CLI_STEPS} steps); {phase_s:.1f} s for the phase (the "
+        f"bundle's build included)")
+    log(f"  wave CLI checks: {'ok' if not bad else 'FAIL ' + '; '.join(bad)}")
+    if bad:
+        raise SystemExit("the wave CLI failed: " + "; ".join(bad))
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(turns=turns, wave_seconds=wave["seconds"],
+                steps=WAVE_CLI_STEPS, phase_seconds=phase_s)
+
+
+def batched_paths(records, serial_dialogue_s: float) -> dict:
+    """The batched character mode and the dialogue waves: the full-width
+    SD1.5 bundle of the CLI's turn (IP UNet, vision tower, ControlNet),
+    the batched evaluation, the turn server, then the wave CLI."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bundle = init_bundle(sd15_config(), seed=0, device="cuda", with_ip=True,
+                         with_vision=True, with_controlnet=True)
+    torch.cuda.synchronize()
+    log(f"  init_bundle(sd15_config(), with_ip=True, with_vision=True, "
+        f"with_controlnet=True): {time.perf_counter() - t0:.3f} s")
+    out = {CHAR_B6: batched_eval_phase(bundle, records)}
+    out[SERVE] = serve_phase(bundle, records, serial_dialogue_s)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[main path] dialogue waves through the CLI: --dp_dialogues 2 over "
+        f"{', '.join(DIALOGUES)}, 512 px, {WAVE_CLI_STEPS} DDIM steps")
+    out[WAVE_CLI] = wave_cli_phase(records)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -3022,6 +3536,9 @@ def main() -> int:
                 flash_phase(gen, FLASH_COPY_SHAPES, "copy")),
         ff_phase(gen), geglu_phase(gen), gn_phase(gen), qmm_phase(gen)]
     sp_shards = sp_shards_phase(gen)
+    log(f"[check] the kernels at the dialogue waves' other batches "
+        f"{WAVE_BATCHES}")
+    batch_shapes = batch_shapes_phase(gen)
     host_us = host_us_phase(gen)
     torch.cuda.synchronize()
     log("[gradients] each kernel's autograd Function at the guided UNets' "
@@ -3103,6 +3620,14 @@ def main() -> int:
         steps=SDXL_STEPS, knobs=dict(sampler="euler_ancestral"), xl=True)
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"[main path] batched characters and dialogue waves: the IP UNet at "
+        f"batch 6 against three batch-2 evaluations and plain_path(), then "
+        f"the turn server (TheaterServer, wave_policy always) over "
+        f"{', '.join(DIALOGUES)}, 512 px, {SD15_STEPS} DDIM steps, one turn "
+        f"of each wave through the HTTP facade")
+    paths.update(batched_paths(records, paths[TURN]["dialogue_seconds"]))
+    gc.collect()
+    torch.cuda.empty_cache()
     log(f"[main path] the checkpoint-loaded story turn: a synthetic SD1.5 "
         f"checkpoint directory in the published names (with sam-vit-base "
         f"and the lineart annotator), load_bundle, snapshots, and "
@@ -3110,6 +3635,7 @@ def main() -> int:
         f"{SD15_STEPS} DDIM steps, SAM masks and the annotator's hint")
     paths[CKPT] = checkpoint_path(records, paths[TURN]["dialogue_seconds"])
     paths["sp_shards_equal"] = sp_shards
+    paths["wave_batch_shapes_checked"] = batch_shapes
     paths["grad_gates"] = len(grad_gates)
     paths["wrapper_host_us_per_call"] = host_us
     log(f"[done] {time.perf_counter() - t_start:.1f} s after the build began")

@@ -287,10 +287,11 @@ def test_unet_energy_gradient_matches_jax():
     jv, jg = jax.jit(jax.value_and_grad(lambda x: je(
         x, jnp.int32(801), jnp.asarray(ctx), jgin)))(jnp.asarray(lat))
     leaf = _t(lat).permute(0, 3, 1, 2).requires_grad_(True)
-    tv = te(leaf, torch.tensor(801), _t(ctx), tgin)
+    tv = te(leaf, torch.tensor(801), _t(ctx), tguid.stack_inputs([tgin]))
+    assert tv.shape == (1,)
     (tg,) = torch.autograd.grad(tv, leaf)
     tg = _np(tg.permute(0, 2, 3, 1))
-    np.testing.assert_allclose(_np(tv), np.asarray(jv), rtol=1e-5)
+    np.testing.assert_allclose(_np(tv[0]), np.asarray(jv), rtol=1e-5)
     jg = np.asarray(jg)
     assert np.abs(jg).max() > 0
     assert np.abs(tg - jg).max() <= 1e-4 * np.abs(jg).max()
@@ -724,7 +725,8 @@ def test_chip_smoke_guided_iteration_launches_are_the_sites(monkeypatch):
         calls.clear()
         shapes.clear()
         with torch.device("meta"):
-            e = energy(lat, torch.tensor(801), ctx, gin)
+            e = energy(lat, torch.tensor(801), ctx,
+                       tguid.stack_inputs([gin]))
             (g,) = torch.autograd.grad(e, lat)
         assert g.shape == lat.shape and g.dtype == torch.float32
         assert cs.counts(**calls) == cs.guided_iter_want(model), model

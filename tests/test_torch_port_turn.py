@@ -416,9 +416,8 @@ def test_character_runner_captures_the_word_token(tmp_path, monkeypatch):
 def test_theater_refuses_unported_modes():
     _, tb = _bundles()
     db = None
-    for kw in (dict(mesh=object()), dict(batch_characters=True)):
-        with pytest.raises(NotImplementedError):
-            tth.Theater(tb, db, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tth.Theater(tb, db, mesh=object())
     with pytest.raises(ValueError):
         tth.Theater(init_bundle(tcfg.tiny_config(), 0, device="cpu"), db)
 
@@ -494,8 +493,7 @@ def test_cli_quarantines_a_failing_turn(tmp_path, monkeypatch):
         "turn 1", "turn 3", "turn 4"]
 
 
-@pytest.mark.parametrize("flag", [
-    ["--dp_dialogues", "2"], ["--mesh", "dp=2"], ["--batch_chars"]])
+@pytest.mark.parametrize("flag", [["--mesh", "dp=2"]])
 def test_cli_unported_flags_raise(tmp_path, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tgen.main(_cli(tmp_path, *flag))

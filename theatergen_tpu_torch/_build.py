@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
@@ -27,6 +28,9 @@ NVCC_FLAGS = (
 )
 
 _libs: Dict[str, ctypes.CDLL] = {}
+# held while kernels are built or loaded: a server's worker thread may
+# take the first launch while another thread builds
+_lock = threading.RLock()
 # name -> {"seconds": float, "ptxas": str} for builds made by this process
 build_log: Dict[str, dict] = {}
 
@@ -59,7 +63,11 @@ def _target(name: str) -> Path:
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
     """Compile the named kernels (all by default) that are not built yet,
     one ``nvcc`` process each, in parallel.  Raises on any failure."""
-    names = kernel_names() if names is None else list(names)
+    with _lock:
+        return _build(kernel_names() if names is None else list(names))
+
+
+def _build(names: list) -> Dict[str, Path]:
     targets = {n: _target(n) for n in names}
     todo = {n: p for n, p in targets.items() if not p.exists()}
     if todo:
@@ -88,10 +96,13 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded shared library of ``csrc/<name>.cu``, built if needed."""
-    if name not in _libs:
-        path = build([name])[name]
-        _libs[name] = ctypes.CDLL(str(path))
-    return _libs[name]
+    lib = _libs.get(name)
+    if lib is None:
+        with _lock:
+            if name not in _libs:
+                _libs[name] = ctypes.CDLL(str(build([name])[name]))
+            lib = _libs[name]
+    return lib
 
 
 def check(status: int, what: str) -> None:

@@ -1,7 +1,7 @@
-"""CMIGBench generation driver, serial loop.
+"""CMIGBench generation driver.
 
-The port of ``theatergen_tpu/cli/generate.py`` without its wave mode.  It
-keeps the reference CLI's flags, seed discipline, resume and output tree
+The port of ``theatergen_tpu/cli/generate.py``.  It keeps the reference
+CLI's flags, seed discipline, resume and output tree
 (``generate.py:34-48,155-269``):
 
 - output tree ``<base_save_dir>/<task>/run<k>/<dialogue>/turn n/img_<rep>.png``
@@ -34,7 +34,15 @@ load_bundle``: ``unet.safetensors``, ``vae.safetensors``,
 ``image_encoder.safetensors``, ``ip-adapter_sd15.bin``,
 ``sam.safetensors``, ``lineart.safetensors``, tokenizer assets); ``--snapshot
 DIR`` loads a bundle snapshot from DIR where one is there, and otherwise
-builds or loads the bundle and saves it there.  Runs on the card unless
+builds or loads the bundle and saves it there.  ``--batch_chars`` runs
+each turn's characters as one batch (``Theater(batch_characters=True)``);
+``--dp_dialogues N`` runs waves of N dialogues in lockstep, one turn of
+each at a time (``theater.run_turn_wave``: all their characters in one
+batch, all their final passes in another), with the serial loop's seeds,
+output tree, resume and run log, a ``wave`` event per wave in place of
+the ``dialogue`` events; a failed wave reruns its turns serially with the
+same seeds, reusing the turns the wave finished.  ``--mesh`` raises until
+the multi-card half of ROADMAP §1 item 5.  Runs on the card unless
 ``--device`` names another device::
 
     python -m theatergen_tpu_torch.cli.generate --tiny --device cpu \\
@@ -44,6 +52,8 @@ builds or loads the bundle and saves it there.  Runs on the card unless
         --dataset_path data/sample --max_dialogues 1 --box_canvas 512
     python -m theatergen_tpu_torch.cli.generate --weights ckpt \\
         --snapshot ckpt_snap --dataset_path data/sample --max_dialogues 1
+    python -m theatergen_tpu_torch.cli.generate --dataset_path data/sample \\
+        --dp_dialogues 2
 """
 
 from __future__ import annotations
@@ -61,7 +71,7 @@ import numpy as np
 
 # flags of the JAX driver that raise here, and the ROADMAP §1 item that
 # brings each
-UNPORTED_FLAGS = {"dp_dialogues": 5, "mesh": 5, "batch_chars": 5}
+UNPORTED_FLAGS = {"mesh": 5}
 
 
 def turn_seed(seed_offset: int, dialogue_base: int, turn_idx: int,
@@ -155,10 +165,13 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--snapshot", default=None,
                     help="bundle snapshot directory: loaded where it holds "
                          "one, else written after the bundle is built")
+    ap.add_argument("--batch_chars", action="store_true",
+                    help="run each turn's characters as one batch")
+    ap.add_argument("--dp_dialogues", type=int, default=None,
+                    help="dialogue waves: N dialogues in lockstep, their "
+                         "characters and final passes batched per turn")
     # the JAX driver's other flags parse, and raise (UNPORTED_FLAGS)
     ap.add_argument("--mesh", default=None)
-    ap.add_argument("--batch_chars", action="store_true", default=None)
-    ap.add_argument("--dp_dialogues", type=int, default=None)
     return ap
 
 
@@ -220,7 +233,8 @@ def build_theater(args):
         cfg,
         cfg_cutoff=args.cfg_cutoff, deepcache=args.deepcache,
         scheduler=args.scheduler, cn_interval=args.cn_interval,
-        prediction_type=args.prediction_type, zero_snr=args.zero_snr)
+        prediction_type=getattr(args, "prediction_type", None),
+        zero_snr=getattr(args, "zero_snr", None))
     snap = args.snapshot
     if snap and os.path.exists(os.path.join(snap, "bundle_meta.json")):
         print(f"loading bundle snapshot: {snap}")
@@ -256,7 +270,10 @@ def main(argv: Optional[list] = None) -> None:
             run_log.write(json.dumps(kw) + "\n")
             run_log.flush()
 
-        _run(args, bundle, dataset, dialogues, save_dir, log)
+        if args.dp_dialogues:
+            _run_waves(args, bundle, dataset, dialogues, save_dir, log)
+        else:
+            _run(args, bundle, dataset, dialogues, save_dir, log)
 
 
 def _run(args, bundle, dataset: dict, dialogues: list, save_dir: str,
@@ -275,7 +292,8 @@ def _run(args, bundle, dataset: dict, dialogues: list, save_dir: str,
                 args.database_path_base, args.task, str(dialogue)))
             theater = Theater(
                 bundle, db, task=args.task, num_steps=args.num_steps,
-                guided=args.guidance and not args.no_guidance)
+                guided=args.guidance and not args.no_guidance,
+                batch_characters=args.batch_chars)
             base = (args.freeze_dialogue_seed
                     if args.freeze_dialogue_seed is not None else d_idx)
             profiling = args.profile and not profiled
@@ -301,6 +319,125 @@ def _run(args, bundle, dataset: dict, dialogues: list, save_dir: str,
         log(event="summary", dialogues=len(use_time),
             avg_s=round(float(np.mean(use_time)), 2),
             p50_s=round(float(np.median(use_time)), 2))
+
+
+def _run_waves(args, bundle, dataset: dict, dialogues: list, save_dir: str,
+               log) -> None:
+    """Dialogue waves (the JAX CLI's ``_run_wave_mode``): waves of
+    ``--dp_dialogues`` dialogues advance turn by turn in lockstep through
+    ``run_turn_wave``.  Seeds, output tree, resume by existence and
+    quarantine are the serial loop's; a wave that fails reruns its turns
+    serially with the same seeds, reusing those the wave finished
+    (``WaveFailure.results``: their DB writes are durable)."""
+    from ..db import CharacterDB
+    from ..theater import Theater, run_turn_wave
+    from ..utils.profiling import trace
+
+    width = args.dp_dialogues
+    canvas = args.box_canvas or (512 if args.tiny else None)
+    use_time, n_dialogues = [], 0
+    profiled = False
+    for regen_ind in range(args.regenerate):
+        for w0 in range(0, len(dialogues), width):
+            wave = dialogues[w0:w0 + width]
+            n_dialogues += len(wave)
+            theaters = [Theater(
+                bundle, CharacterDB(os.path.join(
+                    args.database_path_base, args.task, str(dialogue))),
+                task=args.task, num_steps=args.num_steps,
+                guided=args.guidance and not args.no_guidance,
+                batch_characters=True) for dialogue in wave]
+            profiling = args.profile and not profiled
+            profiled = profiled or profiling
+            with (trace(os.path.join(save_dir, "profile")) if profiling
+                  else contextlib.nullcontext()):
+                t0 = time.time()
+                for t_idx in range(4):
+                    _run_wave_turn(args, dataset, wave, w0, theaters, t_idx,
+                                   regen_ind, canvas, save_dir, log,
+                                   run_turn_wave)
+                dt = time.time() - t0
+            if profiling:
+                print(f"profiler trace: {os.path.join(save_dir, 'profile')}")
+            use_time.append(dt / len(wave))
+            print(f"wave {wave}: {dt:.1f}s ({dt / len(wave):.1f}s/dialogue, "
+                  f"p50 {np.median(use_time):.1f}s)")
+            log(event="wave", dialogues=[str(d) for d in wave],
+                seconds=round(dt, 2),
+                phase_summary=theaters[0].timer.summary())
+    if use_time:
+        print(f"Total {len(use_time)} waves, avg {np.mean(use_time):.1f}s, "
+              f"p50 {np.median(use_time):.1f}s per 4-turn dialogue")
+        log(event="summary", dialogues=n_dialogues,
+            avg_s=round(float(np.mean(use_time)), 2),
+            p50_s=round(float(np.median(use_time)), 2))
+
+
+def _run_wave_turn(args, dataset: dict, wave: list, w0: int, theaters: list,
+                   t_idx: int, regen_ind: int, canvas, save_dir: str, log,
+                   run_turn_wave) -> None:
+    """Turn ``t_idx`` of a wave's dialogues × repeats, with resume and
+    quarantine."""
+    turn = f"turn {t_idx + 1}"
+    sel, specs = [], []
+    for i, dialogue in enumerate(wave):
+        if os.path.exists(os.path.join(save_dir, str(dialogue), turn)):
+            continue  # resume-by-existence (generate.py:193-194)
+        if turn not in dataset[dialogue]:
+            continue
+        spec = build_spec(dataset[dialogue][turn])
+        if canvas:
+            spec["canvas_height"] = spec["canvas_width"] = canvas
+        sel.append(i)
+        specs.append(spec)
+    if not sel:
+        return
+    for rep in range(args.repeats):
+        seeds = [turn_seed(args.seed_offset,
+                           args.freeze_dialogue_seed
+                           if args.freeze_dialogue_seed is not None
+                           else w0 + i, t_idx, rep, regen=regen_ind)
+                 for i in sel]
+        try:
+            results = run_turn_wave([theaters[i] for i in sel], specs, seeds,
+                                    frozen_step_ratio=args.frozen_step_ratio)
+        except Exception as e:
+            # quarantine (generate.py:250-259): one bad dialogue must not
+            # sink its wave-mates, so the wave's turns rerun serially
+            print(f"[quarantine] wave {[wave[i] for i in sel]}/{turn} "
+                  f"rep {rep}: rerunning its turns serially")
+            traceback.print_exc()
+            partial = getattr(e, "results", {})
+            results = []
+            for w_idx, (i, spec, seed) in enumerate(zip(sel, specs, seeds)):
+                if w_idx in partial:
+                    results.append(partial[w_idx])
+                    continue
+                try:
+                    results.append(theaters[i].run_turn(
+                        spec, seed, frozen_step_ratio=args.frozen_step_ratio))
+                except Exception as e2:
+                    print(f"[quarantine] {wave[i]}/{turn} rep {rep}:")
+                    traceback.print_exc()
+                    log(event="quarantine", dialogue=str(wave[i]), turn=turn,
+                        repeat=rep, seed=seed, error=repr(e2))
+                    results.append(None)
+        for i, seed, res in zip(sel, seeds, results):
+            if res is not None:
+                _save_turn(save_dir, wave[i], turn, rep, seed, res, log)
+
+
+def _save_turn(save_dir: str, dialogue, turn: str, rep: int, seed: int, res,
+               log) -> None:
+    """A turn's images into the output tree and its ``turn`` event."""
+    turn_dir = os.path.join(save_dir, str(dialogue), turn)
+    save_image(os.path.join(turn_dir, f"img_{rep}.png"), res.image)
+    for i, so in enumerate(res.so_images):
+        save_image(os.path.join(turn_dir, f"so_{rep}_{i}.png"), so)
+    log(event="turn", dialogue=str(dialogue), turn=turn, repeat=rep,
+        seed=seed, seconds=round(res.seconds, 2),
+        characters=len(res.so_images), detections=res.detections,
+        db_hits=res.db_hits)
 
 
 def _run_dialogue(args, dataset: dict, dialogue, theater, base: int,
@@ -329,13 +466,7 @@ def _run_dialogue(args, dataset: dict, dialogue, theater, base: int,
                 log(event="quarantine", dialogue=str(dialogue), turn=turn,
                     repeat=rep, seed=seed, error=repr(e))
                 continue
-            save_image(os.path.join(turn_dir, f"img_{rep}.png"), res.image)
-            for i, so in enumerate(res.so_images):
-                save_image(os.path.join(turn_dir, f"so_{rep}_{i}.png"), so)
-            log(event="turn", dialogue=str(dialogue), turn=turn, repeat=rep,
-                seed=seed, seconds=round(res.seconds, 2),
-                characters=len(res.so_images), detections=res.detections,
-                db_hits=res.db_hits)
+            _save_turn(save_dir, dialogue, turn, rep, seed, res, log)
 
 
 if __name__ == "__main__":

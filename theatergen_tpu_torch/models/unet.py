@@ -11,7 +11,8 @@ has ``addition_embed_type="text_time"``, and returns the eps prediction
 
 With ``cfg.ip_num_tokens > 0`` every cross-attention splits the last
 ``ip_num_tokens`` context rows off as IP-Adapter image tokens, weighted by
-``ip_scale`` (a float or a 0-dim tensor).  ``capture_keys`` names
+``ip_scale`` (a float, a 0-dim tensor, or a ``[B]`` tensor of one scale
+per row).  ``capture_keys`` names
 cross-attention layers in the JAX package's 4-tuple form
 ``(place, block_index, attention_index, layer)``; with any given the
 forward returns ``(eps, {key: probs [B, heads, HW, Lk]})`` and keeps no

@@ -46,10 +46,14 @@ def decoupled_attention(q: torch.Tensor, k_text: torch.Tensor,
     ``Attn(q, k_text, v_text) + ip_scale · Attn(q, k_ip, v_ip)``, the image
     branch an explicit fp32 softmax over the few IP keys.  ``ip_scale`` is
     a float or a 0-dim tensor (one tensor serves a DB hit and a miss with
-    no host round trip).  With ``return_probs`` returns ``(out, probs)``,
+    no host round trip), or a ``[B]`` tensor, one scale per batch row,
+    broadcast over tokens and heads (a batch of characters, DB hits and
+    misses together).  With ``return_probs`` returns ``(out, probs)``,
     the probabilities of the text branch only."""
     res = multi_head_attention(q, k_text, v_text, return_probs=return_probs)
     out_text, probs = res if return_probs else (res, None)
     out_ip = multi_head_attention(q, k_ip, v_ip)
+    if torch.is_tensor(ip_scale) and ip_scale.ndim == 1:
+        ip_scale = ip_scale.view(-1, 1, 1, 1).to(out_ip.dtype)
     out = out_text + ip_scale * out_ip
     return (out, probs) if return_probs else out

@@ -1,9 +1,11 @@
 """Attention-based character detection for the detect-and-regenerate loop.
 
 The port of ``theatergen_tpu/perception/detector.py::{Detection,
-attention_detect}``.  The reference runs GroundingDINO on every generated
-character (``utils/detector.py:5-21``) and regenerates with a new seed when
-it finds nothing (``theatergen.py:98-160``).  The character pass already
+attention_detect}``, with :func:`attention_detect_batch` for a batch of
+characters (the JAX Theater's ``vmap`` of it).  The reference runs
+GroundingDINO on every generated character (``utils/detector.py:5-21``)
+and regenerates with a new seed when it finds nothing
+(``theatergen.py:98-160``).  The character pass already
 captures the cross-attention maps of the character's word token, and they
 localise it, so the default detector needs no weights: the box around the
 strong attention, accepted when it holds enough of the attention's mass
@@ -40,18 +42,39 @@ def attention_detect(attn_maps: Sequence[torch.Tensor],
     ``min_area`` and it holds more than a quarter of the attention mass,
     the analogue of DINO's confidence threshold
     (``utils/detector.py:14-20``).  Stays on the maps' device."""
-    dev = attn_maps[0].device
-    agg = torch.zeros((out_hw, out_hw), dtype=torch.float32, device=dev)
+    if word_token is not None:
+        attn_maps = [m[:, :, word_token] if m.ndim == 3 else m
+                     for m in attn_maps]
+    return _detect(attn_maps, mass_threshold, min_area, out_hw)
+
+
+def attention_detect_batch(attn_maps: Sequence[torch.Tensor], *,
+                           mass_threshold: float = 0.5,
+                           min_area: float = 0.001,
+                           out_hw: int = 64) -> Detection:
+    """:func:`attention_detect` of B characters at once (the JAX package's
+    ``vmap`` of it, ``theater.py:604-612``): per key ``[B, heads, HW]``
+    maps → a Detection with ``box [B, 4]``, ``confidence [B]`` and ``ok
+    [B]``, element b equal to the detection of element b's maps; a caller
+    reads every ``ok`` in one host sync."""
+    return _detect(attn_maps, mass_threshold, min_area, out_hw)
+
+
+def _detect(attn_maps, mass_threshold, min_area, out_hw) -> Detection:
+    """The detection over maps ``[..., heads, HW]`` (any leading axes)."""
+    first = attn_maps[0]
+    lead = tuple(first.shape[:-2])
+    agg = torch.zeros(lead + (out_hw, out_hw), dtype=torch.float32,
+                      device=first.device)
     for m in attn_maps:
-        if word_token is not None and m.ndim == 3:
-            m = m[:, :, word_token]
-        m = m.float().mean(0)                                  # [HW]
-        side = int(round(m.shape[0] ** 0.5))
-        agg = agg + G.resize_bilinear(m.reshape(side, side), out_hw, out_hw)
-    agg = agg / (agg.max() + 1e-8)
+        m = m.float().mean(-2)                                  # [..., HW]
+        side = int(round(m.shape[-1] ** 0.5))
+        agg = agg + G.resize_bilinear(m.reshape(lead + (side, side)),
+                                      out_hw, out_hw)
+    agg = agg / (agg.amax((-2, -1), keepdim=True) + 1e-8)
     binary = (agg > mass_threshold).float()
     box = G.mask_to_box(binary, enlarge_by_one=False).float() / out_hw
-    area = (box[2] - box[0]) * (box[3] - box[1])
-    inside = (agg * binary).sum() / (agg.sum() + 1e-8)
+    area = (box[..., 2] - box[..., 0]) * (box[..., 3] - box[..., 1])
+    inside = (agg * binary).sum((-2, -1)) / (agg.sum((-2, -1)) + 1e-8)
     ok = torch.logical_and(area > min_area, inside > 0.25)
     return Detection(box=box, confidence=inside, ok=ok)

@@ -17,7 +17,10 @@ the guidance energy (``pipelines/guidance.py``; the reference's
 whatever DeepCache does.
 
 NHWC at the boundary, as in the JAX package: latents ``[1, h, w, 4]``,
-images ``[B, H, W, 3]`` in [0, 1].
+images ``[B, H, W, 3]`` in [0, 1].  :func:`make_batched_character_pipeline`
+runs B characters as one batch (the JAX package's ``vmap`` of this
+runner): per element its own context, IP scale, word token, noise stream
+and guidance problem.
 """
 
 from __future__ import annotations
@@ -28,7 +31,6 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..ops import guidance as guidance_ops
 from ..ops import scheduler as sched_ops
 from . import guidance as guidance_lib
 from .bundle import Bundle
@@ -134,6 +136,96 @@ def make_character_pipeline(bundle: Bundle, num_steps: int, *,
     SDXL bundle's cond rows of ``extra_cond``), its loss threaded from
     step to step; the trajectory holds the guided latents.  Only the
     update records a graph."""
+    loop, sampler = _character_loop(
+        bundle, num_steps, use_ip=use_ip, guided=guided,
+        capture_ref_attn=capture_ref_attn, guidance_scale=guidance_scale,
+        cfg_cutoff_fraction=cfg_cutoff_fraction,
+        deepcache_interval=deepcache_interval)
+
+    def run(input_latents: torch.Tensor, context: torch.Tensor,
+            ip_scale=0.0, word_token: int = 0,
+            generator: Optional[torch.Generator] = None, *,
+            noise: Optional[torch.Tensor] = None,
+            extra_cond: Optional[dict] = None,
+            gin: Optional[guidance_lib.GuidanceInputs] = None
+            ) -> CharacterResult:
+        dev = bundle.device
+        check_noise(noise, sampler.num_steps, input_latents.shape)
+        ip = torch.as_tensor(ip_scale, dtype=torch.float32, device=dev)
+        b = input_latents.shape[0]
+        cond_cfg, cond_1 = trailing_rows(extra_cond, dev, 2 * b, b)
+        final, traj, refs = loop(input_latents, context.to(dev), ip, ip,
+                                 cond_cfg, cond_1, [word_token] * b,
+                                 generator, noise, gin)
+        return CharacterResult(
+            final, traj, None if refs is None else tuple(r[:, 0]
+                                                         for r in refs))
+
+    return run, sampler
+
+
+def make_batched_character_pipeline(bundle: Bundle, num_steps: int,
+                                    **kwargs):
+    """The character runner at batch B, B independent passes in one loop
+    (the JAX package's ``vmap`` of the batch-1 runner,
+    ``parallel/driver.py::make_dp_character_runner``); returns ``(run,
+    sampler)``.  Every UNet evaluation runs at batch 2B under CFG (the
+    uncond rows of every element, then the cond rows) and B cond-only.
+
+    ``run(input_latents [B, h, w, 4], contexts [B, 2, L(+n), C], ip_scales
+    [B], word_tokens [B], generators=None, *, noise=None, extra_conds=None,
+    gins=None) -> CharacterResult`` with a leading B on every field:
+    ``latents [B, 1, h, w, 4]``, ``trajectory [B, S+1, 1, h, w, 4]``, per
+    key ``ref_attn [B, S, heads, HW]``, each element's maps at its own
+    word token.  ``ip_scales`` weight each element's IP branch (a DB hit
+    and a miss in one batch); ``generators`` is a list of one generator per
+    element (each draws its own ``[1, h, w, 4]`` a step, as the batch-1
+    runner draws from it) unless ``noise`` (``[S, B, h, w, 4]``) is
+    injected; ``extra_conds`` holds ``[B, 2, ...]`` tensors (uncond row
+    first); ``gins`` is a batched ``GuidanceInputs`` (leading axis B, see
+    ``guidance.stack_inputs``): each element descends on its own energy
+    and stops on its own threshold.  The options (``kwargs``) are
+    :func:`make_character_pipeline`'s."""
+    loop, sampler = _character_loop(bundle, num_steps, **kwargs)
+
+    def run(input_latents: torch.Tensor, contexts: torch.Tensor,
+            ip_scales, word_tokens, generators=None, *,
+            noise: Optional[torch.Tensor] = None,
+            extra_conds: Optional[dict] = None,
+            gins: Optional[guidance_lib.GuidanceInputs] = None
+            ) -> CharacterResult:
+        dev = bundle.device
+        b = input_latents.shape[0]
+        check_noise(noise, sampler.num_steps, input_latents.shape)
+        ip = torch.as_tensor(ip_scales, dtype=torch.float32,
+                             device=dev).reshape(b)
+        words = [int(t) for t in torch.as_tensor(word_tokens).reshape(b)]
+        flat = None
+        if extra_conds:
+            flat = {k: cfg_rows(v) for k, v in extra_conds.items()}
+        cond_cfg, cond_1 = trailing_rows(flat, dev, 2 * b, b)
+        final, traj, refs = loop(
+            input_latents, cfg_rows(contexts.to(dev)), torch.cat([ip, ip]),
+            ip, cond_cfg, cond_1, words, generators, noise, gins)
+        return CharacterResult(
+            final[:, None], traj.transpose(0, 1)[:, :, None],
+            None if refs is None else tuple(r.transpose(0, 1) for r in refs))
+
+    return run, sampler
+
+
+def _character_loop(bundle: Bundle, num_steps: int, *, use_ip: bool = True,
+                    guided: bool = False, capture_ref_attn: bool = False,
+                    guidance_scale: Optional[float] = None,
+                    cfg_cutoff_fraction: Optional[float] = None,
+                    deepcache_interval: Optional[int] = None):
+    """The character loop shared by the batch-1 and batched runners:
+    ``loop(input_latents [B, h, w, 4], context [2B, L, C] (the uncond rows,
+    then the cond rows), ip_cfg [2B] or 0-dim, ip_1 [B] or 0-dim,
+    cond_cfg, cond_1 (the UNet's extra inputs at 2B and B rows),
+    word_tokens (B ints), generator(s), noise, gin) -> (final [B, h, w,
+    4], trajectory [S+1, B, h, w, 4], per key maps [S, B, heads, HW] or
+    None)``."""
     cfg = bundle.cfg
     gcfg = cfg.guidance
     unet = bundle.unet_ip if use_ip else bundle.unet
@@ -156,32 +248,22 @@ def make_character_pipeline(bundle: Bundle, num_steps: int, *,
         deepcache_interval > 1 else None
 
     @torch.no_grad()
-    def run(input_latents: torch.Tensor, context: torch.Tensor,
-            ip_scale=0.0, word_token: int = 0,
-            generator: Optional[torch.Generator] = None, *,
-            noise: Optional[torch.Tensor] = None,
-            extra_cond: Optional[dict] = None,
-            gin: Optional[guidance_lib.GuidanceInputs] = None
-            ) -> CharacterResult:
+    def loop(input_latents, context, ip_cfg, ip_1, cond_cfg, cond_1,
+             word_tokens, generator, noise, gin):
         dev = bundle.device
         steps = sampler.on(dev)
-        check_noise(noise, s_total, input_latents.shape)
-        kwargs = {}
-        if use_ip:
-            kwargs["ip_scale"] = torch.as_tensor(ip_scale, dtype=torch.float32,
-                                                 device=dev)
-        context = context.to(dev)
+        kw_cfg = dict(ip_scale=ip_cfg) if use_ip else {}
+        kw_1 = dict(ip_scale=ip_1) if use_ip else {}
         lat = input_latents.to(dev, torch.float32).permute(0, 3, 1, 2)
         b = lat.shape[0]
-        cond_cfg, cond_1 = trailing_rows(extra_cond, dev, 2 * b, b)
+        words = torch.tensor(word_tokens, dtype=torch.long, device=dev)
         energy = None
         if guided:
             if gin is None:
                 raise ValueError("a guided character run needs gin "
                                  "(GuidanceInputs)")
             gin = gin.to(dev)
-            energy = guidance_lib.unet_energy_fn(unet, cfg, **cond_1,
-                                                 **kwargs)
+            energy = guidance_lib.unet_energy_fn(unet, cfg, **cond_1, **kw_1)
         gloss = None
         traj = torch.empty((s_total + 1,) + tuple(input_latents.shape),
                            dtype=torch.float32, device=dev)
@@ -197,25 +279,26 @@ def make_character_pipeline(bundle: Bundle, num_steps: int, *,
                 cache = cache[b:]
             scaled = steps.scale_model_input(lat, i)
             if cfg_on:
-                x_in, ctx, cond_idx = torch.cat([scaled, scaled]), context, 1
-                xc = cond_cfg
+                x_in, ctx, cond_rows = torch.cat([scaled, scaled]), context, b
+                xc, kw = cond_cfg, kw_cfg
             else:
-                x_in, ctx, cond_idx = scaled, context[b:], 0
-                xc = cond_1
+                x_in, ctx, cond_rows = scaled, context[b:], 0
+                xc, kw = cond_1, kw_1
             t = steps.timesteps[i].expand(x_in.shape[0])
             if dc and i % dc:
-                eps = unet(x_in, t, ctx, deep_cache=cache, **xc, **kwargs)
+                eps = unet(x_in, t, ctx, deep_cache=cache, **xc, **kw)
                 ref = ref_prev
             else:
                 out = unet(x_in, t, ctx, capture_keys=keys,
-                           return_deep_cache=bool(dc), **xc, **kwargs)
+                           return_deep_cache=bool(dc), **xc, **kw)
                 ref = None
                 if keys:
                     out, captured = out
-                    maps = guidance_ops.attn_collection_to_maps(
-                        captured, keys, cond_batch_index=cond_idx,
-                        text_len=text_len)
-                    ref = ref_prev = [m[:, :, word_token] for m in maps]
+                    # each element's cond row, at its own word token
+                    rows = torch.arange(cond_rows, cond_rows + b, device=dev)
+                    ref = ref_prev = [
+                        captured[tuple(k)][rows, :, :, words].float()
+                        for k in keys]
                 eps, cache = out if dc else (out, None)
             if keys:
                 if refs is None:
@@ -232,9 +315,15 @@ def make_character_pipeline(bundle: Bundle, num_steps: int, *,
             lat = steps.step(eps, i, lat, n)
         final = lat.permute(0, 2, 3, 1)
         traj[s_total] = final
-        return CharacterResult(final, traj, refs)
+        return final, traj, refs
 
-    return run, sampler
+    return loop, sampler
+
+
+def cfg_rows(x: torch.Tensor) -> torch.Tensor:
+    """``[B, 2, ...]`` (per element, its uncond row then its cond row) →
+    the CFG batch ``[2B, ...]``: every uncond row, then every cond row."""
+    return torch.cat([x[:, 0], x[:, 1]])
 
 
 def trailing_rows(extra_cond: Optional[dict], device, *rows: int):

@@ -40,9 +40,19 @@ def step_noise(i: int, shape, device, generator=None,
                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Step ``i``'s unit-normal noise as NCHW fp32 on ``device``:
     ``noise[i]`` (``[S, *shape]``, NHWC) where injected, else an NHWC draw
-    of ``shape`` from ``generator`` on its own device."""
+    of ``shape`` from ``generator`` on its own device.  ``generator`` may
+    be a list, one per batch row: each draws its own row ``[1, *shape[1:]]``
+    and the rows are concatenated, so a batch draws, row by row, what
+    batch-1 runs draw from the same streams."""
     if noise is not None:
         n = noise[i]
+    elif isinstance(generator, (list, tuple)):
+        if len(generator) != shape[0]:
+            raise ValueError(f"{len(generator)} generators for a batch of "
+                             f"{shape[0]}")
+        n = torch.cat([torch.randn((1,) + tuple(shape[1:]), generator=g,
+                                   device=g.device, dtype=torch.float32)
+                       .to(device) for g in generator])
     elif generator is not None:
         n = torch.randn(tuple(shape), generator=generator,
                         device=generator.device, dtype=torch.float32)

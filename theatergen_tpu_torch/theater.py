@@ -35,18 +35,20 @@ as the JAX Theater builds them; the starting latents are scaled by the
 sampler's ``init_noise_sigma``.
 
 The random draws of a turn come from ``torch.Generator``s seeded from the
-turn's seed.  The starting latents come from one generator seeded with
-the seed itself, in a fixed order: per character attempt the background
-and then the foreground noise, then the composition's background noise
-(or, in a turn without characters, its starting latents).  A sampler that
-draws noise each step (Euler-Ancestral, LCM) takes it from a stream of its
-own (:func:`noise_generator`): ``(seed, 1, character index, attempt)`` for
-a character attempt (the index of the character's first occurrence in the
-turn's spec), ``(seed, 2)`` for the final pass and ``(seed, 3)`` for a
-turn without characters.  DDIM draws nothing per step.  These streams
-cannot reproduce ``jax.random``'s, so parity with the JAX package goes
-through injected noise.  Everything stays on the bundle's device until
-the turn's images are fetched.
+turn's seed, one stream per use (:func:`noise_generator`): a character's
+starting latents from ``(seed, 0, idx)``, where ``idx`` is the index of
+the character's first occurrence in the turn's spec, each attempt's
+background and then foreground noise in turn; the composition's
+background noise (or, in a turn without characters, its starting
+latents) from ``(seed, 4)``.  A sampler that draws noise each step
+(Euler-Ancestral, LCM) takes it from ``(seed, 1, idx, attempt)`` for a
+character attempt, ``(seed, 2)`` for the final pass and ``(seed, 3)`` for
+a turn without characters.  DDIM draws nothing per step.  Per-character
+streams make a character's draws independent of the order in which the
+characters run, so the batched mode draws what the serial loop draws.
+These streams cannot reproduce ``jax.random``'s, so parity with the JAX
+package goes through injected noise.  Everything stays on the bundle's
+device until the turn's images are fetched.
 
 With ``guided`` (the CLI's ``--guidance``) every character attempt, the
 background-only turn and the final pass descend their latents on the
@@ -54,8 +56,20 @@ guidance energy (``pipelines/guidance.py``): a character on its centred
 box and its phrase's tokens, the final pass on the layout's boxes and each
 object's tokens in the overall prompt, with attention transfer from each
 character's reference maps, per step (``attn_transfer="per_step"``, the
-reference's) or their step mean (``"aggregate"``).  The batched character
-mode and meshes raise until their ROADMAP item lands.
+reference's) or their step mean (``"aggregate"``).
+
+With ``batch_characters`` (the CLI's ``--batch_chars``) a turn's unique
+characters, where there are two or more with distinct ids, run their
+first attempt as one batch (``parallel/driver.py``), are detected and
+masked as one batch, and a character whose detection fails rejoins the
+serial detect-and-regenerate loop, which draws its attempt 0 again from
+its own stream.  :func:`run_turn_wave` advances the turns of several
+dialogues (one Theater each, one shared bundle) in lockstep: all their
+characters in one batch, then all their final passes in another.  A
+failed wave rolls back the character-DB writes it made and raises
+:class:`WaveFailure`, carrying the turns that its serial fallback
+finished, so a caller reruns the others serially with the same seeds.
+Meshes raise until the multi-card half of ROADMAP §1 item 5 lands.
 """
 
 from __future__ import annotations
@@ -75,11 +89,12 @@ from .perception import detector as det
 from .perception import sam as sam_lib
 from .pipelines import sd, sdxl
 from .pipelines.bundle import Bundle
-from .pipelines.character import (encode_ip_image, ip_context,
-                                  make_character_pipeline,
+from .parallel import driver
+from .pipelines.character import (CharacterResult, encode_ip_image,
+                                  ip_context, make_character_pipeline,
                                   uncond_ip_features)
 from .pipelines.final import make_final_pipeline
-from .pipelines.guidance import GuidanceInputs
+from .pipelines.guidance import GuidanceInputs, stack_inputs
 from .utils import parse
 from .utils.profiling import PhaseTimer
 from .utils.tokenizer import find_phrase_token_indices
@@ -126,13 +141,16 @@ def _attn_mask_fallback(maps: Sequence[torch.Tensor], hint: torch.Tensor,
     (``[heads, HW]`` each) averaged over heads, resized to the latent grid
     and summed, normalised by their maximum; the mask holds where that
     exceeds 0.3, or 0.1 inside the box ``hint``.  Returns ``(latent mask
-    [h, w], pixel mask [H, W])``, {0, 1} fp32."""
-    agg = torch.zeros((h, w), dtype=torch.float32, device=hint.device)
+    [h, w], pixel mask [H, W])``, {0, 1} fp32.  Leading axes carry
+    through: maps ``[B, heads, HW]`` and hints ``[B, 4]`` give B masks (the
+    batched characters' masks)."""
+    lead = tuple(hint.shape[:-1])
+    agg = torch.zeros(lead + (h, w), dtype=torch.float32, device=hint.device)
     for m in maps:
-        mm = m.float().mean(0)
-        side = int(round(mm.shape[0] ** 0.5))
-        agg = agg + G.resize_bilinear(mm.reshape(side, side), h, w)
-    agg = agg / (agg.max() + 1e-8)
+        mm = m.float().mean(-2)
+        side = int(round(mm.shape[-1] ** 0.5))
+        agg = agg + G.resize_bilinear(mm.reshape(lead + (side, side)), h, w)
+    agg = agg / (agg.amax((-2, -1), keepdim=True) + 1e-8)
     box_m = G.box_mask(hint.float(), h, w)
     m_lat = torch.maximum((agg > 0.3).float(), box_m * (agg > 0.1).float())
     return m_lat, G.upsample_nearest(m_lat, H, W)
@@ -210,16 +228,17 @@ class Theater:
         if attn_transfer not in ("per_step", "aggregate"):
             raise ValueError(f"attn_transfer {attn_transfer!r}: expected "
                              f"'per_step' or 'aggregate'")
-        if mesh is not None or batch_characters:
-            raise NotImplementedError(
-                "the batched character mode and meshes are not ported yet "
-                "(ROADMAP §1 item 5)")
+        driver.refuse_mesh(mesh)
         if bundle.unet_ip is None:
             raise ValueError("Theater: the bundle needs the IP UNet "
                              "(init_bundle(..., with_ip=True))")
         cfg = bundle.cfg
         self.bundle, self.db, self.task, self.cfg = bundle, db, task, cfg
         self.guided, self.attn_transfer = guided, attn_transfer
+        # a turn's characters as one batch (the reference is serial,
+        # theatergen.py:396-407; their passes are independent)
+        self.batch_characters = bool(batch_characters)
+        self._char_run_b = self._final_run_b = None
         self.num_steps = num_steps or cfg.pipeline.num_steps
         # SDXL: two text towers and micro-conditioning; the T2I-Adapter,
         # where the bundle has it, conditions the final pass in place of
@@ -415,6 +434,10 @@ class Theater:
             pl.latent_width, fg_blending_ratio=pl.fg_blending_ratio,
             init_noise_sigma=self._init_sigma)[0][0]
 
+    def _bg_gen(self, seed: int) -> torch.Generator:
+        """The stream of the turn's background noise, ``(seed, 4)``."""
+        return noise_generator(self.bundle.device, seed, 4)
+
     def _bg_latents(self, gen: torch.Generator) -> torch.Tensor:
         """Scaled unit noise [1, h, w, 4]: the composition's background, or
         the starting latents of a turn without characters."""
@@ -423,12 +446,15 @@ class Theater:
                                  device=self.bundle.device) * self._init_sigma
 
     def _character_finish(self, plan: parse.ObjectPlan, prep: dict, result,
-                          image, agg, detected_ok: bool, det_box) -> dict:
+                          image, agg, detected_ok: bool, det_box,
+                          masks=None) -> dict:
         """Masks, the deferred DB write of a new character, and the
-        character's record (theatergen.py:158-201)."""
+        character's record (theatergen.py:158-201).  ``masks`` carries
+        (latent, pixel) masks made by the batched path."""
         img_embed = prep["img_embed"]
         with self.timer.phase("char.masks"):
-            m_lat, m_pix = self._extract_masks(agg, image, det_box)
+            m_lat, m_pix = (masks if masks is not None
+                            else self._extract_masks(agg, image, det_box))
         if not prep["hit"]:
             with self.timer.phase("char.embed_db"):
                 emb_dev = encode_ip_image(self.bundle, image)[0]
@@ -447,12 +473,13 @@ class Theater:
         return noise_generator(self.bundle.device, seed, *stream)
 
     def _generate_character(self, plan: parse.ObjectPlan, extra_neg: str,
-                            gen: torch.Generator, seed: int,
-                            idx: int) -> dict:
+                            seed: int, idx: int) -> dict:
         """One character with detect-and-regenerate (theatergen.py:43-201):
-        a fresh draw per attempt, up to MAX_REGEN_ATTEMPTS; attempt ``a``
-        steps with the noise stream ``(seed, 1, idx, a)``."""
+        attempt ``a`` draws its starting latents next from the stream
+        ``(seed, 0, idx)`` and steps with the noise stream ``(seed, 1, idx,
+        a)``, up to MAX_REGEN_ATTEMPTS."""
         prep = self._character_prep(plan, extra_neg)
+        gen = noise_generator(self.bundle.device, seed, 0, idx)
         detected_ok = False
         result = image = agg = detection = None
         for attempt in range(MAX_REGEN_ATTEMPTS):
@@ -474,6 +501,100 @@ class Theater:
                    else prep["centered"].to(self.bundle.device))
         return self._character_finish(plan, prep, result, image, agg,
                                       detected_ok, det_box)
+
+    def _batched_char_runner(self):
+        """The batched character runner (``parallel.driver``), built on
+        first use."""
+        if self._char_run_b is None:
+            pl = self.cfg.pipeline
+            self._char_run_b = driver.make_dp_character_runner(
+                self.bundle, self.num_steps, use_ip=True, guided=self.guided,
+                capture_ref_attn=True,
+                cfg_cutoff_fraction=pl.cfg_cutoff_fraction,
+                deepcache_interval=pl.deepcache_interval,
+                with_extra_cond=self.is_xl)[0]
+        return self._char_run_b
+
+    def _generate_characters_batched(self, oplans, extra_neg: str,
+                                     seed: int, indices) -> List[dict]:
+        """A turn's unique characters in one batch (the reference runs them
+        one by one, theatergen.py:396-407; their passes are independent).
+        Each character draws from its own streams, as the serial loop does;
+        a failed detection rejoins the serial detect-and-regenerate
+        loop."""
+        return self._batched_char_exec(
+            _make_char_jobs(self, oplans, extra_neg, seed, indices))
+
+    def _batched_char_exec(self, jobs: List[dict]) -> List[dict]:
+        """Run character jobs (``{th, oplan, prep, extra_neg, seed, idx}``)
+        as one batch on this Theater's runner: attempt 0 of every job, its
+        starting latents drawn by this Theater's ``_char_input_latents``
+        in job order, one decode, one detection with one host read of the
+        verdicts, one mask program.  Jobs may come from several Theaters
+        (``run_turn_wave`` batches across dialogues) that share this one's
+        bundle and settings; each job's masks, DB write and fallback go
+        through its own Theater.  A job whose detection fails reruns in its
+        Theater's serial loop (attempt 0 again, from the same streams,
+        then fresh attempts)."""
+        dev = self.bundle.device
+        lats = torch.cat([self._char_input_latents(
+            noise_generator(dev, j["seed"], 0, j["idx"]),
+            j["prep"]["centered"]) for j in jobs])
+        gens = (None if not self.char_sched.needs_noise else
+                [noise_generator(dev, j["seed"], 1, j["idx"], 0)
+                 for j in jobs])
+        preps = [j["prep"] for j in jobs]
+        gins = stack_inputs([p["gin"] for p in preps]) if self.guided \
+            else None
+        extra = None
+        if self.is_xl:
+            extra = {k: torch.stack([p["extra_cond"][k] for p in preps])
+                     for k in preps[0]["extra_cond"]}
+        with self.timer.phase("char.denoise_decode", sync=True):
+            res = self._batched_char_runner()(
+                lats[:, None], torch.stack([p["ctx"] for p in preps]),
+                [p["ip_scale"] for p in preps], gins, gens, extra,
+                word_tokens=[p["word_token"] for p in preps])
+            images = self._decode_img(res.latents[:, 0])
+            aggs = self._aggregate_attn(res.ref_attn)   # per key [B, ...]
+        with self.timer.phase("char.detect"):
+            det_b = det.attention_detect_batch(aggs)
+            oks = det_b.ok.tolist()
+        with self.timer.phase("char.masks"):
+            masks_b = self._extract_masks_batched(aggs, images, det_b.box)
+
+        outs = []
+        for i, j in enumerate(jobs):
+            th = j["th"]
+            if not oks[i]:
+                outs.append(th._generate_character(
+                    j["oplan"], j["extra_neg"], j["seed"], j["idx"]))
+                continue
+            result = CharacterResult(
+                res.latents[i], res.trajectory[i],
+                tuple(m[i] for m in res.ref_attn))
+            outs.append(th._character_finish(
+                j["oplan"], j["prep"], result, images[i][None],
+                [m[i] for m in aggs], True, det_b.box[i],
+                masks=(masks_b[0][i], masks_b[1][i])))
+        return outs
+
+    def _extract_masks_batched(self, agg_maps, images, box_hints):
+        """:meth:`_extract_masks` of a batch: one segmenter forward over
+        ``images [B, H, W, 3]`` with one box each, or the thresholded maps
+        (``[B, heads, HW]`` per key) of every element at once."""
+        pl = self.cfg.pipeline
+        h, H = pl.latent_height, pl.height
+        sam = self.bundle.sam
+        if sam is not None:
+            size = sam_lib.sam_input_size(sam)
+            imgs = G.resize_bilinear(images.permute(0, 3, 1, 2), size,
+                                     size).permute(0, 2, 3, 1)
+            (m_lat, m_pix), _ = sam_lib.segment_with_box_batch(
+                sam, imgs, box_hints, out_sizes=(h, H))
+            return m_lat, m_pix
+        return _attn_mask_fallback(agg_maps, box_hints, h, pl.latent_width,
+                                   H, pl.width)
 
     # ------------------------------------------------------------------ turn
 
@@ -513,15 +634,24 @@ class Theater:
                  if frozen_step_ratio is None else frozen_step_ratio)
         frozen_steps = min(int(round(ratio * self.num_steps)),
                            self.char_sched.num_steps)
-        gen = torch.Generator(device=b.device).manual_seed(seed)
-
         order, unique_plans, unique_idx = _dedup_plans(plan)
         cache: Dict[Tuple[str, int], dict] = {}
-        for oplan, idx in zip(unique_plans, unique_idx):
+        # batched characters need distinct ids: with a repeated id the
+        # serial loop's first write is the second's DB hit
+        if (self.batch_characters and len(unique_plans) > 1
+                and len({p.obj_id for p in unique_plans})
+                == len(unique_plans)):
             with self.timer.phase("character"):
-                cache[(oplan.prompt, oplan.obj_id)] = (
-                    self._generate_character(oplan, extra_neg, gen, seed,
-                                             idx))
+                outs = self._generate_characters_batched(
+                    unique_plans, extra_neg, seed, unique_idx)
+            for oplan, out in zip(unique_plans, outs):
+                cache[(oplan.prompt, oplan.obj_id)] = out
+        else:
+            for oplan, idx in zip(unique_plans, unique_idx):
+                with self.timer.phase("character"):
+                    cache[(oplan.prompt, oplan.obj_id)] = (
+                        self._generate_character(oplan, extra_neg, seed,
+                                                 idx))
         chars = [cache[key] for key in order]
 
         if not chars:
@@ -533,13 +663,13 @@ class Theater:
                              self._uncond_ip)
             gin = (self._guidance_inputs([(0.0, 0.0, 1.0, 1.0)], [[1]])
                    if self.guided else None)
-            res = self.char_run(self._bg_latents(gen), ctx, 0.0, 0,
-                                self._noise_gen(seed, 3),
+            res = self.char_run(self._bg_latents(self._bg_gen(seed)), ctx,
+                                0.0, 0, self._noise_gen(seed, 3),
                                 extra_cond=extra_cond, gin=gin)
             img = self._decode_img(res.latents)[0].float().cpu().numpy()
             return TurnResult(img, [], img, time.time() - t_start, [], [])
 
-        fargs, collage = self._final_stage(plan, chars, extra_neg, gen)
+        fargs, collage = self._final_stage(plan, chars, extra_neg, seed)
         with self.timer.phase("final", sync=True):
             final, _ = self.final_run(
                 fargs["composed"], fargs["frozen_mask"], frozen_steps,
@@ -561,10 +691,11 @@ class Theater:
             db_hits=[bool(c["hit"]) for c in chars])
 
     def _final_stage(self, plan: parse.TurnPlan, chars: List[dict],
-                     extra_neg: str, gen: torch.Generator):
+                     extra_neg: str, seed: int):
         """Composition and the final pass's conditioning for a turn whose
         characters are generated (theatergen.py:417-477).  Returns
-        ``(final-run inputs, collage)``."""
+        ``(final-run inputs, collage)``; ``run_turn_wave`` stacks the
+        inputs of several dialogues for the batched final pass."""
         b, cfg = self.bundle, self.cfg
         pl = cfg.pipeline
         dev = b.device
@@ -585,7 +716,8 @@ class Theater:
                 stack("trajectory"), stack("mask_lat"), stack("mask_pix"),
                 torch.stack([chars[i]["image"][0] for i in range(n)]
                             + [torch.zeros_like(chars[0]["image"][0])] * pad),
-                boxes, torch.arange(k, device=dev) < n, self._bg_latents(gen))
+                boxes, torch.arange(k, device=dev) < n,
+                self._bg_latents(self._bg_gen(seed)))
 
         # the overall context, with the first character's IP features
         # (models/pipelines.py:700-701)
@@ -630,3 +762,181 @@ class Theater:
         if self.attn_transfer == "aggregate":
             refs = [tuple(self._aggregate_attn(r)) for r in refs]
         return self._guidance_inputs(boxes, token_pos, refs)
+
+
+def _make_char_jobs(th: Theater, oplans, extra_neg: str, seed: int,
+                    indices) -> List[dict]:
+    """Character jobs for :meth:`Theater._batched_char_exec`: the one place
+    the job's fields and its streams' indices are set (the batched turn
+    and run_turn_wave share it)."""
+    return [dict(th=th, oplan=p, extra_neg=extra_neg,
+                 prep=th._character_prep(p, extra_neg), seed=seed, idx=idx)
+            for p, idx in zip(oplans, indices)]
+
+
+def _wave_final_runner(th: Theater):
+    """The batched final runner of ``th``'s settings, built on first
+    use."""
+    if th._final_run_b is None:
+        pl = th.cfg.pipeline
+        th._final_run_b = driver.make_dp_final_runner(
+            th.bundle, th.num_steps, use_ip=True,
+            use_controlnet=th.use_controlnet, guided=th.guided,
+            cfg_cutoff_fraction=pl.cfg_cutoff_fraction,
+            deepcache_interval=pl.deepcache_interval,
+            controlnet_interval=pl.controlnet_interval,
+            with_extra_cond=th.is_xl, with_adapter=th.use_t2i)[0]
+    return th._final_run_b
+
+
+def _to_host(images: torch.Tensor) -> np.ndarray:
+    """The wave's final images on the host: where a device fault of the
+    batched final pass surfaces, after the DB writes were flushed."""
+    return images.float().cpu().numpy()
+
+
+class WaveFailure(RuntimeError):
+    """A wave's batched passes failed.  ``results`` maps wave-local
+    dialogue indices to the TurnResults of dialogues that finished all the
+    same (through the wave's serial fallback); a quarantine reuses them
+    rather than rerun those turns, whose DB writes are durable."""
+
+    def __init__(self, results: Dict[int, TurnResult], cause):
+        super().__init__(f"wave failed: {cause!r} "
+                         f"({len(results)} dialogues completed serially)")
+        self.results = results
+
+
+def run_turn_wave(theaters: List[Theater], specs: List[dict],
+                  seeds: List[int],
+                  frozen_step_ratio: Optional[float] = None
+                  ) -> List[TurnResult]:
+    """One turn of each of N dialogues in lockstep (the dialogue is the
+    unit: its turns depend on each other through the character DB, so N
+    dialogues advance one turn at a time; the reference runs them one by
+    one, generate.py:180-269).  All characters of the wave run as one
+    batch and all final passes as another.  The Theaters share one bundle
+    and settings, each with its own DB; a dialogue whose turn has no
+    characters or repeats an id runs its owner's serial ``run_turn``
+    inside the wave.  Each turn draws what its serial ``run_turn`` draws.
+
+    On a failure the wave's character-DB writes are undone (the deferred
+    ones dropped, the flushed first appearances deleted) and
+    :class:`WaveFailure` carries the turns that finished serially, so a
+    quarantine reruns the other turns serially with the same seeds from a
+    clean DB."""
+    if not len(theaters) == len(specs) == len(seeds):
+        raise ValueError("run_turn_wave: one spec and one seed per theater")
+    results: Dict[int, TurnResult] = {}
+    states, jobs = [], []
+    try:
+        # host prep and character jobs per dialogue, inside the try: an
+        # error in a later dialogue's prep must still come out as a
+        # WaveFailure carrying the finished serial turns
+        for d, (th, spec, seed) in enumerate(zip(theaters, specs, seeds)):
+            t0 = time.time()
+            plan = parse.convert_spec(spec, th.cfg.pipeline.height,
+                                      th.cfg.pipeline.width)
+            extra_neg = spec.get("extra_neg_prompt") or ""
+            order, uplans, uidx = _dedup_plans(plan)
+            if not uplans or len({p.obj_id for p in uplans}) != len(uplans):
+                # no characters, or a repeated id whose DB-hit chain is
+                # serial.  run_turn's finally flushes its DB writes even
+                # when it fails, and those ids never enter `jobs`: roll
+                # them back here so a quarantine rerun starts clean
+                missing = [p.obj_id for p in plan.object_plans
+                           if not th.db.has(p.obj_id)]
+                try:
+                    results[d] = th.run_turn(spec, seed, frozen_step_ratio)
+                except BaseException:
+                    for oid in missing:
+                        if th.db.has(oid):
+                            th.db.delete(oid)
+                    raise
+                continue
+            djobs = _make_char_jobs(th, uplans, extra_neg, seed, uidx)
+            states.append(dict(d=d, th=th, plan=plan, extra_neg=extra_neg,
+                               seed=seed, order=order, uplans=uplans,
+                               jobs=djobs, t0=t0))
+            jobs.extend(djobs)
+        if states:
+            _run_wave_body(theaters[0], states, jobs, results,
+                           frozen_step_ratio)
+        return [results[d] for d in range(len(theaters))]
+    except BaseException as e:
+        # No DB write of a failed batch may stay: the quarantine reruns
+        # the turns serially with the same seeds, and a stale entry would
+        # make a first appearance a DB hit.  Undo the deferred writes and
+        # the flushed ones (a device fault of the final pass surfaces at
+        # the images' fetch, after the flush): a first appearance's id
+        # present now was written by this wave (the reference deletes
+        # before a retry, theatergen.py:158-159)
+        for st in states:
+            st["th"]._pending_saves.clear()
+        for j in jobs:
+            if not j["prep"]["hit"] and j["th"].db.has(j["oplan"].obj_id):
+                j["th"].db.delete(j["oplan"].obj_id)
+        if isinstance(e, Exception):
+            raise WaveFailure(results, e) from e
+        raise
+
+
+def _run_wave_body(lead: Theater, states: List[dict], jobs: List[dict],
+                   results: Dict[int, TurnResult],
+                   frozen_step_ratio: Optional[float]) -> None:
+    """The batched part of a wave: one character batch, each dialogue's
+    composition and final-pass inputs, one final batch; fills
+    ``results``."""
+    outs = lead._batched_char_exec(jobs)
+    pos = 0
+    for st in states:
+        th = st["th"]
+        couts = outs[pos:pos + len(st["jobs"])]
+        pos += len(st["jobs"])
+        cache = {(p.prompt, p.obj_id): o for p, o in zip(st["uplans"], couts)}
+        st["chars"] = [cache[k] for k in st["order"]]
+        st["fargs"], st["collage"] = th._final_stage(
+            st["plan"], st["chars"], st["extra_neg"], st["seed"])
+        ratio = (th.cfg.pipeline.frozen_step_ratio
+                 if frozen_step_ratio is None else frozen_step_ratio)
+        st["frozen"] = min(int(round(ratio * th.num_steps)),
+                           th.char_sched.num_steps)
+
+    fargs = [st["fargs"] for st in states]
+
+    def stack(key):
+        return torch.stack([f[key] for f in fargs])
+
+    extra = feats = None
+    if lead.is_xl:
+        extra = {k: torch.stack([f["extra_cond"][k] for f in fargs])
+                 for k in fargs[0]["extra_cond"]}
+    if lead.use_t2i:
+        feats = tuple(torch.cat(level) for level in
+                      zip(*(f["adapter_feats"] for f in fargs)))
+    gens = (None if not lead.char_sched.needs_noise else
+            [noise_generator(lead.bundle.device, st["seed"], 2)
+             for st in states])
+    with lead.timer.phase("final", sync=True):
+        finals = _wave_final_runner(lead)(
+            stack("composed"), stack("frozen_mask"),
+            [st["frozen"] for st in states], stack("ctx"), stack("cn_ctx"),
+            stack("cond_img"), lead.cfg.pipeline.ip_scale_final,
+            stack_inputs([f["gin"] for f in fargs]) if lead.guided else None,
+            gens, extra, feats)
+        images = lead._decode_img(finals[:, 0])
+        # the deferred DB writes: their programs precede the final pass in
+        # the device queue
+        for st in states:
+            st["th"]._flush_db_saves()
+        images = _to_host(images)
+
+    for i, st in enumerate(states):
+        chars = st["chars"]
+        results[st["d"]] = TurnResult(
+            image=images[i],
+            so_images=[c["image"][0].float().cpu().numpy() for c in chars],
+            collage=st["collage"].float().cpu().numpy(),
+            seconds=time.time() - st["t0"],
+            detections=[bool(c["detected"]) for c in chars],
+            db_hits=[bool(c["hit"]) for c in chars])
