@@ -137,6 +137,16 @@ Phases, in order (any failure exits non-zero):
      (character batch, serial rejoins, final batch); then the CLI with
      ``--dp_dialogues 2`` at WAVE_CLI_STEPS steps, each wave turn's
      launches ``wave_want``.
+ 13. GroundingDINO as the story turn's detector (``gdino_path``): the
+     detector at grounding-dino-tiny's widths on seeded fp32 weights, one
+     800² detection against the same weights on the CPU (and, printed
+     only, with TF32 allowed), ``detect_batch``
+     of 4 against the serial calls, its wall and device ms and peak
+     memory (none of the port's kernels launched); then dialogue_0
+     through the CLI with ``--weights`` of a directory holding only
+     ``gdino.safetensors`` and ``gdino_vocab.txt`` (50 steps) and with
+     ``--batch_chars`` (10 steps), the detector called once per
+     ``char.detect`` and attention detection never.
 Every launch counter is set to 0 just before each request (or turn) and
 read just after it, and must equal the launches per request of each
 kernel: the constants of the SD1.5, W8A8 and SDXL requests under the
@@ -226,6 +236,10 @@ XL_HINT, XL_TURN = "sdxl_1024_hint", "sdxl_1024_turn"
 # the checkpoint-loaded story turn: a synthetic SD1.5 checkpoint directory
 # (the bundle of seed 0, SAM and the annotator drawn from CKPT_SEED)
 CKPT, CKPT_SEED = "sd15_512_checkpoint", 12
+# GroundingDINO (grounding-dino-tiny's widths, 800² input) on weights drawn
+# from GDINO_SEED: a batch of GDINO_BATCH detections, and dialogue_0 with
+# it as the detector (--batch_chars at GDINO_BATCH_STEPS steps, for time)
+GDINO, GDINO_SEED, GDINO_BATCH, GDINO_BATCH_STEPS = "gdino_800", 13, 4, 10
 # CMIGBench authors its layout boxes on a 512² canvas; the XL turn scales
 # them to its 1024² one (the CLI's --box_canvas)
 XL_BOX_CANVAS = 512
@@ -2237,6 +2251,20 @@ def turn_path(records, label: str = "", flags=(), steps: int = SD15_STEPS,
                 phase_seconds=phase_s, profile_trace_bytes=trace)
 
 
+def synthetic_vocab(path: str, words, size: int = 30522) -> None:
+    """Write a vocabulary laid out as BERT's: ``[PAD]`` 0, ``[UNK]`` 100,
+    ``[CLS]`` 101, ``[SEP]`` 102, ``.`` 1012, ``?`` 1029, ``words`` (each
+    once, sorted) from 1030 on, filler tokens elsewhere; ``size`` lines."""
+    toks = [f"[unused{i}]" for i in range(size)]
+    for i, t in ((0, "[PAD]"), (100, "[UNK]"), (101, "[CLS]"),
+                 (102, "[SEP]"), (1012, "."), (1029, "?")):
+        toks[i] = t
+    for i, w in enumerate(sorted(set(words))):
+        toks[1030 + i] = w
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("".join(t + "\n" for t in toks))
+
+
 def loaded_mismatches(src, loaded) -> tuple:
     """The entries of the bundle ``load_bundle`` read from ``src``'s
     checkpoint directory that differ from their source: the fp16 files'
@@ -2474,6 +2502,283 @@ def _checkpoint_phase(root: str, records, default_dialogue_s: float
                 lineart_default_rerun_diff=default_diff, runs=runs,
                 images_equal=same,
                 phase_seconds=phase_s)
+
+
+def gdino_path(records) -> dict:
+    """GroundingDINO (Swin-T + BERT-base, grounding-dino-tiny's widths) as
+    the story turn's detector.  ``GroundingDinoForDetection`` on seeded
+    fp32 weights (GDINO_SEED) on the card: one detection of a seeded 512²
+    image (resized to 800²) against the same state dict on the CPU (the
+    finite-logit mask equal, logits within 1e-2·max|ref|, boxes within
+    1e-3, the same best query), and the same forward with TF32 allowed
+    printed beside it (not gated: the detector turns TF32 off);
+    ``detect_batch`` of GDINO_BATCH images against the serial calls (boxes
+    within 1e-4, ``ok`` equal); wall and device ms of a serial and a
+    batched detection and their peak memory, launching none of the port's
+    kernels.  Then ``gdino.safetensors`` (the
+    module's state dict in transformers' names, tied box-head copies and
+    index buffers included) and a synthetic 30,522-line
+    ``gdino_vocab.txt`` under build/, and dialogue_0 through the CLI with
+    ``--weights`` of that directory (the rest of the bundle random, as the
+    default turn's) under turn_path's gates: the detector called once per
+    ``char.detect``, attention detection never, each character's
+    confidence and verdict printed; then ``--weights --batch_chars`` at
+    GDINO_BATCH_STEPS steps, one ``detect_batch`` per character batch.
+    The directory is deleted at the end."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, "build", "chip_smoke_gdino")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        return _gdino_phase(root, records)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _best_query(logits, n: int) -> tuple:
+    """The serial backend's choice: (best query, its score, the runner-up's
+    score) of logits ``[Q, T]`` over the phrase window ``[1, n-1)``."""
+    scores = torch.sigmoid(logits.float())[:, 1:max(n - 1, 1)].amax(-1)
+    top = torch.topk(scores, 2)
+    return (int(top.indices[0]), float(top.values[0]),
+            float(top.values[1]))
+
+
+def _gdino_phase(root: str, records) -> dict:
+    """The body of :func:`gdino_path`, its files under ``root``."""
+    from theatergen_tpu_torch.models import export, weights
+    from theatergen_tpu_torch.perception import gdino
+    from theatergen_tpu_torch.pipelines.bundle import build_module
+
+    t_phase = time.perf_counter()
+    cfg = gdino.GroundingDinoConfig()
+    gen = torch.Generator(device="cuda").manual_seed(GDINO_SEED)
+    model = build_module(gdino.GroundingDinoForDetection, cfg,
+                         torch.float32, "cuda", gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"  GroundingDinoForDetection(GroundingDinoConfig()): {n_params} "
+        f"parameters, {n_bytes} bytes (fp32); levels {cfg.level_shapes}, "
+        f"{sum(h * w for h, w in cfg.level_shapes)} encoder tokens")
+    specs = dialogue_specs("dialogue_0")
+    phrases = sorted({ph for sp in specs for ph, _ in sp["gen_boxes"]})
+    words = {w for ph in phrases for w in re.findall(r"[a-z0-9]+",
+                                                     ph.lower())}
+    ckpt = os.path.join(root, "weights")
+    os.makedirs(ckpt)
+    vocab = os.path.join(ckpt, "gdino_vocab.txt")
+    synthetic_vocab(vocab, words)
+    backend = gdino.GroundingDinoBackend(cfg, model.state_dict(),
+                                         gdino.WordPieceTokenizer(vocab))
+
+    # the card against the CPU, one detection
+    phrase = phrases[0]
+    pixels = gdino.preprocess(backend._resize(ip_image()[0]))[None]
+    logits, boxes, (n,) = backend._forward(pixels, [phrase])
+    torch.cuda.synchronize()
+    cpu = gdino.GroundingDinoBackend(
+        cfg, {k: v.cpu() for k, v in model.state_dict().items()},
+        backend.tokenizer, device="cpu")
+    t0 = time.perf_counter()
+    ref_logits, ref_boxes, _ = cpu._forward(pixels.cpu(), [phrase])
+    cpu_s = time.perf_counter() - t0
+    del cpu
+    logits, boxes = logits.cpu(), boxes.cpu()
+    finite = torch.isfinite(ref_logits)
+    mask_equal = torch.equal(torch.isfinite(logits), finite)
+    ref_max = float(ref_logits[finite].abs().max())
+    logit_err = float((logits[finite] - ref_logits[finite]).abs().max())
+    box_err = float((boxes - ref_boxes).abs().max())
+    best, best_ref = _best_query(logits[0], n), _best_query(ref_logits[0], n)
+    ok = (mask_equal and logit_err <= 1e-2 * ref_max and box_err <= 1e-3
+          and best[0] == best_ref[0])
+    log(f"  card against the CPU (fp32, TF32 off; \"{phrase}\", {n} "
+        f"tokens; the CPU's forward {cpu_s:.2f} s): finite-logit mask "
+        f"{'equal' if mask_equal else 'DIFFERS'} ({int(finite.sum())} "
+        f"finite of {finite.numel()}); logits max_abs_err {logit_err:.3e} "
+        f"bound {1e-2 * ref_max:.3e} (1e-2*max|ref|); boxes max_abs_err "
+        f"{box_err:.3e} bound 1e-3; best query {best[0]} (score "
+        f"{best[1]:.6f}, runner-up {best[2]:.6f}) against the CPU's "
+        f"{best_ref[0]} ({best_ref[1]:.6f})  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("GroundingDINO on the card disagrees with the CPU")
+
+    # the same forward with TF32 allowed, for comparison only: the
+    # detector turns TF32 off
+    @contextlib.contextmanager
+    def tf32_on():
+        prev = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            yield
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = prev
+
+    def forward():
+        return backend._forward(pixels, [phrase])
+
+    fp32_ms = device_ms(forward)
+    with mock.patch.object(gdino, "_exact_fp32", tf32_on):
+        tf_logits, tf_boxes, _ = forward()
+        tf32_ms = device_ms(forward)
+    tf_logits, tf_boxes = tf_logits.cpu(), tf_boxes.cpu()
+    tf32 = dict(
+        mask_equal=torch.equal(torch.isfinite(tf_logits), finite),
+        logits_err=float((tf_logits[finite]
+                          - ref_logits[finite]).abs().max()),
+        box_err=float((tf_boxes - ref_boxes).abs().max()),
+        best_query=_best_query(tf_logits[0], n)[0], device_ms=tf32_ms)
+    log(f"  with TF32 allowed (not the detector's setting): logits "
+        f"max_abs_err {tf32['logits_err']:.3e} against the CPU, boxes "
+        f"{tf32['box_err']:.3e}, best query {tf32['best_query']}, finite "
+        f"mask {'equal' if tf32['mask_equal'] else 'DIFFERS'}; the forward "
+        f"{tf32_ms:.3f} ms device against {fp32_ms:.3f} ms in fp32")
+
+    # a batch against its serial calls
+    g = torch.Generator(device="cuda").manual_seed(GDINO_SEED + 1)
+    images = torch.rand(GDINO_BATCH, 512, 512, 3, device="cuda", generator=g)
+    batch_phrases = [phrases[i % len(phrases)] for i in range(GDINO_BATCH)]
+    reset_counts()
+    serial = [backend(images[i], batch_phrases[i])
+              for i in range(GDINO_BATCH)]
+    batch = backend.detect_batch(images, batch_phrases)
+    torch.cuda.synchronize()
+    got = read_counts()
+    box_diff = max(float((batch.box[i] - serial[i].box).abs().max())
+                   for i in range(GDINO_BATCH))
+    oks = [bool(d.ok) for d in serial]
+    same_ok = batch.ok.tolist() == oks
+    log(f"  detect_batch of {GDINO_BATCH} against {GDINO_BATCH} serial "
+        f"calls: boxes {box_diff:.3e} apart (bound 1e-4), ok "
+        f"{batch.ok.tolist()} against {oks}; confidences "
+        f"{[round(float(c), 6) for c in batch.confidence]}  "
+        f"{'ok' if box_diff <= 1e-4 and same_ok else 'FAIL'}")
+    if box_diff > 1e-4 or not same_ok:
+        raise SystemExit("GroundingDINO: detect_batch differs from its "
+                         "serial calls")
+
+    # times, peak memory, and no launch of the port's kernels
+    def one():
+        return bool(backend(images[0], batch_phrases[0]).ok)
+
+    def batched():
+        return backend.detect_batch(images, batch_phrases).ok.tolist()
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    one()
+    peak_one = torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    batched()
+    peak_batch = torch.cuda.max_memory_allocated() - base
+    times = dict(serial_wall_ms=_wall_ms(one), batch_wall_ms=_wall_ms(batched),
+                 serial_device_ms=device_ms(one),
+                 batch_device_ms=device_ms(batched))
+    launches = read_counts()
+    for k, v in got.items():
+        launches[k] += v
+    log(f"  {GDINO} on {torch.cuda.get_device_name(0)}: a detection "
+        f"{times['serial_wall_ms']:.3f} ms wall, {times['serial_device_ms']:.3f} "
+        f"ms device; a batch of {GDINO_BATCH} {times['batch_wall_ms']:.3f} ms "
+        f"wall, {times['batch_device_ms']:.3f} ms device; peak memory above "
+        f"the weights {peak_one / 2 ** 20:.1f} MiB (one) and "
+        f"{peak_batch / 2 ** 20:.1f} MiB (batch); launches of the port's "
+        f"kernels {launches}")
+    if any(launches.values()):
+        raise SystemExit(f"GroundingDINO launched the port's kernels: "
+                         f"{launches}")
+
+    # the checkpoint directory and the turn
+    sd = export.gdino_published(model)
+    weights.save_safetensors(os.path.join(ckpt, "gdino.safetensors"), sd)
+    ckpt_bytes = dir_bytes(ckpt)
+    log(f"  {ckpt}: gdino.safetensors ({len(sd)} entries) and "
+        f"gdino_vocab.txt, {ckpt_bytes} bytes")
+    del backend, model, sd, logits, boxes, ref_logits, ref_boxes, images
+    del tf_logits, tf_boxes
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = {}
+    for label, flags, steps in (
+            ("gdino", ["--weights", ckpt], SD15_STEPS),
+            ("gdino_batch", ["--weights", ckpt, "--batch_chars"],
+             GDINO_BATCH_STEPS)):
+        log(f"[main path] dialogue_0 through the CLI with "
+            f"{' '.join(flags)}, {steps} steps")
+        seen = dict(calls=0, batches=0, attention=0, answers=[])
+        real = (gdino.GroundingDinoBackend.__call__,
+                gdino.GroundingDinoBackend.detect_batch,
+                theater.det.attention_detect,
+                theater.det.attention_detect_batch)
+
+        def call(self, image, phrase_):
+            seen["calls"] += 1
+            d = real[0](self, image, phrase_)
+            seen["answers"].append((phrase_, round(float(d.confidence), 6),
+                                    bool(d.ok)))
+            return d
+
+        def detect_batch(self, images_, phrases_):
+            seen["batches"] += 1
+            d = real[1](self, images_, phrases_)
+            seen["answers"] += [(p, round(float(c), 6), bool(o)) for p, c, o
+                                in zip(phrases_, d.confidence, d.ok)]
+            return d
+
+        def attention(*a, **k):
+            seen["attention"] += 1
+            return real[2](*a, **k)
+
+        def attention_b(*a, **k):
+            seen["attention"] += 1
+            return real[3](*a, **k)
+
+        gdino.GroundingDinoBackend.__call__ = call
+        gdino.GroundingDinoBackend.detect_batch = detect_batch
+        theater.det.attention_detect = attention
+        theater.det.attention_detect_batch = attention_b
+        try:
+            runs[label] = turn_path(records, label, flags, steps)
+        finally:
+            (gdino.GroundingDinoBackend.__call__,
+             gdino.GroundingDinoBackend.detect_batch,
+             theater.det.attention_detect,
+             theater.det.attention_detect_batch) = real
+        detects = runs[label]["phase_summary"]["char.detect"]["count"]
+        runs[label].update(detector_calls=seen["calls"],
+                           detect_batch_calls=seen["batches"],
+                           attention_detect_calls=seen["attention"],
+                           answers=seen["answers"])
+        want_batches = (sum(len({o for o in sp["obj_ids"]}) > 1
+                            for sp in specs) if "--batch_chars" in flags
+                        else 0)
+        good = (seen["calls"] + seen["batches"] == detects
+                and seen["batches"] == want_batches
+                and seen["attention"] == 0)
+        log(f"  detector: {seen['calls']} calls, {seen['batches']} "
+            f"detect_batch calls (want {want_batches}), char.detect "
+            f"{detects}, attention detection {seen['attention']}; "
+            f"(phrase, confidence, ok) {seen['answers']}  "
+            f"{'ok' if good else 'FAIL'}")
+        if not good:
+            raise SystemExit(f"{label}: the detector was not the turn's "
+                             f"detector")
+        gc.collect()
+        torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    log(f"  {GDINO}: {phase_s:.1f} s for the phase")
+    return dict(parameters=n_params, parameter_bytes=n_bytes,
+                cpu_forward_s=cpu_s, logits_err=logit_err,
+                logits_bound=1e-2 * ref_max, box_err=box_err,
+                best_query=best[0], batch_box_diff=box_diff,
+                forward_fp32_device_ms=fp32_ms, tf32=tf32,
+                peak_bytes_one=peak_one, peak_bytes_batch=peak_batch,
+                checkpoint_bytes=ckpt_bytes, runs=runs,
+                phase_seconds=phase_s, **times)
 
 
 def request_ab(model: str, one_request) -> dict:
@@ -3634,6 +3939,15 @@ def main() -> int:
         f"dialogue_0 through the CLI with --weights and --snapshot, 512 px, "
         f"{SD15_STEPS} DDIM steps, SAM masks and the annotator's hint")
     paths[CKPT] = checkpoint_path(records, paths[TURN]["dialogue_seconds"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[main path] GroundingDINO as the story turn's detector: Swin-T + "
+        f"BERT-base at 800 px on seeded fp32 weights, the card against the "
+        f"CPU, a batch of {GDINO_BATCH} against its serial calls, then "
+        f"dialogue_0 through the CLI with --weights of gdino.safetensors + "
+        f"gdino_vocab.txt, {SD15_STEPS} DDIM steps, and with --batch_chars "
+        f"at {GDINO_BATCH_STEPS}")
+    paths[GDINO] = gdino_path(records)
     paths["sp_shards_equal"] = sp_shards
     paths["wave_batch_shapes_checked"] = batch_shapes
     paths["grad_gates"] = len(grad_gates)

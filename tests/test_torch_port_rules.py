@@ -49,12 +49,14 @@ def test_port_imports_no_jax():
 
 
 def test_the_turn_modules_are_covered():
-    """The turn's modules (the SDXL turn's T2I-Adapter too) are among those test_port_imports_no_jax
-    imports in a fresh interpreter."""
+    """The turn's modules (the SDXL turn's T2I-Adapter and the GroundingDINO
+    detector too) are among those test_port_imports_no_jax imports in a
+    fresh interpreter."""
     mods = set(_modules())
     for m in ("cli.generate", "db", "runtime.store", "perception.detector",
               "utils.parse", "utils.profiling", "utils.png", "theater",
-              "models.t2i_adapter"):
+              "models.t2i_adapter", "perception.gdino", "perception.swin",
+              "perception.bert"):
         assert f"theatergen_tpu_torch.{m}" in mods, m
 
 

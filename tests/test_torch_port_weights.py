@@ -17,7 +17,7 @@
 - ``load_bundle`` on a synthetic tiny directory against the JAX
   package's: every module equal to ``from_flax`` of its tree, exactly; the
   IP variant's inference, the warning for missing parts and the refusal
-  of the detectors' files.
+  of OWL-ViT's file.
 """
 
 import dataclasses
@@ -567,12 +567,14 @@ def test_missing_parts_warn_as_jax(tmp_path, capsys):
     assert tb.sam is None and tb.lineart is None
 
 
-@pytest.mark.parametrize("fname", ["gdino.safetensors", "owl.safetensors"])
+@pytest.mark.parametrize("fname", ["owl.safetensors"])
 def test_detector_files_are_refused(tmp_path, fname):
+    """OWL-ViT is not ported (GroundingDINO loads:
+    test_torch_port_gdino_turn.py)."""
     d = tmp_path / "w"
     d.mkdir()
     TW.save_safetensors(str(d / fname), {"x": torch.zeros(1)})
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 2"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 2b"):
         TW.load_bundle(CFG, str(d), device="cpu")
 
 

@@ -1,5 +1,6 @@
 """The port's modules written as published checkpoint files: the inverse
-of ``models/weights.py``'s ``port_*`` maps.
+of ``models/weights.py``'s ``port_*`` maps (GroundingDINO's file and its
+vocabulary too, where the bundle carries the detector).
 
 :func:`published_state_dicts` gives the state dicts, in the published
 names, of the files :func:`models.weights.load_bundle` reads, and
@@ -17,6 +18,7 @@ from typing import Dict, Mapping, Sequence
 
 import torch
 
+from ..perception.gdino import GroundingDinoBackend
 from ..perception.sam_hf import SamHF
 from .weights import (IP_FILES, _VAE_LEGACY, cross_attention_paths,
                       save_safetensors)
@@ -112,7 +114,32 @@ def published_state_dicts(bundle) -> Dict[str, Dict[str, torch.Tensor]]:
                 (r"up1\.(\w+)", r"model3.0.\1"),
                 (r"up2\.(\w+)", r"model3.3.\1"),
                 (r"head\.(\w+)", r"model4.1.\1")))
+    if isinstance(bundle.detector, GroundingDinoBackend):
+        out["gdino.safetensors"] = gdino_published(bundle.detector.model)
     return out
+
+
+def gdino_published(model) -> Dict[str, torch.Tensor]:
+    """A ``GroundingDinoForDetection``'s state dict as transformers'
+    ``GroundingDinoForObjectDetection`` holds it (fp32): its names, plus
+    the box head's tied copies (``bbox_embed.{i}`` and
+    ``model.decoder.bbox_embed.{i}`` for every decoder layer) and each
+    Swin block's ``relative_position_index`` buffer, which
+    ``port_grounding_dino`` drops."""
+    from ..perception.swin import _rel_pos_index
+
+    sd = dict(model.state_dict())
+    head = {k: v for k, v in sd.items() if k.startswith("bbox_embed.0.")}
+    for i in range(model.cfg.decoder_layers):
+        for k, v in head.items():
+            rest = k[len("bbox_embed.0."):]
+            sd[f"bbox_embed.{i}.{rest}"] = v
+            sd[f"model.decoder.bbox_embed.{i}.{rest}"] = v
+    index = torch.from_numpy(_rel_pos_index(model.cfg.swin.window_size))
+    for k in list(sd):
+        if k.endswith(".relative_position_bias_table"):
+            sd[k.replace("_bias_table", "_index")] = index
+    return sd
 
 
 def export_checkpoint_dir(bundle, out_dir: str) -> Dict[str, int]:
@@ -130,4 +157,11 @@ def export_checkpoint_dir(bundle, out_dir: str) -> Dict[str, int]:
         else:
             save_safetensors(path, sd)
         sizes[fname] = os.path.getsize(path)
+    if isinstance(bundle.detector, GroundingDinoBackend):
+        # BERT's vocabulary, one token a line in id order
+        path = os.path.join(out_dir, "gdino_vocab.txt")
+        vocab = bundle.detector.tokenizer.vocab
+        with open(path, "w", encoding="utf-8") as f:
+            f.write("".join(t + "\n" for t in sorted(vocab, key=vocab.get)))
+        sizes["gdino_vocab.txt"] = os.path.getsize(path)
     return sizes

@@ -29,7 +29,8 @@ order (down blocks, up blocks, mid block last:
 projectors' names (``proj.0`` → ``proj_0``, ``layers.0.0.to_kv`` →
 ``layers.0.attn.to_kv``, ...); the lineart annotator's ``sk_model.pth``
 Sequential indices name the layers of the port's ``LineartGenerator``,
-whose ConvTranspose weights keep torch's layout.  :func:`load_bundle`
+whose ConvTranspose weights keep torch's layout; GroundingDINO's file
+loses its buffers and tied box-head copies and nothing else.  :func:`load_bundle`
 assembles a bundle from a directory of such files, each module loaded
 with ``strict=True``.
 
@@ -40,7 +41,8 @@ included), ControlNet, VAE, text tower (either of SDXL's two,
 ``text_projection`` included), CLIP vision tower, IP-Adapter projector
 (``image_proj``, ``mlp_proj``, ``resampler``), T2I-Adapter
 (``t2i_adapter``), segmenter (``sam_lite``, ``sam_hf``) or lineart
-generator (``lineart``: ``LineartGenerator`` or ``LineartNet``) and
+generator (``lineart``: ``LineartGenerator`` or ``LineartNet``) or
+GroundingDINO (``gdino``: transformers' names, :data:`_GDINO_SCOPES`) and
 returns the port's state dict as numpy arrays.  It is written from the two
 packages' naming rules:
 
@@ -89,7 +91,7 @@ from ..perception.sam_hf import SamHF, SamHFConfig, tiny_sam_hf_config
 
 KINDS = ("unet", "controlnet", "vae", "text", "vision", "image_proj",
          "mlp_proj", "resampler", "t2i_adapter", "sam_lite", "sam_hf",
-         "lineart")
+         "lineart", "gdino")
 
 _SCOPE_RULES = (
     (re.compile(r"(down_blocks|up_blocks)_(\d+)_"
@@ -143,6 +145,8 @@ def from_flax(kind: str, params: Mapping) -> Dict[str, np.ndarray]:
         params = params["params"]
     if kind in _PERCEPTION_RULES:
         return _from_flax_perception(kind, params)
+    if kind == "gdino":
+        return _from_flax_gdino(params)
     flat = _flatten(params)
     # scopes of W8A8 subtrees, whose scale is not a norm's
     quant_scopes = {path[:-1] for path in flat if path[-1] == "kernel_q"}
@@ -238,6 +242,71 @@ def _from_flax_perception(kind: str, params: Mapping
         else:
             leaf, w = _leaf(leaf, w, quantized=False)
         out[f"{module}.{leaf}" if module else leaf] = w
+    return out
+
+
+# the JAX GroundingDINO's scopes ("/"-joined) → the port's module names:
+# the first rule that matches, its "/" then made "."
+_SWIN = "model.backbone.conv_encoder.model"
+_BERT = "model.text_backbone"
+_BLOCK = r"^backbone/stage_(\d+)_block_(\d+)"
+_GDINO_SCOPES = (
+    (r"^text_backbone/(word|position|token_type)_embeddings$",
+     rf"{_BERT}.embeddings.\1_embeddings"),
+    (r"^text_backbone/embeddings_norm$", f"{_BERT}.embeddings.LayerNorm"),
+    (r"^text_backbone/layers_(\d+)/self/", rf"{_BERT}.encoder.layer.\1"
+     r".attention.self."),
+    (r"^text_backbone/layers_(\d+)/attention_output$",
+     rf"{_BERT}.encoder.layer.\1.attention.output.dense"),
+    (r"^text_backbone/layers_(\d+)/attention_norm$",
+     rf"{_BERT}.encoder.layer.\1.attention.output.LayerNorm"),
+    (r"^text_backbone/layers_(\d+)/(intermediate|output)$",
+     rf"{_BERT}.encoder.layer.\1.\2.dense"),
+    (r"^text_backbone/layers_(\d+)/output_norm$",
+     rf"{_BERT}.encoder.layer.\1.output.LayerNorm"),
+    (r"^backbone/patch_embed$",
+     f"{_SWIN}.embeddings.patch_embeddings.projection"),
+    (r"^backbone/embed_norm$", f"{_SWIN}.embeddings.norm"),
+    (r"^backbone/out_norm_(\d+)$", rf"{_SWIN}.hidden_states_norms.stage\1"),
+    (r"^backbone/downsample_(\d+)/", rf"{_SWIN}.encoder.layers.\1"
+     r".downsample."),
+    (rf"{_BLOCK}/attention/output$",
+     rf"{_SWIN}.encoder.layers.\1.blocks.\2.attention.output.dense"),
+    (rf"{_BLOCK}/attention(?=/|$)",
+     rf"{_SWIN}.encoder.layers.\1.blocks.\2.attention.self"),
+    (rf"{_BLOCK}/(intermediate|output)$",
+     rf"{_SWIN}.encoder.layers.\1.blocks.\2.\3.dense"),
+    (rf"{_BLOCK}/", rf"{_SWIN}.encoder.layers.\1.blocks.\2."),
+    (r"^input_proj_(\d+)_conv$", r"model.input_proj_vision.\1.0"),
+    (r"^input_proj_(\d+)_norm$", r"model.input_proj_vision.\1.1"),
+    (r"^bbox_embed/layers_(\d+)$", r"bbox_embed.0.layers.\1"),
+    (r"^reference_points_head/layers_(\d+)$",
+     r"model.decoder.reference_points_head.layers.\1"),
+    (r"^decoder_layer_norm$", "model.decoder.layer_norm"),
+    (r"^(encoder|decoder)_layers_(\d+)/", r"model.\1.layers.\2."),
+    (r"^", "model."),
+)
+
+
+def _from_flax_gdino(params: Mapping) -> Dict[str, np.ndarray]:
+    """The port's ``GroundingDinoForDetection`` state dict of a JAX
+    ``GroundingDinoForDetection`` tree (:data:`_GDINO_SCOPES`; MLP heads'
+    ``layers_{k}`` become ``layers.{k}``, the learned query embedding an
+    ``nn.Embedding``)."""
+    out = {}
+    for path, w in _flatten(params).items():
+        scopes, leaf = "/".join(path[:-1]), path[-1]
+        if not scopes and leaf == "query_position_embeddings":
+            out["model.query_position_embeddings.weight"] = w
+            continue
+        for rx, repl in _GDINO_SCOPES:
+            if re.search(rx, scopes):
+                scopes = re.sub(rx, repl, scopes, count=1)
+                break
+        module = re.sub(r"layers_(\d+)$", r"layers.\1", scopes).replace(
+            "/", ".").rstrip(".")
+        name, w = _leaf(leaf, w, quantized=False)
+        out[f"{module}.{name}"] = w
     return out
 
 
@@ -573,6 +642,43 @@ def port_lineart(sd: Mapping) -> Dict[str, torch.Tensor]:
     ))
 
 
+# published GroundingDINO entries the port has no module for: the buffers,
+# and the decoder's and the output's copies of the one box head, which
+# transformers ties to ``bbox_embed.0`` (the JAX map skips the same)
+_GDINO_DROPPED = (r".*\.(?:relative_position_index|position_ids)",
+                  r"bbox_embed\.[1-9]\d*\..*", r"model\.decoder\.bbox_embed\..*")
+
+
+def port_grounding_dino(sd: Mapping) -> Dict[str, torch.Tensor]:
+    """transformers' ``GroundingDinoForObjectDetection`` →
+    ``perception.gdino.GroundingDinoForDetection`` (transformers' names):
+    every entry but the buffers and the tied box-head copies (
+    :data:`_GDINO_DROPPED`).  Nothing else is skipped: an entry the module
+    lacks fails its ``strict=True`` load, where the JAX map would drop
+    it."""
+    return {k: v for k, v in sd.items()
+            if not any(re.fullmatch(rx, k) for rx in _GDINO_DROPPED)}
+
+
+def gdino_config_of(sd: Mapping):
+    """The ``GroundingDinoConfig`` whose detector has the shapes of ``sd``
+    (a :func:`port_grounding_dino` state dict): grounding-dino-tiny, as
+    the JAX package's ``load_bundle`` builds whatever the file, or the tiny
+    instance of the CPU tests; other shapes raise."""
+    from ..perception.gdino import (GroundingDinoConfig,
+                                    GroundingDinoForDetection,
+                                    tiny_gdino_config)
+
+    shapes = {k: tuple(v.shape) for k, v in sd.items()}
+    for cfg in (GroundingDinoConfig(), tiny_gdino_config()):
+        with torch.device("meta"):
+            ref = GroundingDinoForDetection(cfg).state_dict()
+        if shapes == {k: tuple(v.shape) for k, v in ref.items()}:
+            return cfg
+    raise ValueError("gdino.safetensors: its shapes are neither "
+                     "grounding-dino-tiny's nor the tiny detector's")
+
+
 def load_into(module: nn.Module, sd: Mapping, *, partial: bool = False
               ) -> nn.Module:
     """Load a port state dict into ``module``, each tensor cast to the
@@ -602,7 +708,7 @@ IP_FILES = {
     "full": ("ip-adapter-full-face_sd15",),
 }
 # checkpoints of modules the port does not have yet
-UNPORTED_FILES = ("gdino.safetensors", "owl.safetensors")
+UNPORTED_FILES = ("owl.safetensors",)
 EXPECTED = ("unet", "vae", "text", "controlnet", "vision", "ip_adapter")
 
 
@@ -616,24 +722,35 @@ def load_bundle(cfg, weights_dir: str, *, ip_variant: Optional[str] = None,
     ``image_encoder.safetensors``, the IP-Adapter file of the variant
     (``.bin`` or ``.safetensors``), ``sam.safetensors`` (a ``SamHF`` of
     the file's shapes: :func:`sam_hf_config_of`), ``lineart.safetensors`` (a
-    ``LineartGenerator``) and tokenizer assets (``merges.txt``,
-    ``vocab.json``).  The rest of the bundle is ``init_bundle(cfg, 0,
+    ``LineartGenerator``), ``gdino.safetensors`` and tokenizer assets
+    (``merges.txt``, ``vocab.json``).  The rest of the bundle is ``init_bundle(cfg, 0,
     with_ip=True, with_controlnet=True, with_vision=True)``, as in the JAX
     package (so SDXL gets a ControlNet and no T2I-Adapter); a part whose
     file is missing keeps those random weights, with a warning.
 
     ``ip_variant``: "base", "plus" or "full"; by default "plus" where only
-    a plus file is present, else "base".  ``gdino.safetensors`` or
-    ``owl.safetensors`` in the directory raises NotImplementedError (the
-    detectors are not ported).  Runs on the card unless ``device`` names
-    another device."""
+    a plus file is present, else "base".  ``gdino.safetensors`` with
+    ``gdino_vocab.txt`` (BERT's vocabulary) becomes the bundle's detector, a
+    ``GroundingDinoBackend`` in fp32 (grounding-dino-tiny, or the tiny
+    detector whose shapes the file has: :func:`gdino_config_of`), and
+    ``"gdino"`` joins the loaded parts; without the vocabulary the file is
+    not loaded, as in the JAX package, with a warning.
+    ``owl.safetensors`` raises NotImplementedError where the JAX package
+    would load it (no GroundingDINO, or ``THEATERGEN_DETECTOR=owl``): OWL-ViT
+    is not ported.  Runs on the card unless ``device`` names another
+    device."""
     from ..pipelines.bundle import build_lineart, build_sam, init_bundle
 
-    for name in UNPORTED_FILES:
-        if os.path.exists(os.path.join(weights_dir, name)):
-            raise NotImplementedError(
-                f"{name}: the open-vocabulary detectors are not ported yet "
-                f"(ROADMAP §1 item 2)")
+    gdino_path = os.path.join(weights_dir, "gdino.safetensors")
+    vocab_path = os.path.join(weights_dir, "gdino_vocab.txt")
+    with_gdino = os.path.exists(gdino_path) and os.path.exists(vocab_path)
+    # the JAX package loads OWL-ViT without a GroundingDINO, or when
+    # THEATERGEN_DETECTOR=owl forces it
+    if os.path.exists(os.path.join(weights_dir, "owl.safetensors")) and (
+            not with_gdino or os.environ.get("THEATERGEN_DETECTOR") == "owl"):
+        raise NotImplementedError(
+            "owl.safetensors: the OWL-ViT detector is not ported yet "
+            "(ROADMAP §1 item 2b)")
     if getattr(cfg.unet, "quantized", False):
         raise NotImplementedError(
             "load_bundle: a published float UNet into a W8A8 UNet is not "
@@ -683,6 +800,20 @@ def load_bundle(cfg, weights_dir: str, *, ip_variant: Optional[str] = None,
     if sd:
         bundle.lineart = load_into(build_lineart(dev), port_lineart(sd))
         loaded.append("lineart")
+    if with_gdino:
+        sd = port_grounding_dino(load_state_dict(gdino_path))
+        if sd:
+            from ..perception.gdino import (GroundingDinoBackend,
+                                            WordPieceTokenizer)
+
+            bundle.detector = GroundingDinoBackend(
+                gdino_config_of(sd), sd, WordPieceTokenizer(vocab_path),
+                device=dev)
+            loaded.append("gdino")
+    elif os.path.exists(gdino_path):
+        print("[load_bundle] WARNING: gdino.safetensors without "
+              "gdino_vocab.txt is not loaded; the turn detects from the "
+              "attention maps")
     ip = None
     for stem in IP_FILES[bundle.ip_variant]:
         ip = maybe(stem + ".bin") or maybe(stem + ".safetensors")

@@ -1,21 +1,22 @@
 """Attention-based character detection for the detect-and-regenerate loop.
 
 The port of ``theatergen_tpu/perception/detector.py::{Detection,
-attention_detect}``, with :func:`attention_detect_batch` for a batch of
-characters (the JAX Theater's ``vmap`` of it).  The reference runs
-GroundingDINO on every generated character (``utils/detector.py:5-21``)
-and regenerates with a new seed when it finds nothing
-(``theatergen.py:98-160``).  The character pass already
-captures the cross-attention maps of the character's word token, and they
-localise it, so the default detector needs no weights: the box around the
-strong attention, accepted when it holds enough of the attention's mass
-and area.  ``ClipBoxScorer`` and the SAM-refined detector wait for SAM.
+attention_detect, detect_from_attention_and_sam}``, with
+:func:`attention_detect_batch` for a batch of characters (the JAX
+Theater's ``vmap`` of it).  The reference runs GroundingDINO on every
+generated character (``utils/detector.py:5-21``) and regenerates with a
+new seed when it finds nothing (``theatergen.py:98-160``); the port's
+GroundingDINO is ``perception/gdino.py``, the turn's detector where the
+bundle carries one.  Without it, the character pass's captured
+cross-attention maps of the character's word token localise it, so the
+default detector needs no weights: the box around the strong attention,
+accepted when it holds enough of the attention's mass and area.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -78,3 +79,18 @@ def _detect(attn_maps, mass_threshold, min_area, out_hw) -> Detection:
     inside = (agg * binary).sum((-2, -1)) / (agg.sum((-2, -1)) + 1e-8)
     ok = torch.logical_and(area > min_area, inside > 0.25)
     return Detection(box=box, confidence=inside, ok=ok)
+
+
+def detect_from_attention_and_sam(attn_maps, word_token, sam_segment_fn=None,
+                                  image=None
+                                  ) -> Tuple[Detection,
+                                             Optional[torch.Tensor]]:
+    """Attention detection, its box then refined into a mask by
+    ``sam_segment_fn(image, box) → (masks, scores)`` where both are given
+    (the reference's DINO box → SAM chain, ``theatergen.py:162-182``)."""
+    d = attention_detect(attn_maps, word_token)
+    mask = None
+    if sam_segment_fn is not None and image is not None:
+        masks, _ = sam_segment_fn(image, d.box)
+        mask = masks[0]
+    return d, mask

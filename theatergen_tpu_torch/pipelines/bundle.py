@@ -64,7 +64,9 @@ class Bundle:
     sam: Optional[nn.Module] = None
     # the lineart annotator (LineartGenerator); None: dog_lineart
     lineart: Optional[nn.Module] = None
-    # an open-vocabulary detector; none is ported (ROADMAP §1 item 2)
+    # the turn's open-vocabulary detector (perception.gdino's
+    # GroundingDinoBackend, from load_bundle); None: attention detection.
+    # OWL-ViT is not ported (ROADMAP §1 item 2b)
     detector: Any = None
 
     @property

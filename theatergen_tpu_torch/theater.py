@@ -8,8 +8,11 @@ reference's ``theatergen.run``, ``theatergen.py:278-488``, with
   50-step IP-Adapter pass conditioned on its character-DB entry (IP scale
   0.4 on a hit, 0 with placeholder features on a miss), the reference
   maps of its word token captured at every step;
-- its image is detected from those maps (``perception.detector``) and
-  regenerated from fresh noise up to :data:`MAX_REGEN_ATTEMPTS` times;
+- its image is detected, by the bundle's open-vocabulary detector where
+  it has one (``perception.gdino.GroundingDinoBackend``, on the image and
+  the character's phrase), else from those maps (``perception.detector``),
+  and regenerated from fresh noise up to :data:`MAX_REGEN_ATTEMPTS` times;
+  a detector that raises or answers malformed fails the turn;
 - its mask comes from the bundle's segmenter (``perception.sam``: the
   image resized to the segmenter's side, the detection box as the prompt),
   or without one from the step-mean maps (:func:`_attn_mask_fallback`);
@@ -116,6 +119,26 @@ def noise_generator(device, seed: int, *stream: int) -> torch.Generator:
     state = np.random.SeedSequence([seed, *stream]).generate_state(
         1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(state))
+
+
+def _checked_detection(d, lead: tuple, device) -> det.Detection:
+    """A detector's answer for ``lead`` images (``()``: one), its box
+    ``[*lead, 4]`` and its verdict ``ok [*lead]`` as tensors on
+    ``device``; anything else raises, failing the turn (there is no
+    fallback to attention detection)."""
+    if not isinstance(d, det.Detection):
+        raise TypeError(f"the detector returned {type(d).__name__}, not a "
+                        f"Detection")
+    box = torch.as_tensor(d.box, device=device).float()
+    ok = torch.as_tensor(d.ok, device=device)
+    conf = torch.as_tensor(d.confidence, device=device)
+    if (tuple(box.shape) != (*lead, 4) or tuple(ok.shape) != lead
+            or ok.dtype != torch.bool or tuple(conf.shape) != lead):
+        raise ValueError(f"malformed detection for {lead or 'one'} images: "
+                         f"box {tuple(box.shape)}, confidence "
+                         f"{tuple(conf.shape)}, ok {tuple(ok.shape)} "
+                         f"{ok.dtype}")
+    return det.Detection(box=box, confidence=conf, ok=ok)
 
 
 def aggregate_attn(ref_attn: Sequence[torch.Tensor], num_steps: int
@@ -493,7 +516,14 @@ class Theater:
                 image = self._decode_img(result.latents)
                 agg = self._aggregate_attn(result.ref_attn)
             with self.timer.phase("char.detect"):
-                detection = det.attention_detect(agg, None)
+                if self.bundle.detector is not None:
+                    # the open-vocabulary detector on the generated image,
+                    # as the reference detects (utils/detector.py:5-21)
+                    detection = _checked_detection(
+                        self.bundle.detector(image[0], plan.phrase), (),
+                        self.bundle.device)
+                else:
+                    detection = det.attention_detect(agg, None)
                 detected_ok = bool(detection.ok)
             if detected_ok:
                 break
@@ -557,16 +587,36 @@ class Theater:
                 word_tokens=[p["word_token"] for p in preps])
             images = self._decode_img(res.latents[:, 0])
             aggs = self._aggregate_attn(res.ref_attn)   # per key [B, ...]
-        with self.timer.phase("char.detect"):
-            det_b = det.attention_detect_batch(aggs)
-            oks = det_b.ok.tolist()
-        with self.timer.phase("char.masks"):
-            masks_b = self._extract_masks_batched(aggs, images, det_b.box)
+        # one detection of the batch and one host read of its verdicts, but
+        # for a detector without detect_batch, which sees one image at a
+        # time (JAX theater.py:602-633)
+        detector = self.bundle.detector
+        det_b = None
+        if detector is None or hasattr(detector, "detect_batch"):
+            with self.timer.phase("char.detect"):
+                if detector is None:
+                    det_b = det.attention_detect_batch(aggs)
+                else:
+                    det_b = _checked_detection(detector.detect_batch(
+                        images, [j["oplan"].phrase for j in jobs]),
+                        (len(jobs),), dev)
+                oks = det_b.ok.tolist()
+            with self.timer.phase("char.masks"):
+                masks_b = self._extract_masks_batched(aggs, images,
+                                                      det_b.box)
 
         outs = []
         for i, j in enumerate(jobs):
             th = j["th"]
-            if not oks[i]:
+            if det_b is None:
+                with th.timer.phase("char.detect"):
+                    d = _checked_detection(detector(images[i], j[
+                        "oplan"].phrase), (), dev)
+                    ok, box, masks = bool(d.ok), d.box, None
+            else:
+                ok, box = oks[i], det_b.box[i]
+                masks = (masks_b[0][i], masks_b[1][i])
+            if not ok:
                 outs.append(th._generate_character(
                     j["oplan"], j["extra_neg"], j["seed"], j["idx"]))
                 continue
@@ -575,8 +625,7 @@ class Theater:
                 tuple(m[i] for m in res.ref_attn))
             outs.append(th._character_finish(
                 j["oplan"], j["prep"], result, images[i][None],
-                [m[i] for m in aggs], True, det_b.box[i],
-                masks=(masks_b[0][i], masks_b[1][i])))
+                [m[i] for m in aggs], True, box, masks=masks))
         return outs
 
     def _extract_masks_batched(self, agg_maps, images, box_hints):
