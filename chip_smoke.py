@@ -147,6 +147,20 @@ Phases, in order (any failure exits non-zero):
      ``gdino.safetensors`` and ``gdino_vocab.txt`` (50 steps) and with
      ``--batch_chars`` (10 steps), the detector called once per
      ``char.detect`` and attention detection never.
+ 14. OWL-ViT, the evaluation and the golden kit (``eval_path``): OWL-ViT
+     at owlvit-base-patch32's widths on seeded fp32 weights written as
+     ``owl.safetensors``; ``load_bundle``'s choice between the detectors;
+     one 768² detection against the CPU (and, printed only, with TF32
+     allowed), its wall and device ms and peak memory; dialogue_0 through
+     the CLI with ``--weights`` of the OWL-ViT file alone (OWL_STEPS
+     steps); ``evaluate_tree`` over turn_path's dialogue_0 tree with the
+     ViT-B/32 towers and InceptionV3 (the sliding detector, then
+     OWL-ViT), each against CPU copies; a synthetic 20-dialogue tree
+     timed; ``eval.cmig.main --random-ok``; none of them launching the
+     port's kernels; then one golden case of each of the five kinds
+     written under ``plain_path()`` and consumed with the kernels (verdict
+     True, launches ``request_want``), and each negative control failing
+     its verdict.
 Every launch counter is set to 0 just before each request (or turn) and
 read just after it, and must equal the launches per request of each
 kernel: the constants of the SD1.5, W8A8 and SDXL requests under the
@@ -240,6 +254,22 @@ CKPT, CKPT_SEED = "sd15_512_checkpoint", 12
 # from GDINO_SEED: a batch of GDINO_BATCH detections, and dialogue_0 with
 # it as the detector (--batch_chars at GDINO_BATCH_STEPS steps, for time)
 GDINO, GDINO_SEED, GDINO_BATCH, GDINO_BATCH_STEPS = "gdino_800", 13, 4, 10
+# OWL-ViT (owlvit-base-patch32's widths, 768² input) on weights drawn from
+# OWL_SEED, and dialogue_0 with it as the detector at OWL_STEPS steps (cut
+# from 50, for time); its card-against-CPU gate (fp32, TF32 off): logits
+# within OWL_LOGIT_BOUND of max|ref|, boxes within OWL_BOX_BOUND
+OWL, OWL_SEED, OWL_STEPS = "owl_768", 14, 10
+OWL_LOGIT_BOUND, OWL_BOX_BOUND = 1e-3, 1e-4
+# the CMIGBench evaluation: the ViT-B/32 towers drawn from EVAL_SEED,
+# Inception from INCEPTION_SEED; the card against the CPU: embeddings within
+# EVAL_TOL of max|ref|, cosine scores within EVAL_SCORE_TOL, Inception
+# features within INCEPTION_TOL of max|ref| (fp32, TF32 off); the dialogues
+# of the timed synthetic tree
+EVAL, EVAL_SEED, INCEPTION_SEED, EVAL_DIALOGUES = "cmig_eval", 15, 16, 20
+EVAL_TOL, EVAL_SCORE_TOL, INCEPTION_TOL = 1e-4, 1e-4, 1e-3
+# the golden cases: SD1.5 at 512 px, GOLDEN_STEPS DDIM steps (final_cn
+# frozen for GOLDEN_FROZEN of them), SDXL at 1024 px, GOLDEN_XL_STEPS
+GOLDEN_STEPS, GOLDEN_FROZEN, GOLDEN_XL_STEPS = 10, 5, 4
 # CMIGBench authors its layout boxes on a 512² canvas; the XL turn scales
 # them to its 1024² one (the CLI's --box_canvas)
 XL_BOX_CANVAS = 512
@@ -2535,6 +2565,22 @@ def gdino_path(records) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+@contextlib.contextmanager
+def tf32_on():
+    """TF32 allowed for matmuls and cuDNN convolutions, the settings
+    restored after (patched over a module's ``_exact_fp32`` to measure
+    what TF32 would cost its gate)."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+
+
 def _best_query(logits, n: int) -> tuple:
     """The serial backend's choice: (best query, its score, the runner-up's
     score) of logits ``[Q, T]`` over the phrase window ``[1, n-1)``."""
@@ -2605,18 +2651,6 @@ def _gdino_phase(root: str, records) -> dict:
 
     # the same forward with TF32 allowed, for comparison only: the
     # detector turns TF32 off
-    @contextlib.contextmanager
-    def tf32_on():
-        prev = (torch.backends.cuda.matmul.allow_tf32,
-                torch.backends.cudnn.allow_tf32)
-        torch.backends.cuda.matmul.allow_tf32 = True
-        torch.backends.cudnn.allow_tf32 = True
-        try:
-            yield
-        finally:
-            (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32) = prev
-
     def forward():
         return backend._forward(pixels, [phrase])
 
@@ -2779,6 +2813,604 @@ def _gdino_phase(root: str, records) -> dict:
                 peak_bytes_one=peak_one, peak_bytes_batch=peak_batch,
                 checkpoint_bytes=ckpt_bytes, runs=runs,
                 phase_seconds=phase_s, **times)
+
+
+def eval_path(records) -> dict:
+    """OWL-ViT as the turn's second detector, the CMIGBench evaluation and
+    the golden kit on the card (``_owl_phase``, ``_cmig_phase``,
+    ``_golden_phase``), their files under build/chip_smoke_eval, deleted at
+    the end."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, "build", "chip_smoke_eval")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t_phase = time.perf_counter()
+    try:
+        out = {}
+        out["owl"], owl_card, owl_cpu = _owl_phase(root, records)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["cmig"] = _cmig_phase(root, owl_card, owl_cpu)
+        del owl_card, owl_cpu
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["goldens"] = _golden_phase(root, records)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"  {EVAL}: {out['phase_seconds']:.1f} s for the phase")
+    return out
+
+
+class DetectorSpy:
+    """Wraps an evaluation detector (``(image, phrase) -> (box, confidence,
+    ok)``, with or without ``count_instances`` and ``provenance``, which it
+    keeps): records each answer and, per score call (the sliding
+    detector's ``_scores``, OWL-ViT's ``_detect``), how near its scores
+    came to the threshold."""
+
+    def __init__(self, inner, threshold: float):
+        self.inner, self.threshold, self.calls = inner, threshold, []
+        self.margins = []
+        if hasattr(inner, "provenance"):
+            self.provenance = inner.provenance
+        if hasattr(inner, "count_instances"):
+            self.count_instances = self._count
+        name = "_scores" if hasattr(inner, "_scores") else "_detect"
+        real = getattr(inner, name)
+
+        def scored(image, phrase):
+            r = real(image, phrase)
+            s = r if name == "_scores" else r[1]
+            self.margins.append(float(np.abs(np.asarray(s)
+                                             - threshold).min()))
+            return r
+
+        setattr(inner, name, scored)
+
+    def __call__(self, image, phrase):
+        box, conf, ok = self.inner(image, phrase)
+        self.calls.append(("detect", phrase, conf, ok, self.margins[-1]))
+        return box, conf, ok
+
+    def _count(self, image, phrase, **kw):
+        n = self.inner.count_instances(image, phrase, **kw)
+        self.calls.append(("count", phrase, n, n, self.margins[-1]))
+        return n
+
+
+def _spy_embed(obj, store: list) -> None:
+    """Record each ``embed_images`` (and ``embed_texts``) output of
+    ``obj`` into ``store`` as ``(name, array)``."""
+    for name in ("embed_images", "embed_texts"):
+        real = getattr(obj, name, None)
+        if real is None:
+            continue
+
+        def spied(items, *a, _real=real, _name=name, **k):
+            r = _real(items, *a, **k)
+            store.append((_name, np.asarray(r)))
+            return r
+
+        setattr(obj, name, spied)
+
+
+def _owl_phase(root: str, records):
+    """OWL-ViT at owlvit-base-patch32's widths (768² input, 577 tokens) on
+    weights drawn from OWL_SEED: ``owl.safetensors`` in transformers' names
+    under ``root``; ``load_bundle``'s choice (a tiny bundle, the full OWL-ViT
+    file and a tiny GroundingDINO with its vocabulary): OWL-ViT alone,
+    GroundingDINO beside it, OWL-ViT under THEATERGEN_DETECTOR=owl; one
+    detection of a seeded 512² image against the same weights on the CPU
+    (logits within OWL_LOGIT_BOUND·max|ref|, boxes OWL_BOX_BOUND, the same
+    best patch, the same ``count_instances`` where no probability lies
+    within 10× the bound of the threshold), the same forward with TF32
+    allowed printed beside it (not gated); wall and device ms and peak
+    memory of a detection, launching none of the port's kernels; then
+    dialogue_0 through the CLI with ``--weights`` of the directory at
+    OWL_STEPS steps under turn_path's gates, OWL-ViT called once per
+    ``char.detect``, attention detection never.  Returns (the record, the
+    card's backend, the CPU's)."""
+    from theatergen_tpu_torch.config import tiny_config
+    from theatergen_tpu_torch.models import export, weights
+    from theatergen_tpu_torch.perception import gdino, owl
+    from theatergen_tpu_torch.pipelines.bundle import build_module
+    from theatergen_tpu_torch.utils.tokenizer import load_tokenizer
+
+    t0 = time.perf_counter()
+    cfg = owl.owlvit_base_patch32()
+    gen = torch.Generator(device="cuda").manual_seed(OWL_SEED)
+    model = build_module(owl.OwlDetector, cfg, torch.float32, "cuda", gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    ckpt = os.path.join(root, "owl")
+    os.makedirs(ckpt)
+    sd = export.owl_published(model)
+    weights.save_safetensors(os.path.join(ckpt, "owl.safetensors"), sd)
+    log(f"  OwlDetector(owlvit_base_patch32()): {n_params} parameters "
+        f"(fp32); {ckpt}/owl.safetensors ({len(sd)} entries, "
+        f"{dir_bytes(ckpt)} bytes)")
+    del sd
+
+    # load_bundle's choice between the detectors
+    tiny = os.path.join(root, "gdino_tiny")
+    os.makedirs(tiny)
+    gd = build_module(gdino.GroundingDinoForDetection,
+                      gdino.tiny_gdino_config(), torch.float32, "cpu",
+                      torch.Generator().manual_seed(OWL_SEED))
+    weights.save_safetensors(os.path.join(tiny, "gdino.safetensors"),
+                             export.gdino_published(gd))
+    synthetic_vocab(os.path.join(tiny, "gdino_vocab.txt"), ["cat"],
+                    gdino.tiny_gdino_config().bert.vocab_size)
+    choice = {}
+    for label, with_gdino, env, want in (
+            ("owl.safetensors alone", False, None, owl.OwlBackend),
+            ("beside gdino.safetensors", True, None,
+             gdino.GroundingDinoBackend),
+            ("beside it, THEATERGEN_DETECTOR=owl", True, "owl",
+             owl.OwlBackend)):
+        d = os.path.join(root, f"choice_{len(choice)}")
+        os.makedirs(d)
+        os.symlink(os.path.join(ckpt, "owl.safetensors"),
+                   os.path.join(d, "owl.safetensors"))
+        if with_gdino:
+            for f in ("gdino.safetensors", "gdino_vocab.txt"):
+                os.symlink(os.path.join(tiny, f), os.path.join(d, f))
+        patch = ({"THEATERGEN_DETECTOR": env} if env else {})
+        with mock.patch.dict(os.environ, patch):
+            if not env:
+                os.environ.pop("THEATERGEN_DETECTOR", None)
+            b = weights.load_bundle(tiny_config(), d)
+        got = type(b.detector)
+        choice[label] = got.__name__
+        log(f"  load_bundle's detector with {label}: {got.__name__}  "
+            f"{'ok' if got is want else 'FAIL'}")
+        if got is not want:
+            raise SystemExit(f"load_bundle chose {got.__name__} with "
+                             f"{label}, want {want.__name__}")
+        del b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the card against the CPU
+    tok = load_tokenizer(None, cfg.text.vocab_size)
+    card = owl.OwlBackend(cfg, model.state_dict(), tok)
+    cpu = owl.OwlBackend(cfg, {k: v.cpu() for k, v in
+                               model.state_dict().items()}, tok,
+                         device="cpu")
+    del model
+    phrase = dialogue_specs("dialogue_0")[0]["gen_boxes"][0][0]
+    image = ip_image()[0]
+    pixels = card.pixels(image)
+    reset_counts()
+    boxes, logits = card.forward(pixels, [phrase])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ref_boxes, ref_logits = cpu.forward(pixels.cpu(), [phrase])
+    cpu_s = time.perf_counter() - t1
+    boxes, logits = boxes.cpu(), logits.cpu()
+    ref_max = float(ref_logits.abs().max())
+    logit_err = float((logits - ref_logits).abs().max())
+    box_err = float((boxes - ref_boxes).abs().max())
+    probs = torch.sigmoid(ref_logits[0, :, 0])
+    top = torch.topk(probs, 2)
+    best, best_ref = int(torch.sigmoid(logits[0, :, 0]).argmax()), int(
+        top.indices[0])
+    # a probability moves by at most a quarter of its logit's error
+    p_tol = OWL_LOGIT_BOUND * ref_max / 4
+    margin = float((probs - card.box_threshold).abs().min())
+    n_card = card.count_instances(image, phrase)
+    n_cpu = cpu.count_instances(image.cpu(), phrase)
+    counts_gated = margin > 10 * p_tol
+    ok = (logit_err <= OWL_LOGIT_BOUND * ref_max and box_err <= OWL_BOX_BOUND
+          and (best == best_ref or float(top.values[0] - top.values[1])
+               <= 10 * p_tol)
+          and (n_card == n_cpu or not counts_gated))
+    log(f"  card against the CPU (fp32, TF32 off; \"{phrase}\"; the CPU's "
+        f"forward {cpu_s:.2f} s): logits max_abs_err {logit_err:.3e} bound "
+        f"{OWL_LOGIT_BOUND * ref_max:.3e} ({OWL_LOGIT_BOUND}*max|ref|); boxes "
+        f"max_abs_err {box_err:.3e} bound {OWL_BOX_BOUND}; best patch {best} "
+        f"against {best_ref} (probability {float(top.values[0]):.6f}, "
+        f"runner-up {float(top.values[1]):.6f}); count_instances {n_card} "
+        f"against {n_cpu} (nearest probability {margin:.3e} from the "
+        f"threshold, {'gated' if counts_gated else 'not gated'})  "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("OWL-ViT on the card disagrees with the CPU")
+
+    def forward():
+        return card.forward(pixels, [phrase])
+
+    fp32_ms = device_ms(forward)
+    with mock.patch.object(owl, "_exact_fp32", tf32_on):
+        tf_boxes, tf_logits = forward()
+        tf32_ms = device_ms(forward)
+    tf32 = dict(logits_err=float((tf_logits.cpu() - ref_logits).abs().max()),
+                box_err=float((tf_boxes.cpu() - ref_boxes).abs().max()),
+                device_ms=tf32_ms)
+    log(f"  with TF32 allowed (not the detector's setting): logits "
+        f"max_abs_err {tf32['logits_err']:.3e} against the CPU (the gate "
+        f"{OWL_LOGIT_BOUND * ref_max:.3e}), boxes {tf32['box_err']:.3e}; the "
+        f"forward {tf32_ms:.3f} ms device against {fp32_ms:.3f} ms in fp32")
+
+    def one():
+        return card(image, phrase)[2]
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    one()
+    peak = torch.cuda.max_memory_allocated() - base
+    times = dict(wall_ms=_wall_ms(one), device_ms=device_ms(one))
+    launches = read_counts()
+    log(f"  {OWL} on {torch.cuda.get_device_name(0)}: a detection "
+        f"{times['wall_ms']:.3f} ms wall, {times['device_ms']:.3f} ms "
+        f"device (its forward {fp32_ms:.3f}); peak memory above the weights "
+        f"{peak / 2 ** 20:.1f} MiB; launches of the port's kernels "
+        f"{launches}")
+    if any(launches.values()):
+        raise SystemExit(f"OWL-ViT launched the port's kernels: {launches}")
+
+    # dialogue_0 with OWL-ViT as the detector
+    flags = ["--weights", ckpt]
+    log(f"[main path] dialogue_0 through the CLI with --weights of "
+        f"owl.safetensors alone, {OWL_STEPS} steps")
+    seen = dict(calls=0, attention=0, answers=[])
+    real = (owl.OwlBackend.__call__, theater.det.attention_detect,
+            theater.det.attention_detect_batch)
+
+    def call(self, image_, phrase_):
+        seen["calls"] += 1
+        r = real[0](self, image_, phrase_)
+        seen["answers"].append((phrase_, round(r[1], 6), r[2]))
+        return r
+
+    def attention(*a, **k):
+        seen["attention"] += 1
+        return real[1](*a, **k)
+
+    owl.OwlBackend.__call__ = call
+    theater.det.attention_detect = attention
+    theater.det.attention_detect_batch = attention
+    try:
+        run = turn_path(records, "owl", flags, OWL_STEPS)
+    finally:
+        (owl.OwlBackend.__call__, theater.det.attention_detect,
+         theater.det.attention_detect_batch) = real
+    detects = run["phase_summary"]["char.detect"]["count"]
+    good = seen["calls"] == detects and seen["attention"] == 0
+    log(f"  OWL-ViT: {seen['calls']} calls, char.detect {detects}, attention "
+        f"detection {seen['attention']}; (phrase, confidence, ok) "
+        f"{seen['answers']}  {'ok' if good else 'FAIL'}")
+    if not good:
+        raise SystemExit("owl: OWL-ViT was not the turn's detector")
+    run.update(detector_calls=seen["calls"], answers=seen["answers"])
+    rec = dict(parameters=n_params, choice=choice, cpu_forward_s=cpu_s,
+               logits_err=logit_err, logits_bound=OWL_LOGIT_BOUND * ref_max,
+               box_err=box_err, best_patch=best, counts=(n_card, n_cpu),
+               counts_gated=counts_gated, forward_fp32_device_ms=fp32_ms,
+               tf32=tf32, peak_bytes=peak, turn=run,
+               seconds=time.perf_counter() - t0, **times)
+    return rec, card, cpu
+
+
+def _compare_eval(card: dict, cpu: dict, what: str) -> dict:
+    """The card's evaluation run against the CPU's: each detector answer
+    and count (a verdict or count asserted equal where its scores lay more
+    than 10×EVAL_SCORE_TOL from the threshold, a confidence within
+    EVAL_SCORE_TOL); if no decision parted, every embedding within
+    EVAL_TOL·max|ref|, the Inception features within INCEPTION_TOL of
+    theirs, ATIS (100× a cosine) within 100·EVAL_SCORE_TOL and ACCS within
+    EVAL_SCORE_TOL; AFID, which evaluate_tree computes by the same numpy
+    from each side's features, printed (over a few rank-deficient crops
+    the Fréchet distance is ill-conditioned: the features are the
+    test)."""
+    bad, parted = [], []
+    if len(card["det"].calls) != len(cpu["det"].calls):
+        bad.append(f"{len(card['det'].calls)} detector calls against "
+                   f"{len(cpu['det'].calls)}")
+    conf_err = 0.0
+    for a, b in zip(card["det"].calls, cpu["det"].calls):
+        if a[:2] != b[:2]:
+            bad.append(f"call {a[:2]} against {b[:2]}")
+            continue
+        gated = b[4] > 10 * EVAL_SCORE_TOL
+        if a[0] == "detect":
+            conf_err = max(conf_err, abs(a[2] - b[2]))
+        if a[3] != b[3]:
+            (bad if gated else parted).append(
+                f"{a[0]} \"{a[1]}\": {a[3]} against {b[3]} (margin "
+                f"{b[4]:.3e})")
+    if conf_err > EVAL_SCORE_TOL:
+        bad.append(f"confidences {conf_err:.3e} apart")
+    res = dict(calls=len(cpu["det"].calls), conf_err=conf_err,
+               min_margin=min((c[4] for c in cpu["det"].calls), default=None),
+               parted=parted)
+    if not parted and not bad:
+        emb_err, n = 0.0, 0
+        for (_, a), (_, b) in zip(card["emb"], cpu["emb"]):
+            if a.shape != b.shape:
+                bad.append(f"embedding shapes {a.shape} {b.shape}")
+                break
+            emb_err = max(emb_err, float(np.abs(a - b).max()
+                                         / max(np.abs(b).max(), 1e-30)))
+            n += 1
+        if len(card["emb"]) != len(cpu["emb"]) or emb_err > EVAL_TOL:
+            bad.append(f"embeddings {emb_err:.3e} of max|ref| apart over "
+                       f"{n} calls")
+        fa, fb = (np.concatenate([f for _, f in x["fid"]]) if x["fid"]
+                  else np.zeros((0,)) for x in (card, cpu))
+        fid_err = (float(np.abs(fa - fb).max() / np.abs(fb).max())
+                   if fb.size else 0.0)
+        if fa.shape != fb.shape or fid_err > INCEPTION_TOL:
+            bad.append(f"Inception features {fid_err:.3e} of max|ref| apart")
+        ga, gb = card["out"], cpu["out"]
+        tis = abs(ga["ATIS_UNVALIDATED"] - gb["ATIS_UNVALIDATED"])
+        ccs_a, ccs_b = ga["ACCS_UNVALIDATED"], gb["ACCS_UNVALIDATED"]
+        ccs = 0.0 if np.isnan(ccs_a) and np.isnan(ccs_b) else abs(ccs_a
+                                                                    - ccs_b)
+        if not tis <= 100 * EVAL_SCORE_TOL or not ccs <= EVAL_SCORE_TOL:
+            bad.append(f"ATIS {tis:.3e} and ACCS {ccs:.3e} apart")
+        afid = [x["out"]["AFID_UNVALIDATED"] for x in (card, cpu)]
+        res.update(embedding_calls=n, embedding_err=emb_err,
+                   inception_err=fid_err, tis_diff=tis, ccs_diff=ccs,
+                   afid_card_cpu=afid)
+    log(f"  {what}: card against the CPU over {res['calls']} detector "
+        f"answers (confidences {conf_err:.3e} apart, bound "
+        f"{EVAL_SCORE_TOL}; nearest score {res['min_margin']} from the "
+        f"threshold); " + (f"decisions parted within their margin {parted}; "
+                           f"values not compared" if parted else
+                           f"embeddings {res.get('embedding_err', 0):.3e} of "
+                           f"max|ref| (bound {EVAL_TOL}) over "
+                           f"{res.get('embedding_calls')} calls, Inception "
+                           f"features {res.get('inception_err', 0):.3e} "
+                           f"(bound {INCEPTION_TOL}), ATIS "
+                           f"{res.get('tis_diff', 0):.3e}, ACCS "
+                           f"{res.get('ccs_diff', 0):.3e}; AFID from each "
+                           f"side's features {res.get('afid_card_cpu')}")
+        + f"  {'ok' if not bad else 'FAIL ' + '; '.join(bad)}")
+    if bad:
+        raise SystemExit(f"{what}: the card disagrees with the CPU")
+    return res
+
+
+def _cmig_phase(root: str, owl_card, owl_cpu) -> dict:
+    """``evaluate_tree`` over the tree turn_path wrote for dialogue_0
+    (build/chip_smoke_turn/out/story/run0): the ViT-B/32 eval towers (text
+    512 wide, 8 heads, FFN 2048) from EVAL_SEED and Inception at 299 from
+    INCEPTION_SEED, once with the CLIP sliding detector and once with
+    OWL-ViT, each on the card and on CPU copies of the same weights
+    (``_compare_eval``), launching none of the port's kernels; then a
+    synthetic EVAL_DIALOGUES-dialogue tree of those images on the card
+    (seconds per dialogue, crops embedded per second); then ``python -m
+    theatergen_tpu_torch.eval.cmig --random-ok`` over the tree, in
+    process."""
+    from theatergen_tpu_torch.eval import cmig, inception
+
+    t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    tree = os.path.join(here, "build", "chip_smoke_turn", "out", "story",
+                        "run0")
+    with open(os.path.join(here, "data", "sample", "story.json")) as f:
+        story = json.load(f)
+    d0 = {"dialogue_0": story["dialogue_0"]}
+    emb = cmig.ClipEmbedder.eval_default(EVAL_SEED)
+    fid = inception.InceptionEmbedder.random_init(INCEPTION_SEED)
+    emb_cpu = cmig.ClipEmbedder(copy.deepcopy(emb.text).cpu(),
+                                copy.deepcopy(emb.vision).cpu(),
+                                emb.tokenizer, emb.max_length)
+    fid_cpu = inception.InceptionEmbedder(
+        {k: v.cpu() for k, v in fid.model.state_dict().items()},
+        device="cpu")
+    log(f"  eval towers: ViT-B/32 {sum(p.numel() for p in emb.vision.parameters())} "
+        f"and text {sum(p.numel() for p in emb.text.parameters())} "
+        f"parameters, InceptionV3 {sum(p.numel() for p in fid.model.parameters())} "
+        f"(fp32, TF32 off)")
+
+    # the layers' own times: a sliding-detector call (88 crops of one
+    # turn's image), an Inception chunk of 50 crops at 299 (its first call
+    # apart: cuDNN's first use of each convolution shape)
+    image = png.read_png(os.path.join(tree, "dialogue_0", "turn 1",
+                                      "img_0.png")).astype(np.float32) / 255
+    phrase = d0["dialogue_0"]["turn 1"]["objects"][0][0]
+    sliding = cmig.ClipSlidingDetector(emb)
+    chunk = [image[int(b[1] * 512):int(b[3] * 512), int(b[0] * 512):
+                   int(b[2] * 512)] for b in sliding.candidates[:50]]
+    reset_counts()
+    t = time.perf_counter()
+    fid.embed_images(chunk)
+    torch.cuda.synchronize()
+    layer = dict(inception_first_call_s=time.perf_counter() - t,
+                 inception_chunk_wall_ms=_wall_ms(
+                     lambda: fid.embed_images(chunk), 3),
+                 inception_chunk_device_ms=device_ms(
+                     lambda: fid.embed_images(chunk)),
+                 sliding_call_wall_ms=_wall_ms(
+                     lambda: sliding(image, phrase), 5),
+                 sliding_call_device_ms=device_ms(
+                     lambda: sliding(image, phrase)))
+    log(f"  on {torch.cuda.get_device_name(0)}: a sliding-detector call (88 "
+        f"crops) {layer['sliding_call_wall_ms']:.3f} ms wall, "
+        f"{layer['sliding_call_device_ms']:.3f} ms device; an Inception chunk "
+        f"of 50 crops at 299 {layer['inception_chunk_wall_ms']:.3f} ms wall, "
+        f"{layer['inception_chunk_device_ms']:.3f} ms device (its first "
+        f"call {layer['inception_first_call_s']:.2f} s)")
+
+    def evaluate(e, f, owl_backend, label):
+        """evaluate_tree with spied copies of the embedders and of the
+        detector (the sliding detector on ``e``, or ``owl_backend``)."""
+        embs, feats = [], []
+        e_, f_ = copy.copy(e), copy.copy(f)
+        _spy_embed(e_, embs)
+        _spy_embed(f_, feats)
+        if owl_backend is None:
+            det = cmig.ClipSlidingDetector(e_)
+            spy = DetectorSpy(det, det.threshold)
+        else:
+            det = copy.copy(owl_backend)
+            spy = DetectorSpy(det, det.box_threshold)
+        t = time.perf_counter()
+        out = cmig.evaluate_tree(tree, d0, e_, spy, fid_embedder=f_,
+                                 validated=False,
+                                 csv_path=os.path.join(root, f"{label}.csv"))
+        if e_.device.type == "cuda":
+            torch.cuda.synchronize()
+        return dict(out=out, det=spy, emb=embs, fid=feats,
+                    seconds=time.perf_counter() - t)
+
+    runs = {}
+    for name in ("clipdet", "owl"):
+        sides = {}
+        for side, e, f, o in (("card", emb, fid, owl_card),
+                              ("cpu", emb_cpu, fid_cpu, owl_cpu)):
+            sides[side] = evaluate(e, f, None if name == "clipdet" else o,
+                                   f"{name}_{side}")
+        cmp = _compare_eval(sides["card"], sides["cpu"],
+                            f"evaluate_tree of dialogue_0, {name}")
+        runs[name] = dict(card=sides["card"]["out"], cpu=sides["cpu"]["out"],
+                          card_s=sides["card"]["seconds"],
+                          cpu_s=sides["cpu"]["seconds"], **cmp)
+        log(f"  {name}: the card's aggregates {json.dumps(runs[name]['card'])}"
+            f" in {runs[name]['card_s']:.2f} s (the CPU's "
+            f"{runs[name]['cpu_s']:.2f} s)")
+    launches = read_counts()
+    if any(launches.values()):
+        raise SystemExit(f"the evaluation launched the port's kernels: "
+                         f"{launches}")
+    del emb_cpu, fid_cpu
+
+    # a synthetic EVAL_DIALOGUES-dialogue tree of the same images, timed
+    tree20 = os.path.join(root, "tree20")
+    for i in range(EVAL_DIALOGUES):
+        for turn in d0["dialogue_0"]:
+            d = os.path.join(tree20, f"dialogue_{i}", turn)
+            os.makedirs(d)
+            shutil.copy(os.path.join(tree, "dialogue_0", turn, "img_0.png"),
+                        d)
+    data20 = {f"dialogue_{i}": story["dialogue_0"]
+              for i in range(EVAL_DIALOGUES)}
+    crops = []
+    e20 = copy.copy(emb)
+    _spy_embed(e20, crops)
+    reset_counts()
+    t = time.perf_counter()
+    out20 = cmig.evaluate_tree(tree20, data20, e20, fid_embedder=fid,
+                               validated=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    n_images = sum(a.shape[0] for name, a in crops
+                   if name == "embed_images")
+    timing = dict(dialogues=EVAL_DIALOGUES, turns=4 * EVAL_DIALOGUES,
+                  seconds=secs, seconds_per_dialogue=secs / EVAL_DIALOGUES,
+                  embed_calls=len(crops), crops=n_images,
+                  crops_per_second=n_images / secs)
+    log(f"  {EVAL_DIALOGUES} dialogues, {4 * EVAL_DIALOGUES} turns on the "
+        f"card (sliding detector, Inception AFID): {secs:.2f} s, "
+        f"{secs / EVAL_DIALOGUES:.3f} s per dialogue; {n_images} images "
+        f"(crops and whole turns) through the ViT-B/32 tower in "
+        f"{len(crops)} tower calls, {n_images / secs:.1f} per second; "
+        f"aggregates {json.dumps(out20)}")
+    if read_counts() != counts():
+        raise SystemExit("the evaluation launched the port's kernels")
+
+    # the module's command line, in process
+    t = time.perf_counter()
+    main_out = cmig.main(["--save_dir", tree, "--dataset_path",
+                          os.path.join(here, "data", "sample"),
+                          "--random-ok", "--max_dialogues", "1", "--csv",
+                          os.path.join(root, "main.csv")])
+    main_s = time.perf_counter() - t
+    finite = [k for k, v in main_out.items() if np.isfinite(v)]
+    log(f"  python -m theatergen_tpu_torch.eval.cmig --random-ok: "
+        f"{main_s:.2f} s, finite {finite}")
+    if not all(k.endswith("_UNVALIDATED") for k in main_out) or \
+            "ATIS_UNVALIDATED" not in finite:
+        raise SystemExit(f"eval.cmig.main: {main_out}")
+    return dict(runs=runs, twenty=timing, main=main_out, main_s=main_s,
+                seconds=time.perf_counter() - t0, **layer)
+
+
+def _golden_phase(root: str, records) -> dict:
+    """The golden kit at full width: one case of each kind written by the
+    port's own pipelines under ``plain_path()`` (``export_self_case``:
+    SD1.5 at 512 px, GOLDEN_STEPS DDIM steps, ``final_cn`` frozen for
+    GOLDEN_FROZEN; SDXL at 1024 px, GOLDEN_XL_STEPS steps, DDIM and
+    Euler-Ancestral), each consumed with the kernels (``run_case``): the
+    verdict True, its launches ``request_want`` of the case's step plan;
+    then each negative control (``goldens.NEGATIVE_CONTROLS``) planted,
+    its verdict False."""
+    from theatergen_tpu_torch.eval import goldens as GD
+
+    t0 = time.perf_counter()
+    gdir = os.path.join(root, "goldens")
+    rows = {}
+    for model, kinds in ((SD15, ("text2img", "character_ip", "final_cn")),
+                         (SDXL, ("sdxl", "sdxl_ea"))):
+        if model == SD15:
+            bundle = init_bundle(sd15_config(), 0, device="cuda",
+                                 with_ip=True, with_vision=True,
+                                 with_controlnet=True)
+            steps = GOLDEN_STEPS
+        else:
+            bundle = init_bundle(sdxl_config(), 0, device="cuda")
+            steps = GOLDEN_XL_STEPS
+        cfg = bundle.cfg
+        reset_counts()
+        t = time.perf_counter()
+        with plain_path():
+            names = [GD.export_self_case(bundle, gdir, kind, num_steps=steps,
+                                         seed=i, frozen_steps=GOLDEN_FROZEN)
+                     for i, kind in enumerate(kinds)]
+        torch.cuda.synchronize()
+        export_s = time.perf_counter() - t
+        if any(read_counts().values()):
+            raise SystemExit("plain_path() launched the port's kernels")
+        log(f"  {model}: {names} written under plain_path() in "
+            f"{export_s:.2f} s ({steps} steps)")
+        side = cfg.pipeline.latent_height
+        for name, kind in zip(names, kinds):
+            case = GD.load_case(gdir, name)
+            if kind == "text2img" or model == SDXL:
+                want = request_want(cfg.unet, side, step_plan(steps))
+            else:
+                want = path_want(CHAR if kind == "character_ip" else FINAL,
+                                 steps)
+            reset_counts()
+            t = time.perf_counter()
+            r = GD.run_case(bundle, case)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            got = read_counts()
+            add_launches(records, f"golden_{kind}", got)
+            v = GD.verdict(r)
+            rows[kind] = dict(final_rel_mse=r["final_rel_mse"],
+                              image_psnr_db=r["image_psnr_db"], verdict=v,
+                              seconds=secs, launches=got)
+            log(f"  golden {kind}: final_rel_mse {r['final_rel_mse']:.3e}, "
+                f"image PSNR {r['image_psnr_db']} dB, verdict {v}, "
+                f"{secs:.2f} s; launches {got}  "
+                f"{'ok' if v and got == want else 'FAIL'}")
+            if not v or got != want:
+                raise SystemExit(f"golden {kind}: verdict {v}, launches "
+                                 f"{got}, want {want}")
+        for kind, bug in GD.NEGATIVE_CONTROLS:
+            if kind not in kinds:
+                continue
+            case, b = GD.plant_bug(GD.load_case(gdir, f"self_{kind}"),
+                                   bundle, bug)
+            r = GD.run_case(b, case)
+            v = GD.verdict(r)
+            rows[f"{kind}+{bug}"] = dict(final_rel_mse=r["final_rel_mse"],
+                                         image_psnr_db=r["image_psnr_db"],
+                                         verdict=v)
+            log(f"  negative control {kind} with {bug}: final_rel_mse "
+                f"{r['final_rel_mse']:.3e}, image PSNR {r['image_psnr_db']} "
+                f"dB, verdict {v}  {'ok' if not v else 'FAIL'}")
+            if v:
+                raise SystemExit(f"the planted bug {bug} passed the {kind} "
+                                 f"verdict")
+        del bundle, b, case
+        gc.collect()
+        torch.cuda.empty_cache()
+    return dict(rows=rows, seconds=time.perf_counter() - t0)
 
 
 def request_ab(model: str, one_request) -> dict:
@@ -3948,6 +4580,17 @@ def main() -> int:
         f"gdino_vocab.txt, {SD15_STEPS} DDIM steps, and with --batch_chars "
         f"at {GDINO_BATCH_STEPS}")
     paths[GDINO] = gdino_path(records)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[main path] OWL-ViT as the turn's second detector (owlvit-base-"
+        f"patch32 at 768 px, seeded fp32 weights; the card against the CPU; "
+        f"load_bundle's choice; dialogue_0 through the CLI at {OWL_STEPS} "
+        f"steps), the CMIGBench evaluation of dialogue_0's tree (ViT-B/32, "
+        f"InceptionV3 at 299; the sliding detector and OWL-ViT; card against "
+        f"CPU; {EVAL_DIALOGUES} dialogues timed) and the golden kit (five "
+        f"kinds written under plain_path(), consumed with the kernels; the "
+        f"negative controls)")
+    paths[EVAL] = eval_path(records)
     paths["sp_shards_equal"] = sp_shards
     paths["wave_batch_shapes_checked"] = batch_shapes
     paths["grad_gates"] = len(grad_gates)

@@ -238,6 +238,57 @@ def test_ff_kernel_matches_plain_on_card(m, d):
     assert (out - ref).abs().max() <= 1e-2 * ref.abs().max()
 
 
+# the dialogue waves' batches (a turn's characters or final passes under
+# CFG: batch 4, 6 or 8) at the SD1.5 IP UNet's levels, as chip_smoke.py's
+# batch_shapes_phase checks them
+WAVE_BATCH_FLASH = [(b, s, d) for b in (4, 6, 8)
+                    for s, d in ((4096, 40), (1024, 80))]
+WAVE_BATCH_FF = [(b * (64 >> level) ** 2, d)
+                 for b in (4, 6, 8)
+                 for level, d in enumerate((320, 640, 1280))
+                 if tgg.ff_supported(b * (64 >> level) ** 2, d, 4 * d)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,d", WAVE_BATCH_FLASH)
+def test_flash_kernel_at_wave_batches_on_card(b, s, d):
+    """Row 1 (the packed route) at the waves' batches, 8 heads; bound
+    1e-2·max|ref| for the bf16 output, as at batch 2."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(b)
+    q, k, v = (torch.randn(b, s, 8, d, device=dev, generator=g,
+                           dtype=torch.bfloat16) for _ in range(3))
+    n0 = tfa.launches
+    out = tfa.flash_attention(q, k, v, route="packed").float()
+    torch.cuda.synchronize()
+    assert tfa.launches == n0 + 1
+    ref = tfa.flash_attention_plain(q.float(), k.float(), v.float())
+    assert (out - ref).abs().max() <= 1e-2 * ref.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d", WAVE_BATCH_FF)
+def test_ff_kernel_at_wave_batches_on_card(m, d):
+    """Row 6 at M = B·(64 >> level)², K = 4D, wherever ``ff_supported``
+    admits the shape; bound 1e-2·max|ref| as at batch 2."""
+    dev = _card()
+    k = 4 * d
+    g = torch.Generator(device=dev).manual_seed(m + d)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, device=dev, generator=g) * scale).to(
+            torch.bfloat16)
+
+    x, w1, b1, w2 = (rnd(m, d), rnd(2 * k, d, scale=d ** -0.5),
+                     rnd(2 * k, scale=0.1), rnd(d, k, scale=k ** -0.5))
+    n0 = tgg.ff_launches
+    out = tgg.ff_matmul(x, w1, b1, w2).float()
+    torch.cuda.synchronize()
+    assert tgg.ff_launches == n0 + 1
+    ref = tgg.ff_matmul_plain(x.float(), w1.float(), b1.float(), w2.float())
+    assert (out - ref).abs().max() <= 1e-2 * ref.abs().max()
+
+
 @pytest.mark.cuda
 def test_ff_split_reduce_is_deterministic_and_resets_its_counters():
     """At the mid block's shape (M = 128: one row block, its chunks split

@@ -397,8 +397,9 @@ def test_owl_is_refused_where_the_jax_package_would_load_it(
         tmp_path, monkeypatch, vocab):
     """Beside a loadable GroundingDINO the JAX package ignores
     owl.safetensors, unless THEATERGEN_DETECTOR=owl forces it: the port
-    loads GroundingDINO there, and refuses OWL-ViT (ROADMAP §1 item 2b)
-    where the JAX package would load it."""
+    loads GroundingDINO there, and reads the OWL-ViT file where the JAX
+    package would load it, refusing one whose shapes are no OWL-ViT's
+    (the choice on real OWL-ViT files: test_torch_port_owl.py)."""
     d, _ = _detector_dir(tmp_path, vocab)
     TW.save_safetensors(os.path.join(d, "owl.safetensors"),
                         {"x": torch.zeros(1)})
@@ -406,11 +407,11 @@ def test_owl_is_refused_where_the_jax_package_would_load_it(
     tb = TW.load_bundle(weight_tests.CFG, d, device="cpu")
     assert isinstance(tb.detector, tgd.GroundingDinoBackend)
     monkeypatch.setenv("THEATERGEN_DETECTOR", "owl")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 2b"):
+    with pytest.raises(ValueError, match=r"owl.safetensors: its shapes"):
         TW.load_bundle(weight_tests.CFG, d, device="cpu")
     os.remove(os.path.join(d, "gdino_vocab.txt"))
     monkeypatch.delenv("THEATERGEN_DETECTOR")
-    with pytest.raises(NotImplementedError, match=r"OWL-ViT"):
+    with pytest.raises(ValueError, match=r"owl.safetensors: its shapes"):
         TW.load_bundle(weight_tests.CFG, d, device="cpu")
 
 

@@ -49,20 +49,22 @@ def test_port_imports_no_jax():
 
 
 def test_the_turn_modules_are_covered():
-    """The turn's modules (the SDXL turn's T2I-Adapter and the GroundingDINO
-    detector too) are among those test_port_imports_no_jax imports in a
-    fresh interpreter."""
+    """The turn's modules (the SDXL turn's T2I-Adapter, the GroundingDINO
+    and OWL-ViT detectors, the evaluation and the golden kit too) are
+    among those test_port_imports_no_jax imports in a fresh
+    interpreter."""
     mods = set(_modules())
     for m in ("cli.generate", "db", "runtime.store", "perception.detector",
               "utils.parse", "utils.profiling", "utils.png", "theater",
               "models.t2i_adapter", "perception.gdino", "perception.swin",
-              "perception.bert"):
+              "perception.bert", "perception.owl", "eval", "eval.metrics",
+              "eval.cmig", "eval.inception", "eval.goldens", "utils.vis"):
         assert f"theatergen_tpu_torch.{m}" in mods, m
 
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in list(PKG.rglob("*.py"))
-    + [ROOT / "chip_smoke.py"]))
+    + [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_golden_parity.py"]))
 def test_source_names_no_jax(path):
     text = (ROOT / path).read_text()
     for line in text.splitlines():

@@ -569,12 +569,13 @@ def test_missing_parts_warn_as_jax(tmp_path, capsys):
 
 @pytest.mark.parametrize("fname", ["owl.safetensors"])
 def test_detector_files_are_refused(tmp_path, fname):
-    """OWL-ViT is not ported (GroundingDINO loads:
-    test_torch_port_gdino_turn.py)."""
+    """A detector file whose shapes are no detector the port builds is
+    refused, not loaded partly (OWL-ViT loads:
+    test_torch_port_owl.py; GroundingDINO: test_torch_port_gdino_turn.py)."""
     d = tmp_path / "w"
     d.mkdir()
     TW.save_safetensors(str(d / fname), {"x": torch.zeros(1)})
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 2b"):
+    with pytest.raises(ValueError, match=r"owl.safetensors: its shapes"):
         TW.load_bundle(CFG, str(d), device="cpu")
 
 

@@ -7,7 +7,9 @@ tower (ViT-H/14 for IP-Adapter): a bias-free patch convolution, class and
 position embeddings, ``pre_layrnorm``, quick_gelu layers, fp32.  Parameter
 names follow HF's ``CLIPTextModel`` / ``CLIPVisionModelWithProjection``
 layouts (``embeddings.token_embedding``, ``embeddings.patch_embedding``,
-``encoder.layers.0.self_attn.q_proj`` …).  Attention goes through
+``encoder.layers.0.self_attn.q_proj`` …); OWL-ViT builds its towers
+from the same modules (``perception/owl.py``).  :func:`clip_similarity`
+scores image against text embeddings.  Attention goes through
 ``ops.attention.multi_head_attention``, as the JAX package leaves it to
 XLA.
 """
@@ -142,19 +144,27 @@ class CLIPVisionEncoder(nn.Module):
     post-LN CLS token (what IP-Adapter's ImageProj takes), that token, and
     the input of the last layer (the plus variant's Resampler input).  With
     ``return_tokens`` a fourth output is ``post_layernorm`` over the whole
-    sequence."""
+    sequence.
 
-    def __init__(self, cfg: CLIPVisionConfig):
+    ``pre_norm`` names the pre-norm as the checkpoint does: CLIP's
+    ``pre_layrnorm`` (sic), OWL-ViT's ``pre_layernorm``.  Without
+    ``projection`` the tower has no ``visual_projection`` (OWL-ViT keeps it
+    beside the tower) and ``image_embeds`` is None."""
+
+    def __init__(self, cfg: CLIPVisionConfig, *,
+                 pre_norm: str = "pre_layrnorm", projection: bool = True):
         super().__init__()
         self.cfg = cfg
+        self.pre_norm = pre_norm
         self.embeddings = _VisionEmbeddings(cfg)
-        self.pre_layrnorm = nn.LayerNorm(cfg.hidden_size,
-                                         eps=cfg.layer_norm_eps)
+        setattr(self, pre_norm, nn.LayerNorm(cfg.hidden_size,
+                                             eps=cfg.layer_norm_eps))
         self.encoder = _Encoder(cfg)
         self.post_layernorm = nn.LayerNorm(cfg.hidden_size,
                                            eps=cfg.layer_norm_eps)
-        self.visual_projection = nn.Linear(cfg.hidden_size,
-                                           cfg.projection_dim, bias=False)
+        self.visual_projection = (
+            nn.Linear(cfg.hidden_size, cfg.projection_dim, bias=False)
+            if projection else None)
 
     def forward(self, pixels: torch.Tensor, return_tokens: bool = False):
         emb = self.embeddings
@@ -162,7 +172,7 @@ class CLIPVisionEncoder(nn.Module):
         x = x.flatten(2).transpose(1, 2)                  # [B, N, C]
         cls = emb.class_embedding.expand(x.shape[0], 1, -1)
         x = torch.cat([cls, x], dim=1) + emb.position_embedding.weight[None]
-        x = self.pre_layrnorm(x)
+        x = getattr(self, self.pre_norm)(x)
         penultimate = None
         for i, layer in enumerate(self.encoder.layers):
             if i == len(self.encoder.layers) - 1:
@@ -170,7 +180,19 @@ class CLIPVisionEncoder(nn.Module):
             x = layer(x)
         normed = self.post_layernorm(x)
         pooled = normed[:, 0]
-        embeds = self.visual_projection(pooled)
+        embeds = (None if self.visual_projection is None
+                  else self.visual_projection(pooled))
         if return_tokens:
             return embeds, pooled, penultimate, normed
         return embeds, pooled, penultimate
+
+
+def clip_similarity(image_embeds: torch.Tensor, text_embeds: torch.Tensor,
+                    logit_scale: float = 100.0) -> torch.Tensor:
+    """Cosine-similarity logits ``[Ni, Nt]``, the eval metric's core
+    (``CMIGBench/eval/eval.py:97-228``)."""
+    a = image_embeds / torch.linalg.vector_norm(image_embeds, dim=-1,
+                                                keepdim=True)
+    b = text_embeds / torch.linalg.vector_norm(text_embeds, dim=-1,
+                                               keepdim=True)
+    return logit_scale * a @ b.T

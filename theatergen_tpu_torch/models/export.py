@@ -1,6 +1,6 @@
 """The port's modules written as published checkpoint files: the inverse
 of ``models/weights.py``'s ``port_*`` maps (GroundingDINO's file and its
-vocabulary too, where the bundle carries the detector).
+vocabulary, or OWL-ViT's file, where the bundle carries that detector).
 
 :func:`published_state_dicts` gives the state dicts, in the published
 names, of the files :func:`models.weights.load_bundle` reads, and
@@ -19,6 +19,7 @@ from typing import Dict, Mapping, Sequence
 import torch
 
 from ..perception.gdino import GroundingDinoBackend
+from ..perception.owl import OwlBackend
 from ..perception.sam_hf import SamHF
 from .weights import (IP_FILES, _VAE_LEGACY, cross_attention_paths,
                       save_safetensors)
@@ -116,7 +117,19 @@ def published_state_dicts(bundle) -> Dict[str, Dict[str, torch.Tensor]]:
                 (r"head\.(\w+)", r"model4.1.\1")))
     if isinstance(bundle.detector, GroundingDinoBackend):
         out["gdino.safetensors"] = gdino_published(bundle.detector.model)
+    if isinstance(bundle.detector, OwlBackend):
+        out["owl.safetensors"] = owl_published(bundle.detector.model)
     return out
+
+
+def owl_published(model) -> Dict[str, torch.Tensor]:
+    """An ``OwlDetector``'s state dict as transformers'
+    ``OwlViTForObjectDetection`` holds it: its names, plus the contrastive
+    ``owlvit.logit_scale`` (CLIP's initial value, log(1/0.07)), which
+    ``port_owl`` drops."""
+    sd = dict(model.state_dict())
+    sd["owlvit.logit_scale"] = torch.tensor(2.6592)
+    return sd
 
 
 def gdino_published(model) -> Dict[str, torch.Tensor]:

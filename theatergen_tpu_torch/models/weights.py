@@ -30,7 +30,10 @@ projectors' names (``proj.0`` → ``proj_0``, ``layers.0.0.to_kv`` →
 ``layers.0.attn.to_kv``, ...); the lineart annotator's ``sk_model.pth``
 Sequential indices name the layers of the port's ``LineartGenerator``,
 whose ConvTranspose weights keep torch's layout; GroundingDINO's file
-loses its buffers and tied box-head copies and nothing else.  :func:`load_bundle`
+loses its buffers and tied box-head copies and nothing else, OWL-ViT's
+its contrastive ``owlvit.logit_scale`` (:func:`port_owl`), pytorch_fid's
+InceptionV3 its classifier, auxiliary head and ``num_batches_tracked``
+(:func:`port_inception`).  :func:`load_bundle`
 assembles a bundle from a directory of such files, each module loaded
 with ``strict=True``.
 
@@ -41,9 +44,11 @@ included), ControlNet, VAE, text tower (either of SDXL's two,
 ``text_projection`` included), CLIP vision tower, IP-Adapter projector
 (``image_proj``, ``mlp_proj``, ``resampler``), T2I-Adapter
 (``t2i_adapter``), segmenter (``sam_lite``, ``sam_hf``) or lineart
-generator (``lineart``: ``LineartGenerator`` or ``LineartNet``) or
-GroundingDINO (``gdino``: transformers' names, :data:`_GDINO_SCOPES`) and
-returns the port's state dict as numpy arrays.  It is written from the two
+generator (``lineart``: ``LineartGenerator`` or ``LineartNet``),
+GroundingDINO (``gdino``: transformers' names, :data:`_GDINO_SCOPES`),
+OWL-ViT (``owl``: transformers' names) or the FID InceptionV3
+(``inception``: torchvision's names) and returns the port's state dict as
+numpy arrays.  It is written from the two
 packages' naming rules:
 
 - scopes: ``down_blocks_0_resnets_1`` → ``down_blocks.0.resnets.1``,
@@ -91,7 +96,7 @@ from ..perception.sam_hf import SamHF, SamHFConfig, tiny_sam_hf_config
 
 KINDS = ("unet", "controlnet", "vae", "text", "vision", "image_proj",
          "mlp_proj", "resampler", "t2i_adapter", "sam_lite", "sam_hf",
-         "lineart", "gdino")
+         "lineart", "gdino", "owl", "inception")
 
 _SCOPE_RULES = (
     (re.compile(r"(down_blocks|up_blocks)_(\d+)_"
@@ -147,6 +152,10 @@ def from_flax(kind: str, params: Mapping) -> Dict[str, np.ndarray]:
         return _from_flax_perception(kind, params)
     if kind == "gdino":
         return _from_flax_gdino(params)
+    if kind == "owl":
+        return _from_flax_owl(params)
+    if kind == "inception":
+        return _from_flax_inception(params)
     flat = _flatten(params)
     # scopes of W8A8 subtrees, whose scale is not a norm's
     quant_scopes = {path[:-1] for path in flat if path[-1] == "kernel_q"}
@@ -307,6 +316,46 @@ def _from_flax_gdino(params: Mapping) -> Dict[str, np.ndarray]:
             "/", ".").rstrip(".")
         name, w = _leaf(leaf, w, quantized=False)
         out[f"{module}.{name}"] = w
+    return out
+
+
+def _from_flax_owl(params: Mapping) -> Dict[str, np.ndarray]:
+    """The port's ``OwlDetector`` state dict (transformers' names) of a JAX
+    ``OwlDetector`` tree: its ``text`` and ``vision`` towers through the
+    CLIP rules, under ``owlvit.text_model``/``owlvit.vision_model``, their
+    projections beside them and the vision pre-norm spelt
+    ``pre_layernorm``; the heads' Dense layers and ``layer_norm`` by the
+    leaf rules."""
+    out = {}
+    for k, w in from_flax("text", params["text"]).items():
+        out[f"owlvit.{k}" if k == "text_projection.weight"
+            else f"owlvit.text_model.{k}"] = w
+    for k, w in from_flax("vision", params["vision"]).items():
+        out[f"owlvit.{k}" if k == "visual_projection.weight" else
+            "owlvit.vision_model." + k.replace("pre_layrnorm.",
+                                               "pre_layernorm.")] = w
+    for path, w in _flatten({k: v for k, v in params.items()
+                             if k not in ("text", "vision")}).items():
+        name, w = _leaf(path[-1], w, quantized=False)
+        out[".".join(path[:-1] + (name,))] = w
+    return out
+
+
+def _from_flax_inception(params: Mapping) -> Dict[str, np.ndarray]:
+    """The port's ``InceptionV3Features`` state dict (torchvision's names)
+    of a JAX ``InceptionV3Features`` tree: each ``BasicConv2d``'s
+    ``conv/kernel`` and its ``bn_{scale,bias,mean,var}`` leaves become
+    ``conv.weight`` and ``bn.{weight,bias,running_mean,running_var}``."""
+    bn = {"bn_scale": "weight", "bn_bias": "bias", "bn_mean": "running_mean",
+          "bn_var": "running_var"}
+    out = {}
+    for path, w in _flatten(params).items():
+        module, leaf = ".".join(path[:-1]), path[-1]
+        if leaf in bn:
+            out[f"{module}.bn.{bn[leaf]}"] = w
+        else:
+            name, w = _leaf(leaf, w, quantized=False)
+            out[f"{module}.{name}"] = w
     return out
 
 
@@ -660,6 +709,47 @@ def port_grounding_dino(sd: Mapping) -> Dict[str, torch.Tensor]:
             if not any(re.fullmatch(rx, k) for rx in _GDINO_DROPPED)}
 
 
+# published OWL-ViT entries the detector does not use: the contrastive
+# logit scale, and the position-id buffers older files carry
+_OWL_DROPPED = (r"owlvit\.logit_scale", r".*\.position_ids")
+
+
+def port_owl(sd: Mapping) -> Dict[str, torch.Tensor]:
+    """transformers' ``OwlViTForObjectDetection`` →
+    ``perception.owl.OwlDetector`` (transformers' names): every entry but
+    :data:`_OWL_DROPPED`, to be loaded ``strict=True``."""
+    return {k: v for k, v in sd.items()
+            if not any(re.fullmatch(rx, k) for rx in _OWL_DROPPED)}
+
+
+def owl_config_of(sd: Mapping):
+    """The ``OwlConfig`` whose detector has the shapes of ``sd`` (a
+    :func:`port_owl` state dict): owlvit-base-patch32, as the JAX
+    package's ``load_bundle`` builds whatever the file, or the tiny
+    detector of the CPU tests; other shapes raise."""
+    from ..perception.owl import (OwlDetector, owlvit_base_patch32,
+                                  tiny_owl_config)
+
+    shapes = {k: tuple(v.shape) for k, v in sd.items()}
+    for cfg in (owlvit_base_patch32(), tiny_owl_config()):
+        with torch.device("meta"):
+            ref = OwlDetector(cfg).state_dict()
+        if shapes == {k: tuple(v.shape) for k, v in ref.items()}:
+            return cfg
+    raise ValueError("owl.safetensors: its shapes are neither "
+                     "owlvit-base-patch32's nor the tiny detector's")
+
+
+def port_inception(sd: Mapping) -> Dict[str, torch.Tensor]:
+    """pytorch_fid's / torchvision's ``inception_v3`` →
+    ``eval.inception.InceptionV3Features`` (the same names): without the
+    classifier (``fc``), the auxiliary head (``AuxLogits``) and the
+    BatchNorms' ``num_batches_tracked``."""
+    return {k: v for k, v in sd.items()
+            if k.split(".")[0] not in ("fc", "AuxLogits")
+            and not k.endswith(".num_batches_tracked")}
+
+
 def gdino_config_of(sd: Mapping):
     """The ``GroundingDinoConfig`` whose detector has the shapes of ``sd``
     (a :func:`port_grounding_dino` state dict): grounding-dino-tiny, as
@@ -707,8 +797,6 @@ IP_FILES = {
     "plus": ("ip-adapter-plus_sd15", "ip-adapter-plus_sdxl_vit-h"),
     "full": ("ip-adapter-full-face_sd15",),
 }
-# checkpoints of modules the port does not have yet
-UNPORTED_FILES = ("owl.safetensors",)
 EXPECTED = ("unet", "vae", "text", "controlnet", "vision", "ip_adapter")
 
 
@@ -735,22 +823,19 @@ def load_bundle(cfg, weights_dir: str, *, ip_variant: Optional[str] = None,
     detector whose shapes the file has: :func:`gdino_config_of`), and
     ``"gdino"`` joins the loaded parts; without the vocabulary the file is
     not loaded, as in the JAX package, with a warning.
-    ``owl.safetensors`` raises NotImplementedError where the JAX package
-    would load it (no GroundingDINO, or ``THEATERGEN_DETECTOR=owl``): OWL-ViT
-    is not ported.  Runs on the card unless ``device`` names another
-    device."""
+    ``owl.safetensors`` becomes the detector where no GroundingDINO loaded,
+    or over it under ``THEATERGEN_DETECTOR=owl`` (JAX
+    ``weights.py:1252-1274``): an ``OwlBackend`` in fp32
+    (owlvit-base-patch32, or the tiny detector whose shapes the file has:
+    :func:`owl_config_of`) with the bundle's CLIP tokenizer
+    (``load_tokenizer(weights_dir)``; without BPE assets the hash
+    tokenizer over the detector's vocabulary, so the tiny detector's ids
+    stay in range), and ``"owl"`` joins the loaded parts.  Runs on the card unless ``device`` names another device."""
     from ..pipelines.bundle import build_lineart, build_sam, init_bundle
 
     gdino_path = os.path.join(weights_dir, "gdino.safetensors")
     vocab_path = os.path.join(weights_dir, "gdino_vocab.txt")
     with_gdino = os.path.exists(gdino_path) and os.path.exists(vocab_path)
-    # the JAX package loads OWL-ViT without a GroundingDINO, or when
-    # THEATERGEN_DETECTOR=owl forces it
-    if os.path.exists(os.path.join(weights_dir, "owl.safetensors")) and (
-            not with_gdino or os.environ.get("THEATERGEN_DETECTOR") == "owl"):
-        raise NotImplementedError(
-            "owl.safetensors: the OWL-ViT detector is not ported yet "
-            "(ROADMAP §1 item 2b)")
     if getattr(cfg.unet, "quantized", False):
         raise NotImplementedError(
             "load_bundle: a published float UNet into a W8A8 UNet is not "
@@ -814,6 +899,18 @@ def load_bundle(cfg, weights_dir: str, *, ip_variant: Optional[str] = None,
         print("[load_bundle] WARNING: gdino.safetensors without "
               "gdino_vocab.txt is not loaded; the turn detects from the "
               "attention maps")
+    sd = maybe("owl.safetensors")
+    if sd and (bundle.detector is None
+               or os.environ.get("THEATERGEN_DETECTOR") == "owl"):
+        from ..perception.owl import OwlBackend
+        from ..utils.tokenizer import load_tokenizer
+
+        sd = port_owl(sd)
+        cfg_owl = owl_config_of(sd)
+        bundle.detector = OwlBackend(
+            cfg_owl, sd, load_tokenizer(weights_dir, cfg_owl.text.vocab_size),
+            max_length=cfg_owl.text.max_length, device=dev)
+        loaded.append("owl")
     ip = None
     for stem in IP_FILES[bundle.ip_variant]:
         ip = maybe(stem + ".bin") or maybe(stem + ".safetensors")

@@ -1,7 +1,7 @@
 """Attention-based character detection for the detect-and-regenerate loop.
 
 The port of ``theatergen_tpu/perception/detector.py::{Detection,
-attention_detect, detect_from_attention_and_sam}``, with
+attention_detect, ClipBoxScorer, detect_from_attention_and_sam}``, with
 :func:`attention_detect_batch` for a batch of characters (the JAX
 Theater's ``vmap`` of it).  The reference runs GroundingDINO on every
 generated character (``utils/detector.py:5-21``) and regenerates with a
@@ -79,6 +79,33 @@ def _detect(attn_maps, mass_threshold, min_area, out_hw) -> Detection:
     inside = (agg * binary).sum((-2, -1)) / (agg.sum((-2, -1)) + 1e-8)
     ok = torch.logical_and(area > min_area, inside > 0.25)
     return Detection(box=box, confidence=inside, ok=ok)
+
+
+class ClipBoxScorer:
+    """Score a crop against a phrase with a PAIRED CLIP embedder (both
+    towers in one joint space — see ``eval.cmig.ClipEmbedder``) — the
+    verification half of detection (plays the role of DINO's text
+    threshold).  Comparing embeddings of unrelated models is meaningless,
+    so this takes an embedder, not the generation bundle."""
+
+    def __init__(self, embedder):
+        self.embedder = embedder
+
+    def score(self, image, box, phrase: str) -> float:
+        """Cosine similarity between the box crop and the phrase."""
+        from ..eval.metrics import cosine_similarity, crop
+
+        crop_img = crop(_host(image), _host(box))
+        img_e = self.embedder.embed_images([crop_img])
+        txt_e = self.embedder.embed_texts([phrase])
+        return float(cosine_similarity(img_e, txt_e)[0])
+
+
+def _host(x):
+    """A tensor (any device) or array as a numpy array."""
+    import numpy as np
+
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
 def detect_from_attention_and_sam(attn_maps, word_token, sam_segment_fn=None,

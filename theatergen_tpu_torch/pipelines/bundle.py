@@ -64,9 +64,10 @@ class Bundle:
     sam: Optional[nn.Module] = None
     # the lineart annotator (LineartGenerator); None: dog_lineart
     lineart: Optional[nn.Module] = None
-    # the turn's open-vocabulary detector (perception.gdino's
-    # GroundingDinoBackend, from load_bundle); None: attention detection.
-    # OWL-ViT is not ported (ROADMAP §1 item 2b)
+    # the turn's open-vocabulary detector, from load_bundle:
+    # perception.gdino's GroundingDinoBackend (a Detection) or
+    # perception.owl's OwlBackend (a (box, confidence, ok) tuple); None:
+    # attention detection
     detector: Any = None
 
     @property

@@ -9,8 +9,9 @@ reference's ``theatergen.run``, ``theatergen.py:278-488``, with
   0.4 on a hit, 0 with placeholder features on a miss), the reference
   maps of its word token captured at every step;
 - its image is detected, by the bundle's open-vocabulary detector where
-  it has one (``perception.gdino.GroundingDinoBackend``, on the image and
-  the character's phrase), else from those maps (``perception.detector``),
+  it has one (``perception.gdino.GroundingDinoBackend`` or
+  ``perception.owl.OwlBackend``, on the image and the character's phrase),
+  else from those maps (``perception.detector``),
   and regenerated from fresh noise up to :data:`MAX_REGEN_ATTEMPTS` times;
   a detector that raises or answers malformed fails the turn;
 - its mask comes from the bundle's segmenter (``perception.sam``: the
@@ -124,11 +125,16 @@ def noise_generator(device, seed: int, *stream: int) -> torch.Generator:
 def _checked_detection(d, lead: tuple, device) -> det.Detection:
     """A detector's answer for ``lead`` images (``()``: one), its box
     ``[*lead, 4]`` and its verdict ``ok [*lead]`` as tensors on
-    ``device``; anything else raises, failing the turn (there is no
-    fallback to attention detection)."""
+    ``device``: a ``Detection`` (GroundingDINO), or the ``(box,
+    confidence, ok)`` tuple of the JAX package's OWL-ViT interface
+    (``perception.owl.OwlBackend``), held to the same shapes.  Anything
+    else raises, failing the turn (there is no fallback to attention
+    detection)."""
+    if isinstance(d, tuple) and len(d) == 3:
+        d = det.Detection(*d)
     if not isinstance(d, det.Detection):
         raise TypeError(f"the detector returned {type(d).__name__}, not a "
-                        f"Detection")
+                        f"Detection or a (box, confidence, ok) tuple")
     box = torch.as_tensor(d.box, device=device).float()
     ok = torch.as_tensor(d.ok, device=device)
     conf = torch.as_tensor(d.confidence, device=device)
