@@ -161,6 +161,18 @@ Phases, in order (any failure exits non-zero):
      written under ``plain_path()`` and consumed with the kernels (verdict
      True, launches ``request_want``), and each negative control failing
      its verdict.
+ 15. training (``train_path``): ``training.make_train_step`` on the SD1.5
+     IP UNet at full width, 512 px, batch 4 (its flash and FF shapes timed
+     in phase 4), seeded weights and data: one step's loss and gradients
+     with the kernels against ``plain_path()`` and an fp32 UNet (the
+     TRAIN_* gates), 10 full-UNet steps with an EMA (a falling loss;
+     seconds a step split by CUDA events, a profiled step's device time,
+     images a second, peak memory), the full state and EMA (14 GB)
+     through ``save_checkpoint``/``load_checkpoint`` bit for bit, then 10
+     steps of the IP recipe (``to_k_ip``/``to_v_ip`` only: frozen
+     parameters bit-equal, its state saved at step 5, loaded and resumed
+     bit-equal to the run that never stopped); each step launches one
+     batch-4 forward's kernels, its backward none.
 Every launch counter is set to 0 just before each request (or turn) and
 read just after it, and must equal the launches per request of each
 kernel: the constants of the SD1.5, W8A8 and SDXL requests under the
@@ -298,6 +310,24 @@ WAVE_BATCHES = (4, 8)
 # the CLI's --dp_dialogues 2 run (WAVE_CLI_STEPS steps)
 SERVE, WAVE_CLI, WAVE_CLI_STEPS = "sd15_512_serve", "sd15_512_wave_cli", 10
 DIALOGUES = ("dialogue_0", "dialogue_1")
+# training (train_path): the SD1.5 IP UNet at full width, 512 px (64²
+# latents), batch TRAIN_BATCH (the JAX bench's), weights, latents,
+# contexts, t and noise drawn from TRAIN_SEED; TRAIN_STEPS steps of the
+# full UNet and of the IP recipe, whose state is saved and resumed at
+# TRAIN_CKPT_STEP.  One step's forward is one evaluation without CFG at
+# batch 4, so its kernel rows are timed under this model
+TRAIN, TRAIN_SEED, TRAIN_BATCH = "sd15_512_train_b4", 17, 4
+TRAIN_STEPS, TRAIN_CKPT_STEP = 10, 5
+# its gates against plain_path() (one step: the same params, t and
+# noise).  The loss within TRAIN_LOSS_BOUND relative: the UNet's gate
+# (unet_reference_phase, 5e-2 of max|ref| on the eps), of which the loss
+# is a mean square.  The gradient over every parameter: the global cosine
+# at least TRAIN_GRAD_COS, and its relative L2 distance from the fp32
+# UNet's within TRAIN_GRAD_L2_RATIO times the bf16 plain path's: the
+# energy-gradient gate of latent guidance (ENERGY_COS_BOUND,
+# ENERGY_FP32_RATIO), set where a top-k energy moves its gradient on a
+# rounding; a mean square does not, so the gate has more margin here
+TRAIN_LOSS_BOUND, TRAIN_GRAD_COS, TRAIN_GRAD_L2_RATIO = 5e-2, 0.98, 1.75
 # (model, shape, calls per UNet evaluation of that model); batch 1 with
 # CFG, so 2 rows.  SD1.5: 10 transformer blocks at 64²/32²/16²/8²;
 # SDXL: 10 blocks at 64² (4 down, 6 up) and 60 at 32² (20 down, 10 mid,
@@ -306,7 +336,8 @@ FLASH_SHAPES = [(SD15, (2, 4096, 8, 40), 5), (SD15, (2, 1024, 8, 80), 5),
                 (SDXL, (2, 4096, 10, 64), 10), (SDXL, (2, 1024, 20, 64), 60),
                 (SD15_1024, (2, 1024, 8, 160), 5),
                 (SD15_B1, (1, 4096, 8, 40), 5), (SD15_B1, (1, 1024, 8, 80), 5),
-                (CHAR_B6, (6, 4096, 8, 40), 5), (CHAR_B6, (6, 1024, 8, 80), 5)]
+                (CHAR_B6, (6, 4096, 8, 40), 5), (CHAR_B6, (6, 1024, 8, 80), 5),
+                (TRAIN, (4, 4096, 8, 40), 5), (TRAIN, (4, 1024, 8, 80), 5)]
 # the long route (past 4096 tokens): SD1.5 at 768 px, level 0 (96²), 5 calls
 # in the IP UNet and 2 in the ControlNet per final-pass evaluation
 FLASH_LONG_SHAPES = [(FINAL_768, (2, 9216, 8, 40), 7)]
@@ -330,7 +361,9 @@ FF_SHAPES = [(SD15, (8192, 320, 1280), 5), (SD15, (2048, 640, 2560), 5),
              (SD15_B1, (4096, 320, 1280), 5), (SD15_B1, (1024, 640, 2560), 5),
              (SD15_B1, (256, 1280, 5120), 5),
              (CHAR_B6, (24576, 320, 1280), 5), (CHAR_B6, (6144, 640, 2560), 5),
-             (CHAR_B6, (1536, 1280, 5120), 5), (CHAR_B6, (384, 1280, 5120), 1)]
+             (CHAR_B6, (1536, 1280, 5120), 5), (CHAR_B6, (384, 1280, 5120), 1),
+             (TRAIN, (16384, 320, 1280), 5), (TRAIN, (4096, 640, 2560), 5),
+             (TRAIN, (1024, 1280, 5120), 5), (TRAIN, (256, 1280, 5120), 1)]
 # batch 1 (SD1.5 cond-only): the mid block's 64 rows take neither FF
 # kernel (no row block of 128 or more divides 64), as in the JAX package;
 # at CFG batch 2n the mid block's 128n rows take it
@@ -939,7 +972,9 @@ def _record(name, source, replaces, tpu_function, rows) -> dict:
             "requests'; sd15_512_ip_b6: one IP UNet evaluation of three "
             "batched characters (batch 6 under CFG), whose launches are the "
             "batched evaluation's (the turn server's and the wave CLI's "
-            "batches of 4, 6 and 8 count in the totals)",
+            "batches of 4, 6 and 8 count in the totals); sd15_512_train_b4: "
+            "one forward of a training step (the SD1.5 IP UNet at batch 4, "
+            "no CFG), whose launches are the training steps'",
         per_model=per_model, shapes=rows)
 
 
@@ -4398,6 +4433,427 @@ def batched_paths(records, serial_dialogue_s: float) -> dict:
     return out
 
 
+def ip_recipe(name: str) -> bool:
+    """The IP-Adapter recipe's trainable filter: the decoupled image
+    projections of every cross-attention."""
+    return "attn2.to_k_ip" in name or "attn2.to_v_ip" in name
+
+
+def _grad_stats(a: dict, b: dict) -> dict:
+    """Global cosine and per-tensor cosines of two gradient dicts, and the
+    relative L2 distance of ``a`` from ``b`` (fp64 sums)."""
+    dot = na = nb = diff = 0.0
+    per = {}
+    for n in b:
+        x, y = a[n].double().flatten(), b[n].double().flatten()
+        d, xx, yy = torch.dot(x, y).item(), torch.dot(x, x).item(), \
+            torch.dot(y, y).item()
+        dot, na, nb = dot + d, na + xx, nb + yy
+        diff += (x - y).square().sum().item()
+        per[n] = d / math.sqrt(xx * yy) if xx > 0 and yy > 0 else float(
+            xx == yy)
+    return dict(cos=dot / math.sqrt(na * nb), rel_l2=math.sqrt(diff / nb),
+                norm_ratio=math.sqrt(na / nb), per_tensor=per)
+
+
+def _train_steps(ts, state, ema, data, want, records, label: str,
+                 on_step=None) -> tuple:
+    """TRAIN_STEPS steps of ``ts`` from ``state`` on ``data`` (the same
+    injected t and noise every step), ``ema_update`` after each.  Each
+    step runs the step's parts in order, CUDA events between them
+    (forward: the masters written into the module and the loss; backward:
+    the gradients; optimizer; EMA), ends in a synchronize (wall seconds)
+    and must launch ``want`` (counters 0 just before, read just after: the
+    backward recomputes the plain versions and launches none).  The fifth
+    step runs under torch.profiler: its kernels' self device time, summed,
+    is the step's device ms (its wall and event times are left out of the
+    means).  In the sixth, CUDA events around each of the backward's
+    plain recomputes (``recompute.plain_vjp``) give their ms by kernel.
+    ``on_step(state, ema)`` runs after each step.  Returns (state, ema,
+    per-step rows)."""
+    from torch.profiler import ProfilerActivity, profile as prof
+
+    from theatergen_tpu_torch.training.diffusion import ema_update
+
+    lat, ctx, t, noise = data
+    rows, profile_step, real_vjp = [], 4, recompute.plain_vjp
+    for i in range(TRAIN_STEPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        profiler = (prof(activities=[ProfilerActivity.CUDA])
+                    if i == profile_step else contextlib.nullcontext())
+        spans = []
+        if i == profile_step + 1:
+            def timed(plain, *a, **kw):
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                start.record()
+                out = real_vjp(plain, *a, **kw)
+                end.record()
+                spans.append((plain.__name__, start, end))
+                return out
+
+            recompute.plain_vjp = timed
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            with profiler as p:
+                ev[0].record()
+                ts.load(state)
+                loss = ts.loss(lat, ctx, t=t, noise=noise)
+                ev[1].record()
+                grads = ts.grads(loss)
+                ev[2].record()
+                state = ts.update(state, grads)
+                del grads
+                ev[3].record()
+                ema_update(ema, state.params)
+                ev[4].record()
+                torch.cuda.synchronize()
+        finally:
+            recompute.plain_vjp = real_vjp
+        wall = time.perf_counter() - t0
+        got = read_counts()
+        add_launches(records, TRAIN, got)
+        row = dict(step=state.step, loss=loss.item(), wall_s=wall,
+                   launches=got, profiled=i == profile_step,
+                   **{k: ev[j].elapsed_time(ev[j + 1]) for j, k in enumerate(
+                       ("forward_ms", "backward_ms", "optimizer_ms",
+                        "ema_ms"))})
+        if i == profile_step:
+            row["device_ms"] = sum(
+                getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0.0))
+                for e in p.key_averages()
+                if not e.key.startswith("aten::")) / 1e3
+        if i == profile_step + 1:
+            row["recompute_ms"] = collections.defaultdict(float)
+            row["recompute_calls"] = collections.Counter()
+            for name, start, end in spans:
+                row["recompute_ms"][name] += start.elapsed_time(end)
+                row["recompute_calls"][name] += 1
+        rows.append(row)
+        log(f"  {label} step {state.step}: loss {row['loss']:.6f}  wall "
+            f"{wall * 1e3:.1f} ms  forward {row['forward_ms']:.1f}  "
+            f"backward {row['backward_ms']:.1f}  optimizer "
+            f"{row['optimizer_ms']:.2f}  EMA {row['ema_ms']:.2f}"
+            + (f"  device (profiled) {row['device_ms']:.1f}"
+               if "device_ms" in row else "")
+            + f"  launches {'= want' if got == want else got}")
+        if got != want:
+            raise SystemExit(f"{label} step {state.step}: launches {got}, "
+                             f"want one batch-{TRAIN_BATCH} forward's "
+                             f"{want}")
+        if on_step is not None:
+            on_step(state, ema)
+    return state, ema, rows
+
+
+def _step_summary(rows, label: str) -> dict:
+    """Means over the steps after the first, the profiled one left out,
+    and images a second by the wall mean."""
+    timed = [r for r in rows[1:] if not r["profiled"]]
+    out = {k: float(np.mean([r[k] for r in timed]))
+           for k in ("wall_s", "forward_ms", "backward_ms", "optimizer_ms",
+                     "ema_ms")}
+    out["first_step_wall_s"] = rows[0]["wall_s"]
+    out["device_ms"] = next(r["device_ms"] for r in rows if r["profiled"])
+    spans = next(r for r in rows if "recompute_ms" in r)
+    out["recompute_ms"] = dict(spans["recompute_ms"])
+    out["recompute_calls"] = dict(spans["recompute_calls"])
+    out["recompute_share"] = {k: v / spans["backward_ms"]
+                              for k, v in out["recompute_ms"].items()}
+    out["events_ms"] = sum(out[k] for k in ("forward_ms", "backward_ms",
+                                            "optimizer_ms", "ema_ms"))
+    out["images_per_s"] = TRAIN_BATCH / out["wall_s"]
+    out["losses"] = [r["loss"] for r in rows]
+    log(f"  {label}: {out['wall_s'] * 1e3:.1f} ms a step wall (first step "
+        f"{out['first_step_wall_s'] * 1e3:.1f}), events "
+        f"{out['events_ms']:.1f} ms (forward {out['forward_ms']:.1f}, "
+        f"backward {out['backward_ms']:.1f}, optimizer "
+        f"{out['optimizer_ms']:.2f}, EMA {out['ema_ms']:.2f}), device "
+        f"{out['device_ms']:.1f} ms (kernels' self time, one profiled "
+        f"step); {out['images_per_s']:.3f} images a second")
+    log(f"  {label}: plain recomputes in one step's backward: calls "
+        f"{out['recompute_calls']}, ms {json.dumps(out['recompute_ms'])}, "
+        f"share of the backward {json.dumps(out['recompute_share'])}")
+    return out
+
+
+def _states_equal(a, b) -> bool:
+    """Two training trees (TrainState, AdamWState, dicts of tensors,
+    scalars) equal bit for bit."""
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and a.shape == b.shape and bool(torch.equal(a, b)))
+    if dataclasses.is_dataclass(a):
+        return type(a) is type(b) and all(
+            _states_equal(getattr(a, f.name), getattr(b, f.name))
+            for f in dataclasses.fields(a))
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and list(a) == list(b)
+                and all(_states_equal(a[k], b[k]) for k in a))
+    return a == b
+
+
+def train_path(records) -> dict:
+    """Training on the card (``training/``): ``make_train_step`` on the
+    SD1.5 IP UNet (``sd15_config()``, ``ip_num_tokens`` 4) at full width,
+    512 px, batch TRAIN_BATCH, bf16 module with fp32 masters, TF32 off;
+    weights, latents, contexts, t and noise seeded (TRAIN_SEED), t and
+    noise injected and the same at every step.
+    (a) one step's loss and gradients with the kernels against
+    ``plain_path()`` and against an fp32 copy of the UNet (plain): the
+    TRAIN_* gates, the worst 1 % of per-tensor cosines printed, one
+    forward's launches;
+    (b) TRAIN_STEPS steps of the full UNet (``make_optimizer(lr=1e-4,
+    warmup=0)``) with an EMA: finite, falling losses, ``step`` 10, the EMA
+    off the params; each step's launches one batch-4 forward's; seconds a
+    step (wall; events: forward, backward, optimizer, EMA; device: one
+    profiled step), images a second, peak memory; then the state and the
+    EMA (13.8 GB in fp32) written with ``save_checkpoint`` into build/ and
+    read back bit for bit, its seconds and bytes, the directory deleted;
+    (c) the IP recipe (only ``to_k_ip``/``to_v_ip``) for TRAIN_STEPS steps
+    on cuDNN's deterministic algorithms: moments for the trainable
+    parameters only, every frozen parameter (master and module) bit-equal
+    after the steps, every trainable one moved; its state and EMA saved at
+    TRAIN_CKPT_STEP and loaded bit for bit, then resumed through steps 6
+    to 10 with the same draws: bit-equal to the run that never stopped
+    (losses, params, moments, counts, EMA); the same times."""
+    from theatergen_tpu_torch.models.unet import UNet2DCondition
+    from theatergen_tpu_torch.pipelines.bundle import build_module
+    from theatergen_tpu_torch.training import checkpoint as ckpt
+    from theatergen_tpu_torch.training.diffusion import (make_optimizer,
+                                                         make_train_step)
+
+    t_phase = time.perf_counter()
+    cfg = sd15_config()
+    ucfg = dataclasses.replace(cfg.unet,
+                               ip_num_tokens=cfg.ip_adapter.num_tokens)
+    side = cfg.pipeline.latent_height
+    g = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
+    unet = build_module(UNet2DCondition, ucfg, torch.bfloat16, "cuda", g)
+    n_params = sum(p.numel() for p in unet.parameters())
+    data = (torch.randn(TRAIN_BATCH, side, side, 4, device="cuda",
+                        generator=g),
+            torch.randn(TRAIN_BATCH, 77 + ucfg.ip_num_tokens,
+                        ucfg.cross_attention_dim, device="cuda",
+                        generator=g),
+            torch.randint(0, cfg.scheduler.num_train_timesteps,
+                          (TRAIN_BATCH,), device="cuda", generator=g),
+            torch.randn(TRAIN_BATCH, side, side, 4, device="cuda",
+                        generator=g))
+    lat, ctx, t, noise = data
+    want = counts(**eval_launches(ucfg, side, TRAIN_BATCH))
+    log(f"  IP UNet {n_params:,} parameters (bf16 module, fp32 masters), "
+        f"batch {TRAIN_BATCH} at {side}² latents, t {t.tolist()}; one "
+        f"step's launches, one batch-{TRAIN_BATCH} forward: {want}")
+    out = dict(parameters=n_params, t=t.tolist(), launches_per_step=want)
+
+    # (a) kernels against plain_path() and an fp32 UNet: the step's
+    # forward and backward on the module's weights (no optimizer state)
+    ts = make_train_step(unet, make_optimizer(lr=1e-4, warmup=0),
+                         cfg.scheduler)
+
+    def loss_and_grads(step):
+        loss = step.loss(lat, ctx, t=t, noise=noise)
+        return loss.item(), step.grads(loss)
+
+    reset_counts()
+    loss_k, g_k = loss_and_grads(ts)
+    torch.cuda.synchronize()
+    got = read_counts()
+    with plain_path():
+        loss_p, g_p = loss_and_grads(ts)
+        unet32 = copy.deepcopy(unet).float()
+        loss_32, g_32 = loss_and_grads(make_train_step(
+            unet32, make_optimizer(lr=1e-4, warmup=0), cfg.scheduler))
+        del unet32
+    torch.cuda.synchronize()
+    plain_launches = read_counts()
+    kp, k32, p32 = (_grad_stats(g_k, g_p), _grad_stats(g_k, g_32),
+                    _grad_stats(g_p, g_32))
+    finite = all(bool(torch.isfinite(x).all()) for x in g_k.values())
+    del g_k, g_p, g_32
+    gc.collect()
+    torch.cuda.empty_cache()
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    worst = sorted(kp["per_tensor"].items(), key=lambda kv: kv[1])
+    worst = worst[:max(1, math.ceil(0.01 * len(worst)))]
+    ok = (got == want and plain_launches == got and finite
+          and loss_rel <= TRAIN_LOSS_BOUND and kp["cos"] >= TRAIN_GRAD_COS
+          and k32["rel_l2"] <= TRAIN_GRAD_L2_RATIO * p32["rel_l2"])
+    log(f"  (a) loss: kernels {loss_k:.6f}, plain path {loss_p:.6f} "
+        f"(relative {loss_rel:.3e}, bound {TRAIN_LOSS_BOUND}), fp32 "
+        f"{loss_32:.6f}; gradient over {len(kp['per_tensor'])} tensors, "
+        f"kernels vs plain path: cosine {kp['cos']:.6f} (bound "
+        f"{TRAIN_GRAD_COS}), norm ratio {kp['norm_ratio']:.5f}, relative "
+        f"L2 {kp['rel_l2']:.4e}; against the fp32 UNet: kernels' relative "
+        f"L2 {k32['rel_l2']:.4e}, plain path's {p32['rel_l2']:.4e} (bound "
+        f"{TRAIN_GRAD_L2_RATIO}x), cosines {k32['cos']:.6f} / "
+        f"{p32['cos']:.6f}; finite {finite}; launches {got}, none under "
+        f"plain_path  {'ok' if ok else 'FAIL'}")
+    log(f"  worst 1 % of per-tensor cosines, kernels vs plain path: "
+        + "; ".join(f"{n} {c:.5f}" for n, c in worst))
+    if not ok:
+        raise SystemExit("training: the kernels' loss or gradient "
+                         "disagrees with the plain path's")
+    out["check"] = dict(
+        loss=loss_k, loss_plain=loss_p, loss_fp32=loss_32, loss_rel=loss_rel,
+        grad_cos=kp["cos"], grad_norm_ratio=kp["norm_ratio"],
+        grad_rel_l2_plain=kp["rel_l2"], grad_rel_l2_fp32=k32["rel_l2"],
+        plain_rel_l2_fp32=p32["rel_l2"], grad_cos_fp32=k32["cos"],
+        worst_cosines=dict(worst), launches=got)
+
+    # (b) the full UNet, TRAIN_STEPS steps, and its checkpoint
+    state = ts.init_state()
+    ema = {n: p.clone() for n, p in state.params.items()}
+    torch.cuda.reset_peak_memory_stats()
+    state, ema, rows = _train_steps(ts, state, ema, data, want, records,
+                                    "full UNet")
+    peak = torch.cuda.max_memory_allocated()
+    full = _step_summary(rows, "full UNet")
+    losses = full["losses"]
+    ema_moved = any(not torch.equal(ema[n], state.params[n]) for n in ema)
+    ok = (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+          and state.step == TRAIN_STEPS
+          and state.opt_state.count == TRAIN_STEPS and ema_moved)
+    log(f"  (b) full UNet: losses {[round(x, 6) for x in losses]}, step "
+        f"{state.step}, EMA off the params {ema_moved}; peak memory "
+        f"{peak / 2 ** 30:.3f} GiB  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("training: the full-UNet run failed its gates")
+    full.update(peak_bytes=peak, rows=rows)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_train")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        path = os.path.join(root, "full", f"step_{state.step}")
+        tree = {"state": state, "ema": ema}
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint(path, tree)
+        save_s = time.perf_counter() - t0
+        nbytes = dir_bytes(path)
+        t0 = time.perf_counter()
+        back = ckpt.load_checkpoint(path, target=tree)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        equal = _states_equal(back, tree)
+        del back
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"  full-UNet checkpoint (params, moments, EMA, fp32): {nbytes:,} "
+        f"bytes, written in {save_s:.2f} s ({nbytes / save_s / 1e9:.2f} "
+        f"GB/s), read to the card in {load_s:.2f} s "
+        f"({nbytes / load_s / 1e9:.2f} GB/s), bit for bit {equal} (the "
+        f"directory deleted)  {'ok' if equal else 'FAIL'}")
+    if not equal:
+        raise SystemExit("training: the full-UNet checkpoint did not come "
+                         "back bit for bit")
+    full["checkpoint"] = dict(bytes=nbytes, save_s=save_s, load_s=load_s)
+    out["full"] = full
+    del state, ema, ts, tree
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the IP recipe, saved at TRAIN_CKPT_STEP and resumed
+    cudnn = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        ts = make_train_step(unet, make_optimizer(lr=1e-4, warmup=0),
+                             cfg.scheduler, trainable_filter=ip_recipe)
+        state = ts.init_state()
+        trainable = set(ts.trainable)
+        frozen = [n for n in state.params if n not in trainable]
+        frozen_masters = {n: state.params[n].clone() for n in frozen}
+        frozen_module = {n: p.detach().clone()
+                         for n, p in unet.named_parameters()
+                         if n not in trainable}
+        start = {n: state.params[n].clone() for n in ts.trainable}
+        ema = {n: state.params[n].clone() for n in ts.trainable}
+        n_trainable = sum(state.params[n].numel() for n in ts.trainable)
+        moments_only_trainable = (set(state.opt_state.mu) == trainable
+                                  == set(state.opt_state.nu))
+        log(f"  (c) IP recipe: {len(ts.trainable)} trainable tensors, "
+            f"{n_trainable:,} parameters ({n_trainable / n_params:.3%}); "
+            f"{len(frozen)} frozen; moments only for the trainable: "
+            f"{moments_only_trainable}; cuDNN deterministic")
+        saved = {}
+        ck_path = os.path.join(root, "ip", f"step_{TRAIN_CKPT_STEP}")
+
+        def at_step(st, em):
+            if st.step != TRAIN_CKPT_STEP:
+                return
+            tree = {"state": st, "ema": em}
+            t0 = time.perf_counter()
+            ckpt.save_checkpoint(ck_path, tree)
+            saved["save_s"] = time.perf_counter() - t0
+            saved["bytes"] = dir_bytes(ck_path)
+            t0 = time.perf_counter()
+            saved["tree"] = ckpt.load_checkpoint(ck_path, target=tree)
+            torch.cuda.synchronize()
+            saved["load_s"] = time.perf_counter() - t0
+            saved["equal"] = _states_equal(saved["tree"], tree)
+
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            state, ema, rows = _train_steps(ts, state, ema, data, want,
+                                            records, "IP recipe", at_step)
+            peak = torch.cuda.max_memory_allocated()
+            resumed = saved["tree"]
+            r_state, r_ema, r_losses = resumed["state"], resumed["ema"], []
+            from theatergen_tpu_torch.training.diffusion import ema_update
+            for _ in range(TRAIN_STEPS - TRAIN_CKPT_STEP):
+                r_state, loss = ts(r_state, lat, ctx, t=t, noise=noise)
+                ema_update(r_ema, r_state.params)
+                r_losses.append(loss.item())
+            torch.cuda.synchronize()
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        ip = _step_summary(rows, "IP recipe")
+        losses = ip["losses"]
+        frozen_equal = all(torch.equal(state.params[n], frozen_masters[n])
+                           for n in frozen) and all(
+            torch.equal(p.detach(), frozen_module[n])
+            for n, p in unet.named_parameters() if n in frozen_module)
+        all_moved = all(not torch.equal(state.params[n], start[n])
+                        for n in ts.trainable)
+        resume_equal = (r_losses == losses[TRAIN_CKPT_STEP:]
+                        and _states_equal(r_state, state)
+                        and _states_equal(r_ema, ema))
+        ok = (moments_only_trainable and frozen_equal and all_moved
+              and saved.get("equal") and resume_equal
+              and all(math.isfinite(x) for x in losses)
+              and state.step == TRAIN_STEPS)
+        log(f"  (c) IP recipe: losses {[round(x, 6) for x in losses]}; "
+            f"frozen parameters bit-equal (masters and module) "
+            f"{frozen_equal}; every trainable one moved {all_moved}; "
+            f"checkpoint at step {TRAIN_CKPT_STEP}: {saved.get('bytes', 0):,}"
+            f" bytes, written {saved.get('save_s', 0):.2f} s, read "
+            f"{saved.get('load_s', 0):.2f} s, bit for bit "
+            f"{saved.get('equal')}; resumed steps "
+            f"{TRAIN_CKPT_STEP + 1}-{TRAIN_STEPS} bit-equal to the "
+            f"uninterrupted run (losses, params, moments, counts, EMA) "
+            f"{resume_equal}; peak memory {peak / 2 ** 30:.3f} GiB  "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("training: the IP recipe failed its gates")
+        ip.update(rows=rows, peak_bytes=peak, trainable_tensors=len(
+            ts.trainable), trainable_parameters=n_trainable,
+            checkpoint=dict(bytes=saved["bytes"], save_s=saved["save_s"],
+                            load_s=saved["load_s"]),
+            resumed_losses=r_losses)
+        out["ip_recipe"] = ip
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = cudnn
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    log(f"  {TRAIN}: {out['phase_seconds']:.1f} s for the phase")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -4591,6 +5047,15 @@ def main() -> int:
         f"kinds written under plain_path(), consumed with the kernels; the "
         f"negative controls)")
     paths[EVAL] = eval_path(records)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[main path] training: make_train_step on the SD1.5 IP UNet, 512 "
+        f"px, batch {TRAIN_BATCH}, seeded weights and data; one step with "
+        f"the kernels against plain_path() and an fp32 UNet, "
+        f"{TRAIN_STEPS} steps of the full UNet with an EMA and its "
+        f"checkpoint, {TRAIN_STEPS} steps of the IP recipe saved at step "
+        f"{TRAIN_CKPT_STEP} and resumed")
+    paths[TRAIN] = train_path(records)
     paths["sp_shards_equal"] = sp_shards
     paths["wave_batch_shapes_checked"] = batch_shapes
     paths["grad_gates"] = len(grad_gates)

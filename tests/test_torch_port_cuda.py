@@ -1126,3 +1126,62 @@ def test_quant_matmul_refuses_a_gradient_on_card():
         out = tqm.quant_matmul(x, w_q, scale)
     torch.cuda.synchronize()
     assert tqm.launches == n0 + 1 and out.grad_fn is None
+
+
+# the training step's batch-4 shapes (chip_smoke.py::train_path: the SD1.5
+# IP UNet at 512 px, no CFG): every input needs a gradient there, the
+# weights, scales and biases included
+TRAIN_FLASH = [(4, 4096, 8, 40), (4, 1024, 8, 80)]
+TRAIN_FF = [(4 * 4096, 320), (4 * 1024, 640), (4 * 256, 1280), (4 * 64, 1280)]
+TRAIN_GN = [(c, hw, "silu") for c, hw in (
+    (320, 4096), (640, 4096), (960, 4096), (320, 1024), (640, 1024),
+    (960, 1024), (1280, 1024), (1920, 1024), (640, 256), (1280, 256),
+    (1920, 256), (2560, 256), (1280, 64), (2560, 64))] + [
+    (320, 4096, None), (1280, 64, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d", TRAIN_FLASH)
+def test_flash_gradient_at_the_training_batch_on_card(b, s, h, d):
+    """flash_attention at the training step's batch-4 self-attention: the
+    gradients of q, k and v bit for bit."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(36)
+    qkv = [torch.randn(b, s, h, d, device=dev, generator=g,
+                       dtype=torch.bfloat16) for _ in range(3)]
+    _grad_gate(tfa.flash_attention, tfa.flash_attention_plain, qkv,
+               [True] * 3, lambda: tfa.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d", TRAIN_FF)
+def test_ff_weight_gradients_at_the_training_batch_on_card(m, d):
+    """ff_matmul at the training step's batch-4 rows (the mid block's 256
+    too): the gradients of x, both weights and the bias bit for bit."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(37)
+    k = 4 * d
+    ins = [torch.randn(m, d, device=dev, generator=g).bfloat16(),
+           (torch.randn(2 * k, d, device=dev, generator=g)
+            * d ** -0.5).bfloat16(),
+           (torch.randn(2 * k, device=dev, generator=g) * 0.1).bfloat16(),
+           (torch.randn(d, k, device=dev, generator=g) * k ** -0.5).bfloat16()]
+    _grad_gate(tgg.ff_matmul, tgg.ff_matmul_plain, ins, [True] * 4,
+               lambda: tgg.ff_launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,hw,act", TRAIN_GN)
+def test_group_norm_scale_and_bias_gradients_at_the_training_batch_on_card(
+        c, hw, act):
+    """fused_group_norm at every SD1.5 site at batch 4 (the resnets' with
+    SiLU; two of the transformers' without): the gradients of x, scale
+    and bias bit for bit."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(38)
+    s = int(hw ** 0.5)
+    ins = [torch.randn(4, c, s, s, device=dev, generator=g).bfloat16(),
+           (1 + 0.2 * torch.randn(c, device=dev, generator=g)).bfloat16(),
+           (0.1 * torch.randn(c, device=dev, generator=g)).bfloat16()]
+    _grad_gate(tgn.fused_group_norm, tgn.fused_group_norm_plain, ins,
+               [True] * 3, lambda: tgn.launches, act=act)

@@ -32,7 +32,7 @@ def _modules():
 def test_port_imports_no_jax():
     """A fresh interpreter imports every module of the port (and
     chip_smoke.py's source compiles) with none of jax, theatergen_tpu,
-    transformers and safetensors in sys.modules."""
+    transformers, safetensors, optax and orbax in sys.modules."""
     code = (
         "import sys, importlib\n"
         f"for m in {_modules()!r}:\n"
@@ -40,7 +40,7 @@ def test_port_imports_no_jax():
         f"compile(open({str(ROOT / 'chip_smoke.py')!r}).read(), 'chip_smoke.py', 'exec')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'theatergen_tpu', 'transformers', "
-        "'safetensors'))\n"
+        "'safetensors', 'optax', 'orbax'))\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -72,7 +72,8 @@ def test_source_names_no_jax(path):
         if s.startswith(("import ", "from ")):
             head = s.split()[1].split(".")[0]
             assert head not in ("jax", "jaxlib", "flax", "theatergen_tpu",
-                                "transformers", "safetensors"), (path, line)
+                                "transformers", "safetensors", "optax",
+                                "orbax"), (path, line)
 
 
 def test_init_bundle_needs_the_card_unless_asked():
@@ -216,3 +217,48 @@ def test_port_modules_of_the_checkpoint_slice():
             snapshot.load_bundle_snapshot(tiny_config(), d + "/snap")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_bundle(tiny_config(), 0, with_sam=True)
+
+
+def test_port_modules_of_the_training_slice():
+    """The trainer, its checkpoints and the layout utilities are among the
+    modules the import rules above cover; importing the trainer alone
+    loads none of jax, optax, orbax or the JAX package; its entry points
+    default to the card too: ``make_train_step``, ``load_checkpoint`` and
+    ``from_flax_train_state``."""
+    import tempfile
+
+    from theatergen_tpu_torch.models.unet import UNet2DCondition
+    from theatergen_tpu_torch.pipelines.bundle import build_module
+    from theatergen_tpu_torch.training import checkpoint, diffusion
+
+    mods = _modules()
+    for m in ("training", "training.diffusion", "training.checkpoint",
+              "utils.layout", "utils.cache"):
+        assert f"theatergen_tpu_torch.{m}" in mods, m
+    code = ("import sys\n"
+            "import theatergen_tpu_torch.training.diffusion\n"
+            "import theatergen_tpu_torch.training.checkpoint\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'theatergen_tpu'))\n"
+            "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    if torch.cuda.is_available():
+        return
+    cfg = tiny_config()
+    unet = build_module(UNet2DCondition, cfg.unet, torch.float32, "cpu",
+                        torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        diffusion.make_train_step(unet, diffusion.make_optimizer(),
+                                  cfg.scheduler)
+    state = diffusion.make_train_step(
+        unet, diffusion.make_optimizer(), cfg.scheduler,
+        device="cpu").init_state()
+    with tempfile.TemporaryDirectory() as d:
+        checkpoint.save_checkpoint(d + "/step_0", state)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            checkpoint.load_checkpoint(d + "/step_0")
+        assert checkpoint.load_checkpoint(d + "/step_0",
+                                          device="cpu").step == 0
+

@@ -130,6 +130,21 @@ def iou(mask: torch.Tensor, masks: torch.Tensor, eps: float = 1e-6
     return inter / ((a | b).sum((1, 2)).float() + eps)
 
 
+def box_iou(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-6
+            ) -> torch.Tensor:
+    """IoU of normalised boxes ``[..., 4]`` (broadcastable)."""
+    def side(x, i):
+        return torch.clamp(x[..., i + 2] - x[..., i], min=0)
+
+    x0 = torch.maximum(a[..., 0], b[..., 0])
+    y0 = torch.maximum(a[..., 1], b[..., 1])
+    x1 = torch.minimum(a[..., 2], b[..., 2])
+    y1 = torch.minimum(a[..., 3], b[..., 3])
+    inter = torch.clamp(x1 - x0, min=0) * torch.clamp(y1 - y0, min=0)
+    return inter / (side(a, 0) * side(a, 1) + side(b, 0) * side(b, 1)
+                    - inter + eps)
+
+
 def downsample_max(mask: torch.Tensor, out_h: int, out_w: int
                    ) -> torch.Tensor:
     """Max-pool the trailing two axes down to ``(out_h, out_w)`` by whole

@@ -140,6 +140,15 @@ def x0_eps_from_pred(prediction_type: str, a_t: torch.Tensor,
     return x0, eps
 
 
+def pred_original(sched: DDIMSchedule, model_output: torch.Tensor, i,
+                  sample: torch.Tensor) -> torch.Tensor:
+    """x0 predicted from the model output at loop position ``i`` (an int
+    or a 0-dim tensor)."""
+    a_t = torch.as_tensor(sched.alpha_prod, device=sample.device)[i]
+    return x0_eps_from_pred(sched.prediction_type, a_t.to(sample.dtype),
+                            model_output, sample)[0]
+
+
 def ddim_step(tables: DeviceTables, model_output: torch.Tensor, i: int,
               sample: torch.Tensor, *, eta: float = 0.0,
               noise: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -264,3 +264,40 @@ def segment_with_box_batch(sam: nn.Module, images: torch.Tensor,
     chosen = probs[rows, idx]
     return (tuple(refine_mask(G.resize_bilinear(chosen, s, s))
                   for s in out_sizes), iou[rows, idx])
+
+
+def segment_with_boxes(sam: nn.Module, image: torch.Tensor,
+                       boxes: torch.Tensor, out_size: int = 64, *,
+                       min_confidence: float = 0.85,
+                       min_coarse_iou: float = 0.25):
+    """One image ``[S, S, 3]`` and ``Nb`` boxes ``[Nb, 4]`` in one forward
+    → (refined masks ``[Nb, out_size, out_size]``, the chosen IoU scores
+    ``[Nb]``): the reference's legacy ``sam_refine_box``/
+    ``sam_refine_boxes`` (``models/sam.py:176-215``), whose coarse mask
+    for the selection is each prompt box rasterised."""
+    global segments
+    segments += boxes.shape[0]
+    logits, iou = _apply_sam(sam, image[None], boxes[None])
+    logits, iou = logits[0], iou[0]                  # [Nb, M, h, w], [Nb, M]
+    probs = torch.sigmoid(logits)
+    masks_bin = (probs > 0.5).float()
+    h, w = masks_bin.shape[-2:]
+    idx = torch.stack([
+        select_mask(mb, io, G.box_mask(box, h, w),
+                    min_confidence=min_confidence,
+                    min_coarse_iou=min_coarse_iou)
+        for mb, io, box in zip(masks_bin, iou, boxes.float())])
+    rows = torch.arange(boxes.shape[0], device=idx.device)
+    return (refine_mask(G.resize_bilinear(probs[rows, idx], out_size,
+                                          out_size)), iou[rows, idx])
+
+
+def segment_with_box_legacy(sam: nn.Module, image: torch.Tensor,
+                            box: torch.Tensor, out_size: int = 64,
+                            **select_kwargs):
+    """One image and one box ``[4]`` → (mask ``[out_size, out_size]``,
+    confidence): the reference's ``sam_refine_box``
+    (``models/sam.py:176-182``), :func:`segment_with_boxes` of one box."""
+    masks, confs = segment_with_boxes(sam, image, box[None],
+                                      out_size=out_size, **select_kwargs)
+    return masks[0], confs[0]

@@ -303,6 +303,18 @@ class SamPromptEncoder(nn.Module):
                             self.point_embed[3].weight])
         return shared(corners) + corner
 
+    def embed_points(self, points: torch.Tensor, labels: torch.Tensor,
+                     shared: nn.Module) -> torch.Tensor:
+        """``[B, P, N, 2]`` pixel xy and labels ``[B, P, N]`` (-10 padding,
+        -1 not a point, 0 negative, 1 positive) → ``[B, P, N, D]``."""
+        emb = shared((points + 0.5) / float(self.cfg.image_size))
+        lab = labels[..., None]
+        emb = torch.where(lab == -1, self.not_a_point_embed.weight[0], emb)
+        emb = torch.where(lab == -10, torch.zeros_like(emb), emb)
+        emb = torch.where(lab == 0, emb + self.point_embed[0].weight[0], emb)
+        return torch.where(lab == 1, emb + self.point_embed[1].weight[0],
+                           emb)
+
     def dense_no_mask(self, batch: int) -> torch.Tensor:
         g = self.cfg.grid_size
         return self.no_mask_embed.weight.reshape(1, 1, 1, -1).expand(

@@ -149,6 +149,27 @@ def lcm_denoise(unet, sampler: sched_ops.Sampler, latents: torch.Tensor,
 
 
 @torch.no_grad()
+def encode_image(bundle: Bundle, image: torch.Tensor,
+                 generator: Optional[torch.Generator] = None, *,
+                 noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Image ``[B, H, W, 3]`` in [-1, 1] → scaled latent ``[B, h, w, 4]``
+    (fp32): the posterior mean, or with a ``generator`` (or ``noise``, an
+    NHWC draw of the latent's shape) a sample of the posterior (the
+    reference's ``encode``, ``models/pipelines.py:131-160``)."""
+    mean, logvar = bundle.vae.encode(
+        image.to(bundle.device).permute(0, 3, 1, 2))
+    mean, logvar = mean.float().permute(0, 2, 3, 1), \
+        logvar.float().permute(0, 2, 3, 1)
+    z = mean
+    if noise is None and generator is not None:
+        noise = torch.randn(mean.shape, generator=generator,
+                            device=mean.device)
+    if noise is not None:
+        z = mean + torch.exp(0.5 * logvar) * noise.to(mean.device)
+    return z * bundle.cfg.vae.scaling_factor
+
+
+@torch.no_grad()
 def decode_with(vae, scaling_factor: float,
                 latents: torch.Tensor) -> torch.Tensor:
     """Scaled latent ``[B, h, w, 4]`` → image ``[B, H, W, 3]`` in [0, 1]."""

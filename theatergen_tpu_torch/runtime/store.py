@@ -17,7 +17,7 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 
@@ -58,6 +58,11 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.ts_open.argtypes = [ctypes.c_char_p, ctypes.c_uint32]
         lib.ts_dim.restype = ctypes.c_uint32
         lib.ts_dim.argtypes = [ctypes.c_void_p]
+        lib.ts_count.restype = ctypes.c_uint64
+        lib.ts_count.argtypes = [ctypes.c_void_p]
+        lib.ts_keys.restype = ctypes.c_uint64
+        lib.ts_keys.argtypes = [ctypes.c_void_p,
+                                ctypes.POINTER(ctypes.c_int64)]
         fvec = ctypes.POINTER(ctypes.c_float)
         for name in ("ts_put", "ts_get"):
             fn = getattr(lib, name)
@@ -122,6 +127,19 @@ class EmbeddingStore:
     def delete(self, key: int) -> bool:
         self._check_open()
         return bool(self._lib.ts_delete(self._h, int(key)))
+
+    def keys(self) -> List[int]:
+        """The live keys, ascending."""
+        self._check_open()
+        n = int(self._lib.ts_count(self._h))
+        buf = np.empty(max(n, 1), np.int64)
+        got = self._lib.ts_keys(
+            self._h, buf.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+        return sorted(int(k) for k in buf[:int(got)])
+
+    def __len__(self) -> int:
+        self._check_open()
+        return int(self._lib.ts_count(self._h))
 
     def close(self) -> None:
         if self._h:

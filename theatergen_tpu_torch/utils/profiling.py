@@ -12,6 +12,7 @@ launches (the JAX package's ``theater._sync_fetch``).
 from __future__ import annotations
 
 import contextlib
+import json
 import time
 from collections import defaultdict
 from typing import Dict, Iterator, List
@@ -53,6 +54,9 @@ class PhaseTimer:
                 "p90_s": float(np.percentile(arr, 90)),
             }
         return out
+
+    def report(self) -> str:
+        return json.dumps(self.summary(), indent=2)
 
 
 @contextlib.contextmanager
