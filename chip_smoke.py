@@ -97,15 +97,16 @@ Phases, in order (any failure exits non-zero):
      turn's launches against its character attempts; then latent guidance
      (``guided_path``): the energy's gradient through the SD1.5 IP UNet
      with the kernels against ``plain_path()`` and an fp32 copy, one
-     guidance iteration's times, and dialogue_0 with ``--guidance``, each
-     turn's launches with one cond-only evaluation per recorded
-     iteration, its images other than the unguided run's; then the same with
-     the CLI's knobs (TURN_KNOBS): ``--deepcache 3 --cfg_cutoff 0.5
-     --cn_interval 2``, ``--scheduler lcm`` at 4 steps with ``--profile``
-     (its trace checked on disk), and Euler-Ancestral with v-prediction
-     and zero terminal SNR at 30 steps; then the SDXL
-     dialogue, ``--sd_version xl --box_canvas 512``: 1024 px, 30
-     Euler-Ancestral steps, the T2I-Adapter in place of the ControlNet,
+     guidance iteration's times, and dialogue_0 with ``--guidance`` at
+     CUT_STEPS steps, each turn's launches with one cond-only evaluation
+     per recorded iteration, its images other than an unguided run's of
+     the same depth; then the same with the CLI's knobs (TURN_KNOBS):
+     ``--deepcache 3 --cfg_cutoff 0.5 --cn_interval 2`` at CUT_STEPS,
+     ``--scheduler lcm`` at 4 steps with ``--profile`` (its trace checked
+     on disk), and Euler-Ancestral with v-prediction and zero terminal SNR
+     at CUT_STEPS; then the SDXL dialogue, ``--sd_version xl --box_canvas
+     512``: 1024 px, CUT_STEPS Euler-Ancestral steps, the T2I-Adapter in
+     place of the ControlNet,
      each turn's launches against its attempts × the XL character request
      plus one XL final request;
  12. the checkpoint-loaded turn (``checkpoint_path``): a synthetic
@@ -118,9 +119,9 @@ Phases, in order (any failure exits non-zero):
      annotator at 512² timed, launching no port kernel (the annotator
      also on cuDNN's default algorithms: its time and how far two calls
      part there; on the deterministic ones two calls must be equal); then
-     dialogue_0 through the CLI with ``--weights``, with ``--weights
-     --snapshot`` (saved) and with ``--snapshot`` (loaded), each under the
-     turn gates,
+     dialogue_0 through the CLI at CUT_STEPS steps with ``--weights``, with
+     ``--weights --snapshot`` (saved) and with ``--snapshot`` (loaded),
+     each under the turn gates,
      SAM run once per kept character, the loaded run's images equal to
      the first run's bit for bit; the directory deleted.
  11b. (before 12) batched characters and dialogue waves
@@ -144,7 +145,7 @@ Phases, in order (any failure exits non-zero):
      of 4 against the serial calls, its wall and device ms and peak
      memory (none of the port's kernels launched); then dialogue_0
      through the CLI with ``--weights`` of a directory holding only
-     ``gdino.safetensors`` and ``gdino_vocab.txt`` (50 steps) and with
+     ``gdino.safetensors`` and ``gdino_vocab.txt`` (CUT_STEPS steps) and with
      ``--batch_chars`` (10 steps), the detector called once per
      ``char.detect`` and attention detection never.
  14. OWL-ViT, the evaluation and the golden kit (``eval_path``): OWL-ViT
@@ -173,6 +174,21 @@ Phases, in order (any failure exits non-zero):
      parameters bit-equal, its state saved at step 5, loaded and resumed
      bit-equal to the run that never stopped); each step launches one
      batch-4 forward's kernels, its backward none.
+ 16. the multi-rank half (``mesh_path``) on the one card: dialogue_0
+     through the CLI with ``--mesh dp=1`` (one rank over NCCL) against
+     ``--batch_chars`` bit for bit; two ranks on cuda:0 over gloo
+     (``_mesh_rank``): tp = 2 evaluations of the SD1.5 IP, SDXL and W8A8
+     UNets against the unsharded ones (per-rank launches exact, the
+     collectives against ``tp_reckoning``, two planted faults failing),
+     ``sp_attention`` over dp = 2, the dp runners against each rank's rows
+     on one rank and against the one-rank batch (rows swapped between the
+     ranks failing), the IP recipe's loss and gradients split 2 + 2, and
+     the one-rank state resharded at tp = 2 and written back byte for
+     byte; then ``--mesh dp=2 --dp_dialogues 2`` over gloo
+     (``launch_mesh(backend="gloo")``) against ``--dp_dialogues 2`` on one
+     rank, its images within CLI_PIXEL_BOUND.  Its rows 1, 5, 6 and 8 at
+     the per-rank tp = 2 shapes are timed in phase 4 (models
+     sd15_512_tp2, sdxl_1024_tp2, sd15_512_w8a8_tp2).
 Every launch counter is set to 0 just before each request (or turn) and
 read just after it, and must equal the launches per request of each
 kernel: the constants of the SD1.5, W8A8 and SDXL requests under the
@@ -194,6 +210,7 @@ import argparse
 import collections
 import contextlib
 import copy
+import filecmp
 import gc
 import json
 import math
@@ -328,6 +345,39 @@ TRAIN_STEPS, TRAIN_CKPT_STEP = 10, 5
 # ENERGY_FP32_RATIO), set where a top-k energy moves its gradient on a
 # rounding; a mean square does not, so the gate has more margin here
 TRAIN_LOSS_BOUND, TRAIN_GRAD_COS, TRAIN_GRAD_L2_RATIO = 5e-2, 0.98, 1.75
+# the multi-rank half (mesh_path).  One tp = 2 rank's share of one
+# evaluation (CFG batch 2) of the SD1.5 UNet (the IP UNet has the same
+# kernel sites), SDXL and the W8A8 SD1.5 UNet: heads and FF columns
+# halved, the kernels' per-rank shapes of a two-card tp run
+SD15_TP2, SDXL_TP2, W8A8_TP2 = ("sd15_512_tp2", "sdxl_1024_tp2",
+                                "sd15_512_w8a8_tp2")
+# the mesh path's own runs (the CLI at MESH_STEPS, the dp runners), its
+# seed, every process group's timeout there (the longest wait between two
+# of rank 0's commands, the 3.75 GB checkpoint's load, took 15.4 s on the
+# H100 in PR 19) and the ranks' join limits: the two-rank phase (78.1 s
+# with its start) and a CLI run over two ranks (at most 52.7 s)
+MESH, MESH_STEPS, MESH_SEED, MESH_TIMEOUT_S = "sd15_512_mesh", 10, 19, 60
+MESH_RANKS_JOIN_S, MESH_CLI_JOIN_S = 300, 180
+# a tp = 2 evaluation against the unsharded one, with every bias drawn
+# N(0, 0.02²): each rank's bf16 partial sums add one rounding per
+# row-parallel layer.  Sound, the three UNets read 1.71e-2 (SD1.5 IP),
+# 2.47e-2 (SDXL) and 2.56e-2 (W8A8) of max|ref| on the H100; a bias added
+# on both ranks read 4.37e-2 and GEGLU's halves cut contiguously 8.68e-1
+TP_BOUND = 3e-2
+# the largest uint8 difference of an image of ``--mesh dp=2
+# --dp_dialogues 2`` against the one-rank ``--dp_dialogues 2`` run: a
+# dialogue's rows run in batches of another size on each rank, which
+# reorders bf16 sums that 10 DDIM steps and the decode carry (12/255 in
+# each of four H100 runs); twice that.  The images of the two dialogues
+# swapped must fail it
+CLI_PIXEL_BOUND = 24
+# the dp runners against each rank's rows run on one rank: the same
+# batches through the same kernels, so equal but for the host messages'
+# copies, which are exact
+DP_EXACT = 1e-6
+# JAX's pinned collective budget of one SDXL tp = 2 evaluation (CFG batch
+# 2, tests/test_parallel.py:306-307): all-reduces of fp32 partial sums
+JAX_SDXL_TP2 = dict(count=210, bytes=2_516_582_400)
 # (model, shape, calls per UNet evaluation of that model); batch 1 with
 # CFG, so 2 rows.  SD1.5: 10 transformer blocks at 64²/32²/16²/8²;
 # SDXL: 10 blocks at 64² (4 down, 6 up) and 60 at 32² (20 down, 10 mid,
@@ -337,7 +387,11 @@ FLASH_SHAPES = [(SD15, (2, 4096, 8, 40), 5), (SD15, (2, 1024, 8, 80), 5),
                 (SD15_1024, (2, 1024, 8, 160), 5),
                 (SD15_B1, (1, 4096, 8, 40), 5), (SD15_B1, (1, 1024, 8, 80), 5),
                 (CHAR_B6, (6, 4096, 8, 40), 5), (CHAR_B6, (6, 1024, 8, 80), 5),
-                (TRAIN, (4, 4096, 8, 40), 5), (TRAIN, (4, 1024, 8, 80), 5)]
+                (TRAIN, (4, 4096, 8, 40), 5), (TRAIN, (4, 1024, 8, 80), 5),
+                (SD15_TP2, (2, 4096, 4, 40), 5),
+                (SD15_TP2, (2, 1024, 4, 80), 5),
+                (SDXL_TP2, (2, 4096, 5, 64), 10),
+                (SDXL_TP2, (2, 1024, 10, 64), 60)]
 # the long route (past 4096 tokens): SD1.5 at 768 px, level 0 (96²), 5 calls
 # in the IP UNet and 2 in the ControlNet per final-pass evaluation
 FLASH_LONG_SHAPES = [(FINAL_768, (2, 9216, 8, 40), 7)]
@@ -363,13 +417,18 @@ FF_SHAPES = [(SD15, (8192, 320, 1280), 5), (SD15, (2048, 640, 2560), 5),
              (CHAR_B6, (24576, 320, 1280), 5), (CHAR_B6, (6144, 640, 2560), 5),
              (CHAR_B6, (1536, 1280, 5120), 5), (CHAR_B6, (384, 1280, 5120), 1),
              (TRAIN, (16384, 320, 1280), 5), (TRAIN, (4096, 640, 2560), 5),
-             (TRAIN, (1024, 1280, 5120), 5), (TRAIN, (256, 1280, 5120), 1)]
+             (TRAIN, (1024, 1280, 5120), 5), (TRAIN, (256, 1280, 5120), 1),
+             (SD15_TP2, (8192, 320, 640), 5), (SD15_TP2, (2048, 640, 1280), 5),
+             (SD15_TP2, (512, 1280, 2560), 5),
+             (SD15_TP2, (128, 1280, 2560), 1)]
 # batch 1 (SD1.5 cond-only): the mid block's 64 rows take neither FF
 # kernel (no row block of 128 or more divides 64), as in the JAX package;
 # at CFG batch 2n the mid block's 128n rows take it
 GEGLU_SHAPES = [(SDXL, (8192, 2560, 640), 10), (SDXL, (2048, 5120, 1280), 60),
                 (SDXL_B1, (4096, 2560, 640), 10),
-                (SDXL_B1, (1024, 5120, 1280), 60)]
+                (SDXL_B1, (1024, 5120, 1280), 60),
+                (SDXL_TP2, (8192, 1280, 640), 10),
+                (SDXL_TP2, (2048, 2560, 1280), 60)]
 # quant_matmul's (M, K, N) in one W8A8 SD1.5 UNet evaluation (CFG batch 2)
 # and calls per evaluation (184): per transformer block the six (M, C, C)
 # projections, to_k/to_v of the 77-token context (M = 154, K = 768),
@@ -383,7 +442,29 @@ QMM_SHAPES = [(W8A8, mkn, n) for mkn, n in (
     ((154, 768, 1280), 12), ((512, 1280, 10240), 5), ((512, 5120, 1280), 5),
     ((128, 1280, 1280), 6), ((128, 1280, 10240), 1), ((128, 5120, 1280), 1),
     ((2, 320, 1280), 1), ((2, 1280, 1280), 13), ((2, 1280, 640), 5),
-    ((2, 1280, 320), 5), ((40, 128, 130), 0))]
+    ((2, 1280, 320), 5), ((40, 128, 130), 0))] + [
+    # one tp = 2 rank's share: q/k/v (and attn2's q) and ff.net.0.proj
+    # with half their columns, to_out.0 and ff.net.2 with half their K
+    # (QMM_ROW_AMAX); the time embedding and time_emb_proj stay whole
+    (W8A8_TP2, mkn, n) for mkn, n in (
+        ((8192, 320, 160), 20), ((8192, 160, 320), 10),
+        ((154, 768, 160), 10), ((8192, 320, 1280), 5),
+        ((8192, 640, 320), 5), ((2048, 640, 320), 20),
+        ((2048, 320, 640), 10), ((154, 768, 320), 10),
+        ((2048, 640, 2560), 5), ((2048, 1280, 640), 5),
+        ((512, 1280, 640), 20), ((512, 640, 1280), 10),
+        ((154, 768, 640), 12), ((512, 1280, 5120), 5),
+        ((512, 2560, 1280), 5), ((128, 1280, 640), 4),
+        ((128, 640, 1280), 2), ((128, 1280, 5120), 1),
+        ((128, 2560, 1280), 1), ((2, 320, 1280), 1), ((2, 1280, 1280), 13),
+        ((2, 1280, 640), 5), ((2, 1280, 320), 5))]
+# the row-parallel calls of a tp = 2 rank (QuantRowParallel): no bias (it
+# is added after the all-reduce), each row's scale from the whole row's
+# amax, all-reduced over tp and passed as row_amax
+QMM_ROW_AMAX = {(W8A8_TP2, mkn) for mkn in (
+    (8192, 160, 320), (8192, 640, 320), (2048, 320, 640), (2048, 1280, 640),
+    (512, 640, 1280), (512, 2560, 1280), (128, 640, 1280),
+    (128, 2560, 1280))}
 QMM_PER_EVAL = 184
 # GroupNorm sites that reach the kernel under THEATERGEN_FUSED_GN=1, CFG
 # batch 2, 32 groups: (B, C, H·W) and calls per evaluation.  The SD1.5
@@ -400,6 +481,7 @@ GN_SD15_SITES = (
 GN_SHAPES = [(CHAR, (2, c, hw), n) for (c, hw), n in GN_SD15_SITES] + [
     (CHAR_B6, (6, c, hw), n) for (c, hw), n in GN_SD15_SITES] + [
     (SD15_B1, (1, c, hw), n) for (c, hw), n in GN_SD15_SITES] + [
+    (TRAIN, (4, c, hw), n) for (c, hw), n in GN_SD15_SITES] + [
     (SDXL, (2, c, hw), n) for (c, hw), n in (
         ((320, 16384), 8), ((320, 4096), 1), ((640, 4096), 11),
         ((960, 4096), 1), ((1280, 4096), 1), ((640, 1024), 1),
@@ -428,6 +510,13 @@ PER_EVAL = {CHAR: dict(flash_attention=10, ff_geglu=16),
 # such a variant failing the bound that the kernel meets)
 GN_LARGE_MEAN, GN_LARGE_STD = 1024.0, 1.5
 SD15_STEPS, SDXL_STEPS = 50, 30
+# the depth of the earlier dialogue runs cut for time when mesh_path came
+# (the script had reached 1457 s of its 1200 s limit on a slow host, and
+# 1018.9 s after its build at 10 steps on such a host): the checkpoint
+# path's three dialogues, GroundingDINO's serial one, the SDXL turn, the
+# knob runs "a" and "c", and the guided dialogue, which is held against an
+# unguided one of the same depth
+CUT_STEPS = 5
 # the knob requests: Text2Img with DeepCache every 3rd step (50 DDIM
 # steps), and LCM at 4 steps (SD1.5 after a synthetic LCM-LoRA merge of
 # rank LORA_RANK, and SDXL)
@@ -437,10 +526,10 @@ DEEPCACHE_INTERVAL, LCM_STEPS, LORA_RANK = 3, 4, 64
 # deleted), the shortest run to trace, so the guided dialogue has room
 TURN_KNOBS = (
     ("a", ["--deepcache", "3", "--cfg_cutoff", "0.5", "--cn_interval", "2"],
-     50, dict(deepcache=3, cutoff=0.5, cn_interval=2)),
+     CUT_STEPS, dict(deepcache=3, cutoff=0.5, cn_interval=2)),
     ("b", ["--scheduler", "lcm", "--profile"], 4, dict(sampler="lcm")),
     ("c", ["--scheduler", "euler_ancestral", "--prediction_type",
-           "v_prediction", "--zero_snr"], 30,
+           "v_prediction", "--zero_snr"], CUT_STEPS,
      dict(sampler="euler_ancestral")))
 # the flash switches that send attention down rows 3 and 4: (environment
 # setting, module attributes, counter).  In the W8A8 UNet (no packed
@@ -893,7 +982,9 @@ def gn_phase(gen) -> dict:
 
 def qmm_phase(gen) -> dict:
     """quant_matmul at every shape of the W8A8 UNet and a ragged one,
-    with a bias (every call of the path but to_q/to_k/to_v has one):
+    with a bias (every call of the path but to_q/to_k/to_v has one; the
+    tp = 2 row-parallel calls take none, and a ``row_amax`` at least each
+    row's own max|x|, as the other rank's half of K gives it):
     checked against the plain version from the same bf16 inputs: the two
     are built to agree bit for bit, so one differing output fails (the
     1e-2·max|ref| bound of the other kernels is far wider than the error
@@ -907,6 +998,11 @@ def qmm_phase(gen) -> dict:
         w = torch.randn(n, k, device="cuda", generator=gen) * k ** -0.5
         wq, ws = qz.quantize_linear_weight(w)
         bias = randn(gen, n, scale=0.1)
+        amax = None
+        if (model, (m, k, n)) in QMM_ROW_AMAX:
+            bias = None
+            amax = torch.maximum(x.abs().amax(-1), randn(gen, m, k).abs()
+                                 .amax(-1)).float()
         w_deq = (wq.float() * ws[:, None]).to(torch.bfloat16)
         c, bm, bn, splits = qm.launch_plan(x.device, m, n, k)
         rb, nt, steps = qm.qmm_tiles(m, n, k)
@@ -914,11 +1010,12 @@ def qmm_phase(gen) -> dict:
                     k_steps=steps, ctas=rb * nt * splits,
                     cta_slots=qm.qmm_slots(x.device, c),
                     a_quantised_times=nt // c)
-        log(f"  quant_matmul M={m} K={k} N={n}: launch plan "
-            f"{json.dumps(plan)}")
-        out = qm.quant_matmul(x, wq, ws, bias)
+        log(f"  quant_matmul M={m} K={k} N={n}"
+            f"{' (row_amax, no bias)' if amax is not None else ''}: "
+            f"launch plan {json.dumps(plan)}")
+        out = qm.quant_matmul(x, wq, ws, bias, amax)
         torch.cuda.synchronize()
-        ref = qm.quant_matmul_plain(x, wq, ws, bias)
+        ref = qm.quant_matmul_plain(x, wq, ws, bias, amax)
         err = (out.float() - ref.float()).abs().max().item()
         differ = int((out != ref).sum())
         check(err, ref.float().abs().max().item(),
@@ -929,12 +1026,14 @@ def qmm_phase(gen) -> dict:
                              f"outputs differ from the plain version")
         rows.append(_row(
             model, (m, k, n), calls, err, qm.flops(m, k, n),
-            qm.min_bytes(m, k, n), lambda: qm.quant_matmul(x, wq, ws, bias),
-            lambda: qm.quant_matmul_plain(x, wq, ws, bias),
+            qm.min_bytes(m, k, n, bias=bias is not None,
+                         row_amax=amax is not None),
+            lambda: qm.quant_matmul(x, wq, ws, bias, amax),
+            lambda: qm.quant_matmul_plain(x, wq, ws, bias, amax),
             lambda: F.linear(x, w_deq, bias), 5, graphs=True,
             peak_ops=PEAK_INT8_OPS))
         rows[-1]["plan"] = plan
-        del x, w, wq, ws, bias, w_deq, out, ref
+        del x, w, wq, ws, bias, amax, w_deq, out, ref
     return _record("quant_matmul", "csrc/quant_matmul.cu",
                    "theatergen_tpu/ops/quant_matmul.py:92",
                    "quant_matmul (_qmm_kernel)", rows)
@@ -974,7 +1073,10 @@ def _record(name, source, replaces, tpu_function, rows) -> dict:
             "batched evaluation's (the turn server's and the wave CLI's "
             "batches of 4, 6 and 8 count in the totals); sd15_512_train_b4: "
             "one forward of a training step (the SD1.5 IP UNet at batch 4, "
-            "no CFG), whose launches are the training steps'",
+            "no CFG), whose launches are the training steps'; "
+            "sd15_512_tp2, sdxl_1024_tp2, sd15_512_w8a8_tp2: one rank's "
+            "share of one tp = 2 evaluation (CFG batch 2), whose launches "
+            "are mesh_path's tp ranks'",
         per_model=per_model, shapes=rows)
 
 
@@ -989,7 +1091,8 @@ FLASH_COUNTERS = {attr: name for name, (mod, attr) in COUNTERS.items()
 
 
 def eval_launches(ucfg, side: int, batch: int, shallow: bool = False,
-                  encoder_only: bool = False, cache_level: int = 1):
+                  encoder_only: bool = False, cache_level: int = 1,
+                  tp: int = 1):
     """Kernel launches of one evaluation of a UNet (``encoder_only``: a
     ControlNet, its encoder and mid block) of config ``ucfg`` on a
     ``side``² latent at ``batch`` rows, derived from the layers' routing
@@ -1003,7 +1106,10 @@ def eval_launches(ucfg, side: int, batch: int, shallow: bool = False,
     ``THEATERGEN_FUSED_INT8`` "1", are its ``QuantLinear`` calls: the time
     embedding's two, each resnet's ``time_emb_proj``, and per transformer
     layer the two attentions' q, k, v and out projections, the FF's two
-    linears and, with IP tokens, ``to_k_ip``/``to_v_ip``."""
+    linears and, with IP tokens, ``to_k_ip``/``to_v_ip``.  ``tp``: one
+    rank's share of a tp-sharded evaluation (``parallel/mesh.shard_module``):
+    an attention whose heads divide by tp holds heads/tp of them, an FF
+    K/tp inner columns; the number of linears is the unsharded one's."""
     got = collections.Counter()
     boc, n, lpb = ucfg.block_out_channels, len(ucfg.block_out_channels), \
         ucfg.layers_per_block
@@ -1027,12 +1133,15 @@ def eval_launches(ucfg, side: int, batch: int, shallow: bool = False,
     def transformer(level, ch):
         norm(ch, level)
         heads, hw = ucfg.heads_at(level), (side >> level) ** 2
+        head_dim = ch // heads
+        if heads % tp == 0:
+            heads //= tp
         for _ in range(ucfg.depth_at(level)):
-            route = fa.route(hw, hw, heads, ch // heads, 2, ucfg.quantized) \
+            route = fa.route(hw, hw, heads, head_dim, 2, ucfg.quantized) \
                 if ucfg.flash_attention else None
             if route is not None:
                 got[FLASH_COUNTERS[fa.COUNTERS[route]]] += 1
-            m, k = batch * hw, 4 * ch
+            m, k = batch * hw, 4 * ch // tp
             if ucfg.quantized:
                 linears(8 + 2 + (2 if ucfg.ip_num_tokens else 0))
                 continue
@@ -2535,7 +2644,7 @@ def _checkpoint_phase(root: str, records, default_dialogue_s: float
         sam_lib.segment_with_box = counted_segment
         try:
             runs[label] = turn_path(records, f"ckpt_{label}", flags,
-                                    images=images[label])
+                                    CUT_STEPS, images=images[label])
         finally:
             sam_lib.segment_with_box = real_segment
         segments = sam_lib.segments - before
@@ -2773,7 +2882,7 @@ def _gdino_phase(root: str, records) -> dict:
     torch.cuda.empty_cache()
     runs = {}
     for label, flags, steps in (
-            ("gdino", ["--weights", ckpt], SD15_STEPS),
+            ("gdino", ["--weights", ckpt], CUT_STEPS),
             ("gdino_batch", ["--weights", ckpt, "--batch_chars"],
              GDINO_BATCH_STEPS)):
         log(f"[main path] dialogue_0 through the CLI with "
@@ -3940,17 +4049,20 @@ def xl_guided_request(bundle, image, records) -> dict:
     return out
 
 
-def guided_path(records, unguided_images) -> dict:
+def guided_path(records) -> dict:
     """Latent guidance on the card: gate (b) (energy_grad_phase), then
-    dialogue_0 through the CLI with ``--guidance`` (turn_path with the
-    guidance iterations in each turn's launches), its images against the
-    unguided dialogue's (the same seeds)."""
+    dialogue_0 through the CLI with ``--guidance`` at CUT_STEPS steps, every
+    one guided (turn_path with the guidance iterations in each turn's
+    launches), its images against an unguided run of the same depth and
+    seeds."""
     out = dict(energy_grad=energy_grad_phase())
     gc.collect()
     torch.cuda.empty_cache()
-    images = []
+    unguided_images, images = [], []
+    out["unguided"] = turn_path(records, "unguided", [], CUT_STEPS,
+                                images=unguided_images)
     out["dialogue"] = turn_path(records, "guided", ["--guidance"],
-                                images=images, guided=True)
+                                CUT_STEPS, images=images, guided=True)
     diffs = [float(np.abs(g[0] - u[0]).max())
              for g, u in zip(images, unguided_images)]
     log(f"  guided vs unguided dialogue_0, max|diff| per turn's image: "
@@ -4854,6 +4966,665 @@ def train_path(records) -> dict:
     return out
 
 
+# ------------------------------------------------------------- mesh_path
+
+
+def _bias_fill(module, seed: int):
+    """Every bias of ``module`` drawn N(0, 0.02²) from ``seed``: the seeded
+    init leaves them 0, and a bias added on both ranks must show."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for n, p in module.named_parameters():
+            if n.endswith(".bias"):
+                p.copy_(torch.randn(p.shape, device="cuda", generator=g)
+                        * 0.02)
+    return module
+
+
+def _mesh_unet(model: str):
+    """``(cfg, ucfg, unet)`` of a tp check, seeded (MESH_SEED), biases
+    drawn: SD15_TP2 the SD1.5 IP UNet, SDXL_TP2 the SDXL UNet, W8A8_TP2 the
+    W8A8 SD1.5 UNet (its float twin's weights quantized)."""
+    from theatergen_tpu_torch.models.layers import get_dtype
+    from theatergen_tpu_torch.models.unet import UNet2DCondition
+    from theatergen_tpu_torch.pipelines.bundle import build_module
+
+    cfg = sdxl_config() if model == SDXL_TP2 else sd15_config()
+    ucfg = cfg.unet
+    if model == SD15_TP2:
+        ucfg = dataclasses.replace(ucfg,
+                                   ip_num_tokens=cfg.ip_adapter.num_tokens)
+    if model == W8A8_TP2:
+        ucfg = dataclasses.replace(ucfg, quantized=True)
+    unet = build_module(UNet2DCondition, ucfg, get_dtype(ucfg.dtype), "cuda",
+                        torch.Generator(device="cuda").manual_seed(MESH_SEED))
+    return cfg, ucfg, _bias_fill(unet, MESH_SEED + 1)
+
+
+def _mesh_eval(model: str, unet, cfg, ucfg):
+    """One CFG batch-2 evaluation of a tp check's UNet on seeded inputs
+    (ip_scale 0.4 for the IP UNet; SDXL's pooled text and time ids)."""
+    g = torch.Generator(device="cuda").manual_seed(MESH_SEED + 2)
+    h = cfg.pipeline.latent_height
+    x = torch.randn(2, 4, h, h, device="cuda", generator=g)
+    ctx = torch.randn(2, cfg.text.max_length + ucfg.ip_num_tokens,
+                      ucfg.cross_attention_dim, device="cuda", generator=g)
+    t = torch.full((2,), 501, device="cuda", dtype=torch.long)
+    kw = {}
+    if ucfg.ip_num_tokens:
+        kw["ip_scale"] = torch.tensor(0.4, device="cuda")
+    if ucfg.addition_embed_type == "text_time":
+        kw = dict(pooled_text=torch.randn(2, cfg.text2.projection_dim,
+                                          device="cuda", generator=g),
+                  time_ids=sdxl.default_time_ids(cfg.pipeline.height,
+                                                 cfg.pipeline.width, 2,
+                                                 "cuda"))
+    with torch.no_grad():
+        return unet(x, t, ctx.to(unet.dtype), **kw)
+
+
+def tp_reckoning(ucfg, side: int, batch: int, tp: int = 2,
+                 quant_route: str = "") -> dict:
+    """The collectives of one tp evaluation from the config: an all-reduce
+    of the bf16 output of each row-parallel layer (two attentions' to_out.0
+    and ff.net.2 per transformer block whose heads split; the UNet's time
+    embedding sits at the top of its tree, which no tp rule reaches, as in
+    JAX), plus, in a W8A8 UNet, one of each such layer's activation amax
+    (route "0": one fp32 scalar; "1": a bf16 value per row)."""
+    count = nbytes = 0
+    boc, n = ucfg.block_out_channels, len(ucfg.block_out_channels)
+    # (level, attentions): a down block's layers_per_block, an up block's
+    # one more, and the mid block's one at the last level
+    sites = [(i, 2 * ucfg.layers_per_block + 1) for i in range(n)
+             if ucfg.attention_levels[i]] + [(n - 1, 1)]
+    for level, attentions in sites:
+        if ucfg.heads_at(level) % tp:
+            continue
+        ch, hw = boc[level], (side >> level) ** 2
+        blocks = attentions * ucfg.depth_at(level)
+        count += 3 * blocks
+        nbytes += 3 * blocks * batch * hw * ch * 2
+        if quant_route:
+            count += 3 * blocks
+            nbytes += 3 * blocks * (4 if quant_route == "0" else
+                                    2 * batch * hw)
+    return dict(count=count, bytes=nbytes)
+
+
+def _tp_rank(mesh, model: str, rank: int, faults: bool) -> dict:
+    """A tp = 2 rank's share of one evaluation of ``model``: eps (rank 0),
+    its launches and collectives; with ``faults`` the eps under each
+    planted fault too."""
+    from theatergen_tpu_torch.models import layers
+    from theatergen_tpu_torch.parallel import collectives
+    from theatergen_tpu_torch.parallel import mesh as mesh_lib
+
+    out = {}
+    cfg, ucfg, unet = _mesh_unet(model)
+    qz.FUSED_MODE = "1" if model == W8A8_TP2 else "0"
+    try:
+        unet = mesh_lib.shard_module(unet, mesh, inplace=True)
+        reset_counts()
+        mesh_lib.reset_stats(mesh)
+        eps = _mesh_eval(model, unet, cfg, ucfg)
+        torch.cuda.synchronize()
+        out.update(launches=read_counts(),
+                   stats=mesh_lib.collective_stats(mesh),
+                   eps=eps.float().cpu() if rank == 0 else None)
+        del unet, eps
+        if faults:
+            real_rows = mesh_lib.shard_rows
+            real_fwd = layers.RowParallelLinear.forward
+
+            def bias_twice(self, x):
+                y = F.linear(x, self.weight, self.bias)
+                return collectives.reduce_from(y, self.mesh)
+
+            for fault in ("geglu_contiguous", "bias_twice"):
+                if fault == "geglu_contiguous":
+                    mesh_lib.shard_rows = lambda kind, *a: real_rows(
+                        "column" if kind == "geglu" else kind, *a)
+                else:
+                    layers.RowParallelLinear.forward = bias_twice
+                try:
+                    cfg, ucfg, unet = _mesh_unet(model)
+                    unet = mesh_lib.shard_module(unet, mesh, inplace=True)
+                    eps = _mesh_eval(model, unet, cfg, ucfg)
+                    out[fault] = eps.float().cpu() if rank == 0 else None
+                    del unet, eps
+                finally:
+                    mesh_lib.shard_rows = real_rows
+                    layers.RowParallelLinear.forward = real_fwd
+    finally:
+        qz.FUSED_MODE = "0"
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sp_qkv():
+    g = torch.Generator(device="cuda").manual_seed(MESH_SEED + 3)
+    return [randn(g, 2, 9216, 8, 40) for _ in range(3)]
+
+
+def _runner_inputs(bundle):
+    """The dp runners' seeded inputs: four characters (DB hits at 0.4 and
+    misses at 0, word tokens 3, 5, 2, 4) and two dialogues' final passes
+    (frozen steps 3 and 5 of MESH_STEPS), at the bundle's 512-px
+    canvas."""
+    cfg = bundle.cfg
+    h, px = cfg.pipeline.latent_height, cfg.pipeline.height
+    c = cfg.unet.cross_attention_dim
+    g = torch.Generator(device="cuda").manual_seed(MESH_SEED + 4)
+    n_ip = cfg.text.max_length + bundle.unet_ip.cfg.ip_num_tokens
+    fm = torch.zeros(2, h, h, device="cuda")
+    fm[0, 8:40, 4:30] = 1.0
+    fm[1, 20:60, 30:50] = 1.0
+    char = dict(latents=torch.randn(4, 1, h, h, 4, device="cuda",
+                                    generator=g),
+                contexts=torch.randn(4, 2, n_ip, c, device="cuda",
+                                     generator=g),
+                scales=[0.4, 0.0, 0.4, 0.0], words=[3, 5, 2, 4])
+    final_ = (torch.randn(2, MESH_STEPS + 1, 1, h, h, 4, device="cuda",
+                          generator=g), fm, [3, 5],
+              torch.randn(2, 2, n_ip, c, device="cuda", generator=g),
+              torch.randn(2, 2, cfg.text.max_length, c, device="cuda",
+                          generator=g),
+              torch.rand(2, px, px, 3, device="cuda", generator=g), 0.1, None)
+    return char, final_
+
+
+def _train_data(ucfg, side: int, scheduler):
+    g = torch.Generator(device="cuda").manual_seed(MESH_SEED + 5)
+    return (torch.randn(TRAIN_BATCH, side, side, 4, device="cuda",
+                        generator=g),
+            torch.randn(TRAIN_BATCH, 77 + ucfg.ip_num_tokens,
+                        ucfg.cross_attention_dim, device="cuda",
+                        generator=g),
+            torch.randint(0, scheduler.num_train_timesteps, (TRAIN_BATCH,),
+                          device="cuda", generator=g),
+            torch.randn(TRAIN_BATCH, side, side, 4, device="cuda",
+                        generator=g))
+
+
+def _mesh_rank(rank: int, world: int, address: str, root: str) -> None:
+    """One of mesh_path's two ranks, both on cuda:0 over gloo (NCCL takes
+    one rank per card): (c) the tp = 2 evaluations, (d) sequence
+    parallelism, then on a dp = 2 mesh, rank 0 leading and rank 1 serving,
+    (b) the dp runners and (e) the IP recipe's gradients, then on the tp
+    mesh the one-rank checkpoint resharded and written back.  Each rank
+    saves what it measured to ``root/rank{r}.pt``."""
+    import torch.distributed as dist
+
+    from theatergen_tpu_torch.models.unet import UNet2DCondition
+    from theatergen_tpu_torch.parallel import collectives
+    from theatergen_tpu_torch.parallel import driver as dp_driver
+    from theatergen_tpu_torch.parallel import mesh as mesh_lib
+    from theatergen_tpu_torch.parallel import sp as sp_lib
+    from theatergen_tpu_torch.parallel import worker
+    from theatergen_tpu_torch.pipelines.bundle import build_module
+    from theatergen_tpu_torch.training import checkpoint as ckpt
+    from theatergen_tpu_torch.training.diffusion import (make_optimizer,
+                                                         make_train_step,
+                                                         shard_train_step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh_lib.init_distributed("cuda", backend="gloo", address=address,
+                              rank=rank, world_size=world,
+                              timeout_s=MESH_TIMEOUT_S)
+    kw = dict(device="cuda", timeout_s=MESH_TIMEOUT_S,
+              command_timeout_s=MESH_TIMEOUT_S)
+    tp_mesh = mesh_lib.make_mesh(1, 2, **kw)
+    dp_mesh = mesh_lib.make_mesh(2, 1, **kw)
+    out = dict(backend=dist.get_backend(tp_mesh.group("tp")), tp={})
+    for model in (SD15_TP2, SDXL_TP2, W8A8_TP2):
+        out["tp"][model] = _tp_rank(tp_mesh, model, rank,
+                                    faults=model == SD15_TP2)
+
+    q, k, v = (sp_lib.sp_sharded(dp_mesh, x) for x in _sp_qkv())
+    reset_counts()
+    o = sp_lib.sp_attention(q, k, v, dp_mesh, axis="dp")
+    torch.cuda.synchronize()
+    outs = collectives.gather_objects(dp_mesh, o.cpu())
+    out["sp"] = dict(launches=read_counts(),
+                     out=None if rank else torch.cat(outs, 1))
+    del q, k, v, o, outs
+
+    bundle = init_bundle(sd15_config(), 0, device="cuda", with_ip=True,
+                         with_controlnet=True)
+    cfg = bundle.cfg
+    side = cfg.pipeline.latent_height
+    step = make_train_step(bundle.unet_ip, make_optimizer(lr=1e-4, warmup=0),
+                           cfg.scheduler, trainable_filter=ip_recipe)
+    sharded = shard_train_step(step, dp_mesh)
+
+    def lead_dp():
+        char, final_args = _runner_inputs(bundle)
+        run, _ = dp_driver.make_dp_character_runner(
+            bundle, MESH_STEPS, dp_mesh, capture_ref_attn=True)
+        res = run(char["latents"], char["contexts"], char["scales"], None,
+                  word_tokens=char["words"])
+        frun, _ = dp_driver.make_dp_final_runner(bundle, MESH_STEPS, dp_mesh,
+                                                 guided=False)
+        fin = frun(*final_args)
+        lat, ctx, t, noise = _train_data(bundle.unet_ip.cfg, side,
+                                         cfg.scheduler)
+        loss, grads = sharded.gradients(sharded.init_state(), lat, ctx,
+                                        t=t, noise=noise)
+        out["dp"] = dict(
+            latents=res.latents.cpu(), trajectory=res.trajectory.cpu(),
+            ref_attn=[m.cpu() for m in res.ref_attn], final=fin.cpu(),
+            loss=float(loss), grads={n: g.cpu() for n, g in grads.items()},
+            stats=mesh_lib.collective_stats(dp_mesh))
+
+    reset_counts()
+    worker.run_rank(dp_mesh, lead_dp, bundle)
+    torch.cuda.synchronize()
+    out["dp_launches"] = read_counts()
+    for held in dp_mesh.local.values():
+        held.clear()
+    del bundle, step, sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ucfg = dataclasses.replace(sd15_config().unet, ip_num_tokens=4)
+    unet = build_module(UNet2DCondition, ucfg, torch.bfloat16, "cuda")
+    sharded = shard_train_step(make_train_step(
+        unet, make_optimizer(lr=1e-4, warmup=0), sd15_config().scheduler,
+        trainable_filter=ip_recipe), tp_mesh)
+
+    def lead_tp():
+        t0 = time.perf_counter()
+        tree = sharded.load(os.path.join(root, "one"))
+        t1 = time.perf_counter()
+        ckpt.save_sharded(os.path.join(root, "tp2"), sharded, tree["state"],
+                          tree["ema"])
+        out["ckpt_s"] = dict(load=t1 - t0,
+                             save_sharded=time.perf_counter() - t1)
+
+    worker.run_rank(tp_mesh, lead_tp)
+    torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def _rel(a, b) -> float:
+    return float((a.float() - b.float()).abs().max()) / max(
+        float(b.float().abs().max()), 1e-12)
+
+
+def _cli_tree(root: str, flags, dialogues: int, **launch) -> dict:
+    """``cli.generate.main`` over the first ``dialogues`` dialogues of
+    data/sample at MESH_STEPS steps into ``root`` (emptied first;
+    ``launch`` goes to ``launch_mesh``): the output tree's images by path,
+    and the run log's turn events."""
+    from theatergen_tpu_torch.cli import generate
+
+    shutil.rmtree(root, ignore_errors=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    generate.main([
+        "--dataset_path", os.path.join(here, "data", "sample"),
+        "--max_dialogues", str(dialogues), "--num_steps", str(MESH_STEPS),
+        "--base_save_dir", os.path.join(root, "out"),
+        "--database_path_base", os.path.join(root, "db"), *flags],
+        **launch)
+    tree, events = {}, []
+    run = os.path.join(root, "out", "story", "run0")
+    for d, _, files in os.walk(run):
+        for f in files:
+            if f.endswith(".png"):
+                tree[os.path.relpath(os.path.join(d, f), run)] = \
+                    png.read_png(os.path.join(d, f))
+    with open(os.path.join(run, "run_log.jsonl")) as f:
+        events = [(e["dialogue"], e["turn"], e["seed"], e["characters"])
+                  for e in map(json.loads, f) if e["event"] == "turn"]
+    return dict(tree=tree, events=events)
+
+
+def mesh_path(records) -> dict:
+    """The multi-rank half on the one card (``parallel/``): (a) dialogue_0
+    through the CLI with ``--mesh dp=1`` (one rank over an NCCL process
+    group of one) against ``--batch_chars`` at MESH_STEPS steps: the same
+    images bit for bit and the same launches; then two ranks on cuda:0
+    over gloo (``_mesh_rank``): (c) one tp = 2 evaluation of the SD1.5 IP
+    UNet, SDXL and the W8A8 SD1.5 UNet (``THEATERGEN_FUSED_INT8=1``)
+    against the unsharded one under TP_BOUND, each rank's launches exactly
+    ``eval_launches(..., tp=2)``, the collectives against
+    ``tp_reckoning`` (SDXL's beside JAX's pinned budget), two planted
+    faults failing the gate; (d) ``sp_attention`` at B2 S9216 H8 d40 over
+    dp = 2, row 4 on each rank's half, against the unsharded call; (b)
+    the dp character runner on 4 characters and the dp final runner on 2
+    dialogues at MESH_STEPS DDIM steps against the one-rank batch-4 and
+    batch-2 runners under BATCH_BOUND (latents and maps; rows swapped
+    between the ranks must fail it), each rank's launches exact; (e) the
+    IP recipe's loss and gradients at batch 4 split 2 + 2 against the
+    one-rank step under the TRAIN_* gates, and the one-rank state (with
+    its EMA) resharded at tp = 2 and written back: the same files byte
+    for byte; finally dialogue_0 and dialogue_1 through the CLI with
+    ``--mesh dp=2 --dp_dialogues 2`` over gloo against ``--dp_dialogues
+    2`` on one rank: the same output tree and turn events, written by
+    rank 0 alone, its images within CLI_PIXEL_BOUND (the two dialogues'
+    images swapped failing it).  No multi-card speed is measured."""
+    from theatergen_tpu_torch.parallel import driver as dp_driver
+    from theatergen_tpu_torch.parallel import mesh as mesh_lib
+    from theatergen_tpu_torch.parallel import worker
+    from theatergen_tpu_torch.training import checkpoint as ckpt
+    from theatergen_tpu_torch.training.diffusion import (make_optimizer,
+                                                         make_train_step)
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, "build", "chip_smoke_mesh")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out = {}
+    failures = []
+
+    def gate(ok: bool, what: str) -> None:
+        log(f"  {what}  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(what)
+
+    try:
+        # (a) one rank over NCCL is --batch_chars
+        got = {}
+        for label, flags, launch in (
+                ("batch_chars", ["--batch_chars"], {}),
+                ("mesh_dp1", ["--mesh", "dp=1"],
+                 dict(timeout_s=MESH_TIMEOUT_S))):
+            reset_counts()
+            t0 = time.perf_counter()
+            got[label] = _cli_tree(os.path.join(root, label), flags, 1,
+                                   **launch)
+            torch.cuda.synchronize()
+            got[label].update(seconds=time.perf_counter() - t0,
+                              launches=read_counts())
+            add_launches(records, MESH, got[label]["launches"])
+        a, b = got["batch_chars"], got["mesh_dp1"]
+        same = (sorted(a["tree"]) == sorted(b["tree"]) and all(
+            np.array_equal(a["tree"][k], b["tree"][k]) for k in a["tree"]))
+        out["a"] = dict(files=len(a["tree"]), bit_equal=same,
+                        launches_equal=a["launches"] == b["launches"],
+                        seconds=[a["seconds"], b["seconds"]],
+                        backend="nccl")
+        gate(same and a["launches"] == b["launches"] and a["events"]
+             == b["events"],
+             f"(a) --mesh dp=1 (NCCL, one rank) against --batch_chars, "
+             f"dialogue_0 at {MESH_STEPS} steps: {len(a['tree'])} images bit "
+             f"for bit {same}, launches {b['launches']} equal "
+             f"{a['launches'] == b['launches']} ({a['seconds']:.1f} s / "
+             f"{b['seconds']:.1f} s)")
+        del got, a, b
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the one-rank references: the dp runners (before any training
+        # step moves the IP weights), then the IP recipe's loss and
+        # gradients and a one-step state, written before the ranks start
+        # (they reshard it)
+        bundle = init_bundle(sd15_config(), 0, device="cuda", with_ip=True,
+                             with_controlnet=True)
+        cfg = bundle.cfg
+        side = cfg.pipeline.latent_height
+        # the dp runners' one-rank references
+        char, final_args = _runner_inputs(bundle)
+        run1, _ = dp_driver.make_dp_character_runner(
+            bundle, MESH_STEPS, capture_ref_attn=True)
+        ref_char = run1(char["latents"], char["contexts"], char["scales"],
+                        None, word_tokens=char["words"])
+        frun1, _ = dp_driver.make_dp_final_runner(bundle, MESH_STEPS,
+                                                  guided=False)
+        ref_final = frun1(*final_args)
+        # each rank's rows on one rank: the same batches as the ranks run
+        halves = [run1(char["latents"][a:a + 2], char["contexts"][a:a + 2],
+                       char["scales"][a:a + 2], None,
+                       word_tokens=char["words"][a:a + 2]) for a in (0, 2)]
+        half_char = dict(
+            latents=torch.cat([r.latents for r in halves]).cpu(),
+            trajectory=torch.cat([r.trajectory for r in halves]).cpu(),
+            maps=[torch.cat(m).cpu() for m in zip(*(r.ref_attn
+                                                     for r in halves))])
+        half_final = torch.cat([frun1(*(
+            x[d:d + 1] if torch.is_tensor(x) or isinstance(x, list) else x
+            for x in final_args)) for d in (0, 1)]).cpu()
+        del halves
+        step = make_train_step(bundle.unet_ip, make_optimizer(
+            lr=1e-4, warmup=0), cfg.scheduler, trainable_filter=ip_recipe)
+        lat, ctx, t, noise = _train_data(bundle.unet_ip.cfg, side,
+                                         cfg.scheduler)
+        state = step.init_state()
+        step.load(state)
+        ref_loss = step.loss(lat, ctx, t=t, noise=noise)
+        ref_grads = {n: g.clone() for n, g in step.grads(ref_loss).items()}
+        ref_loss = float(ref_loss.detach())
+        state, _ = step(state, lat, ctx, t=t, noise=noise)
+        ema = {n: state.params[n].clone() for n in step.trainable}
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint(os.path.join(root, "one"),
+                             {"state": state, "ema": ema})
+        out["ckpt_one_s"] = time.perf_counter() - t0
+        del state, ema
+        ip_cfg, cn_cfg = bundle.unet_ip.cfg, bundle.controlnet.cfg
+        del bundle, step, run1, frun1
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        worker.spawn(_mesh_rank, 2, (root,), timeout_s=MESH_RANKS_JOIN_S)
+        out["ranks_s"] = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(root, f"rank{r}.pt"),
+                            weights_only=False) for r in range(2)]
+        log(f"  two ranks on cuda:0, device collectives over "
+            f"{ranks[0]['backend']}: {out['ranks_s']:.1f} s with their "
+            f"start")
+        out["backend"] = ranks[0]["backend"]
+
+        # (c) tp = 2
+        out["tp"] = {}
+        for model in (SD15_TP2, SDXL_TP2, W8A8_TP2):
+            cfg_m, ucfg, unet = _mesh_unet(model)
+            cov = {tp: mesh_lib.sharding_coverage(tp, unet) for tp in (2, 4)}
+            log(f"  {model} tp rules: " + "; ".join(
+                f"tp={tp} {c['sharded_params']:,} of {c['total_params']:,} "
+                f"parameters sharded ({c['fraction']:.4f}), "
+                f"{len(c['fallback'])} tensors replicated by the head rule"
+                for tp, c in cov.items()))
+            qz.FUSED_MODE = "1" if model == W8A8_TP2 else "0"
+            try:
+                ref = _mesh_eval(model, unet, cfg_m, ucfg).float().cpu()
+            finally:
+                qz.FUSED_MODE = "0"
+            del unet
+            gc.collect()
+            torch.cuda.empty_cache()
+            side_m = cfg_m.pipeline.latent_height
+            r0 = ranks[0]["tp"][model]
+            err = _rel(r0["eps"], ref)
+            want = counts(**eval_launches(ucfg, side_m, 2, tp=2))
+            if model == W8A8_TP2:
+                want["quant_matmul"] = QMM_PER_EVAL
+            exact = all(r["tp"][model]["launches"] == want for r in ranks)
+            for r in ranks:
+                add_launches(records, model, r["tp"][model]["launches"])
+            reck = tp_reckoning(ucfg, side_m, 2, quant_route=(
+                "1" if model == W8A8_TP2 else ""))
+            ar = r0["stats"]["all-reduce"]
+            row = dict(rel_err=err, launches_per_rank=r0["launches"],
+                       want=want, all_reduce=ar, reckoning=reck,
+                       fraction_sharded={tp: c["fraction"]
+                                         for tp, c in cov.items()})
+            gate(err <= TP_BOUND and exact and ar["count"] == reck["count"]
+                 and ar["bytes"] == reck["bytes"],
+                 f"(c) {model}: tp=2 eps against the unsharded UNet "
+                 f"{err:.3e} of max|ref| (bound {TP_BOUND}); launches per "
+                 f"rank {r0['launches']} exact {exact}; all-reduces "
+                 f"{ar['count']} moving {ar['bytes']:,} B, reckoned "
+                 f"{reck['count']} / {reck['bytes']:,} B"
+                 + (f"; JAX's pinned SDXL tp=2 budget {JAX_SDXL_TP2['count']}"
+                    f" / {JAX_SDXL_TP2['bytes']:,} B (fp32 partial sums)"
+                    if model == SDXL_TP2 else ""))
+            for fault in ("geglu_contiguous", "bias_twice"):
+                if fault in r0:
+                    fe = _rel(r0[fault], ref)
+                    row[fault] = fe
+                    gate(fe > TP_BOUND, f"(c) planted fault {fault}: "
+                         f"{fe:.3e} of max|ref| must exceed {TP_BOUND}")
+            out["tp"][model] = row
+
+        # (d) sequence parallelism
+        q, k, v = _sp_qkv()
+        full = fa.flash_attention(q, k, v, route="copy").cpu()
+        sp_out = ranks[0]["sp"]["out"]
+        sp_equal = bool(torch.equal(sp_out, full))
+        sp_l = [r["sp"]["launches"]["flash_attention_copy"] for r in ranks]
+        for r in ranks:
+            add_launches(records, MESH, r["sp"]["launches"])
+        out["sp"] = dict(bit_equal=sp_equal, launches_copy=sp_l,
+                         rel_err=_rel(sp_out, full))
+        gate(out["sp"]["rel_err"] <= TOL and sp_l == [1, 1],
+             f"(d) sp_attention B2 S9216 H8 d40 over dp=2: the gathered "
+             f"halves against the unsharded call {out['sp']['rel_err']:.3e}"
+             f" of max|ref| (bit for bit {sp_equal}), row 4 launches per "
+             f"rank {sp_l}")
+        del q, k, v, full
+
+        # (b) the dp runners: exact against each rank's rows run on one
+        # rank; the batch gate (BATCH_BOUND, one evaluation) on the first step
+        # against the one-rank batch-4 and batch-2 runs, the 10 steps'
+        # differences printed
+        dp = ranks[0]["dp"]
+        exact = dict(
+            latents=_rel(dp["latents"], half_char["latents"]),
+            trajectory=_rel(dp["trajectory"], half_char["trajectory"]),
+            maps=max(_rel(m, r) for m, r in zip(dp["ref_attn"],
+                                                half_char["maps"])),
+            final=_rel(dp["final"], half_final))
+        bit_equal = (torch.equal(dp["trajectory"], half_char["trajectory"])
+                     and torch.equal(dp["final"], half_final))
+        errs = dict(
+            step1_latents=_rel(dp["trajectory"][:, 1],
+                               ref_char.trajectory[:, 1].cpu()),
+            step0_maps=max(_rel(m[:, 0], r[:, 0].cpu()) for m, r in zip(
+                dp["ref_attn"], ref_char.ref_attn)),
+            final=_rel(dp["final"], ref_final.cpu()))
+        drift = dict(
+            latents=_rel(dp["latents"], ref_char.latents.cpu()),
+            maps=max(_rel(m, r.cpu()) for m, r in zip(dp["ref_attn"],
+                                                      ref_char.ref_attn)))
+        swapped = _rel(torch.cat([dp["latents"][2:], dp["latents"][:2]]),
+                       half_char["latents"])
+        want = collections.Counter()
+        for per, n in ((eval_launches(ip_cfg, side, 4), 2 * MESH_STEPS),
+                       (eval_launches(cn_cfg, side, 4, encoder_only=True),
+                        MESH_STEPS),
+                       (eval_launches(ip_cfg, side, 2), 1)):
+            for name, c in per.items():
+                want[name] += n * c
+        want = counts(**want)
+        exact_l = all(r["dp_launches"] == want for r in ranks)
+        for r in ranks:
+            add_launches(records, MESH, r["dp_launches"])
+        out["dp"] = dict(against_own_rows=exact, bit_equal=bit_equal,
+                         batch_gate=errs, ten_step_drift=drift,
+                         swapped_rel_err=swapped,
+                         launches_per_rank=ranks[1]["dp_launches"],
+                         want=want, stats=dp["stats"])
+        launches_exact = exact_l
+        gate(max(exact.values()) <= DP_EXACT and launches_exact,
+             f"(b) dp=2 runners (4 characters, 2 final passes, {MESH_STEPS} "
+             f"DDIM steps) against each rank's rows on one rank: "
+             + ", ".join(f"{k} {e:.3e}" for k, e in exact.items())
+             + f" of max|ref| (bound {DP_EXACT}; bit for bit {bit_equal}); "
+             f"each rank's launches {ranks[1]['dp_launches']} exact "
+             f"{launches_exact}")
+        gate(max(errs.values()) <= BATCH_BOUND,
+             f"(b) against the one-rank batch-4 and batch-2 runners: "
+             + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+             + f" of max|ref| (bound {BATCH_BOUND}); after {MESH_STEPS} "
+             f"steps the batch drift reads latents {drift['latents']:.3e}, "
+             f"maps {drift['maps']:.3e}")
+        gate(swapped > DP_EXACT and swapped > BATCH_BOUND,
+             f"(b) planted fault, the two ranks' rows swapped: {swapped:.3e} "
+             f"must exceed both bounds")
+
+        # (e) training
+        stats = _grad_stats(dp["grads"], {n: g.cpu() for n, g in
+                                          ref_grads.items()})
+        loss_rel = abs(dp["loss"] - ref_loss) / abs(ref_loss)
+        out["train"] = dict(loss=dp["loss"], ref_loss=ref_loss,
+                            loss_rel=loss_rel, grad_cos=stats["cos"],
+                            grad_rel_l2=stats["rel_l2"])
+        gate(loss_rel <= TRAIN_LOSS_BOUND and stats["cos"] >= TRAIN_GRAD_COS,
+             f"(e) IP recipe at batch 4 split 2 + 2 against one rank: loss "
+             f"{dp['loss']:.6f} vs {ref_loss:.6f} ({loss_rel:.3e}, "
+             f"bound {TRAIN_LOSS_BOUND}), gradient cosine {stats['cos']:.6f}"
+             f" (at least {TRAIN_GRAD_COS}), rel L2 {stats['rel_l2']:.3e}")
+        files_equal = all(
+            filecmp.cmp(os.path.join(root, "one", f),
+                        os.path.join(root, "tp2", f), shallow=False)
+            for f in (ckpt.TENSORS, ckpt.TREE))
+        out["train"].update(ckpt_bit_equal=files_equal,
+                            ckpt_bytes=dir_bytes(os.path.join(root, "one")),
+                            ckpt_s=ranks[0]["ckpt_s"])
+        gate(files_equal,
+             f"(e) the one-rank state and EMA "
+             f"({out['train']['ckpt_bytes'] / 1e9:.2f} GB) resharded at "
+             f"tp=2 ({ranks[0]['ckpt_s']['load']:.1f} s) and "
+             f"written back ({ranks[0]['ckpt_s']['save_sharded']:.1f} s): "
+             f"the same files byte for byte {files_equal}")
+        del ranks, dp, ref_char, ref_final, ref_grads
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the CLI over two ranks, dialogue waves
+        got = {}
+        for label, flags, launch in (
+                ("waves", ["--dp_dialogues", "2"], {}),
+                ("mesh_dp2", ["--mesh", "dp=2", "--dp_dialogues", "2"],
+                 dict(backend="gloo", timeout_s=MESH_TIMEOUT_S,
+                      join_s=MESH_CLI_JOIN_S))):
+            t0 = time.perf_counter()
+            got[label] = _cli_tree(os.path.join(root, label), flags, 2,
+                                   **launch)
+            got[label]["seconds"] = time.perf_counter() - t0
+        a, b = got["waves"], got["mesh_dp2"]
+        same = sorted(a["tree"]) == sorted(b["tree"]) and \
+            a["events"] == b["events"]
+
+        def worst(pairs) -> int:
+            return max((int(np.abs(a["tree"][k].astype(int)
+                                   - b["tree"][j].astype(int)).max())
+                        for k, j in pairs if j in b["tree"]
+                        and a["tree"][k].shape == b["tree"][j].shape),
+                       default=-1)
+
+        diff = worst((k, k) for k in a["tree"])
+        # the planted fault: each dialogue's images read from the other's
+        swapped = worst((k, k.replace("dialogue_0", "dialogue_1"))
+                        for k in a["tree"] if "dialogue_0" in k)
+        out["cli_dp2"] = dict(files=len(b["tree"]), same_tree=same,
+                              max_uint8_diff=diff, swapped=swapped,
+                              seconds=[a["seconds"], b["seconds"]])
+        gate(same and 0 <= diff <= CLI_PIXEL_BOUND,
+             f"(b) --mesh dp=2 --dp_dialogues 2 over gloo, dialogue_0 and "
+             f"dialogue_1 at {MESH_STEPS} steps: {len(b['tree'])} images, "
+             f"the one-rank run's tree and turn events {same}, largest "
+             f"pixel difference {diff}/255 (bound {CLI_PIXEL_BOUND}; "
+             f"{a['seconds']:.1f} s one rank, {b['seconds']:.1f} s two "
+             f"ranks sharing the card, their start included)")
+        gate(swapped > CLI_PIXEL_BOUND,
+             f"(b) planted fault, the two dialogues' images swapped: "
+             f"{swapped}/255 must exceed {CLI_PIXEL_BOUND}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        qz.FUSED_MODE = "0"
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  mesh_path: {out['seconds']:.1f} s")
+    if failures:
+        raise SystemExit(f"mesh_path: {failures}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -4984,16 +5755,14 @@ def main() -> int:
     log(f"[main path] a story dialogue through the CLI: dialogue_0 of "
         f"data/sample/story.json, 4 turns, SD1.5 512 px, {SD15_STEPS} DDIM "
         f"steps, CFG 7.5, frozen_step_ratio 0.5")
-    unguided_images = []
-    paths[TURN] = turn_path(records, images=unguided_images)
+    paths[TURN] = turn_path(records)
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[main path] latent guidance: the energy's gradient through the "
         f"SD1.5 IP UNet against plain_path(), then dialogue_0 through the "
-        f"CLI with --guidance, 512 px, {SD15_STEPS} DDIM steps, guidance in "
-        f"the first 25 steps of every character and final pass")
-    paths[GUIDED_TURN] = guided_path(records, unguided_images)
-    del unguided_images
+        f"CLI with --guidance, 512 px, {CUT_STEPS} DDIM steps, every one "
+        f"guided, against an unguided run of the same depth")
+    paths[GUIDED_TURN] = guided_path(records)
     for label, flags, steps, knobs in TURN_KNOBS:
         gc.collect()
         torch.cuda.empty_cache()
@@ -5005,12 +5774,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[main path] the SDXL story dialogue through the CLI: dialogue_0 "
         f"with --sd_version xl --box_canvas {XL_BOX_CANVAS}, 4 turns, 1024 "
-        f"px, {SDXL_STEPS} Euler-Ancestral steps, CFG 7.5, the T2I-Adapter "
+        f"px, {CUT_STEPS} Euler-Ancestral steps, CFG 7.5, the T2I-Adapter "
         f"on the lineart in the final pass")
     paths[XL_TURN] = turn_path(
         records, flags=["--sd_version", "xl", "--box_canvas",
                         str(XL_BOX_CANVAS)],
-        steps=SDXL_STEPS, knobs=dict(sampler="euler_ancestral"), xl=True)
+        steps=CUT_STEPS, knobs=dict(sampler="euler_ancestral"), xl=True)
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[main path] batched characters and dialogue waves: the IP UNet at "
@@ -5025,7 +5794,7 @@ def main() -> int:
         f"checkpoint directory in the published names (with sam-vit-base "
         f"and the lineart annotator), load_bundle, snapshots, and "
         f"dialogue_0 through the CLI with --weights and --snapshot, 512 px, "
-        f"{SD15_STEPS} DDIM steps, SAM masks and the annotator's hint")
+        f"{CUT_STEPS} DDIM steps, SAM masks and the annotator's hint")
     paths[CKPT] = checkpoint_path(records, paths[TURN]["dialogue_seconds"])
     gc.collect()
     torch.cuda.empty_cache()
@@ -5033,7 +5802,7 @@ def main() -> int:
         f"BERT-base at 800 px on seeded fp32 weights, the card against the "
         f"CPU, a batch of {GDINO_BATCH} against its serial calls, then "
         f"dialogue_0 through the CLI with --weights of gdino.safetensors + "
-        f"gdino_vocab.txt, {SD15_STEPS} DDIM steps, and with --batch_chars "
+        f"gdino_vocab.txt, {CUT_STEPS} DDIM steps, and with --batch_chars "
         f"at {GDINO_BATCH_STEPS}")
     paths[GDINO] = gdino_path(records)
     gc.collect()
@@ -5056,6 +5825,14 @@ def main() -> int:
         f"checkpoint, {TRAIN_STEPS} steps of the IP recipe saved at step "
         f"{TRAIN_CKPT_STEP} and resumed")
     paths[TRAIN] = train_path(records)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[main path] the multi-rank half on the one card: --mesh dp=1 over "
+        f"NCCL against --batch_chars; two ranks on cuda:0 over gloo: tp=2 "
+        f"evaluations of the SD1.5 IP, SDXL and W8A8 UNets, sp_attention, "
+        f"the dp runners, the IP recipe split 2 + 2 and a tp=2 checkpoint; "
+        f"--mesh dp=2 --dp_dialogues 2 through the CLI, {MESH_STEPS} steps")
+    paths[MESH] = mesh_path(records)
     paths["sp_shards_equal"] = sp_shards
     paths["wave_batch_shapes_checked"] = batch_shapes
     paths["grad_gates"] = len(grad_gates)

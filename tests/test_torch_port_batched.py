@@ -248,7 +248,9 @@ def test_batched_character_runner_matches_jax_and_batch_1(kind, kw):
 
 def test_batched_character_runner_reads_word_tokens_from_gins():
     """Without word tokens the driver's runner captures at
-    ``gins.word_token[:, 0]``, as the JAX runner does; a mesh raises."""
+    ``gins.word_token[:, 0]``, as the JAX runner does.  On a one-rank mesh
+    the runner computes the same, bit for bit; a mesh refuses a
+    ``torch.Generator`` (a stream is sent as ``NoiseStream``)."""
     _, tb = _bundles()
     run, sam = tdriver.make_dp_character_runner(tb, 2, capture_ref_attn=True)
     lat, ctx = _char_batch(41, 1.0)
@@ -256,10 +258,18 @@ def test_batched_character_runner_reads_word_tokens_from_gins():
     b = run(_t(lat[:, None]), _t(ctx), SCALES, None, word_tokens=WORDS)
     for ma, mb in zip(a.ref_attn, b.ref_attn):
         torch.testing.assert_close(ma, mb, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdriver.make_dp_character_runner(tb, 2, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdriver.make_dp_final_runner(tb, 2, mesh=object())
+    from theatergen_tpu_torch.parallel import mesh as tmesh
+
+    one = tmesh.make_mesh(1, 1, device="cpu")
+    mrun, _ = tdriver.make_dp_character_runner(tb, 2, one,
+                                               capture_ref_attn=True)
+    c = mrun(_t(lat[:, None]), _t(ctx), SCALES, None, word_tokens=WORDS)
+    torch.testing.assert_close(c.trajectory, b.trajectory, rtol=0, atol=0)
+    for mc, mb in zip(c.ref_attn, b.ref_attn):
+        torch.testing.assert_close(mc, mb, rtol=0, atol=0)
+    with pytest.raises(TypeError, match="NoiseStream"):
+        mrun(_t(lat[:, None]), _t(ctx), SCALES, None,
+             [torch.Generator()] * 3, word_tokens=WORDS)
 
 
 # ---------------------------------------------------------------------------

@@ -749,6 +749,38 @@ def test_quant_matmul_kernel_matches_plain_on_card(m, k, n):
         assert torch.equal(out, ref), (out.float() - ref.float()).abs().max()
 
 
+# the row-parallel calls of one tp = 2 rank of the W8A8 UNet (to_out.0 and
+# ff.net.2 with half their K) and a ragged one
+QMM_ROW_AMAX_SHAPES = [(8192, 160, 320), (8192, 640, 320), (2048, 320, 640),
+                       (512, 2560, 1280), (128, 640, 1280), (40, 128, 130)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", QMM_ROW_AMAX_SHAPES)
+def test_quant_matmul_row_amax_matches_plain_on_card(monkeypatch, m, k, n):
+    """With ``row_amax`` (each row's max|x| over the whole K, at least its
+    own; all-reduced by a row-parallel layer) the kernel scales each row
+    by it, bit for bit as the plain version does, at the planned launch
+    and at one CTA unsplit; it differs from the call that takes the
+    row's own max."""
+    dev = _card()
+    x, wq, ws, _ = _qmm_inputs(dev, m, k, n, 5 * m + n)
+    g = torch.Generator(device=dev).manual_seed(m)
+    amax = torch.maximum(x.abs().amax(-1), 4 * torch.rand(
+        m, device=dev, generator=g).to(torch.bfloat16)).float()
+    ref = tqm.quant_matmul_plain(x, wq, ws, None, amax)
+    out = tqm.quant_matmul(x, wq, ws, None, amax)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref), int((out != ref).sum())
+    assert not torch.equal(out, tqm.quant_matmul(x, wq, ws))
+    monkeypatch.setattr(tqm, "launch_plan", lambda *a: (1, 128, 160, 1))
+    out = tqm.quant_matmul(x, wq, ws, None, amax)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref), int((out != ref).sum())
+    with pytest.raises(ValueError):
+        tqm.quant_matmul(x, wq, ws, None, amax[:-1])
+
+
 def _forced_qmm_plans(m, k, n):
     """Split counts 1, 2 and the largest at the planned cluster size, and
     a cluster of 1 unsplit and at the largest split count."""

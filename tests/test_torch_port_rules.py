@@ -50,15 +50,19 @@ def test_port_imports_no_jax():
 
 def test_the_turn_modules_are_covered():
     """The turn's modules (the SDXL turn's T2I-Adapter, the GroundingDINO
-    and OWL-ViT detectors, the evaluation and the golden kit too) are
-    among those test_port_imports_no_jax imports in a fresh
-    interpreter."""
+    and OWL-ViT detectors, the evaluation and the golden kit, the mesh,
+    its workers and the sharded training too) are among those
+    test_port_imports_no_jax imports in a fresh interpreter."""
     mods = set(_modules())
     for m in ("cli.generate", "db", "runtime.store", "perception.detector",
               "utils.parse", "utils.profiling", "utils.png", "theater",
               "models.t2i_adapter", "perception.gdino", "perception.swin",
               "perception.bert", "perception.owl", "eval", "eval.metrics",
-              "eval.cmig", "eval.inception", "eval.goldens", "utils.vis"):
+              "eval.cmig", "eval.inception", "eval.goldens", "utils.vis",
+              "parallel.mesh", "parallel.collectives", "parallel.sp",
+              "parallel.worker",
+              "parallel.driver", "training.diffusion",
+              "training.checkpoint"):
         assert f"theatergen_tpu_torch.{m}" in mods, m
 
 

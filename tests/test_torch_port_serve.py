@@ -1,8 +1,8 @@
 """The port's turn server (``theatergen_tpu_torch/serve.py``) on the CPU:
 the mirror of tests/test_serve.py (the batching queue, the wave policies,
 backpressure, sessions and their resume, failure isolation, close and the
-HTTP facade) over the port's tiny bundle, less its mesh test: a mesh is
-refused instead.  Images of a wave match the serial turns' within
+HTTP facade) over the port's tiny bundle; its mesh test is
+``test_torch_port_mesh_cli.py``'s (the server over two ranks).  Images of a wave match the serial turns' within
 BATCH_TOL; a resumed or rerun turn equals the uninterrupted one bit for
 bit (the port's draws are the seed's alone)."""
 
@@ -115,8 +115,10 @@ def test_wave_matches_serial(bundle, tmp_path):
 
 
 def test_server_refuses_a_mesh(bundle, tmp_path):
-    """Meshes wait for the multi-card half of ROADMAP §1 item 5."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The server runs on a mesh's rank 0: anything else given as
+    ``mesh=`` is refused before a thread starts (the mesh itself:
+    ``test_torch_port_mesh_cli.py``)."""
+    with pytest.raises(ValueError, match="rank 0"):
         TheaterServer(bundle, str(tmp_path / "db"), mesh=object())
 
 

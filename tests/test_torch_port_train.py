@@ -395,15 +395,20 @@ def test_a_quantized_unet_refuses_to_train(setup):
 
 
 def test_shard_train_step_refuses_a_mesh():
-    """One device: the step comes back unchanged; a mesh raises, citing
-    ROADMAP §1 item 5."""
+    """One device: the step comes back unchanged, on a one-rank mesh too;
+    a mesh of several ranks refuses anything but a ``TrainStep`` (the
+    sharded step itself: ``test_torch_port_mesh_run.py``)."""
+    import types
+
     def step(*a):
         return a
 
     assert ttrain.shard_train_step(step, None) is step
     assert ttrain.shard_train_step(step) is step
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ttrain.shard_train_step(step, object())
+    assert ttrain.shard_train_step(step, types.SimpleNamespace(
+        world=1)) is step
+    with pytest.raises(TypeError, match="TrainStep"):
+        ttrain.shard_train_step(step, types.SimpleNamespace(world=2))
 
 
 def test_the_trainer_needs_the_card_unless_asked():

@@ -475,5 +475,10 @@ def test_cli_wave_quarantine(tmp_path, monkeypatch):
 
 
 def test_cli_mesh_still_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgen.main(_cli(tmp_path, "--dp_dialogues", "2", "--mesh", "dp=2"))
+    """Waves over a mesh run (``test_torch_port_mesh_cli.py``); a mesh
+    larger than the host can start still raises, with the JAX CLI's
+    message, before anything is written."""
+    with pytest.raises(SystemExit, match="needs 100000 devices"):
+        tgen.main(_cli(tmp_path, "--dp_dialogues", "2", "--mesh",
+                       "dp=100000"))
+    assert not (tmp_path / "out").exists()

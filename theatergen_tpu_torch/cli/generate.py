@@ -41,9 +41,18 @@ each at a time (``theater.run_turn_wave``: all their characters in one
 batch, all their final passes in another), with the serial loop's seeds,
 output tree, resume and run log, a ``wave`` event per wave in place of
 the ``dialogue`` events; a failed wave reruns its turns serially with the
-same seeds, reusing the turns the wave finished.  ``--mesh`` raises until
-the multi-card half of ROADMAP §1 item 5.  Runs on the card unless
-``--device`` names another device::
+same seeds, reusing the turns the wave finished.
+
+``--mesh dp=N[,tp=M]`` runs the turns over a ('dp', 'tp') mesh of N·M
+ranks (``parallel/mesh.py``; it implies ``--batch_chars``, as in JAX):
+the command spawns its ranks itself (``torch.multiprocessing``, start
+method ``spawn``), one process per rank, on ``cuda:rank`` (modulo the
+cards) or the CPU.  Rank 0 runs this loop, the DB and the output tree;
+the other ranks serve its character and final batches
+(``parallel/worker.py``).  The device collectives take NCCL on the card
+and gloo on the CPU.  A failure on any rank ends every rank with a
+non-zero exit.  Runs
+on the card unless ``--device`` names another device::
 
     python -m theatergen_tpu_torch.cli.generate --tiny --device cpu \\
         --dataset_path data/sample --max_dialogues 1 --num_steps 4 \\
@@ -54,6 +63,8 @@ the multi-card half of ROADMAP §1 item 5.  Runs on the card unless
         --snapshot ckpt_snap --dataset_path data/sample --max_dialogues 1
     python -m theatergen_tpu_torch.cli.generate --dataset_path data/sample \\
         --dp_dialogues 2
+    python -m theatergen_tpu_torch.cli.generate --dataset_path data/sample \\
+        --mesh dp=2 --dp_dialogues 2
 """
 
 from __future__ import annotations
@@ -69,9 +80,11 @@ from typing import Optional
 
 import numpy as np
 
+from ..parallel.worker import RankError
+
 # flags of the JAX driver that raise here, and the ROADMAP §1 item that
-# brings each
-UNPORTED_FLAGS = {"mesh": 5}
+# brings each (none left)
+UNPORTED_FLAGS: dict = {}
 
 
 def turn_seed(seed_offset: int, dialogue_base: int, turn_idx: int,
@@ -170,8 +183,11 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dp_dialogues", type=int, default=None,
                     help="dialogue waves: N dialogues in lockstep, their "
                          "characters and final passes batched per turn")
-    # the JAX driver's other flags parse, and raise (UNPORTED_FLAGS)
-    ap.add_argument("--mesh", default=None)
+    ap.add_argument("--mesh", default=None, metavar="dp=N[,tp=M]",
+                    help="('dp','tp') mesh of N*M ranks, spawned by this "
+                         "command: character batches and dialogue waves "
+                         "sharded over dp, the UNets' heads and FF columns "
+                         "over tp (implies --batch_chars)")
     return ap
 
 
@@ -183,6 +199,35 @@ def check_ported(args) -> None:
         if value not in (None, False):
             raise NotImplementedError(
                 f"--{flag} is not ported yet (ROADMAP §1 item {item})")
+
+
+def parse_mesh_arg(spec: Optional[str], device="cuda",
+                   backend: Optional[str] = None):
+    """'dp=N[,tp=M]' → ``MeshConfig`` (None passes through), with the JAX
+    CLI's messages for an unknown axis and for too few devices: a rank
+    per card under NCCL; under gloo (the CPU, or several ranks on one
+    card) the host's cores bound it."""
+    if not spec:
+        return None
+    from ..config import MeshConfig
+
+    kw = {"dp": 1, "tp": 1}
+    for part in spec.split(","):
+        k, _, v = part.partition("=")
+        k = k.strip()
+        if k not in kw:
+            raise SystemExit(f"--mesh: unknown axis {k!r} (use dp=N[,tp=M])")
+        kw[k] = int(v)
+    import torch
+
+    n = kw["dp"] * kw["tp"]
+    if torch.device(device).type == "cuda" and backend in (None, "nccl"):
+        have = torch.cuda.device_count()
+    else:
+        have = os.cpu_count() or 1
+    if n > have:
+        raise SystemExit(f"--mesh {spec}: needs {n} devices, have {have}")
+    return MeshConfig(dp=kw["dp"], tp=kw["tp"])
 
 
 def load_dataset(dataset_path: str, task: str) -> dict:
@@ -213,7 +258,7 @@ def apply_pipeline_overrides(cfg, *, cfg_cutoff=None, deepcache=None,
     return dataclasses.replace(cfg, pipeline=pl, scheduler=sc)
 
 
-def build_theater(args):
+def build_theater(args, save_snapshot: bool = True):
     """The turn's bundle on ``args.device``, under the config's knob
     overrides, as the JAX CLI builds it: the snapshot in ``args.snapshot``
     where it holds one; else ``load_bundle`` of ``args.weights``, or random
@@ -246,16 +291,90 @@ def build_theater(args):
         bundle = init_bundle(cfg, 0, device=args.device, with_ip=True,
                              with_vision=True, with_controlnet=not is_xl,
                              with_t2i_adapter=is_xl)
-    if snap:
+    if snap and save_snapshot:
         snapshot.save_bundle_snapshot(bundle, snap)
         print(f"bundle snapshot saved: {snap} (the next run loads it)")
     return bundle
 
 
-def main(argv: Optional[list] = None) -> None:
+def main(argv: Optional[list] = None, **launch) -> None:
+    """The CLI; ``launch`` goes to :func:`launch_mesh` under ``--mesh``."""
     args = make_parser().parse_args(argv)
     check_ported(args)
-    bundle = build_theater(args)
+    if args.mesh is None:
+        run_program(args, build_theater(args), None)
+    else:
+        launch_mesh(__name__, args, argv, **launch)
+
+
+def launch_mesh(program: str, args, argv, *, backend: Optional[str] = None,
+                timeout_s: Optional[float] = None,
+                join_s: Optional[float] = None) -> None:
+    """Run ``program`` (a module with ``make_parser`` and ``run_program(args,
+    bundle, mesh)``) over ``args.mesh``'s ranks: in this process for one
+    rank, else in as many spawned processes (``parallel/worker.spawn``).
+    ``backend`` overrides the device collectives' (gloo lets several ranks
+    share one card); ``timeout_s`` bounds every process group's wait for a
+    peer, rank 0's commands included (default: ``parallel/mesh``'s); past
+    ``join_s`` every rank is killed and ``TimeoutError`` raised."""
+    from ..parallel import worker
+
+    mesh_cfg = parse_mesh_arg(args.mesh, args.device, backend)
+    world = mesh_cfg.dp * mesh_cfg.tp
+    opts = (argv, program, backend, timeout_s)
+    if world == 1:
+        # one rank: this process, over a one-rank process group
+        _mesh_rank(0, 1, worker.free_address(), *opts)
+    else:
+        worker.spawn(_mesh_rank, world, opts, timeout_s=join_s)
+
+
+def _mesh_rank(rank: int, world: int, address: str, argv, program: str,
+               backend: Optional[str] = None,
+               timeout_s: Optional[float] = None) -> None:
+    """One rank of ``--mesh``: rank 0 runs ``program``, the others serve it.
+    Each builds the bundle as rank 0 does (the same seed or files), after
+    rank 0, which alone writes a snapshot."""
+    import importlib
+    import sys
+
+    import torch.distributed as dist
+
+    from ..parallel import mesh as mesh_lib
+    from ..parallel import worker
+
+    prog = importlib.import_module(program)
+    args = prog.make_parser().parse_args(argv)
+    mesh_cfg = parse_mesh_arg(args.mesh, args.device, backend)
+    if "OMP_NUM_THREADS" not in os.environ:
+        # the ranks share the host's cores (CPU meshes compute on them)
+        import torch
+
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    wait = mesh_lib.DEFAULT_TIMEOUT_S if timeout_s is None else timeout_s
+    mesh_lib.init_distributed(args.device, backend=backend, address=address,
+                              rank=rank, world_size=world, timeout_s=wait)
+    try:
+        mesh = mesh_lib.make_mesh(
+            mesh_cfg.dp, mesh_cfg.tp, device=args.device, timeout_s=wait,
+            command_timeout_s=(mesh_lib.COMMAND_TIMEOUT_S if timeout_s is None
+                               else timeout_s))
+        args.device = str(mesh.device)
+        if rank == 0:
+            bundle = build_theater(args)
+        dist.barrier(group=mesh.group("host"))
+        if rank != 0:
+            bundle = build_theater(args, save_snapshot=False)
+        code = worker.run_rank(
+            mesh, lambda: prog.run_program(args, bundle, mesh), bundle)
+    finally:
+        dist.destroy_process_group()
+    if code:
+        sys.exit(code)
+
+
+def run_program(args, bundle, mesh) -> None:
+    """The CLI's loop over the dataset (rank 0's program under a mesh)."""
     dataset = load_dataset(args.dataset_path, args.task)
     dialogues = list(dataset)
     if args.max_dialogues:
@@ -271,13 +390,14 @@ def main(argv: Optional[list] = None) -> None:
             run_log.flush()
 
         if args.dp_dialogues:
-            _run_waves(args, bundle, dataset, dialogues, save_dir, log)
+            _run_waves(args, bundle, dataset, dialogues, save_dir, log,
+                       mesh)
         else:
-            _run(args, bundle, dataset, dialogues, save_dir, log)
+            _run(args, bundle, dataset, dialogues, save_dir, log, mesh)
 
 
 def _run(args, bundle, dataset: dict, dialogues: list, save_dir: str,
-         log) -> None:
+         log, mesh=None) -> None:
     """The serial loop: regenerate passes × dialogues × turns × repeats."""
     from ..db import CharacterDB
     from ..theater import Theater
@@ -292,7 +412,7 @@ def _run(args, bundle, dataset: dict, dialogues: list, save_dir: str,
                 args.database_path_base, args.task, str(dialogue)))
             theater = Theater(
                 bundle, db, task=args.task, num_steps=args.num_steps,
-                guided=args.guidance and not args.no_guidance,
+                guided=args.guidance and not args.no_guidance, mesh=mesh,
                 batch_characters=args.batch_chars)
             base = (args.freeze_dialogue_seed
                     if args.freeze_dialogue_seed is not None else d_idx)
@@ -322,7 +442,7 @@ def _run(args, bundle, dataset: dict, dialogues: list, save_dir: str,
 
 
 def _run_waves(args, bundle, dataset: dict, dialogues: list, save_dir: str,
-               log) -> None:
+               log, mesh=None) -> None:
     """Dialogue waves (the JAX CLI's ``_run_wave_mode``): waves of
     ``--dp_dialogues`` dialogues advance turn by turn in lockstep through
     ``run_turn_wave``.  Seeds, output tree, resume by existence and
@@ -345,7 +465,7 @@ def _run_waves(args, bundle, dataset: dict, dialogues: list, save_dir: str,
                 bundle, CharacterDB(os.path.join(
                     args.database_path_base, args.task, str(dialogue))),
                 task=args.task, num_steps=args.num_steps,
-                guided=args.guidance and not args.no_guidance,
+                guided=args.guidance and not args.no_guidance, mesh=mesh,
                 batch_characters=True) for dialogue in wave]
             profiling = args.profile and not profiled
             profiled = profiled or profiling
@@ -401,6 +521,8 @@ def _run_wave_turn(args, dataset: dict, wave: list, w0: int, theaters: list,
         try:
             results = run_turn_wave([theaters[i] for i in sel], specs, seeds,
                                     frozen_step_ratio=args.frozen_step_ratio)
+        except RankError:
+            raise       # a failed rank ends the mesh: no quarantine
         except Exception as e:
             # quarantine (generate.py:250-259): one bad dialogue must not
             # sink its wave-mates, so the wave's turns rerun serially
@@ -416,6 +538,8 @@ def _run_wave_turn(args, dataset: dict, wave: list, w0: int, theaters: list,
                 try:
                     results.append(theaters[i].run_turn(
                         spec, seed, frozen_step_ratio=args.frozen_step_ratio))
+                except RankError:
+                    raise
                 except Exception as e2:
                     print(f"[quarantine] {wave[i]}/{turn} rep {rep}:")
                     traceback.print_exc()
@@ -459,6 +583,8 @@ def _run_dialogue(args, dataset: dict, dialogue, theater, base: int,
             try:
                 res = theater.run_turn(
                     spec, seed, frozen_step_ratio=args.frozen_step_ratio)
+            except RankError:
+                raise       # a failed rank ends the mesh: no quarantine
             except Exception as e:
                 # error quarantine (generate.py:250-259)
                 print(f"[quarantine] {dialogue}/{turn} rep {rep}:")

@@ -225,6 +225,17 @@ class PipelineConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The ('dp', 'tp') mesh (JAX ``config.py:257-264``): dp shards
+    dialogues and characters, tp shards attention heads and FF columns.
+    ``parallel/mesh.make_mesh`` builds it on ``torch.distributed``."""
+
+    dp: int = 1
+    tp: int = 1
+    axis_names: Tuple[str, str] = ("dp", "tp")
+
+
+@dataclasses.dataclass(frozen=True)
 class TheaterConfig:
     """Top-level bundle of the configs the ported paths read."""
 
@@ -246,6 +257,7 @@ class TheaterConfig:
         default_factory=GuidanceConfig)
     pipeline: PipelineConfig = dataclasses.field(
         default_factory=PipelineConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
 
 
 def tiny_config(latent_size: int = 8) -> TheaterConfig:

@@ -4,7 +4,9 @@
 //   acc[m, n] = sum_k xq[m, k] * w_q[n, k]                         (int32)
 //   out[m, n] = bf16(acc[m, n] * (s[m] * w_scale[n]) + bias[n])    (fp32)
 // x is bf16 [M, K], w_q int8 [N, K], w_scale fp32 [N], bias bf16 [N] or
-// null.  Every step is one IEEE fp32 operation in the order written (no
+// null.  Where row_amax (fp32 [M]) is given it replaces max_k |x[m, k]|:
+// a row-parallel layer's x holds 1/tp of K, and its scales are the whole
+// row's (the maxima all-reduced over tp first).  Every step is one IEEE fp32 operation in the order written (no
 // FMA contraction), and the int32 sum is exact (5120 * 127^2 < 2^31), so
 // the result equals the plain version's (ops/quant_matmul.py::
 // quant_matmul_plain) bit for bit.
@@ -27,6 +29,7 @@
 //      warp per 4 rows, its lanes along K, a warp max of the bits of |x|)
 //      and the cluster exchanges them through distributed shared memory; a
 //      maximum is exact in any order, so every CTA holds the same scales.
+//      With row_amax given, every CTA reads the row maxima from it instead.
 //   2. K loop in steps of 128: a producer thread keeps a ring full by TMA
 //      (W tile [160, 128] int8 in 128-byte swizzle, read in place from
 //      w_q [N, K], and this CTA's 128/C rows of the bf16 A tile); seven
@@ -151,7 +154,8 @@ quant_matmul_kernel(const __grid_constant__ CUtensorMap a_map,
                     const __grid_constant__ CUtensorMap w_map,
                     const __grid_constant__ CUtensorMap out_map, bool tma_out,
                     const bf16* __restrict__ x, const float* __restrict__ wscale,
-                    const bf16* __restrict__ bias, bf16* __restrict__ out,
+                    const bf16* __restrict__ bias, const float* __restrict__ row_amax,
+                    bf16* __restrict__ out,
                     int* __restrict__ partial, int* __restrict__ counters, int M,
                     int N, int K, int groups, int steps_per_split) {
   using P = Cfg<C>;
@@ -203,8 +207,8 @@ quant_matmul_kernel(const __grid_constant__ CUtensorMap a_map,
 
   // 1. row maxima over this CTA's share of K: each warp takes 8 rows, its
   // lanes along K (16-byte loads, 512 contiguous bytes a row), and reduces
-  // them over the warp
-  {
+  // them over the warp; none where the caller gives them
+  if (row_amax == nullptr) {
     const int units = K / 8, per = (units + C - 1) / C;
     const int u0 = rank * per, u1 = min(units, u0 + per);
     constexpr int RW = BM / (THREADS / 32);  // rows per warp
@@ -241,10 +245,16 @@ quant_matmul_kernel(const __grid_constant__ CUtensorMap a_map,
   cluster_arrive();
   cluster_wait();
   if (tid < BM) {
-    unsigned amax = 0u;
+    float amax = 0.f;
+    if (row_amax != nullptr) {
+      if (m0 + tid < M) amax = row_amax[m0 + tid];
+    } else {
+      unsigned bits = 0u;
 #pragma unroll
-    for (int j = 0; j < C; ++j) amax = max(amax, ld_dsmem32(&pmax[tid], j));
-    s_row[tid] = fmaxf(__fdiv_rn(__uint_as_float(amax), 127.f), 1e-8f);
+      for (int j = 0; j < C; ++j) bits = max(bits, ld_dsmem32(&pmax[tid], j));
+      amax = __uint_as_float(bits);
+    }
+    s_row[tid] = fmaxf(__fdiv_rn(amax, 127.f), 1e-8f);
     s_inv[tid] = __frcp_rn(s_row[tid]);
   }
   __syncthreads();
@@ -456,7 +466,7 @@ cudaError_t configure() {
 
 template <int C>
 int launch(const void* x, const void* wq, const void* wscale, const void* bias,
-           void* out, int* partial, int* counters, int M, int N, int K,
+           const void* row_amax, void* out, int* partial, int* counters, int M, int N, int K,
            int splits, cudaStream_t stream) {
   const cudaError_t err = configure<C>();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -487,7 +497,8 @@ int launch(const void* x, const void* wq, const void* wscale, const void* bias,
   const dim3 grid((M + BM - 1) / BM * groups * C, splits);
   quant_matmul_kernel<C><<<grid, THREADS, Cfg<C>::SMEM, stream>>>(
       a_map, w_map, out_map, tma_out, static_cast<const bf16*>(x), static_cast<const float*>(wscale),
-      static_cast<const bf16*>(bias), static_cast<bf16*>(out), partial, counters,
+      static_cast<const bf16*>(bias), static_cast<const float*>(row_amax),
+      static_cast<bf16*>(out), partial, counters,
       M, N, K, groups, steps / splits);
   return static_cast<int>(cudaGetLastError());
 }
@@ -517,7 +528,8 @@ int slots() {
 }  // namespace
 
 // x: bf16 [M, K] contiguous, 16-byte aligned; wq: int8 [N, K] contiguous,
-// 16-byte aligned; wscale: fp32 [N]; bias: bf16 [N] or null; out: bf16
+// 16-byte aligned; wscale: fp32 [N]; bias: bf16 [N] or null; row_amax:
+// fp32 [M] (each row's max |x| over the whole K) or null; out: bf16
 // [M, N].  K a positive multiple of 32; cluster (1, 2, 4 or 8) divides
 // the column tiles ceil(N / 160) and splits the K steps ceil(K / 128), as
 // ops/quant_matmul.py::qmm_plan gives them.  With splits > 1, workspace
@@ -526,7 +538,7 @@ int slots() {
 // CUresult of a tensor map that failed to encode.
 extern "C" int tg_quant_matmul_fwd(const void* x, const void* wq,
                                    const void* wscale, const void* bias,
-                                   void* out, void* workspace, void* counters,
+                                   const void* row_amax, void* out, void* workspace, void* counters,
                                    int M, int N, int K, int cluster, int splits,
                                    void* stream) {
   const int tiles = (N + BN - 1) / BN, steps = (K + BK - 1) / BK;
@@ -538,10 +550,10 @@ extern "C" int tg_quant_matmul_fwd(const void* x, const void* wq,
   int* ws = static_cast<int*>(workspace);
   int* cnt = static_cast<int*>(counters);
   switch (cluster) {
-    case 1: return launch<1>(x, wq, wscale, bias, out, ws, cnt, M, N, K, splits, st);
-    case 2: return launch<2>(x, wq, wscale, bias, out, ws, cnt, M, N, K, splits, st);
-    case 4: return launch<4>(x, wq, wscale, bias, out, ws, cnt, M, N, K, splits, st);
-    case 8: return launch<8>(x, wq, wscale, bias, out, ws, cnt, M, N, K, splits, st);
+    case 1: return launch<1>(x, wq, wscale, bias, row_amax, out, ws, cnt, M, N, K, splits, st);
+    case 2: return launch<2>(x, wq, wscale, bias, row_amax, out, ws, cnt, M, N, K, splits, st);
+    case 4: return launch<4>(x, wq, wscale, bias, row_amax, out, ws, cnt, M, N, K, splits, st);
+    case 8: return launch<8>(x, wq, wscale, bias, row_amax, out, ws, cnt, M, N, K, splits, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -20,6 +20,17 @@ quantized sites (``ops/quant_matmul`` where
 ``THEATERGEN_FUSED_INT8`` is ``"1"``).  Everything else is plain PyTorch.
 Inside :func:`plain_path` all four take their plain PyTorch route whatever
 the model's config and the switches say.
+
+Under a tp mesh (``parallel/mesh.shard_module``) the matched linears
+become :class:`ColumnParallelLinear` / :class:`RowParallelLinear` (and
+their W8A8 twins :class:`QuantColumnParallel` /
+:class:`QuantRowParallel`), each holding its rank's shard under the
+unsharded names; an attention holds its rank's heads and gathers the
+probabilities it returns, and the FF runs its kernel at inner width K/tp
+between the two collectives.  The collectives are
+``parallel/collectives.copy_to`` (identity forward, all-reduce backward)
+and ``reduce_from`` (all-reduce forward, identity backward), so guidance and
+training differentiate through a tp UNet.
 """
 
 from __future__ import annotations
@@ -38,6 +49,7 @@ from ..ops import geglu_matmul as gg_ops
 from ..ops import groupnorm as gn_ops
 from ..ops import quant as q_ops
 from ..ops import quant_matmul as qm_ops
+from ..parallel import collectives
 
 # flax nn.LayerNorm's default epsilon, which the JAX package's transformer
 # blocks use
@@ -116,6 +128,111 @@ def make_linear(quantized: bool, in_features: int, out_features: int, *,
     if quantized:
         return QuantLinear(in_features, out_features, bias=bias)
     return nn.Linear(in_features, out_features, bias=bias)
+
+
+class ColumnParallelLinear(nn.Linear):
+    """A linear's output rows ``rows`` of ``[out, in]`` (and their bias) on
+    this rank; the input is replicated over tp (``copy_to``: its gradient
+    is all-reduced)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool,
+                 mesh, **kw):
+        super().__init__(in_features, out_features, bias=bias, **kw)
+        self.mesh = mesh
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(collectives.copy_to(x, self.mesh), self.weight,
+                        self.bias)
+
+
+class RowParallelLinear(nn.Linear):
+    """A linear's input columns of ``[out, in]`` on this rank: the partial
+    products are all-reduced over tp (``reduce_from``), then the whole
+    bias is added once."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool,
+                 mesh, **kw):
+        super().__init__(in_features, out_features, bias=bias, **kw)
+        self.mesh = mesh
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = collectives.reduce_from(F.linear(x, self.weight), self.mesh)
+        return y if self.bias is None else y + self.bias
+
+
+class QuantColumnParallel(QuantLinear):
+    """:class:`QuantLinear` holding output rows: int8 weight, scale and bias
+    rows of this rank.  Its input is whole, so both routes' activation
+    scales are the unsharded layer's."""
+
+
+class QuantRowParallel(QuantLinear):
+    """:class:`QuantLinear` holding input columns: its int8 weight's columns
+    of this rank, the whole per-output scale and bias.  The activation
+    scale is the unsharded layer's: the amax (per tensor on the ``"0"``
+    route, per row on ``"1"``, where the kernel takes it as
+    ``row_amax``) is all-reduced (max) over tp before quantizing.  The
+    partial outputs are all-reduced, then the bias is added once."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool,
+                 mesh):
+        super().__init__(in_features, out_features, bias=bias)
+        self.mesh = mesh
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.reshape(-1, self.in_features)
+        if q_ops.FUSED_MODE == "1":
+            # a max of bf16 values is one of them: reduced in bf16, exact
+            amax = collectives.all_reduce(self.mesh, xf.abs().amax(-1),
+                                          op="max").float()
+            fn = qm_ops.quant_matmul if _use_kernels else \
+                qm_ops.quant_matmul_plain
+            y = fn(x, self.weight, self.scale, None, row_amax=amax)
+        else:
+            amax = collectives.all_reduce(self.mesh, xf.float().abs().amax(),
+                                          op="max")
+            y = q_ops.per_tensor_linear(x, self.weight, self.scale, None,
+                                        amax=amax)
+        y = collectives.reduce_from(y, self.mesh)
+        return y if self.bias is None else y + self.bias.to(y.dtype)
+
+
+@torch.no_grad()
+def parallel_linear(old: nn.Module, kind: str, mesh,
+                    idx: torch.Tensor) -> nn.Module:
+    """``old`` (an ``nn.Linear`` or :class:`QuantLinear`) as a ``kind``
+    ("column", "geglu" or "row") tp layer holding the rows (column kinds)
+    or input columns ("row") ``idx`` of its ``[out, in]`` weight, on
+    ``old``'s device and in its dtypes."""
+    w, b = old.weight, old.bias
+    quant = isinstance(old, QuantLinear)
+    idx = idx.to(w.device)
+    if kind == "row":
+        w = w.index_select(1, idx).contiguous()
+        if quant:
+            new = QuantRowParallel(len(idx), old.out_features, b is not None,
+                                   mesh)
+            new.scale = old.scale.clone()
+        else:
+            new = RowParallelLinear(len(idx), old.out_features,
+                                    b is not None, mesh, device="meta")
+    else:
+        w = w.index_select(0, idx).contiguous()
+        b = None if b is None else b.index_select(0, idx)
+        if quant:
+            new = QuantColumnParallel(old.in_features, len(idx),
+                                      b is not None)
+            new.scale = old.scale.index_select(0, idx).contiguous()
+        else:
+            new = ColumnParallelLinear(old.in_features, len(idx),
+                                       b is not None, mesh, device="meta")
+    if quant:
+        new.weight = w
+    else:
+        new.weight = nn.Parameter(w, requires_grad=old.weight.requires_grad)
+    if b is not None:
+        new.bias = nn.Parameter(b.clone(), requires_grad=b.requires_grad)
+    return new
 
 
 def get_dtype(name: str) -> torch.dtype:
@@ -273,6 +390,9 @@ class FeedForward(nn.Module):
             [GEGLU(dim, dim * mult, quantized), nn.Identity(),
              make_linear(quantized, dim * mult, dim)])
 
+    # the tp mesh of a sharded FF (parallel/mesh.shard_module), else None
+    tp_mesh = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         geglu, down = self.net[0], self.net[2]
         if (self.quantized or not _use_kernels
@@ -281,12 +401,17 @@ class FeedForward(nn.Module):
         d, k = x.shape[-1], down.in_features
         m = x.numel() // d
         if self.fused_ff and gg_ops.ff_supported(m, d, k):
+            if self.tp_mesh is not None:
+                x = collectives.copy_to(x, self.tp_mesh)
             out = gg_ops.ff_matmul(x, geglu.proj.weight, geglu.proj.bias,
                                    down.weight)
         elif gg_ops.supported(m, k, d):
             out = gg_ops.geglu_matmul(geglu.proj(x), down.weight)
         else:
             return down(geglu(x))
+        if self.tp_mesh is not None:
+            # the partial sums of this rank's K/tp inner columns
+            out = collectives.reduce_from(out, self.tp_mesh)
         return out + down.bias
 
 
@@ -331,6 +456,10 @@ class CrossAttention(nn.Module):
         self.to_out = nn.ModuleList([make_linear(quantized, inner, query_dim),
                                      nn.Identity()])
 
+    # the tp mesh of a sharded attention (parallel/mesh.shard_module: it
+    # holds heads / tp heads), else None
+    tp_mesh = None
+
     def forward(self, x: torch.Tensor,
                 context: Optional[torch.Tensor] = None, *,
                 ip_scale=1.0, return_probs: bool = False):
@@ -360,6 +489,9 @@ class CrossAttention(nn.Module):
                 res = attn_ops.multi_head_attention(
                     q, k, v, return_probs=return_probs)
         out, probs = res if return_probs else (res, None)
+        if probs is not None and self.tp_mesh is not None:
+            # every head's probabilities, as the unsharded layer returns
+            probs = collectives.gather_from(probs, self.tp_mesh, dim=1)
         out = self.to_out[0](out.reshape(b, lq, -1))
         return (out, probs) if return_probs else out
 

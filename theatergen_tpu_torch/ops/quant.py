@@ -79,14 +79,18 @@ def int8_matmul(xq: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
 
 
 def per_tensor_linear(x: torch.Tensor, w_q: torch.Tensor,
-                      scale: torch.Tensor, bias=None) -> torch.Tensor:
+                      scale: torch.Tensor, bias=None, *,
+                      amax: torch.Tensor = None) -> torch.Tensor:
     """The JAX ``QuantDense`` default route: one activation scale over the
     whole tensor (both CFG halves), ``max(max|x| / 127, 1e-8)``, the int8
     product, then ``y · (a_scale · scale) + bias`` in fp32 and one rounding
-    to x's dtype."""
+    to x's dtype.  ``amax`` (fp32, 0-dim) replaces ``max|x|``: a
+    row-parallel layer's, taken over every rank's columns."""
     n, k = w_q.shape
     xf = x.reshape(-1, k).float()
-    a_scale = torch.clamp_min(qm_ops.div127(xf.abs().amax()), 1e-8)
+    if amax is None:
+        amax = xf.abs().amax()
+    a_scale = torch.clamp_min(qm_ops.div127(amax), 1e-8)
     xq = torch.clamp(torch.round(xf / a_scale), -127, 127).to(torch.int8)
     y = int8_matmul(xq, w_q).float() * (a_scale * scale)
     if bias is not None:

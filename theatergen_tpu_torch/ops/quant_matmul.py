@@ -5,7 +5,8 @@
 ``w_q [N, K]`` (the layer's ``[out, in]``), its fp32 per-output scales and
 an optional bias, and computes what the TPU kernel computes, plus the
 bias the JAX package's ``QuantDense`` adds after it: per-row dynamic
-scales ``s = max(max|x| / 127, 1e-8)`` in fp32, ``rint(x / s)`` clamped to
+scales ``s = max(max|x| / 127, 1e-8)`` in fp32 (``max|x|`` over the row,
+or the caller's ``row_amax``: a row-parallel layer's whole-row maxima), ``rint(x / s)`` clamped to
 ±127, the int8 product with an exact int32 sum, then
 ``acc · (s · w_scale) + bias`` in fp32 and one rounding to x's dtype.  On
 a CUDA tensor it launches the hand-written kernel of
@@ -69,14 +70,18 @@ def div127(t: torch.Tensor) -> torch.Tensor:
 
 def quant_matmul_plain(x: torch.Tensor, w_q: torch.Tensor,
                        w_scale: torch.Tensor,
-                       bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       bias: Optional[torch.Tensor] = None,
+                       row_amax: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """Same function in plain PyTorch, each step one fp32 operation in the
     kernel's order.  The int8 product is summed exactly in float64 (K ·
     127² < 2⁵³) and rounded once to fp32, as the int32 sum's conversion
     is."""
     n, k = w_q.shape
     xf = x.reshape(-1, k).float()
-    s = torch.clamp_min(div127(xf.abs().amax(-1, keepdim=True)), 1e-8)
+    amax = (xf.abs().amax(-1, keepdim=True) if row_amax is None
+            else row_amax.reshape(-1, 1).float())
+    s = torch.clamp_min(div127(amax), 1e-8)
     xq = torch.clamp(torch.round(xf / s), -127, 127)
     acc = (xq.double() @ w_q.double().t()).float()
     y = acc * (s * w_scale.float())
@@ -170,20 +175,23 @@ def _lib():
     fn = _build.library("quant_matmul").tg_quant_matmul_fwd
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
     return fn
 
 
 def quant_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
-                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 bias: Optional[torch.Tensor] = None,
+                 row_amax: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``[..., K]`` × ``w_q [N, K]`` → ``[..., N]`` in x's dtype; leading
     dims of ``x`` flatten into M; :func:`launch_plan` picks the launch.
+    ``row_amax`` (fp32, M values) replaces each row's ``max|x|`` in its
+    scale.
     It has no gradient, as the JAX package's W8A8 path has none (its
     Pallas ``quant_matmul`` has no ``custom_vjp``, ``ops/quant.py`` casts
     to int8): on CUDA inputs that need one it raises."""
     if not x.is_cuda:
-        return quant_matmul_plain(x, w_q, w_scale, bias)
+        return quant_matmul_plain(x, w_q, w_scale, bias, row_amax)
     if recompute.needs_grad(x, w_scale, bias):
         raise RuntimeError(
             "quant_matmul has no gradient (the W8A8 path is inference "
@@ -215,6 +223,12 @@ def quant_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
         raise ValueError("quant_matmul: x must be contiguous and 16-byte "
                          "aligned")
     m = x2.shape[0]
+    if row_amax is not None and (
+            row_amax.dtype != torch.float32 or row_amax.numel() != m
+            or not row_amax.is_contiguous() or row_amax.device != x.device):
+        raise ValueError(f"quant_matmul: row_amax must be a contiguous "
+                         f"float32 tensor of {m} values on {x.device}, got "
+                         f"{row_amax.dtype} {tuple(row_amax.shape)}")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return out.reshape(*x.shape[:-1], n)
@@ -227,7 +241,8 @@ def quant_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
         counters = _counters(x.device, qmm_counter_slots(m, n))
     _build.check(_lib()(
         x2.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        None if bias is None else bias.data_ptr(),
+        None if row_amax is None else row_amax.data_ptr(), out.data_ptr(),
         None if work is None else work.data_ptr(),
         None if counters is None else counters.data_ptr(), m, n, k, c,
         splits, torch.cuda.current_stream(x.device).cuda_stream,
@@ -242,7 +257,10 @@ def flops(m: int, k: int, n: int) -> float:
     return 2.0 * m * k * n
 
 
-def min_bytes(m: int, k: int, n: int) -> float:
+def min_bytes(m: int, k: int, n: int, bias: bool = True,
+              row_amax: bool = False) -> float:
     """Bytes of one call: bf16 x and int8 w_q read once, the bf16 output
-    written once, the fp32 scales and bf16 bias read once."""
-    return 2.0 * m * k + 1.0 * k * n + 2.0 * m * n + 6.0 * n
+    written once, the fp32 scales read once, and the bf16 bias and the
+    fp32 ``row_amax`` where given."""
+    return (2.0 * m * k + 1.0 * k * n + 2.0 * m * n + 4.0 * n
+            + (2.0 * n if bias else 0.0) + (4.0 * m if row_amax else 0.0))

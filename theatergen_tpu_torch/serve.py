@@ -25,8 +25,14 @@ busy.  This is that as a library (the standard library's threads and
 All device work runs on the worker thread, on its current stream (the
 kernel wrappers launch on ``torch.cuda.current_stream()``); the lazy
 kernel build (``_build.library``) holds a lock, so a first wave that
-builds them is safe.  ``mesh=`` raises until the multi-card half of
-ROADMAP §1 item 5.
+builds them is safe.
+
+With ``mesh=`` (``parallel/mesh.make_mesh``; the server runs on rank 0)
+every session's Theater runs over the mesh: a wave's character and final
+batches go through the dp runners (``parallel/driver.py``) to the other
+ranks, which serve them (``parallel/worker.py``).  A failure on another
+rank (``parallel.worker.RankError``) fails its wave's requests and closes
+the server (``failed`` is set): the mesh does not go on.
 """
 
 from __future__ import annotations
@@ -42,7 +48,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 from .db import CharacterDB
-from .parallel import driver
+from .parallel.worker import RankError
 from .theater import Theater, TurnResult, run_turn_wave
 
 
@@ -104,7 +110,8 @@ class TheaterServer:
         shares it.
     db_root : str
         Directory; each session keeps its character DB in a subdirectory.
-    mesh : must be None (one device); a mesh raises NotImplementedError.
+    mesh : optional ``parallel.mesh.Mesh`` (this process is its rank 0):
+        the sessions' character batches and waves run over its ranks.
     max_wave : the most turns batched into one wave.
     wave_policy : ``"auto"`` (wait the window for peers only when turns
         arrive densely or peers are already queued), ``"always"`` or
@@ -117,7 +124,9 @@ class TheaterServer:
                  max_wave: int = 8, batch_window_s: float = 0.05,
                  wave_policy: str = "auto",
                  max_queue: int = 64, **theater_kwargs):
-        driver.refuse_mesh(mesh)
+        if mesh is not None and getattr(mesh, "rank", None) != 0:
+            raise ValueError("TheaterServer runs on the mesh's rank 0; the "
+                             "other ranks run parallel.worker.serve")
         self.bundle = bundle
         self.db_root = db_root
         self.max_wave = max(1, int(max_wave))
@@ -134,7 +143,10 @@ class TheaterServer:
         self._gap_ema: Optional[float] = None
         self._last_arrival: Optional[float] = None
         self.max_queue = int(max_queue)
-        self.theater_kwargs = theater_kwargs
+        self.theater_kwargs = dict(theater_kwargs, mesh=mesh)
+        # set (with ``failure``) when a rank of the mesh failed
+        self.failed = threading.Event()
+        self.failure: Optional[BaseException] = None
         self.sessions: Dict[str, Session] = {}
         self._lock = threading.Lock()
         self._queue: "queue.Queue[Optional[_Request]]" = queue.Queue()
@@ -420,6 +432,14 @@ class TheaterServer:
                     self.turns_done += 1
                     self._persist_session(s)
                     _set_result(r.future, res)
+            except RankError as rank_exc:
+                # the mesh lost a rank: no rerun can succeed
+                for r, _ in live:
+                    _set_exception(r.future, rank_exc)
+                with self._lock:
+                    self._stop = True
+                self.failure = rank_exc
+                self.failed.set()
             except Exception as wave_exc:   # noqa: BLE001
                 if len(live) == 1:
                     r, _ = live[0]
@@ -553,14 +573,26 @@ def serve_http(server: TheaterServer, out_dir: str, port: int = 8787):
     return httpd
 
 
-def main(argv=None) -> None:
+def main(argv=None, **launch) -> None:
     """``python -m theatergen_tpu_torch.serve``: the HTTP turn server.
 
     The bundle's flags are the generation CLI's (``--tiny``,
     ``--sd_version``, ``--weights``, ``--snapshot``, ``--device``, the
     sampler knobs); the serving flags set batching and backpressure.
     Sessions resume across restarts (:meth:`TheaterServer.open_session`).
-    ``--mesh`` raises until the multi-card half of ROADMAP §1 item 5."""
+    ``--mesh dp=N[,tp=M]`` serves over a mesh of N·M ranks that the
+    command spawns, as the generation CLI's ``--mesh`` does."""
+    from .cli import generate as gen_cli
+
+    args = make_parser().parse_args(argv)
+    gen_cli.check_ported(args)
+    if args.mesh is None:
+        run_program(args, gen_cli.build_theater(args), None)
+    else:
+        gen_cli.launch_mesh(__name__, args, argv, **launch)
+
+
+def make_parser():
     import argparse
 
     from .cli import generate as gen_cli
@@ -595,11 +627,14 @@ def main(argv=None) -> None:
                          "passes (off by default)")
     ap.add_argument("--no_guidance", action="store_true",
                     help="(deprecated: guidance is off by default)")
-    args = ap.parse_args(argv)
-    gen_cli.check_ported(args)
-    bundle = gen_cli.build_theater(args)
+    return ap
+
+
+def run_program(args, bundle, mesh) -> None:
+    """Serve HTTP until interrupted, or until a rank of the mesh fails
+    (which raises its ``RankError``)."""
     server = TheaterServer(
-        bundle, args.db_root, max_wave=args.max_wave,
+        bundle, args.db_root, mesh=mesh, max_wave=args.max_wave,
         batch_window_s=args.batch_window_s, wave_policy=args.wave_policy,
         max_queue=args.max_queue, num_steps=args.num_steps,
         guided=args.guidance and not args.no_guidance)
@@ -607,11 +642,17 @@ def main(argv=None) -> None:
     print(f"theatergen serving on http://127.0.0.1:"
           f"{httpd.server_address[1]} (db={args.db_root}, "
           f"out={args.out_dir})", flush=True)
+    http_thread = threading.Thread(target=httpd.serve_forever, daemon=True,
+                                   name="theater-http")
+    http_thread.start()
     try:
-        httpd.serve_forever()
+        while not server.failed.wait(0.5):
+            pass
+        raise server.failure
     except KeyboardInterrupt:
         pass
     finally:
+        httpd.shutdown()
         httpd.server_close()
         server.close()
 

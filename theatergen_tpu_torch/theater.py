@@ -73,7 +73,20 @@ characters in one batch, then all their final passes in another.  A
 failed wave rolls back the character-DB writes it made and raises
 :class:`WaveFailure`, carrying the turns that its serial fallback
 finished, so a caller reruns the others serially with the same seeds.
-Meshes raise until the multi-card half of ROADMAP §1 item 5 lands.
+
+With ``mesh`` (``parallel/mesh.make_mesh``; JAX ``theater.py:128-141``)
+the Theater is rank 0's program over the mesh: it batches characters, and
+the character batches and a wave's final passes run through the dp
+runners of ``parallel/driver.py`` over the ranks (each batch padded to a
+multiple of dp with copies of element 0, JAX ``:553-562, 1045-1049``; a
+padded row's output is dropped, so it writes nothing and detects
+nothing).  A turn with one character batches too where dp > 1, as in JAX;
+at dp = 1 it runs serially, as under ``batch_characters``, so a one-group
+mesh computes exactly what ``batch_characters`` does.  Serial passes (a
+regenerated character, a turn without characters, a single dialogue's
+final pass) run on rank 0's whole bundle, as JAX runs them on its
+unsharded parameters.  A failure on another rank raises
+``parallel.worker.RankError``, which no wave or quarantine absorbs.
 """
 
 from __future__ import annotations
@@ -94,6 +107,7 @@ from .perception import sam as sam_lib
 from .pipelines import sd, sdxl
 from .pipelines.bundle import Bundle
 from .parallel import driver
+from .parallel.worker import RankError
 from .pipelines.character import (CharacterResult, encode_ip_image,
                                   ip_context, make_character_pipeline,
                                   uncond_ip_features)
@@ -116,10 +130,8 @@ MAX_PHRASE_TOKENS = 8
 def noise_generator(device, seed: int, *stream: int) -> torch.Generator:
     """The per-step noise stream ``(seed, *stream)`` of a turn's sampler, a
     generator on ``device`` seeded by numpy's ``SeedSequence`` of the
-    tuple."""
-    state = np.random.SeedSequence([seed, *stream]).generate_state(
-        1, np.uint64)[0]
-    return torch.Generator(device=device).manual_seed(int(state))
+    tuple (``parallel.driver.NoiseStream``)."""
+    return driver.NoiseStream(seed, stream).generator(device)
 
 
 def _checked_detection(d, lead: tuple, device) -> det.Detection:
@@ -257,7 +269,9 @@ class Theater:
         if attn_transfer not in ("per_step", "aggregate"):
             raise ValueError(f"attn_transfer {attn_transfer!r}: expected "
                              f"'per_step' or 'aggregate'")
-        driver.refuse_mesh(mesh)
+        if mesh is not None and getattr(mesh, "rank", None) != 0:
+            raise ValueError("Theater(mesh=) runs on the mesh's rank 0; the "
+                             "other ranks run parallel.worker.serve")
         if bundle.unet_ip is None:
             raise ValueError("Theater: the bundle needs the IP UNet "
                              "(init_bundle(..., with_ip=True))")
@@ -265,8 +279,10 @@ class Theater:
         self.bundle, self.db, self.task, self.cfg = bundle, db, task, cfg
         self.guided, self.attn_transfer = guided, attn_transfer
         # a turn's characters as one batch (the reference is serial,
-        # theatergen.py:396-407; their passes are independent)
-        self.batch_characters = bool(batch_characters)
+        # theatergen.py:396-407; their passes are independent), over the
+        # mesh's ranks where one is given
+        self.mesh = mesh
+        self.batch_characters = bool(batch_characters or mesh is not None)
         self._char_run_b = self._final_run_b = None
         self.num_steps = num_steps or cfg.pipeline.num_steps
         # SDXL: two text towers and micro-conditioning; the T2I-Adapter,
@@ -544,7 +560,8 @@ class Theater:
         if self._char_run_b is None:
             pl = self.cfg.pipeline
             self._char_run_b = driver.make_dp_character_runner(
-                self.bundle, self.num_steps, use_ip=True, guided=self.guided,
+                self.bundle, self.num_steps, self.mesh, use_ip=True,
+                guided=self.guided,
                 capture_ref_attn=True,
                 cfg_cutoff_fraction=pl.cfg_cutoff_fraction,
                 deepcache_interval=pl.deepcache_interval,
@@ -571,15 +588,24 @@ class Theater:
         bundle and settings; each job's masks, DB write and fallback go
         through its own Theater.  A job whose detection fails reruns in its
         Theater's serial loop (attempt 0 again, from the same streams,
-        then fresh attempts)."""
+        then fresh attempts).  Over a mesh the batch is padded to a
+        multiple of dp with copies of job 0, whose outputs are dropped."""
         dev = self.bundle.device
+        n = len(jobs)
+        dp = self.mesh.dp if self.mesh is not None else 1
+        # JAX theater.py:560-562: pad to a dp multiple with element 0
+        padded = jobs + [jobs[0]] * (-(-n // dp) * dp - n)
         lats = torch.cat([self._char_input_latents(
             noise_generator(dev, j["seed"], 0, j["idx"]),
-            j["prep"]["centered"]) for j in jobs])
-        gens = (None if not self.char_sched.needs_noise else
-                [noise_generator(dev, j["seed"], 1, j["idx"], 0)
-                 for j in jobs])
-        preps = [j["prep"] for j in jobs]
+            j["prep"]["centered"]) for j in padded])
+        gens = None
+        if self.char_sched.needs_noise:
+            # over a mesh the streams travel as (seed, stream)
+            gens = [driver.NoiseStream(j["seed"], (1, j["idx"], 0))
+                    if self.mesh is not None else
+                    noise_generator(dev, j["seed"], 1, j["idx"], 0)
+                    for j in padded]
+        preps = [j["prep"] for j in padded]
         gins = stack_inputs([p["gin"] for p in preps]) if self.guided \
             else None
         extra = None
@@ -591,6 +617,11 @@ class Theater:
                 lats[:, None], torch.stack([p["ctx"] for p in preps]),
                 [p["ip_scale"] for p in preps], gins, gens, extra,
                 word_tokens=[p["word_token"] for p in preps])
+            if len(padded) > n:
+                res = CharacterResult(
+                    res.latents[:n], res.trajectory[:n],
+                    None if res.ref_attn is None else
+                    tuple(m[:n] for m in res.ref_attn))
             images = self._decode_img(res.latents[:, 0])
             aggs = self._aggregate_attn(res.ref_attn)   # per key [B, ...]
         # one detection of the batch and one host read of its verdicts, but
@@ -692,8 +723,11 @@ class Theater:
         order, unique_plans, unique_idx = _dedup_plans(plan)
         cache: Dict[Tuple[str, int], dict] = {}
         # batched characters need distinct ids: with a repeated id the
-        # serial loop's first write is the second's DB hit
-        if (self.batch_characters and len(unique_plans) > 1
+        # serial loop's first write is the second's DB hit.  A lone
+        # character batches over a mesh of dp > 1 (JAX theater.py:701-705)
+        if (self.batch_characters and unique_plans
+                and (len(unique_plans) > 1
+                     or (self.mesh is not None and self.mesh.dp > 1))
                 and len({p.obj_id for p in unique_plans})
                 == len(unique_plans)):
             with self.timer.phase("character"):
@@ -835,7 +869,7 @@ def _wave_final_runner(th: Theater):
     if th._final_run_b is None:
         pl = th.cfg.pipeline
         th._final_run_b = driver.make_dp_final_runner(
-            th.bundle, th.num_steps, use_ip=True,
+            th.bundle, th.num_steps, th.mesh, use_ip=True,
             use_controlnet=th.use_controlnet, guided=th.guided,
             cfg_cutoff_fraction=pl.cfg_cutoff_fraction,
             deepcache_interval=pl.deepcache_interval,
@@ -931,7 +965,7 @@ def run_turn_wave(theaters: List[Theater], specs: List[dict],
         for j in jobs:
             if not j["prep"]["hit"] and j["th"].db.has(j["oplan"].obj_id):
                 j["th"].db.delete(j["oplan"].obj_id)
-        if isinstance(e, Exception):
+        if isinstance(e, Exception) and not isinstance(e, RankError):
             raise WaveFailure(results, e) from e
         raise
 
@@ -957,7 +991,12 @@ def _run_wave_body(lead: Theater, states: List[dict], jobs: List[dict],
         st["frozen"] = min(int(round(ratio * th.num_steps)),
                            th.char_sched.num_steps)
 
-    fargs = [st["fargs"] for st in states]
+    # JAX theater.py:1045-1049: pad the wave to a dp multiple with
+    # dialogue 0, whose padded outputs are dropped
+    d = len(states)
+    dp = lead.mesh.dp if lead.mesh is not None else 1
+    padded = states + [states[0]] * (-(-d // dp) * dp - d)
+    fargs = [st["fargs"] for st in padded]
 
     def stack(key):
         return torch.stack([f[key] for f in fargs])
@@ -969,16 +1008,19 @@ def _run_wave_body(lead: Theater, states: List[dict], jobs: List[dict],
     if lead.use_t2i:
         feats = tuple(torch.cat(level) for level in
                       zip(*(f["adapter_feats"] for f in fargs)))
-    gens = (None if not lead.char_sched.needs_noise else
-            [noise_generator(lead.bundle.device, st["seed"], 2)
-             for st in states])
+    gens = None
+    if lead.char_sched.needs_noise:
+        gens = [driver.NoiseStream(st["seed"], (2,))
+                if lead.mesh is not None else
+                noise_generator(lead.bundle.device, st["seed"], 2)
+                for st in padded]
     with lead.timer.phase("final", sync=True):
         finals = _wave_final_runner(lead)(
             stack("composed"), stack("frozen_mask"),
-            [st["frozen"] for st in states], stack("ctx"), stack("cn_ctx"),
+            [st["frozen"] for st in padded], stack("ctx"), stack("cn_ctx"),
             stack("cond_img"), lead.cfg.pipeline.ip_scale_final,
             stack_inputs([f["gin"] for f in fargs]) if lead.guided else None,
-            gens, extra, feats)
+            gens, extra, feats)[:d]
         images = lead._decode_img(finals[:, 0])
         # the deferred DB writes: their programs precede the final pass in
         # the device queue

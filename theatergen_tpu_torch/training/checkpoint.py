@@ -10,6 +10,12 @@ tensor and scalar leaves round-trips bit for bit, so a caller saves ``{"state": 
 pytree.  :func:`latest_step_dir` keeps the ``{root}/step_{N}``
 convention.
 
+A tp-sharded state (``diffusion.ShardedTrainStep``) is gathered to rank 0
+and written as the same two files the unsharded state writes
+(:func:`save_sharded`); the sharded step's ``load`` reads such a file, or
+an unsharded run's, on every rank and reshards it.  (JAX's orbax writes
+across mesh shapes the same way, ``checkpoint.py:6-7``.)
+
 :func:`from_flax_train_state` carries a JAX ``TrainState`` (numpy leaves,
 the optax state as ``make_optimizer`` builds it) over into the port: the
 parameters and both moments through ``from_flax("unet")``'s name map and
@@ -124,6 +130,17 @@ def load_checkpoint(path: str, target: Optional[Any] = None, *,
     device = _device(device) if target is None else None
     tensors = load_safetensors(os.path.join(path, TENSORS))
     return _decode(meta["tree"], tensors, target, device)
+
+
+def save_sharded(path: str, step, state: TrainState, ema=None, *,
+                 force: bool = True) -> None:
+    """Gather a sharded step's state (and the EMA, where given) over tp on
+    rank 0 and write it there as :func:`save_checkpoint` writes the
+    unsharded tree: ``state``, or ``{"state": state, "ema": ema}``.  Rank 0
+    calls it; the other ranks answer in ``parallel.worker.serve``."""
+    full = step.full(state)
+    tree = full if ema is None else {"state": full, "ema": step.full(ema)}
+    save_checkpoint(path, tree, force=force)
 
 
 def latest_step_dir(root: str) -> Optional[str]:

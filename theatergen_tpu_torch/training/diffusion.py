@@ -34,6 +34,16 @@ PyTorch's idiom replaces the JAX one where the two differ:
   gradient and re-masked update (``diffusion.py:88-94``), which keep
   decoupled weight decay off frozen parameters, hold by construction.
 
+Over a ('dp', 'tp') mesh, :func:`shard_train_step` (the counterpart of
+JAX's ``shard_train_step``, ``diffusion.py:109-113``) returns a
+:class:`ShardedTrainStep`: the UNet holds its tp shard
+(``parallel/mesh.shard_module``, so do the masters, the moments and the
+EMA), each dp group takes its rows of the batch, the gradients are
+averaged over dp, the global-norm clip sums the tp-sharded parameters'
+squares over tp once (the replicated ones count once), and the loss
+returned is the whole batch's mean.  Rank 0 drives it; the other ranks
+answer through ``parallel/worker.py``.
+
 The kernels' gradients are their autograd Functions (``ops/recompute.py``):
 the forward launches the kernel, the backward recomputes the plain
 version, as the JAX ``custom_vjp``s do.  A W8A8 UNet has no gradient
@@ -51,7 +61,9 @@ import torch
 
 from ..config import SchedulerConfig
 from ..ops import scheduler as sched_ops
-from ..parallel.driver import refuse_mesh
+from ..parallel import collectives
+from ..parallel import mesh as mesh_lib
+from ..parallel import worker
 
 # elements of one group of the optimizer's foreach arithmetic: its
 # temporaries stay within 2 × 4 bytes × this
@@ -121,14 +133,19 @@ class AdamW:
     @torch.no_grad()
     def update(self, params: Mapping[str, torch.Tensor],
                grads: Mapping[str, torch.Tensor],
-               state: AdamWState) -> float:
+               state: AdamWState, norm: Optional[torch.Tensor] = None
+               ) -> float:
         """One step over the parameters named in ``grads``, in place on
         ``params`` and ``state`` (whose count advances); the gradients are
-        consumed (clipped in place).  Returns the rate it used.  No host
+        consumed (clipped in place).  ``norm`` is the gradients' global
+        norm where the caller took it (a tp-sharded step: over every
+        rank's shards).  Returns the rate it used.  No host
         synchronisation: the clipping decision stays on the device."""
         names = list(grads)
         g = [grads[n] for n in names]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+        if norm is None:
+            norm = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(g)))
         clip = ~(norm < MAX_NORM)           # optax's trigger, NaN included
         one = torch.ones((), dtype=norm.dtype, device=norm.device)
         # optax: (g / norm) * MAX_NORM where clipping, g untouched elsewhere
@@ -322,8 +339,245 @@ def ema_update(ema_params: Dict[str, torch.Tensor],
     return ema_params
 
 
-def shard_train_step(step_fn, mesh=None):
-    """The step unchanged on one device; a mesh raises until the
-    multi-rank half of ROADMAP §1 item 5 lands."""
-    refuse_mesh(mesh)
-    return step_fn
+class ShardedTrainStep:
+    """A :class:`TrainStep` over a ('dp', 'tp') mesh; every rank makes one
+    from its own copy of the step (the same UNet, seed and options) with
+    :func:`shard_train_step`, which shards that UNet in place.  Rank 0
+    calls it as the step, ``step(state, latents, context, generator=None,
+    *, t=None, noise=None) -> (state, loss)``, with the whole batch (B a
+    multiple of dp): it draws ``t`` and the noise for the whole batch
+    where they are not given (as ``diffusion_loss`` draws them), sends
+    each dp group its rows and runs group 0's; the other ranks, in
+    ``parallel.worker.serve`` with this object registered, step their own
+    state.  Rank 0's state holds rank 0's shards;
+    :meth:`init_state`, :meth:`init_ema`, :meth:`ema_update` and
+    :meth:`full` and :meth:`load` keep the ranks in step
+    (``training/checkpoint.save_sharded`` writes the unsharded file,
+    :meth:`load` reads it)."""
+
+    # the name both sides register it under (one sharded step a mesh)
+    name = "train"
+
+    def __init__(self, step: TrainStep, mesh):
+        self.step, self.mesh = step, mesh
+        # {parameter name: (kind, dim)} of the tp-sharded parameters
+        self.specs = mesh_lib.shard_specs(step.unet, mesh.tp)
+        mesh_lib.shard_module(step.unet, mesh, inplace=True)
+        step._params = dict(step.unet.named_parameters())
+        keep = set(step.trainable)
+        for n, p in step._params.items():
+            p.requires_grad_(n in keep)
+        self.state: Optional[TrainState] = None   # a worker's own
+        self.ema: Optional[Dict[str, torch.Tensor]] = None
+        worker.register(mesh, self.name, self)
+
+    def _call(self, method: str, own: tuple, others: list) -> list:
+        return worker.dispatch(
+            self.mesh, dict(kind="call", name=self.name, method=method),
+            [own] + others)
+
+    def init_state(self) -> TrainState:
+        """Step 0 on every rank; returns rank 0's."""
+        return self._call("_init", (True,), [(False,)] * (
+            self.mesh.world - 1))[0]
+
+    def _init(self, own: bool):
+        state = self.step.init_state()
+        if own:
+            return state
+        self.state = state
+
+    def __call__(self, state: TrainState, latents, context, generator=None,
+                 *, t=None, noise=None):
+        return self._run("_step", state, latents, context, generator, t,
+                         noise)
+
+    def gradients(self, state: TrainState, latents, context, generator=None,
+                  *, t=None, noise=None):
+        """``(loss, grads)`` of the whole batch at ``state`` without an
+        update: the dp-averaged gradients of rank 0's trainable shards (what
+        the step clips and applies)."""
+        return self._run("_grads_only", state, latents, context, generator,
+                         t, noise)
+
+    def _run(self, method, state, latents, context, generator, t, noise):
+        b = latents.shape[0]
+        dp = self.mesh.dp
+        if b % dp:
+            raise ValueError(f"batch {b} is not a multiple of dp={dp}")
+        dev = latents.device
+        if t is None:
+            if generator is None:
+                raise ValueError("a sharded step needs a generator for the "
+                                 "draws it is not given")
+            t = torch.randint(0, self.step.sched.num_train_timesteps, (b,),
+                              generator=generator, device=dev)
+        if noise is None:
+            if generator is None:
+                raise ValueError("a sharded step needs a generator for the "
+                                 "draws it is not given")
+            noise = torch.randn(latents.shape, generator=generator,
+                                device=dev, dtype=latents.dtype)
+        per = b // dp
+        rows = []
+        for r in range(self.mesh.world):
+            a = (r // self.mesh.tp) * per
+            rows.append((latents[a:a + per], context[a:a + per],
+                         t[a:a + per], noise[a:a + per]))
+        out = self._call(method, rows[0] + (state,),
+                         [x + (None,) for x in rows[1:]])
+        return out[0]
+
+    def _mean_grads(self, st, latents, context, t, noise):
+        """This rank's loss and gradients at ``st``, both averaged over dp
+        (the whole batch's mean and its gradient)."""
+        step, mesh = self.step, self.mesh
+        step.load(st)
+        loss = step.loss(latents, context, t=t, noise=noise)
+        grads = step.grads(loss)
+        names = list(grads)
+        # the gradient of the whole batch's mean: the dp groups' mean
+        for group in _groups(names, [grads[n] for n in names]):
+            flat = torch.cat([grads[names[i]].reshape(-1) for i in group])
+            collectives.all_reduce(mesh, flat, "dp")
+            flat /= mesh.dp
+            for i, part in zip(group, flat.split(
+                    [grads[names[i]].numel() for i in group])):
+                grads[names[i]].copy_(part.view_as(grads[names[i]]))
+        loss = collectives.all_reduce(mesh, loss.detach().clone(), "dp") / mesh.dp
+        return loss, grads
+
+    def _grads_only(self, latents, context, t, noise, state):
+        own = state is not None
+        out = self._mean_grads(state if own else self.state, latents,
+                               context, t, noise)
+        return out if own else None
+
+    def _step(self, latents, context, t, noise, state):
+        own = state is not None
+        st = state if own else self.state
+        step, mesh = self.step, self.mesh
+        loss, grads = self._mean_grads(st, latents, context, t, noise)
+        names = list(grads)
+        # global norm: each tp-sharded parameter's squares once over tp
+        sq = [torch.zeros((), device=loss.device) for _ in range(2)]
+        for n in names:
+            sq[n in self.specs] += grads[n].float().square().sum()
+        collectives.all_reduce(mesh, sq[1], "tp")
+        norm = torch.sqrt(sq[0] + sq[1])
+        step.optimizer.update(st.params, grads, st.opt_state, norm=norm)
+        step.load(st, step.trainable)
+        new = TrainState(st.params, st.opt_state, st.step + 1)
+        if own:
+            return new, loss
+        self.state = new
+
+    def init_ema(self, state: TrainState, names=None
+                 ) -> Dict[str, torch.Tensor]:
+        """An EMA of ``names`` (default: every parameter) started at the
+        state's parameters, on every rank; returns rank 0's."""
+        names = list(state.params if names is None else names)
+        return self._call("_init_ema", (names, state),
+                          [(names, None)] * (self.mesh.world - 1))[0]
+
+    def _init_ema(self, names, state):
+        own = state is not None
+        params = (state if own else self.state).params
+        ema = {n: params[n].clone() for n in names}
+        if own:
+            return ema
+        self.ema = ema
+
+    def ema_update(self, ema: Dict[str, torch.Tensor], state: TrainState,
+                   decay: float = 0.9999) -> Dict[str, torch.Tensor]:
+        """:func:`ema_update` on every rank's shards."""
+        return self._call("_ema", (ema, state, decay),
+                          [(None, None, decay)] * (self.mesh.world - 1))[0]
+
+    def _ema(self, ema, state, decay):
+        if ema is None:
+            ema_update(self.ema, self.state.params, decay)
+            return None
+        return ema_update(ema, state.params, decay)
+
+    def full(self, tree):
+        """The unsharded copy of ``tree`` (rank 0's ``TrainState``, or a dict
+        of its tensors by parameter name, such as an EMA; with ``"ema"``
+        the workers' own EMA): each tp-sharded tensor gathered over the tp
+        group of dp group 0, on rank 0."""
+        kind = "state" if isinstance(tree, TrainState) else "ema"
+        return self._call("_full", (tree, kind), [(None, kind)] * (
+            self.mesh.world - 1))[0]
+
+    def _full(self, tree, kind):
+        own = tree is not None
+        if not own:
+            tree = self.state if kind == "state" else self.ema
+        if kind == "state":
+            opt = tree.opt_state
+            out = TrainState(self._gather(tree.params), AdamWState(
+                opt.count, self._gather(opt.mu), self._gather(opt.nu)),
+                tree.step)
+        else:
+            out = self._gather(tree)
+        return out if own else None
+
+    def _gather(self, named: Mapping[str, torch.Tensor]):
+        if named is None:
+            return None
+        mesh = self.mesh
+        out = {}
+        for n, t in named.items():
+            if n in self.specs and mesh.dp_index == 0:
+                kind, dim = self.specs[n]
+                parts = collectives.all_gather(mesh, t, "tp", dim).chunk(
+                    mesh.tp, dim)
+                t = mesh_lib.unshard(list(parts), kind, dim)
+            out[n] = t
+        return out
+
+    def load(self, path: str):
+        """Every rank reads the unsharded checkpoint at ``path`` (written by
+        ``training/checkpoint.save_sharded`` or by an unsharded run; the
+        directory must be readable by every rank) and keeps its shards:
+        the workers their state and EMA, rank 0 the returned tree (a
+        ``TrainState``, or ``{"state", "ema"}``)."""
+        return self._call("_load", (path, True), [(path, False)] * (
+            self.mesh.world - 1))[0]
+
+    def _load(self, path, own):
+        from .checkpoint import load_checkpoint
+
+        tree = load_checkpoint(path, device=self.mesh.device)
+        state = tree["state"] if isinstance(tree, dict) else tree
+        ema = tree.get("ema") if isinstance(tree, dict) else None
+        state = self._shard(state)
+        ema = None if ema is None else self._shard(ema)
+        if own:
+            return state if ema is None else {"state": state, "ema": ema}
+        self.state, self.ema = state, ema
+
+    def _shard(self, tree):
+        """This rank's shards of an unsharded ``TrainState`` or dict of
+        tensors by parameter name."""
+        cut = lambda named: {  # noqa: E731
+            n: (mesh_lib.shard_tensor(t, *self.specs[n], self.mesh.tp,
+                                      self.mesh.tp_index)
+                if n in self.specs else t) for n, t in named.items()}
+        if isinstance(tree, TrainState):
+            opt = tree.opt_state
+            return TrainState(cut(tree.params), AdamWState(
+                opt.count, cut(opt.mu), cut(opt.nu)), tree.step)
+        return cut(tree)
+
+
+def shard_train_step(step_fn: TrainStep, mesh=None):
+    """The step unchanged without a mesh (or on a one-rank mesh); over a
+    mesh, a :class:`ShardedTrainStep` (which shards the step's UNet in
+    place), registered on this rank's mesh."""
+    if mesh is None or mesh.world == 1:
+        return step_fn
+    if not isinstance(step_fn, TrainStep):
+        raise TypeError("shard_train_step over several ranks takes a "
+                        "TrainStep (make_train_step)")
+    return ShardedTrainStep(step_fn, mesh)
