@@ -35,6 +35,14 @@ Phases, in order (any failure exits non-zero):
      request on a copy of the UNet with a seeded synthetic LoRA (rank 64,
      every attention projection and FF linear) merged by
      ``apply_lora_unet``;
+  5b. GLIGEN (``gligen_path``) on that bundle's UNet weights: the UNet
+     built with ``gligen=True``, its 16 fusers and a ``PositionNet`` drawn
+     from GLIGEN_SEED, objs from dialogue_0 turn 1's two boxes padded to
+     8 slots; at zero gates eps bit for bit the plain UNet's, at seeded
+     gates the kernels against ``plain_path()``, 16 more ``geglu_matmul``
+     launches an evaluation than the plain UNet, device and wall ms of an
+     evaluation with and without objs, and a CUT_STEPS-step DDIM loop
+     with objs written in the phase;
   6. W8A8 SD1.5: the SD1.5 bundle freed, ``init_bundle`` of
      ``sd15_config()`` with ``quantized=True`` (the seeded float weights
      quantized), the same UNet check at ``THEATERGEN_FUSED_INT8`` "1",
@@ -49,6 +57,13 @@ Phases, in order (any failure exits non-zero):
      UNet check, then ``Text2ImgXL(bundle, num_steps=30)`` on two prompts at
      1024 px, Euler-Ancestral, CFG 7.5, and one 4-step LCM request (the
      config's ``scheduler_type`` replaced);
+  7a. W8A8 SDXL (``w8a8_xl_path``): that bundle's float UNet quantized
+     (``ops/quant.py``) at ``THEATERGEN_FUSED_INT8`` "1", the UNet check,
+     every one of its 719 quantized sites bit for bit against the kernel's
+     plain version, eps against the float UNet within W8A8_XL_RATIO times
+     the plain path's distance between the two,
+     device and wall ms of an evaluation beside the float one's, and one
+     ``Text2ImgXL`` request at CUT_STEPS Euler-Ancestral steps;
   7b. the SDXL turn's models: ``init_bundle(sdxl_config(), with_ip=True,
      with_vision=True, with_t2i_adapter=True)``, the T2I-Adapter's
      features of a seeded 1024² hint, the XL IP UNet with pooled text,
@@ -305,6 +320,23 @@ XL_BOX_CANVAS = 512
 # the W8A8 character pass: the quantized IP UNet at 512 px, its eps within
 # this bound of the float IP UNet of the same seed (relative to max|ref|)
 CHAR_W8A8, W8A8_FLOAT_BOUND = "sd15_512_ip_w8a8", 3e-2
+# the W8A8 SDXL UNet at 1024 px (w8a8_xl_path): sdxl_path's float UNet
+# quantized.  Its distance from the float UNet is the int8 recipe's own
+# error, which grows with depth: at SDXL's 70 blocks no fixed bound under
+# 5e-2 holds, for with no kernel at all (plain_path()) the W8A8 UNet reads
+# 4.43e-2, 5.72e-2 and 6.95e-2 of max|ref| from the float one at three
+# inputs on an H100 80GB HBM3 at 700 W (the kernels 4.76e-2, 5.87e-2 and
+# 6.99e-2; SD1.5's plain path 2.91e-2 to 3.55e-2).  So the kernels'
+# distance is held to W8A8_XL_RATIO times the plain path's on the same
+# inputs (the factor the CPU parity tests hold the port's quantization
+# error to against the JAX package's), and each site bit for bit
+# (w8a8_sites_phase)
+W8A8_XL, W8A8_XL_RATIO = "sdxl_1024_w8a8", 1.5
+# GLIGEN (gligen_path): the SD1.5 UNet at 512 px with a gated
+# self-attention fuser in each of its 16 transformer blocks, the fusers and
+# the PositionNet drawn from GLIGEN_SEED; the grounding tokens of dialogue_0
+# turn 1's boxes, padded to the pipeline's max_objects
+GLIGEN, GLIGEN_SEED, GLIGEN_FUSERS = "sd15_512_gligen", 20, 16
 # batch-1 evaluations (no CFG: the CFG cutoff's tail, every LCM step) of
 # SD1.5 at 512 px and SDXL at 1024 px
 SD15_B1, SDXL_B1 = "sd15_512_cond", "sdxl_1024_cond"
@@ -428,7 +460,11 @@ GEGLU_SHAPES = [(SDXL, (8192, 2560, 640), 10), (SDXL, (2048, 5120, 1280), 60),
                 (SDXL_B1, (4096, 2560, 640), 10),
                 (SDXL_B1, (1024, 5120, 1280), 60),
                 (SDXL_TP2, (8192, 1280, 640), 10),
-                (SDXL_TP2, (2048, 2560, 1280), 60)]
+                (SDXL_TP2, (2048, 2560, 1280), 60),
+                # the GLIGEN fusers' FF of the SD1.5 UNet (no fused_ff, so
+                # geglu_matmul): 5 blocks at 64², 32² and 16², the mid block
+                (GLIGEN, (8192, 1280, 320), 5), (GLIGEN, (2048, 2560, 640), 5),
+                (GLIGEN, (512, 5120, 1280), 5), (GLIGEN, (128, 5120, 1280), 1)]
 # quant_matmul's (M, K, N) in one W8A8 SD1.5 UNet evaluation (CFG batch 2)
 # and calls per evaluation (184): per transformer block the six (M, C, C)
 # projections, to_k/to_v of the 77-token context (M = 154, K = 768),
@@ -457,7 +493,18 @@ QMM_SHAPES = [(W8A8, mkn, n) for mkn, n in (
         ((512, 2560, 1280), 5), ((128, 1280, 640), 4),
         ((128, 640, 1280), 2), ((128, 1280, 5120), 1),
         ((128, 2560, 1280), 1), ((2, 320, 1280), 1), ((2, 1280, 1280), 13),
-        ((2, 1280, 640), 5), ((2, 1280, 320), 5))]
+        ((2, 1280, 640), 5), ((2, 1280, 320), 5))] + [
+    # the W8A8 SDXL UNet at 1024 px (719 calls): per transformer block the
+    # six (M, C, C) projections, to_k/to_v of the 77-token context (K =
+    # 2048), ff.net.0.proj (N = 8C) and ff.net.2 (K = 4C), 10 blocks at 64²
+    # and 60 at 32²; 17 time_emb_proj and 2 time_embedding linears at M = 2
+    (W8A8_XL, mkn, n) for mkn, n in (
+        ((8192, 640, 640), 60), ((154, 2048, 640), 20),
+        ((8192, 640, 5120), 10), ((8192, 2560, 640), 10),
+        ((2048, 1280, 1280), 360), ((154, 2048, 1280), 120),
+        ((2048, 1280, 10240), 60), ((2048, 5120, 1280), 60),
+        ((2, 320, 1280), 1), ((2, 1280, 1280), 8), ((2, 1280, 640), 5),
+        ((2, 1280, 320), 5))]
 # the row-parallel calls of a tp = 2 rank (QuantRowParallel): no bias (it
 # is added after the all-reduce), each row's scale from the whole row's
 # amax, all-reduced over tp and passed as row_amax
@@ -466,6 +513,7 @@ QMM_ROW_AMAX = {(W8A8_TP2, mkn) for mkn in (
     (512, 640, 1280), (512, 2560, 1280), (128, 640, 1280),
     (128, 2560, 1280))}
 QMM_PER_EVAL = 184
+QMM_XL_PER_EVAL = 719
 # GroupNorm sites that reach the kernel under THEATERGEN_FUSED_GN=1, CFG
 # batch 2, 32 groups: (B, C, H·W) and calls per evaluation.  The SD1.5
 # UNet (the IP UNet's are the same) at 512 px: 61, 45 with SiLU.  SDXL at
@@ -1076,7 +1124,10 @@ def _record(name, source, replaces, tpu_function, rows) -> dict:
             "no CFG), whose launches are the training steps'; "
             "sd15_512_tp2, sdxl_1024_tp2, sd15_512_w8a8_tp2: one rank's "
             "share of one tp = 2 evaluation (CFG batch 2), whose launches "
-            "are mesh_path's tp ranks'",
+            "are mesh_path's tp ranks'; sd15_512_gligen: the GLIGEN "
+            "fusers' FF of one SD1.5 evaluation, whose launches are "
+            "gligen_path's DDIM loop; sdxl_1024_w8a8: the W8A8 SDXL UNet, "
+            "whose launches are w8a8_xl_path's request",
         per_model=per_model, shapes=rows)
 
 
@@ -1092,7 +1143,7 @@ FLASH_COUNTERS = {attr: name for name, (mod, attr) in COUNTERS.items()
 
 def eval_launches(ucfg, side: int, batch: int, shallow: bool = False,
                   encoder_only: bool = False, cache_level: int = 1,
-                  tp: int = 1):
+                  tp: int = 1, gligen: bool = False):
     """Kernel launches of one evaluation of a UNet (``encoder_only``: a
     ControlNet, its encoder and mid block) of config ``ucfg`` on a
     ``side``² latent at ``batch`` rows, derived from the layers' routing
@@ -1109,7 +1160,11 @@ def eval_launches(ucfg, side: int, batch: int, shallow: bool = False,
     linears and, with IP tokens, ``to_k_ip``/``to_v_ip``.  ``tp``: one
     rank's share of a tp-sharded evaluation (``parallel/mesh.shard_module``):
     an attention whose heads divide by tp holds heads/tp of them, an FF
-    K/tp inner columns; the number of linears is the unsharded one's."""
+    K/tp inner columns; the number of linears is the unsharded one's.
+    ``gligen``: a UNet with GLIGEN fusers, called with ``objs``: each
+    transformer layer's fuser adds its FF's ``geglu_matmul`` where
+    ``gg.supported`` takes the shape (a float FF without ``fused_ff``, in
+    a quantized UNet too) and no flash (its attention is the plain one)."""
     got = collections.Counter()
     boc, n, lpb = ucfg.block_out_channels, len(ucfg.block_out_channels), \
         ucfg.layers_per_block
@@ -1142,6 +1197,8 @@ def eval_launches(ucfg, side: int, batch: int, shallow: bool = False,
             if route is not None:
                 got[FLASH_COUNTERS[fa.COUNTERS[route]]] += 1
             m, k = batch * hw, 4 * ch // tp
+            if gligen and gg.supported(m, k, ch):
+                got["geglu_matmul"] += 1
             if ucfg.quantized:
                 linears(8 + 2 + (2 if ucfg.ip_num_tokens else 0))
                 continue
@@ -1252,8 +1309,18 @@ def derivation_check() -> None:
                           dict(w8, quant_matmul=QMM_PER_EVAL))
             want[CHAR_W8A8] = (eval_launches(path_cfg(CHAR_W8A8)[0], 64, 2),
                                dict(w8, quant_matmul=QMM_PER_EVAL + 32))
+            # W8A8 SDXL: its 719 quantized linears; the quantized FF takes
+            # no geglu_matmul
+            want[W8A8_XL] = (
+                eval_launches(dataclasses.replace(xl.unet, quantized=True),
+                              128, 2),
+                dict(flash_attention=70, group_norm=42,
+                     quant_matmul=QMM_XL_PER_EVAL))
         finally:
             qz.FUSED_MODE = prev_q
+        # GLIGEN with objs: SD1.5's sites and one geglu_matmul per fuser
+        want[GLIGEN] = (eval_launches(sd.unet, 64, 2, gligen=True),
+                        dict(want[SD15][1], geglu_matmul=GLIGEN_FUSERS))
         bad = [m for m, (got, ref) in want.items() if counts(**got) != counts(
             **ref)]
         for model, (got, _) in want.items():
@@ -1372,7 +1439,8 @@ def sd15_path(records, profiling: bool) -> dict:
     if profiling:
         profile(bundle, sd.encode_prompts)
     return dict(seconds_per_request=seconds, peak_bytes=peak,
-                unet_kernels_vs_plain_rel=rel, knob_requests=knobs), eps
+                unet_kernels_vs_plain_rel=rel, knob_requests=knobs), eps, \
+        bundle
 
 
 def with_pipeline(bundle, **fields):
@@ -1447,13 +1515,14 @@ def sd15_knob_requests(bundle, records) -> dict:
     return out
 
 
-def w8a8_sites_phase(bundle) -> None:
+def w8a8_sites_phase(bundle, want: int = QMM_PER_EVAL) -> None:
     """One W8A8 UNet evaluation with the kernels, each QuantLinear's output
     held bit for bit to ``quant_matmul_plain`` on the input it met there
     (the kernel is built to match it exactly): a linear that ran in float,
     skipped the per-row quantization or missed the kernel fails here,
     where the whole-UNet check against plain_path() (as wide as the
-    quantization error itself) cannot tell."""
+    quantization error itself) cannot tell.  ``want``: the UNet's
+    QuantLinear calls per evaluation (SD1.5 184, SDXL 719)."""
     sites, bad = [], []
 
     def hook(name):
@@ -1469,16 +1538,16 @@ def w8a8_sites_phase(bundle) -> None:
     handles = [mod.register_forward_hook(hook(name))
                for name, mod in unet.named_modules()
                if isinstance(mod, QuantLinear)]
-    x, t, ctx, _ = unet_inputs(bundle, 2, 501)
+    x, t, ctx, cond = unet_inputs(bundle, 2, 501)
     reset_counts()
     try:
         with torch.no_grad():
-            unet(x, t, ctx)
+            unet(x, t, ctx, **cond)
     finally:
         for h in handles:
             h.remove()
     launched = read_counts()["quant_matmul"]
-    ok = not bad and len(sites) == launched == QMM_PER_EVAL
+    ok = not bad and len(sites) == launched == want
     log(f"  W8A8 UNet sites: {len(sites)} QuantLinear calls, {launched} "
         f"quant_matmul launches, {len(bad)} differ from the plain version "
         f"{bad[:3]}  {'ok' if ok else 'FAIL'}")
@@ -1550,7 +1619,7 @@ def sdxl_path(records, profiling: bool) -> dict:
     # differently (h from an fp32 gate vs bf16 gelu and product, fp32
     # logits).  Measured 1.99e-2 on an H100 (PERF.md §6): the SD1.5
     # bound, 2.5x above it, holds here too
-    rel, _ = unet_reference_phase(bundle, 5e-2)
+    rel, eps = unet_reference_phase(bundle, 5e-2)
     pipe = sdxl.Text2ImgXL(bundle, num_steps=SDXL_STEPS)
 
     def want():
@@ -1578,7 +1647,232 @@ def sdxl_path(records, profiling: bool) -> dict:
         out["gn_ab_requests"] = request_ab(
             SDXL, lambda p: run_requests(SDXL, pipe, [PROMPTS[p % 2]],
                                          want(), 1024, [])[0])
-    return out
+    return out, eps, bundle
+
+
+def gligen_boxes(n_slots: int):
+    """dialogue_0 turn 1's boxes (a knight and a dragon, [x, y, w, h] on the
+    512² authoring canvas) as normalised xyxy ``[1, n_slots, 4]``, padded
+    with zero boxes, and their mask ``[1, n_slots]`` (1 = a real object)."""
+    spec = dialogue_specs("dialogue_0")[0]
+    boxes = torch.zeros(1, n_slots, 4)
+    masks = torch.zeros(1, n_slots)
+    for i, (_, (x, y, w, h)) in enumerate(spec["gen_boxes"]):
+        boxes[0, i] = torch.tensor([x, y, x + w, y + h]) / 512.0
+        masks[0, i] = 1.0
+    return boxes.cuda(), masks.cuda()
+
+
+def gligen_path(bundle, records) -> dict:
+    """GLIGEN on the SD1.5 bundle: ``UNet2DCondition(cfg, gligen=True)``
+    holding the bundle's UNet weights and fusers drawn from GLIGEN_SEED
+    (gates at zero, as drawn), and a seeded ``PositionNet`` whose grounding
+    tokens come from dialogue_0 turn 1's two boxes (gligen_boxes) and
+    seeded phrase embeddings ``[2, max_objects, 768]``.  (a) At zero gates
+    the eps with objs equals the plain SD1.5 UNet's without, bit for bit,
+    with the kernels; (b) with seeded non-zero gates the kernels are
+    within the UNet bound (5e-2) of ``plain_path()``; (c) the launches of
+    an evaluation are the plain UNet's plus one ``geglu_matmul`` per fuser
+    (eval_launches with ``gligen``); (d) a CUT_STEPS-step DDIM loop at 512
+    px, CFG 7.5, with objs, written here (no pipeline of the port takes
+    objs, as none of the JAX package's does), its launches exact and its
+    image finite in [0, 1]; the device and wall ms of an evaluation with
+    and without objs."""
+    from theatergen_tpu_torch.models.ip_adapter import PositionNet
+    from theatergen_tpu_torch.models.layers import GatedSelfAttention
+    from theatergen_tpu_torch.models.unet import UNet2DCondition
+    from theatergen_tpu_torch.ops import scheduler as sched_ops
+    from theatergen_tpu_torch.pipelines.bundle import (_seeded_init,
+                                                       build_module)
+
+    t0 = time.perf_counter()
+    cfg, ucfg, dtype = bundle.cfg, bundle.cfg.unet, bundle.unet.dtype
+    gen = torch.Generator(device="cuda").manual_seed(GLIGEN_SEED)
+    unet = build_module(UNet2DCondition, ucfg, dtype, "cuda", gligen=True)
+    missing, unexpected = unet.load_state_dict(bundle.unet.state_dict(),
+                                               strict=False)
+    fusers = [m for m in unet.modules() if isinstance(m, GatedSelfAttention)]
+    if (unexpected or len(fusers) != GLIGEN_FUSERS
+            or any(".fuser." not in k for k in missing)):
+        raise SystemExit(f"GLIGEN UNet: {len(fusers)} fusers, the bundle's "
+                         f"weights left {missing[:3]} {unexpected[:3]}")
+    with torch.no_grad():
+        for f in fusers:
+            _seeded_init(f, gen, dtype)
+    pos = build_module(PositionNet, None, torch.float32, "cuda", gen,
+                       out_dim=ucfg.cross_attention_dim)
+    boxes, masks = gligen_boxes(cfg.pipeline.max_objects)
+    phrases = torch.randn(2, cfg.pipeline.max_objects, 768, device="cuda",
+                          generator=gen)
+    with torch.no_grad():
+        objs = pos(boxes.expand(2, -1, -1), masks.expand(2, -1), phrases)
+    n_fuser = sum(p.numel() for f in fusers for p in f.parameters())
+    log(f"  GLIGEN UNet: {len(fusers)} fusers, {n_fuser / 1e6:.1f} M "
+        f"params; objs {tuple(objs.shape)} from {int(masks.sum())} boxes "
+        f"{boxes[0, :2].tolist()}")
+    want_plain = counts(**eval_launches(ucfg, 64, 2))
+    want = counts(**eval_launches(ucfg, 64, 2, gligen=True))
+    x, t, ctx, _ = unet_inputs(bundle, 1, 981)
+    with torch.no_grad():
+        reset_counts()
+        eps_objs = unet(x, t, ctx, objs=objs)
+        got = read_counts()
+        reset_counts()
+        eps_plain = bundle.unet(x, t, ctx)
+        got_plain = read_counts()
+    same = bool(torch.equal(eps_objs, eps_plain))
+    ok = (same and got == want and got_plain == want_plain
+          and want["geglu_matmul"] == want_plain["geglu_matmul"]
+          + GLIGEN_FUSERS)
+    log(f"  (a) zero gates, with objs == the plain SD1.5 UNet without: "
+        f"{same}; (c) launches with objs {got} (derived {want}), without "
+        f"{got_plain}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("GLIGEN at zero gates differs from the plain UNet "
+                         "or its launches from the derivation")
+    with torch.no_grad():
+        for f in fusers:
+            for a in (f.alpha_attn, f.alpha_dense):
+                mag = torch.empty((), device="cuda").uniform_(0.3, 1.0,
+                                                              generator=gen)
+                sign = 1.0 if torch.rand((), device="cuda",
+                                         generator=gen) < 0.5 else -1.0
+                a.copy_(sign * mag)
+    log("  (b) seeded gates (|alpha| in [0.3, 1]):")
+    rel, eps = unet_reference_phase(bundle, 5e-2, unet, objs=objs)
+    moved = ((eps - eps_plain.float()).abs().max()
+             / eps_plain.float().abs().max()).item()
+    log(f"  the fusers move eps from the plain UNet's by "
+        f"max|diff|/max|ref| {moved:.3e}  "
+        f"{'ok' if moved > TOL else 'FAIL'}")
+    if not moved > TOL:
+        raise SystemExit("GLIGEN: the fusers with non-zero gates left eps "
+                         "where the plain UNet has it")
+    with torch.no_grad():
+        evals = {"objs": lambda: unet(x, t, ctx, objs=objs),
+                 "plain": lambda: bundle.unet(x, t, ctx)}
+        wall = {name: _wall_ms(fn, 5) for name, fn in evals.items()}
+        device = {name: device_ms(fn) for name, fn in evals.items()}
+    log(f"  evaluation at batch 2, ms: device {json.dumps(device)}, wall "
+        f"{json.dumps(wall)}")
+    sched = sched_ops.make_schedule(cfg.scheduler, CUT_STEPS)
+    g = torch.Generator(device="cuda").manual_seed(100)
+    context = sd.encode_prompts(bundle, OVERALL_PROMPT)
+    reset_counts()
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        tables = sched_ops.device_tables(sched, "cuda")
+        lat = torch.randn(1, 4, 64, 64, device="cuda", generator=g)
+        for i in range(CUT_STEPS):
+            eps_i = unet(torch.cat([lat, lat]),
+                         tables.timesteps[i].expand(2), context,
+                         objs=objs).float()
+            lat = sched_ops.ddim_step(
+                tables, sd.cfg_combine(eps_i, cfg.pipeline.guidance_scale),
+                i, lat)
+        img = sd.decode_with(bundle.vae, cfg.vae.scaling_factor,
+                             lat.permute(0, 2, 3, 1))
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t1
+    got = read_counts()
+    add_launches(records, GLIGEN, got)
+    want_loop = {k: v * CUT_STEPS for k, v in want.items()}
+    ok = (got == want_loop and tuple(img.shape) == (1, 512, 512, 3)
+          and bool(torch.isfinite(img).all())
+          and 0.0 <= img.min().item() and img.max().item() <= 1.0)
+    log(f"  (d) DDIM {CUT_STEPS} steps with objs, CFG "
+        f"{cfg.pipeline.guidance_scale}: {loop_s:.3f} s, launches {got}, "
+        f"image {tuple(img.shape)} [{img.min().item():.4f}, "
+        f"{img.max().item():.4f}]  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"GLIGEN DDIM loop: launches {got}, want "
+                         f"{want_loop}, or a bad image")
+    seconds = time.perf_counter() - t0
+    log(f"  GLIGEN phase: {seconds:.1f} s")
+    del unet, pos, fusers
+    return dict(zero_gates_equal=same, unet_kernels_vs_plain_rel=rel,
+                fusers_moved_rel=moved, eval_ms=dict(device=device,
+                                                     wall=wall),
+                loop_seconds=loop_s, launches_per_eval=want,
+                phase_seconds=seconds)
+
+
+def w8a8_xl_path(bundle, float_eps, records) -> dict:
+    """The W8A8 SDXL UNet under ``THEATERGEN_FUSED_INT8`` "1": sdxl_path's
+    float UNet quantized by ``ops/quant.py`` (``quantize_state_dict``, the
+    JAX package's ``quantize_params``: ``add_embedding`` stays float) into
+    ``UNet2DCondition`` of the quantized config; the UNet check against
+    ``plain_path()``; every QuantLinear of one evaluation bit for bit to
+    ``quant_matmul_plain`` (QMM_XL_PER_EVAL launches); eps against the
+    float UNet's (``float_eps``, the kernels', same inputs) within
+    W8A8_XL_RATIO times the distance of the two under ``plain_path()``;
+    the device and wall ms of an evaluation beside the float UNet's; one
+    ``Text2ImgXL`` request at 1024 px, CUT_STEPS Euler-Ancestral steps,
+    its launches exact, its seconds and peak memory."""
+    from theatergen_tpu_torch.models.unet import UNet2DCondition
+    from theatergen_tpu_torch.pipelines.bundle import build_module
+
+    t0 = time.perf_counter()
+    prev_mode, qz.FUSED_MODE = qz.FUSED_MODE, "1"
+    try:
+        cfg = dataclasses.replace(bundle.cfg, unet=dataclasses.replace(
+            bundle.cfg.unet, quantized=True))
+        unet = build_module(UNet2DCondition, cfg.unet, bundle.unet.dtype,
+                            "cuda")
+        unet.load_state_dict(qz.quantize_state_dict(bundle.unet.state_dict()))
+        torch.cuda.synchronize()
+        n_q = sum(isinstance(m, QuantLinear) for m in unet.modules())
+        log(f"  quantized sdxl_path's UNet in {time.perf_counter() - t0:.3f} "
+            f"s: {n_q} QuantLinears, weights "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB with the "
+            f"float bundle")
+        qb = dataclasses.replace(bundle, cfg=cfg, unet=unet)
+        # SDXL's UNet bound; a value the two paths round apart can cross
+        # an int8 tie, as in the SD1.5 W8A8 check
+        rel, eps = unet_reference_phase(qb, 5e-2)
+        w8a8_sites_phase(qb, QMM_XL_PER_EVAL)
+        x, t, ctx, cond = unet_inputs(bundle, 1, 981)
+        with torch.no_grad(), plain_path():
+            plain_q = unet(x, t, ctx, **cond).float()
+            plain_f = bundle.unet(x, t, ctx, **cond).float()
+        rel_float = ((eps - float_eps).abs().max()
+                     / float_eps.abs().max()).item()
+        rel_plain = ((plain_q - plain_f).abs().max()
+                     / plain_f.abs().max()).item()
+        ok = rel_float <= W8A8_XL_RATIO * rel_plain
+        log(f"  W8A8 SDXL UNet eps vs the float SDXL UNet of the same seed: "
+            f"max|diff|/max|ref| {rel_float:.3e} with the kernels, "
+            f"{rel_plain:.3e} under plain_path() (bound {W8A8_XL_RATIO:g}x "
+            f"that, {W8A8_XL_RATIO * rel_plain:.3e}; W8A8_FLOAT_BOUND "
+            f"{W8A8_FLOAT_BOUND:g} is SD1.5's)  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("W8A8 SDXL UNet: the kernels move it further "
+                             "from the float UNet than its plain path")
+        x, t, ctx, cond = unet_inputs(bundle, 5, 501)
+        with torch.no_grad():
+            evals = {"w8a8": lambda: unet(x, t, ctx, **cond),
+                     "float": lambda: bundle.unet(x, t, ctx, **cond)}
+            wall = {name: _wall_ms(fn, 5) for name, fn in evals.items()}
+            device = {name: device_ms(fn) for name, fn in evals.items()}
+        log(f"  evaluation at batch 2, ms: device {json.dumps(device)}, "
+            f"wall {json.dumps(wall)}")
+        torch.cuda.reset_peak_memory_stats()
+        pipe = sdxl.Text2ImgXL(qb, num_steps=CUT_STEPS)
+        want = request_want(cfg.unet, 128,
+                            step_plan(CUT_STEPS, "euler_ancestral"))
+        seconds = run_requests(W8A8_XL, pipe, PROMPTS[:1], want, 1024,
+                               records)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"  Text2ImgXL, W8A8, {CUT_STEPS} Euler-Ancestral steps: "
+            f"{seconds[0]:.3f} s, peak memory {peak / 2 ** 30:.3f} GiB")
+    finally:
+        qz.FUSED_MODE = prev_mode
+    phase_s = time.perf_counter() - t0
+    log(f"  W8A8 SDXL phase: {phase_s:.1f} s")
+    return dict(unet_kernels_vs_plain_rel=rel, unet_vs_float_rel=rel_float,
+                plain_unet_vs_float_rel=rel_plain, quant_linears=n_q, eval_ms=dict(device=device, wall=wall),
+                seconds_per_request=seconds, peak_bytes=peak,
+                phase_seconds=phase_s)
 
 
 def path_cfg(model: str):
@@ -5713,7 +6007,12 @@ def main() -> int:
     log(f"[main path] SD1.5 Text2Img, 512 px, {SD15_STEPS} DDIM steps, "
         f"CFG 7.5, bf16")
     paths = {}
-    paths[SD15], float_eps = sd15_path(records, args.profile)
+    paths[SD15], float_eps, bundle = sd15_path(records, args.profile)
+    log(f"[main path] GLIGEN: the SD1.5 UNet with {GLIGEN_FUSERS} gated "
+        f"self-attention fusers and PositionNet's grounding tokens of "
+        f"dialogue_0 turn 1's boxes, 512 px, {CUT_STEPS} DDIM steps, CFG 7.5")
+    paths[GLIGEN] = gligen_path(bundle, records)
+    del bundle
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[main path] W8A8 SD1.5 Text2Img, 512 px, {SD15_STEPS} DDIM steps, "
@@ -5725,7 +6024,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[main path] SDXL Text2ImgXL, 1024 px, {SDXL_STEPS} Euler-Ancestral "
         f"steps, CFG 7.5, bf16 UNet, fp32 text towers")
-    paths[SDXL] = sdxl_path(records, args.profile)
+    paths[SDXL], float_eps, bundle = sdxl_path(records, args.profile)
+    log(f"[main path] W8A8 SDXL: the SDXL UNet quantized, "
+        f"THEATERGEN_FUSED_INT8=1, int8 weights at the {QMM_XL_PER_EVAL} "
+        f"quantized linears; Text2ImgXL, 1024 px, {CUT_STEPS} "
+        f"Euler-Ancestral steps, CFG 7.5")
+    paths[W8A8_XL] = w8a8_xl_path(bundle, float_eps, records)
+    del bundle, float_eps
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[main path] the SDXL turn's models: the T2I-Adapter, the XL IP "

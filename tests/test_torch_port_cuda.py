@@ -162,6 +162,27 @@ def test_geglu_kernel_matches_plain_on_card(m, k, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(8192, 1280, 320), (2048, 2560, 640),
+                                   (512, 5120, 1280), (128, 5120, 1280)])
+def test_geglu_kernel_at_the_gligen_fuser_shapes_on_card(m, k, n):
+    """geglu_matmul at the four shapes of the GLIGEN fusers' FF in the
+    SD1.5 UNet at 512 px (CFG batch 2; N = 320 is one cluster block), as
+    planned, against its plain version: 1e-2·max|ref|."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(m + n)
+    hg = torch.randn(m, 2 * k, device=dev, generator=g).to(torch.bfloat16)
+    w = (torch.randn(n, k, device=dev, generator=g) * k ** -0.5).to(
+        torch.bfloat16)
+    before = tgg.geglu_launches
+    out = tgg.geglu_matmul(hg, w).float()
+    ref = tgg.geglu_matmul_plain(hg.float(), w.float())
+    torch.cuda.synchronize()
+    assert tgg.geglu_launches == before + 1
+    assert out.shape == (m, n)
+    assert (out - ref).abs().max() <= 1e-2 * ref.abs().max()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n", [320, 960, 1920])
 @pytest.mark.parametrize("splits", [None, 2])
 def test_geglu_kernel_every_cluster_width_ragged_rows_on_card(monkeypatch, n,
@@ -741,6 +762,31 @@ def test_quant_matmul_kernel_matches_plain_on_card(m, k, n):
     for bit (the chip_smoke.py gate, 1e-2·max|ref|, is far looser)."""
     dev = _card()
     x, wq, ws, bias = _qmm_inputs(dev, m, k, n, m + n)
+    for b in (bias, None):
+        out = tqm.quant_matmul(x, wq, ws, b)
+        ref = tqm.quant_matmul_plain(x, wq, ws, b)
+        torch.cuda.synchronize()
+        assert out.shape == (m, n) and out.dtype == torch.bfloat16
+        assert torch.equal(out, ref), (out.float() - ref.float()).abs().max()
+
+
+# (M, K, N) of the W8A8 SDXL UNet's quant_matmul calls at 1024 px (CFG
+# batch 2): 8 shapes SD1.5 does not have and its four M = 2 ones
+QMM_XL_SHAPES = [
+    (8192, 640, 640), (154, 2048, 640), (8192, 640, 5120), (8192, 2560, 640),
+    (2048, 1280, 1280), (154, 2048, 1280), (2048, 1280, 10240),
+    (2048, 5120, 1280), (2, 320, 1280), (2, 1280, 1280), (2, 1280, 640),
+    (2, 1280, 320)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", QMM_XL_SHAPES)
+def test_quant_matmul_kernel_at_the_sdxl_shapes_on_card(m, k, n):
+    """The kernel at every shape of the W8A8 SDXL UNet (N up to 10240, K
+    2048 and 5120), with and without bias, equal to its plain version bit
+    for bit, as at SD1.5's shapes."""
+    dev = _card()
+    x, wq, ws, bias = _qmm_inputs(dev, m, k, n, m + n + k)
     for b in (bias, None):
         out = tqm.quant_matmul(x, wq, ws, b)
         ref = tqm.quant_matmul_plain(x, wq, ws, b)

@@ -1,6 +1,7 @@
-"""IP-Adapter image projectors (PyTorch), the port of
-``theatergen_tpu/models/ip_adapter.py::{ImageProjModel, MLPProjModel,
-PerceiverAttention, Resampler}``.
+"""IP-Adapter image projectors and GLIGEN's grounding-token projector
+(PyTorch), the port of ``theatergen_tpu/models/ip_adapter.py::
+{ImageProjModel, MLPProjModel, PerceiverAttention, Resampler,
+PositionNet}``.
 
 Each maps CLIP image features to context tokens that the IP UNet's
 decoupled cross-attention (``to_k_ip``/``to_v_ip``, inside the UNet)
@@ -9,7 +10,10 @@ tokens), MLPProj (full: one token) and the perceiver Resampler (plus:
 patch tokens → ``resampler_queries`` tokens).  Parameter names are the JAX
 package's (``proj``, ``proj_0``, ``layers.0.attn.to_kv`` …), and every
 LayerNorm keeps flax's default epsilon, 1e-6 (diffusers' IP-Adapter uses
-1e-5).  Plain PyTorch in fp32: no kernel lies on these paths.
+1e-5).  :class:`PositionNet` carries diffusers'
+``GLIGENTextBoundingboxProjection`` names (``linears.0``/``.2``/``.4``,
+``null_positive_feature``, ``null_position_feature``).  Plain PyTorch: no
+kernel lies on these paths.
 """
 
 from __future__ import annotations
@@ -125,3 +129,45 @@ class Resampler(nn.Module):
             h = layer.ff_2(F.gelu(layer.ff_1(layer.ff_norm(latents))))
             latents = latents + h
         return self.norm_out(self.proj_out(latents))
+
+
+class PositionNet(nn.Module):
+    """GLIGEN's grounding-token projector: per-object phrase embeddings
+    ``[B, N, text_dim]`` and normalised xyxy boxes ``[B, N, 4]`` →
+    ``objs [B, N, out_dim]``, the tokens the UNet's gated self-attention
+    fusers read (``UNet2DCondition(..., gligen=True)``).  The boxes'
+    Fourier features keep GLIGEN's ``(freq, sin|cos, coord)`` order, as
+    the JAX package's; a slot whose mask is 0 takes the learned null
+    phrase and position features in place of its own, so padding to a
+    fixed ``max_objects`` leaves the real slots as they are."""
+
+    def __init__(self, out_dim: int, text_dim: int = 768,
+                 fourier_freqs: int = 8):
+        super().__init__()
+        self.fourier_freqs = fourier_freqs
+        pos_dim = fourier_freqs * 2 * 4
+        self.linears = nn.Sequential(
+            nn.Linear(text_dim + pos_dim, 512), nn.SiLU(),
+            nn.Linear(512, 512), nn.SiLU(), nn.Linear(512, out_dim))
+        self.null_positive_feature = nn.Parameter(torch.zeros(text_dim))
+        self.null_position_feature = nn.Parameter(torch.zeros(pos_dim))
+
+    def fourier(self, boxes: torch.Tensor) -> torch.Tensor:
+        """``[B, N, 4]`` → ``[B, N, 8·F]`` in ``(freq, sin|cos, coord)``
+        order."""
+        f = self.fourier_freqs
+        freq = 100.0 ** (torch.arange(f, dtype=torch.float32,
+                                      device=boxes.device) / f)
+        ang = boxes.float()[..., None] * freq               # [B, N, 4, F]
+        emb = torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1)
+        return emb.permute(0, 1, 3, 4, 2).reshape(*boxes.shape[:2], 8 * f)
+
+    def forward(self, boxes: torch.Tensor, masks: torch.Tensor,
+                phrase_embeds: torch.Tensor) -> torch.Tensor:
+        dtype = self.linears[0].weight.dtype
+        m = masks.to(dtype)[..., None]
+        xyxy = self.fourier(boxes).to(dtype)
+        xyxy = xyxy * m + (1 - m) * self.null_position_feature
+        txt = (phrase_embeds.to(dtype) * m
+               + (1 - m) * self.null_positive_feature)
+        return self.linears(torch.cat([txt, xyxy], dim=-1))

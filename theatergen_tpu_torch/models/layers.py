@@ -17,7 +17,9 @@ self-attention where the JAX package reaches a Pallas flash kernel),
 the shape) and, in a model configured ``quantized``, the
 :class:`QuantLinear` that :func:`make_linear` builds at the JAX package's
 quantized sites (``ops/quant_matmul`` where
-``THEATERGEN_FUSED_INT8`` is ``"1"``).  Everything else is plain PyTorch.
+``THEATERGEN_FUSED_INT8`` is ``"1"``).  GLIGEN's :class:`GatedSelfAttention`
+holds a float FeedForward of its own, so it reaches ``geglu_matmul`` even
+in a quantized model.  Everything else is plain PyTorch.
 Inside :func:`plain_path` all four take their plain PyTorch route whatever
 the model's config and the switches say.
 
@@ -496,18 +498,62 @@ class CrossAttention(nn.Module):
         return (out, probs) if return_probs else out
 
 
+class GatedSelfAttention(nn.Module):
+    """GLIGEN's gated self-attention fuser, the JAX package's
+    ``GatedSelfAttention`` under diffusers' ``GatedSelfAttentionDense``
+    names (``linear``, ``attn``, ``ff``, ``norm1``, ``norm2``,
+    ``alpha_attn``, ``alpha_dense``).  ``objs [B, N, context_dim]``
+    (``models/ip_adapter.PositionNet``'s tokens) are projected to the
+    visual width, the visual tokens self-attend jointly with them (the
+    plain attention, ``use_flash=False``, as in the JAX package), and a
+    FeedForward follows; each branch is added through ``tanh(alpha)``,
+    zero at init, so the fuser is an exact identity until GLIGEN weights
+    load.  Both gates are applied in x's dtype.  The fuser is never
+    quantized, and its FF is the default one (no ``fused_ff``), so in bf16
+    it reaches ``geglu_matmul`` where ``ops.geglu_matmul.supported`` takes
+    the shape, as JAX ``layers.py:246-254`` does."""
+
+    # seeded init (pipelines/bundle._seeded_init) leaves the gates at zero
+    init_std = 0.0
+
+    def __init__(self, dim: int, heads: int, head_dim: int,
+                 context_dim: int):
+        super().__init__()
+        self.linear = nn.Linear(context_dim, dim)
+        self.attn = CrossAttention(dim, heads, head_dim, use_flash=False)
+        self.ff = FeedForward(dim)
+        self.norm1 = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
+        self.norm2 = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
+        self.alpha_attn = nn.Parameter(torch.zeros(()))
+        self.alpha_dense = nn.Parameter(torch.zeros(()))
+
+    def forward(self, x: torch.Tensor, objs: torch.Tensor) -> torch.Tensor:
+        n_visual = x.shape[1]
+        objs = self.linear(objs.to(x.dtype))
+        h = self.attn(self.norm1(torch.cat([x, objs], dim=1)))
+        x = x + torch.tanh(self.alpha_attn).to(x.dtype) * h[:, :n_visual]
+        h = self.ff(self.norm2(x))
+        return x + torch.tanh(self.alpha_dense).to(x.dtype) * h
+
+
 class BasicTransformerBlock(nn.Module):
     """self-attn → cross-attn → FF, each behind a pre-LayerNorm.  With
     ``capture_probs`` returns ``(x, probs)``, the cross-attention's
-    probabilities (the JAX package's sown ``cross_attn_probs``)."""
+    probabilities (the JAX package's sown ``cross_attn_probs``).  Built
+    with ``gligen``, it holds a :class:`GatedSelfAttention` ``fuser``,
+    which runs between the self- and the cross-attention where ``objs``
+    are given (JAX ``layers.py:465-467``)."""
 
     def __init__(self, dim: int, heads: int, head_dim: int, context_dim: int,
                  use_flash: bool = True, fused_ff: bool = False,
-                 ip_tokens: int = 0, quantized: bool = False):
+                 ip_tokens: int = 0, quantized: bool = False,
+                 gligen: bool = False):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
         self.attn1 = CrossAttention(dim, heads, head_dim, use_flash=use_flash,
                                     quantized=quantized)
+        if gligen:
+            self.fuser = GatedSelfAttention(dim, heads, head_dim, context_dim)
         self.norm2 = nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
         self.attn2 = CrossAttention(dim, heads, head_dim, context_dim,
                                     use_flash=use_flash, ip_tokens=ip_tokens,
@@ -516,8 +562,11 @@ class BasicTransformerBlock(nn.Module):
         self.ff = FeedForward(dim, fused_ff=fused_ff, quantized=quantized)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor, *,
-                ip_scale=1.0, capture_probs: bool = False):
+                ip_scale=1.0, capture_probs: bool = False,
+                objs: Optional[torch.Tensor] = None):
         x = x + self.attn1(self.norm1(x))
+        if objs is not None:
+            x = self.fuser(x, objs)
         h = self.attn2(self.norm2(x), context, ip_scale=ip_scale,
                        return_probs=capture_probs)
         h, probs = h if capture_probs else (h, None)
@@ -530,25 +579,28 @@ class Transformer2D(nn.Module):
     """GN → 1×1 proj_in → transformer blocks over flattened space →
     1×1 proj_out, plus the residual.  With ``capture_layers`` (block
     indices) returns ``(out, {index: probs [B, heads, HW, Lk]})``; the
-    other blocks' probabilities are never kept."""
+    other blocks' probabilities are never kept.  ``objs`` (GLIGEN's
+    grounding tokens) reach every block's fuser."""
 
     def __init__(self, channels: int, heads: int, head_dim: int,
                  context_dim: int, depth: int = 1, groups: int = 32,
                  fast_norm: bool = False, use_flash: bool = True,
                  fused_ff: bool = False, ip_tokens: int = 0,
-                 quantized: bool = False):
+                 quantized: bool = False, gligen: bool = False):
         super().__init__()
         self.norm = GroupNorm(groups, channels, fp32=not fast_norm)
         self.proj_in = nn.Conv2d(channels, channels, 1)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(channels, heads, head_dim, context_dim,
                                   use_flash=use_flash, fused_ff=fused_ff,
-                                  ip_tokens=ip_tokens, quantized=quantized)
+                                  ip_tokens=ip_tokens, quantized=quantized,
+                                  gligen=gligen)
             for _ in range(depth)])
         self.proj_out = nn.Conv2d(channels, channels, 1)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor, *,
-                ip_scale=1.0, capture_layers: Tuple[int, ...] = ()):
+                ip_scale=1.0, capture_layers: Tuple[int, ...] = (),
+                objs: Optional[torch.Tensor] = None):
         b, c, h, w = x.shape
         y = self.proj_in(self.norm(x))
         y = y.permute(0, 2, 3, 1).reshape(b, h * w, c)
@@ -556,9 +608,9 @@ class Transformer2D(nn.Module):
         for i, block in enumerate(self.transformer_blocks):
             if i in capture_layers:
                 y, captured[i] = block(y, context, ip_scale=ip_scale,
-                                       capture_probs=True)
+                                       capture_probs=True, objs=objs)
             else:
-                y = block(y, context, ip_scale=ip_scale)
+                y = block(y, context, ip_scale=ip_scale, objs=objs)
         y = y.reshape(b, h, w, c).permute(0, 3, 1, 2)
         out = self.proj_out(y) + x
         return (out, captured) if capture_layers else out

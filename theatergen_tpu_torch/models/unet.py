@@ -27,6 +27,18 @@ the mid block's output.  DeepCache's cached and shallow forwards are
 at the end of each encoder level, after its last skip and before its
 downsampler.
 
+GLIGEN: ``UNet2DCondition(cfg, gligen=True)`` gives every transformer
+block a gated self-attention ``fuser`` (``layers.GatedSelfAttention``,
+float even in a quantized UNet, as in the JAX package), and ``forward``'s
+``objs [B, N, cross_attention_dim]`` (``ip_adapter.PositionNet``'s
+grounding tokens) reach each of them, in the encoder, the mid block and
+the up blocks, in the full and the DeepCache shallow forward alike.  The
+JAX package creates the fusers where ``init`` sees ``objs``; a module
+here needs its parameters up front, so they come from the constructor
+(no config field: the JAX config has none).  Without ``objs`` a GLIGEN
+UNet is the plain one.  ``objs`` given to a UNet built without fusers,
+and a state dict holding fusers loaded into one, raise ``ValueError``.
+
 :class:`UNetEncoder` holds ``conv_in``, the time embedding, the down
 blocks and the mid block, and runs them; the UNet and
 ``models/controlnet.py::ControlNet`` both build on it, as the JAX
@@ -72,9 +84,11 @@ class UNetEncoder(nn.Module):
     embedding where ``cfg.quantized`` and adds SDXL's ``add_embedding``
     where the config asks for it; the JAX ControlNet has neither."""
 
-    def __init__(self, cfg: UNetConfig, unet: bool = True):
+    def __init__(self, cfg: UNetConfig, unet: bool = True,
+                 gligen: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.gligen = gligen
         boc = cfg.block_out_channels
         n = len(boc)
         self.time_dim = boc[0] * cfg.time_embed_mult
@@ -121,7 +135,7 @@ class UNetEncoder(nn.Module):
             depth=cfg.depth_at(level), groups=cfg.norm_num_groups,
             fast_norm=cfg.fast_norm, use_flash=cfg.flash_attention,
             fused_ff=cfg.fused_ff, ip_tokens=cfg.ip_num_tokens,
-            quantized=cfg.quantized)
+            quantized=cfg.quantized, gligen=self.gligen)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -173,16 +187,17 @@ class UNetEncoder(nn.Module):
 
 def attender(context: torch.Tensor, ip_scale=1.0,
              capture_keys: Sequence[AttnKey] = (),
-             captured: Optional[Dict[AttnKey, torch.Tensor]] = None):
+             captured: Optional[Dict[AttnKey, torch.Tensor]] = None,
+             objs: Optional[torch.Tensor] = None):
     """The ``attend`` of :meth:`UNetEncoder.encode`: runs a transformer on
-    ``context``, keeping the probabilities of the ``capture_keys`` layers
-    in ``captured``."""
+    ``context`` (and GLIGEN's ``objs``), keeping the probabilities of the
+    ``capture_keys`` layers in ``captured``."""
     def attend(module, h, place, block, idx):
         layers = _captures(capture_keys, place, block, idx)
         if not layers:
-            return module(h, context, ip_scale=ip_scale)
+            return module(h, context, ip_scale=ip_scale, objs=objs)
         h, probs = module(h, context, ip_scale=ip_scale,
-                          capture_layers=layers)
+                          capture_layers=layers, objs=objs)
         for key in capture_keys:
             if tuple(key[:3]) == (place, block, idx):
                 captured[tuple(key)] = probs[key[3]]
@@ -191,11 +206,11 @@ def attender(context: torch.Tensor, ip_scale=1.0,
 
 
 class UNet2DCondition(UNetEncoder):
-    def __init__(self, cfg: UNetConfig):
+    def __init__(self, cfg: UNetConfig, gligen: bool = False):
         if cfg.addition_embed_type not in (None, "text_time"):
             raise ValueError(f"unknown addition_embed_type "
                              f"{cfg.addition_embed_type!r}")
-        super().__init__(cfg)
+        super().__init__(cfg, gligen=gligen)
         boc = cfg.block_out_channels
         n = len(boc)
         skip_channels = list(self.skip_channels)
@@ -219,6 +234,25 @@ class UNet2DCondition(UNetEncoder):
                                        act="silu", fp32=not cfg.fast_norm)
         self.conv_out = nn.Conv2d(boc[0], cfg.out_channels, 3, padding=1)
 
+    def load_state_dict(self, state_dict, strict: bool = True, **kw):
+        fusers = [k for k in state_dict if ".fuser." in k]
+        if fusers and not self.gligen:
+            raise ValueError(
+                f"state dict holds GLIGEN fuser weights ({fusers[0]}, "
+                f"{len(fusers)} in all), but this UNet was built "
+                f"without fusers: build it with gligen=True")
+        quantized = [k for k in fusers if k.endswith(".scale")]
+        if quantized:
+            # ops.quant.quantize_state_dict matches the fusers' attention
+            # and FF by name, as the JAX package's quantize_params does;
+            # both packages build the fusers float, so neither runs such
+            # a tree
+            raise ValueError(
+                f"state dict quantizes GLIGEN fuser linears "
+                f"({quantized[0]}, {len(quantized)} in all), but the "
+                f"fusers are float in every UNet")
+        return super().load_state_dict(state_dict, strict=strict, **kw)
+
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 context: torch.Tensor, *, ip_scale=1.0,
                 capture_keys: Sequence[AttnKey] = (),
@@ -228,7 +262,8 @@ class UNet2DCondition(UNetEncoder):
                 mid_residual: Optional[torch.Tensor] = None,
                 level_residuals: Optional[Sequence[torch.Tensor]] = None,
                 deep_cache: Optional[torch.Tensor] = None,
-                return_deep_cache: bool = False, cache_level: int = 1):
+                return_deep_cache: bool = False, cache_level: int = 1,
+                objs: Optional[torch.Tensor] = None):
         """DeepCache (arXiv 2312.00858), as the JAX package's UNet:
 
         - ``return_deep_cache=True``: the full forward, returning ``(eps,
@@ -246,6 +281,9 @@ class UNet2DCondition(UNetEncoder):
           forward; from an earlier step's cache it is DeepCache's
           approximation."""
         cfg = self.cfg
+        if objs is not None and not self.gligen:
+            raise ValueError("objs given to a UNet built without GLIGEN "
+                             "fusers: build it with gligen=True")
         dtype = self.dtype
         # NCHW-contiguous from here on, whatever the caller's layout: a
         # permuted NHWC latent would carry channels-last strides through
@@ -269,7 +307,7 @@ class UNet2DCondition(UNetEncoder):
             raise ValueError(f"cache_level {cache_level} outside 1..{n}")
         resume = n - cache_level
         captured: Dict[AttnKey, torch.Tensor] = {}
-        attend = attender(context, ip_scale, capture_keys, captured)
+        attend = attender(context, ip_scale, capture_keys, captured, objs)
         cache = None
         if deep_cache is None:
             h, skips = self.encode(h, temb, attend,

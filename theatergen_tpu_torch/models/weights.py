@@ -39,8 +39,10 @@ with ``strict=True``.
 
 **The JAX package's trees → the port.**  ``from_flax(kind, params)``
 takes a flax tree (nested dicts of arrays) of the JAX package's UNet
-(SDXL's ``add_embedding`` and the IP UNet's ``attn2.to_k_ip``/``to_v_ip``
-included), ControlNet, VAE, text tower (either of SDXL's two,
+(SDXL's ``add_embedding``, the IP UNet's ``attn2.to_k_ip``/``to_v_ip`` and
+a GLIGEN tree's ``fuser`` subtrees with their scalar ``alpha_attn``/
+``alpha_dense`` included), GLIGEN's ``PositionNet`` (``position_net``),
+ControlNet, VAE, text tower (either of SDXL's two,
 ``text_projection`` included), CLIP vision tower, IP-Adapter projector
 (``image_proj``, ``mlp_proj``, ``resampler``), T2I-Adapter
 (``t2i_adapter``), segmenter (``sam_lite``, ``sam_hf``) or lineart
@@ -57,7 +59,8 @@ packages' naming rules:
   ``transformer_blocks.0``, ``to_out_0`` → ``to_out.0``, ``net_0`` →
   ``net.0``, ``layers_3`` (CLIP) → ``encoder.layers.3``,
   ``layers_0_attn`` (Resampler) → ``layers.0.attn``,
-  ``controlnet_down_blocks_3`` → ``controlnet_down_blocks.3``, ``blocks_5``
+  ``controlnet_down_blocks_3`` → ``controlnet_down_blocks.3``,
+  ``linears_2`` (``PositionNet``) → ``linears.2``, ``blocks_5``
   (the ControlNet's hint embedding) → ``blocks.5``, ``in_conv_2`` and
   ``body_2_1`` (the T2I-Adapter) → ``in_conv.2`` and ``body.2.1``; the
   UNet's and the ControlNet's ``encoder``/``mid`` wrapper scopes vanish,
@@ -96,7 +99,7 @@ from ..perception.sam_hf import SamHF, SamHFConfig, tiny_sam_hf_config
 
 KINDS = ("unet", "controlnet", "vae", "text", "vision", "image_proj",
          "mlp_proj", "resampler", "t2i_adapter", "sam_lite", "sam_hf",
-         "lineart", "gdino", "owl", "inception")
+         "lineart", "gdino", "owl", "inception", "position_net")
 
 _SCOPE_RULES = (
     (re.compile(r"(down_blocks|up_blocks)_(\d+)_"
@@ -112,6 +115,7 @@ _SCOPE_RULES = (
     (re.compile(r"(blocks|controlnet_down_blocks|in_conv)_(\d+)"),
      r"\1.\2"),
     (re.compile(r"body_(\d+)_(\d+)"), r"body.\1.\2"),
+    (re.compile(r"linears_(\d+)"), r"linears.\1"),
 )
 
 

@@ -271,7 +271,11 @@ def _units(module) -> List[Tuple[str, str, Dict[str, str]]]:
     """The tp units of ``module``: ``(unit name, reason or "", {linear name:
     "column" | "geglu" | "row"})`` for every attention, FF and time
     embedding whose weights the rules match; the reason says why a unit
-    cannot shard at ``tp`` (filled by :func:`plan`)."""
+    cannot shard at ``tp`` (filled by :func:`plan`).  A GLIGEN fuser's
+    attention (a self-attention over ``[x ‖ objs]``) and FF are units as
+    any other, since JAX's rules match their ``attn/to_q`` … and
+    ``ff/net_0``/``net_2`` paths; its ``linear`` matches no rule and stays
+    replicated, as in the JAX package."""
     out = []
     for name, m in module.named_modules():
         pre = f"{name}." if name else ""
