@@ -174,8 +174,10 @@ def test_batched_turn_with_the_detector_matches_jax(tmp_path, monkeypatch,
     assert noise[0].n == noise[1].n
     assert trec.batches == jrec.batches == 1
     assert trec.calls == jrec.calls
-    assert tt.timer.counts() == {k: len(v)
-                                 for k, v in jt.timer.samples.items()}
+    assert turn_tests._jax_counts(tt.timer) == {
+        k: len(v) for k, v in jt.timer.samples.items()}
+    assert turn_tests._port_counts(tt.timer) == turn_tests._port_want(
+        jt, tt, jobs=2, batches=1)
     np.testing.assert_allclose(trec.conf, jrec.conf, atol=1e-5)
     _margins_ok(trec)
     wave_tests._same_db(tt.db.root, jt.db.root)

@@ -220,6 +220,46 @@ def _np(x):
     return np.asarray(x.detach().float().cpu() if torch.is_tensor(x) else x)
 
 
+# the port's timer names beyond the JAX package's phases: phases, counts
+PORT_PHASES = ("char.loop", "char.decode", "final.loop", "db.save")
+PORT_COUNTS = ("char.jobs", "char.attempts", "loop.steps")
+
+
+def _jax_counts(timer):
+    """The calls of the timer's phases that the JAX Theater has too."""
+    return {k: len(v) for k, v in timer.samples.items()
+            if k not in PORT_PHASES + PORT_COUNTS}
+
+
+def _port_counts(timer):
+    """The port's own names: a phase's calls, a count's total."""
+    return {k: (sum(v) if k in PORT_COUNTS else len(v))
+            for k, v in timer.samples.items()
+            if k in PORT_PHASES + PORT_COUNTS}
+
+
+def _port_want(jt, tt, jobs=None, batches=0):
+    """What ``_port_counts`` of ``tt`` holds after the turns whose JAX
+    phases ``jt`` holds: serial turns (a job per ``character`` phase, an
+    attempt per character pass), or ``jobs`` character jobs whose attempt
+    0 ran in ``batches`` batched passes, the other passes the serial
+    reruns of those not found.  A pass and a final pass each enqueue
+    their sampler's steps; a DB miss's features (``char.embed_db``) are
+    written once."""
+    j = {k: len(v) for k, v in jt.timer.samples.items()}
+    passes, finals = j.get("char.denoise_decode", 0), j.get("final", 0)
+    if jobs is None:
+        jobs, attempts = j.get("character", 0), passes
+    else:
+        attempts = jobs + passes - batches
+    want = {"char.loop": passes, "char.decode": passes,
+            "final.loop": finals, "db.save": j.get("char.embed_db", 0),
+            "char.jobs": jobs, "char.attempts": attempts,
+            "loop.steps": passes * tt.char_sched.num_steps
+            + finals * tt.final_sched.num_steps}
+    return {k: v for k, v in want.items() if v}
+
+
 def _compare(jr, tr, rec, noise, jt, tt, want_chars):
     assert len(tr.so_images) == len(jr.so_images) == want_chars
     assert tr.detections == jr.detections
@@ -233,7 +273,9 @@ def _compare(jr, tr, rec, noise, jt, tt, want_chars):
         np.testing.assert_array_equal(_np(rt["mask_lat"]), _np(rj["mask_lat"]))
         np.testing.assert_array_equal(_np(rt["mask_pix"]), _np(rj["mask_pix"]))
         assert rt["token_pos"] == rj["token_pos"]
-    assert tt.timer.counts() == {k: len(v) for k, v in jt.timer.samples.items()}
+    assert _jax_counts(tt.timer) == {k: len(v)
+                                     for k, v in jt.timer.samples.items()}
+    assert _port_counts(tt.timer) == _port_want(jt, tt)
     assert noise[0].n == noise[1].n
     jdir, tdir = jt.db.root, tt.db.root
     ids = sorted(int(f[:-4]) for f in os.listdir(jdir) if f.endswith(".png"))

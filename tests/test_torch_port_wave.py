@@ -176,8 +176,14 @@ def test_batched_turn_matches_jax(tmp_path, monkeypatch):
         assert tt.timer.counts()["char.denoise_decode"] - before == 1
         _same_turn(tr, jr, IMG_TOL)
         assert noise[0].n == noise[1].n
-    assert tt.timer.counts() == {k: len(v)
-                                 for k, v in jt.timer.samples.items()}
+    assert turn_tests._jax_counts(tt.timer) == {
+        k: len(v) for k, v in jt.timer.samples.items()}
+    # two turns of two jobs, each one batched pass (no rerun) and one
+    # final pass; three DB misses
+    steps = 2 * (tt.char_sched.num_steps + tt.final_sched.num_steps)
+    assert turn_tests._port_counts(tt.timer) == {
+        "char.jobs": 4, "char.attempts": 4, "char.loop": 2,
+        "char.decode": 2, "final.loop": 2, "db.save": 3, "loop.steps": steps}
     _same_db(tt.db.root, jt.db.root)
 
 

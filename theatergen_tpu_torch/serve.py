@@ -22,6 +22,13 @@ busy.  This is that as a library (the standard library's threads and
   wave finished is reused, and an error of a rerun reaches that request's
   future.
 
+Each dispatch leaves spans in the sessions' Theater timers
+(``utils/profiling.PhaseTimer``): every turn's ``serve.queue`` (its wait
+from ``submit`` to its dispatch) in its own session's, and ``serve.wave``
+(the run, parent of the Theaters' phases) and ``serve.reply`` (the
+replies) in the first session's; all spans of one dispatch share its tag,
+and :meth:`TheaterServer.dispatch_spans` (``GET /spans``) gathers them.
+
 All device work runs on the worker thread, on its current stream (the
 kernel wrappers launch on ``torch.cuda.current_stream()``); the lazy
 kernel build (``_build.library``) holds a lock, so a first wave that
@@ -50,6 +57,7 @@ from typing import Dict, List, Optional
 from .db import CharacterDB
 from .parallel.worker import RankError
 from .theater import Theater, TurnResult, run_turn_wave
+from .utils.profiling import dispatch_tag
 
 
 class ServerBusy(RuntimeError):
@@ -86,6 +94,8 @@ class _Request:
     # turn number assigned by the worker atomically with completion, so
     # pipelined same-session requests can't both read the post-bump index
     turn_no: int = -1
+    # when _submit accepted it: its wait to dispatch is ``serve.queue``
+    submitted: float = field(default_factory=time.perf_counter)
 
 
 class Session:
@@ -153,6 +163,7 @@ class TheaterServer:
         self._pending = 0
         self.waves_run = 0            # observability (and test hooks)
         self.turns_done = 0
+        self._dispatches = 0          # the span records' dispatch tags
         self._stop = False
         self._worker = threading.Thread(target=self._run, daemon=True,
                                         name="theater-serve-worker")
@@ -346,6 +357,20 @@ class TheaterServer:
                     waves=self.waves_run, turns=self.turns_done,
                     wave_policy=self.wave_policy, gap_ema_s=self._gap_ema)
 
+    def dispatch_spans(self, tag: Optional[int] = None) -> dict:
+        """The span records of one dispatch, by default the newest (which
+        may still run): every open session's spans under its tag, in start
+        order, each with its session.  A span's parent may be another
+        session's span (``serve.wave`` parents the wave's phases)."""
+        with self._lock:
+            tag = self._dispatches if tag is None else int(tag)
+            live = [s for s in self.sessions.values() if s is not None]
+        spans = [dict(sp._asdict(), session=s.id) for s in live
+                 # a copy in one C call: the worker may append meanwhile
+                 for sp in s.theater.timer.spans.copy() if sp.tag == tag]
+        spans.sort(key=lambda sp: sp["start_ns"])
+        return {"tag": tag, "spans": spans}
+
     # ---- worker ---------------------------------------------------------
     def _wait_for_peers(self) -> bool:
         """Arrival-aware batching decision, taken once per dispatch with
@@ -421,53 +446,9 @@ class TheaterServer:
             try:
                 if not live:
                     continue
-                if len(live) == 1:
-                    results = [theaters[0].run_turn(specs[0], seeds[0])]
-                else:
-                    results = run_turn_wave(theaters, specs, seeds)
-                    self.waves_run += 1
-                for (r, s), res in zip(live, results):
-                    s.turn_index += 1
-                    r.turn_no = s.turn_index
-                    self.turns_done += 1
-                    self._persist_session(s)
-                    _set_result(r.future, res)
-            except RankError as rank_exc:
-                # the mesh lost a rank: no rerun can succeed
-                for r, _ in live:
-                    _set_exception(r.future, rank_exc)
-                with self._lock:
-                    self._stop = True
-                self.failure = rank_exc
-                self.failed.set()
-            except Exception as wave_exc:   # noqa: BLE001
-                if len(live) == 1:
-                    r, _ = live[0]
-                    _set_exception(r.future, wave_exc)
-                else:
-                    # per-request isolation: one bad spec must not fail its
-                    # wave-mates.  As the CLI's quarantine does, each turn
-                    # reruns serially with its own seed (run_turn_wave
-                    # rolled the batch's DB writes back), reusing the turns
-                    # WaveFailure carries (finished serially, their DB
-                    # writes durable).  A resolved future is skipped:
-                    # rerunning its turn would advance its session twice
-                    partial = getattr(wave_exc, "results", {})
-                    for w_idx, ((r, s), spec, seed) in enumerate(
-                            zip(live, specs, seeds)):
-                        if r.future.done():
-                            continue
-                        try:
-                            res = (partial[w_idx] if w_idx in partial
-                                   else s.theater.run_turn(spec, seed))
-                        except Exception as e:  # noqa: BLE001 — to caller
-                            _set_exception(r.future, e)
-                        else:
-                            s.turn_index += 1
-                            r.turn_no = s.turn_index
-                            self.turns_done += 1
-                            self._persist_session(s)
-                            _set_result(r.future, res)
+                self._dispatches += 1
+                with dispatch_tag(self._dispatches):
+                    self._dispatch(live, theaters, specs, seeds)
             finally:
                 with self._lock:
                     # every taken request was counted at submit time —
@@ -491,6 +472,69 @@ class TheaterServer:
                         else:
                             s.active = False
 
+    def _resolve(self, r: _Request, s: Session, res: TurnResult) -> None:
+        s.turn_index += 1
+        r.turn_no = s.turn_index
+        self.turns_done += 1
+        self._persist_session(s)
+        _set_result(r.future, res)
+
+    def _dispatch(self, live, theaters, specs, seeds) -> None:
+        """Run one wave (or lone turn) and resolve its futures.  Each
+        turn's wait since ``submit`` goes into its session's timer as
+        ``serve.queue``; into the first session's, the run as a
+        ``serve.wave`` phase and the replies (each session's state
+        written, each future resolved) as a ``serve.reply`` phase, which
+        on a failed wave holds the quarantine's serial reruns and
+        resolutions."""
+        now = time.perf_counter()
+        for r, s in live:
+            s.theater.timer.add("serve.queue", now - r.submitted)
+        timer = theaters[0].timer
+        try:
+            with timer.phase("serve.wave"):
+                if len(live) == 1:
+                    results = [theaters[0].run_turn(specs[0], seeds[0])]
+                else:
+                    results = run_turn_wave(theaters, specs, seeds)
+                    self.waves_run += 1
+            with timer.phase("serve.reply"):
+                for (r, s), res in zip(live, results):
+                    self._resolve(r, s, res)
+        except RankError as rank_exc:
+            # the mesh lost a rank: no rerun can succeed
+            for r, _ in live:
+                _set_exception(r.future, rank_exc)
+            with self._lock:
+                self._stop = True
+            self.failure = rank_exc
+            self.failed.set()
+        except Exception as wave_exc:   # noqa: BLE001
+            if len(live) == 1:
+                r, _ = live[0]
+                _set_exception(r.future, wave_exc)
+                return
+            # per-request isolation: one bad spec must not fail its
+            # wave-mates.  As the CLI's quarantine does, each turn reruns
+            # serially with its own seed (run_turn_wave rolled the batch's
+            # DB writes back), reusing the turns WaveFailure carries
+            # (finished serially, their DB writes durable).  A resolved
+            # future is skipped: rerunning its turn would advance its
+            # session twice
+            partial = getattr(wave_exc, "results", {})
+            with timer.phase("serve.reply"):
+                for w_idx, ((r, s), spec, seed) in enumerate(
+                        zip(live, specs, seeds)):
+                    if r.future.done():
+                        continue
+                    try:
+                        res = (partial[w_idx] if w_idx in partial
+                               else s.theater.run_turn(spec, seed))
+                    except Exception as e:  # noqa: BLE001 — to caller
+                        _set_exception(r.future, e)
+                    else:
+                        self._resolve(r, s, res)
+
 
 # ---- optional HTTP facade (stdlib only) --------------------------------
 
@@ -501,11 +545,14 @@ def make_http_handler(server: TheaterServer, out_dir: str):
     - ``POST /sessions/<id>/turns``   CMIGBench turn spec (+opt "seed")
       → {"image": "<out_dir>/<id>/turn_<n>.png", "detections": [...]}
     - ``GET  /healthz``               stats
+    - ``GET  /spans[?tag=<n>]``       a dispatch's span records (the
+      newest by default): where its time went, phase by phase
 
     Images are written to ``out_dir`` (returning file paths keeps the
     facade dependency-free; a fronting service can stream them).
     """
     import http.server
+    import urllib.parse
 
     from .cli.generate import save_image
 
@@ -522,8 +569,15 @@ def make_http_handler(server: TheaterServer, out_dir: str):
             pass
 
         def do_GET(self):
-            if self.path == "/healthz":
+            url = urllib.parse.urlsplit(self.path)
+            if url.path == "/healthz":
                 self._json(200, server.stats())
+            elif url.path == "/spans":
+                tag = urllib.parse.parse_qs(url.query).get("tag", [None])[0]
+                try:
+                    self._json(200, server.dispatch_spans(tag))
+                except ValueError as e:
+                    self._json(400, {"error": f"bad tag: {e}"})
             else:
                 self._json(404, {"error": "not found"})
 

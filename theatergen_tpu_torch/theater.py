@@ -74,6 +74,14 @@ failed wave rolls back the character-DB writes it made and raises
 :class:`WaveFailure`, carrying the turns that its serial fallback
 finished, so a caller reruns the others serially with the same seeds.
 
+The Theater's ``timer`` (``utils/profiling.PhaseTimer``) holds the JAX
+package's phases and the port's own: ``char.loop`` / ``final.loop`` (a
+runner's enqueue, inside the synced ``char.denoise_decode`` / ``final``),
+``char.decode``, ``db.save`` (a DB write, after its fetch), and the counts
+``char.jobs`` (a job per character, batched or serial), ``char.attempts``
+(every character pass a job gets, a failed batched attempt 0's serial
+rerun included) and ``loop.steps`` (the steps the runners enqueued).
+
 With ``mesh`` (``parallel/mesh.make_mesh``; JAX ``theater.py:128-141``)
 the Theater is rank 0's program over the mesh: it batches characters, and
 the character batches and a wave's final passes run through the dp
@@ -298,7 +306,7 @@ class Theater:
             capture_ref_attn=True,
             cfg_cutoff_fraction=pl.cfg_cutoff_fraction,
             deepcache_interval=pl.deepcache_interval)
-        self.final_run, _ = make_final_pipeline(
+        self.final_run, self.final_sched = make_final_pipeline(
             bundle, self.num_steps, use_ip=True,
             use_controlnet=self.use_controlnet, guided=guided,
             cfg_cutoff_fraction=pl.cfg_cutoff_fraction,
@@ -529,13 +537,17 @@ class Theater:
         result = image = agg = detection = None
         for attempt in range(MAX_REGEN_ATTEMPTS):
             init_lat = self._char_input_latents(gen, prep["centered"])
+            self.timer.count("char.attempts")
             with self.timer.phase("char.denoise_decode", sync=True):
-                result = self.char_run(
-                    init_lat, prep["ctx"], prep["ip_scale"],
-                    prep["word_token"], self._noise_gen(seed, 1, idx,
-                                                        attempt),
-                    extra_cond=prep["extra_cond"], gin=prep["gin"])
-                image = self._decode_img(result.latents)
+                with self.timer.phase("char.loop"):
+                    result = self.char_run(
+                        init_lat, prep["ctx"], prep["ip_scale"],
+                        prep["word_token"], self._noise_gen(seed, 1, idx,
+                                                            attempt),
+                        extra_cond=prep["extra_cond"], gin=prep["gin"])
+                self.timer.count("loop.steps", self.char_sched.num_steps)
+                with self.timer.phase("char.decode"):
+                    image = self._decode_img(result.latents)
                 agg = self._aggregate_attn(result.ref_attn)
             with self.timer.phase("char.detect"):
                 if self.bundle.detector is not None:
@@ -612,17 +624,23 @@ class Theater:
         if self.is_xl:
             extra = {k: torch.stack([p["extra_cond"][k] for p in preps])
                      for k in preps[0]["extra_cond"]}
+        for j in jobs:
+            j["th"].timer.count("char.jobs")
+            j["th"].timer.count("char.attempts")
         with self.timer.phase("char.denoise_decode", sync=True):
-            res = self._batched_char_runner()(
-                lats[:, None], torch.stack([p["ctx"] for p in preps]),
-                [p["ip_scale"] for p in preps], gins, gens, extra,
-                word_tokens=[p["word_token"] for p in preps])
+            with self.timer.phase("char.loop"):
+                res = self._batched_char_runner()(
+                    lats[:, None], torch.stack([p["ctx"] for p in preps]),
+                    [p["ip_scale"] for p in preps], gins, gens, extra,
+                    word_tokens=[p["word_token"] for p in preps])
+            self.timer.count("loop.steps", self.char_sched.num_steps)
             if len(padded) > n:
                 res = CharacterResult(
                     res.latents[:n], res.trajectory[:n],
                     None if res.ref_attn is None else
                     tuple(m[:n] for m in res.ref_attn))
-            images = self._decode_img(res.latents[:, 0])
+            with self.timer.phase("char.decode"):
+                images = self._decode_img(res.latents[:, 0])
             aggs = self._aggregate_attn(res.ref_attn)   # per key [B, ...]
         # one detection of the batch and one host read of its verdicts, but
         # for a detector without detect_batch, which sees one image at a
@@ -691,8 +709,10 @@ class Theater:
         while self._pending_saves:
             obj_id = next(iter(self._pending_saves))
             image, emb = self._pending_saves.pop(obj_id)
-            self.db.save(obj_id, image[0].float().cpu().numpy(),
-                         emb.float().cpu().numpy().reshape(-1))
+            image = image[0].float().cpu().numpy()
+            emb = emb.float().cpu().numpy().reshape(-1)
+            with self.timer.phase("db.save"):
+                self.db.save(obj_id, image, emb)
 
     def run_turn(self, spec: dict, seed: int,
                  frozen_step_ratio: Optional[float] = None,
@@ -709,7 +729,7 @@ class Theater:
                   frozen_step_ratio: Optional[float] = None,
                   overall_prompt_override: Optional[str] = None
                   ) -> TurnResult:
-        t_start = time.time()
+        t_start = time.perf_counter()
         b, cfg = self.bundle, self.cfg
         plan = parse.convert_spec(spec, cfg.pipeline.height,
                                   cfg.pipeline.width)
@@ -737,6 +757,7 @@ class Theater:
                 cache[(oplan.prompt, oplan.obj_id)] = out
         else:
             for oplan, idx in zip(unique_plans, unique_idx):
+                self.timer.count("char.jobs")
                 with self.timer.phase("character"):
                     cache[(oplan.prompt, oplan.obj_id)] = (
                         self._generate_character(oplan, extra_neg, seed,
@@ -756,26 +777,30 @@ class Theater:
                                 0.0, 0, self._noise_gen(seed, 3),
                                 extra_cond=extra_cond, gin=gin)
             img = self._decode_img(res.latents)[0].float().cpu().numpy()
-            return TurnResult(img, [], img, time.time() - t_start, [], [])
+            return TurnResult(img, [], img, time.perf_counter() - t_start,
+                              [], [])
 
         fargs, collage = self._final_stage(plan, chars, extra_neg, seed)
         with self.timer.phase("final", sync=True):
-            final, _ = self.final_run(
-                fargs["composed"], fargs["frozen_mask"], frozen_steps,
-                fargs["ctx"], fargs["cn_ctx"], fargs["cond_img"],
-                cfg.pipeline.ip_scale_final, self._noise_gen(seed, 2),
-                extra_cond=fargs["extra_cond"],
-                adapter_feats=fargs["adapter_feats"], gin=fargs["gin"])
+            with self.timer.phase("final.loop"):
+                final, _ = self.final_run(
+                    fargs["composed"], fargs["frozen_mask"], frozen_steps,
+                    fargs["ctx"], fargs["cn_ctx"], fargs["cond_img"],
+                    cfg.pipeline.ip_scale_final, self._noise_gen(seed, 2),
+                    extra_cond=fargs["extra_cond"],
+                    adapter_feats=fargs["adapter_feats"], gin=fargs["gin"])
+            self.timer.count("loop.steps", self.final_sched.num_steps)
             image = self._decode_img(final)
-            # the deferred DB writes: their feature programs precede the
-            # final pass in the device queue
+            # the deferred DB writes: each fetch to the host waits on the
+            # stream, behind the final pass and its decode, so each write
+            # runs with nothing queued on the device
             self._flush_db_saves()
 
         return TurnResult(
             image=image[0].float().cpu().numpy(),
             so_images=[c["image"][0].float().cpu().numpy() for c in chars],
             collage=collage.float().cpu().numpy(),
-            seconds=time.time() - t_start,
+            seconds=time.perf_counter() - t_start,
             detections=[bool(c["detected"]) for c in chars],
             db_hits=[bool(c["hit"]) for c in chars])
 
@@ -923,7 +948,7 @@ def run_turn_wave(theaters: List[Theater], specs: List[dict],
         # error in a later dialogue's prep must still come out as a
         # WaveFailure carrying the finished serial turns
         for d, (th, spec, seed) in enumerate(zip(theaters, specs, seeds)):
-            t0 = time.time()
+            t0 = time.perf_counter()
             plan = parse.convert_spec(spec, th.cfg.pipeline.height,
                                       th.cfg.pipeline.width)
             extra_neg = spec.get("extra_neg_prompt") or ""
@@ -1015,15 +1040,19 @@ def _run_wave_body(lead: Theater, states: List[dict], jobs: List[dict],
                 noise_generator(lead.bundle.device, st["seed"], 2)
                 for st in padded]
     with lead.timer.phase("final", sync=True):
-        finals = _wave_final_runner(lead)(
-            stack("composed"), stack("frozen_mask"),
-            [st["frozen"] for st in padded], stack("ctx"), stack("cn_ctx"),
-            stack("cond_img"), lead.cfg.pipeline.ip_scale_final,
-            stack_inputs([f["gin"] for f in fargs]) if lead.guided else None,
-            gens, extra, feats)[:d]
+        with lead.timer.phase("final.loop"):
+            finals = _wave_final_runner(lead)(
+                stack("composed"), stack("frozen_mask"),
+                [st["frozen"] for st in padded], stack("ctx"),
+                stack("cn_ctx"), stack("cond_img"),
+                lead.cfg.pipeline.ip_scale_final,
+                stack_inputs([f["gin"] for f in fargs]) if lead.guided
+                else None, gens, extra, feats)[:d]
+        lead.timer.count("loop.steps", lead.final_sched.num_steps)
         images = lead._decode_img(finals[:, 0])
-        # the deferred DB writes: their programs precede the final pass in
-        # the device queue
+        # the deferred DB writes: each fetch to the host waits on the
+        # stream, behind the final pass and its decode, so each write runs
+        # with nothing queued on the device
         for st in states:
             st["th"]._flush_db_saves()
         images = _to_host(images)
@@ -1034,6 +1063,6 @@ def _run_wave_body(lead: Theater, states: List[dict], jobs: List[dict],
             image=images[i],
             so_images=[c["image"][0].float().cpu().numpy() for c in chars],
             collage=st["collage"].float().cpu().numpy(),
-            seconds=time.time() - st["t0"],
+            seconds=time.perf_counter() - st["t0"],
             detections=[bool(c["detected"]) for c in chars],
             db_hits=[bool(c["hit"]) for c in chars])
