@@ -10,20 +10,27 @@ Phases, in order (any failure exits non-zero):
      one process per source, all at once; derive each evaluation kind's
      launches (CFG or cond-only, full or DeepCache-shallow; ControlNet)
      from the routing functions (``eval_launches``) and hold them to the
-     constants of the earlier paths;
+     constants of the earlier paths, the cross-attention kernel's too (a
+     character pass's IP UNet less the layers whose maps it captures, the
+     ControlNet's 7);
   3. hold each kernel against its plain PyTorch version (fp32 from the same
      bf16 inputs) at every shape its main paths give it (GroupNorm also with
      and without SiLU and with a large-mean input; flash on each of its
      four routes' counters, d = 160 and Sq != Sk included, and sequence
-     parallelism's query shards, concatenated, against the unsharded call),
+     parallelism's query shards, concatenated, against the unsharded call;
+     the cross-attention kernel, row 9, at SD1.5's, its IP UNet's, SDXL's,
+     the 768-px final pass's and the benchmark cells' character-batch
+     shapes, within CROSS_*_BOUND, with P as one bf16 term refused),
      batch-1 (cond-only) shapes included;
   4. time kernel, plain version and a library yardstick at those shapes,
-     printing each flash, FF, geglu_matmul, group_norm and quant_matmul
-     launch plan (cluster size, rows per CTA or cluster, keys per K/V tile,
-     splits, ring stages; group_norm's width, share and route), group_norm
-     also cold (its input read from device memory, not L2), and the host
-     µs per call of the flash, FF, geglu_matmul, quant_matmul and
-     group_norm wrappers at one or two path shapes each;
+     printing each flash, FF, geglu_matmul, group_norm, quant_matmul and
+     cross_attention launch plan (cluster size, rows per CTA or cluster,
+     keys per K/V tile, splits, ring stages, q tiles per CTA; group_norm's
+     width, share and route), group_norm also cold (its input read from
+     device memory, not L2), and the host µs per call of the flash, FF,
+     geglu_matmul, quant_matmul, group_norm and cross_attention wrappers
+     at one or two path shapes each (cross_attention beside its plain
+     chain);
   4b. each kernel's gradient (``grad_gate_phase``, latent guidance's
      batch-1 shapes): the wrapper under autograd launches its kernel once
      forward, within the bound of its plain version, and none backward,
@@ -227,6 +234,7 @@ import contextlib
 import copy
 import filecmp
 import gc
+import itertools
 import json
 import math
 import os
@@ -250,6 +258,7 @@ from theatergen_tpu_torch.models.layers import (GroupNorm, QuantLinear,
                                                  plain_path)
 from theatergen_tpu_torch.models import t2i_adapter
 from theatergen_tpu_torch.models.lora import apply_lora_unet
+from theatergen_tpu_torch.ops import attention as attn_ops
 from theatergen_tpu_torch.ops.attention import multi_head_attention
 from theatergen_tpu_torch.ops import flash_attention as fa
 from theatergen_tpu_torch.ops import geometry
@@ -548,10 +557,20 @@ GN_PER_EVAL = {SD15: 61, SDXL: 42, CHAR: 61, FINAL: 61 + 27,
 # paths (tests/test_torch_port_final.py::FINAL_SITES counts them on the
 # meta device): at 768 px level 1 (2304 tokens) takes no flash kernel and
 # the mid block's FF (288 rows) neither FF kernel, as in the JAX package
-PER_EVAL = {CHAR: dict(flash_attention=10, ff_geglu=16),
-            FINAL: dict(flash_attention=10 + 4, ff_geglu=16 + 7),
-            CHAR_768: dict(flash_attention_long=5, ff_geglu=15),
-            FINAL_768: dict(flash_attention_long=5 + 2, ff_geglu=15 + 6)}
+PER_EVAL = {CHAR: dict(flash_attention=10, ff_geglu=16, cross_attention=16),
+            FINAL: dict(flash_attention=10 + 4, ff_geglu=16 + 7,
+                        cross_attention=16 + 7),
+            CHAR_768: dict(flash_attention_long=5, ff_geglu=15,
+                           cross_attention=16),
+            FINAL_768: dict(flash_attention_long=5 + 2, ff_geglu=15 + 6,
+                            cross_attention=16 + 7)}
+# cross-attention kernel launches per full evaluation (row 9): every
+# transformer layer's cross-attention takes the kernel (SD1.5 and its IP
+# UNet 16 at 512 and 768 px, its ControlNet 7, SDXL and its IP UNet 70),
+# but for the layers whose probabilities a character pass or the guidance
+# energy captures (the config's guidance.attn_keys), which keep the plain
+# route; a DeepCache-shallow evaluation captures none
+CROSS_PER_EVAL = {SD15: 16, SDXL: 70, "controlnet": 7}
 # the large-mean GroupNorm input: mean 1024, std 1.5 before the rounding to
 # bf16 (whose step there is 4 to 8), so mean/std ~ 700 and E[x²] - mean²
 # in fp32 would lose the variance (tests/test_torch_port_cuda.py shows
@@ -618,7 +637,8 @@ PROMPTS = ["a red knight rides through a dark forest",
            "two cats asleep on a wooden table"]
 # latent guidance (--guidance): the kernels' gradient gates at the guided
 # UNets' batch-1 shapes, (kernel record, model, shape); flash (B, S, H, D),
-# ff_geglu (M, D, K), geglu_matmul (M, K, N), group_norm (B, C, HW, act)
+# ff_geglu (M, D, K), geglu_matmul (M, K, N), group_norm (B, C, HW, act),
+# cross_attention (B, Sq, H, D, IP keys; 77 text keys)
 GRAD_SHAPES = (
     [("flash_attention", SD15_B1, (1, 4096, 8, 40)),
      ("flash_attention", SD15_B1, (1, 1024, 8, 80)),
@@ -628,7 +648,10 @@ GRAD_SHAPES = (
      ("ff_geglu", SD15_B1, (1024, 640, 2560)),
      ("ff_geglu", SD15_B1, (256, 1280, 5120)),
      ("geglu_matmul", SDXL_B1, (4096, 2560, 640)),
-     ("geglu_matmul", SDXL_B1, (1024, 5120, 1280))]
+     ("geglu_matmul", SDXL_B1, (1024, 5120, 1280)),
+     ("cross_attention", SD15_B1, (1, 4096, 8, 40, 4)),
+     ("cross_attention", SD15_B1, (1, 1024, 8, 80, 4)),
+     ("cross_attention", SDXL_B1, (1, 1024, 20, 64, 4))]
     + [("group_norm", SD15_B1, (1, c, hw, "silu")) for (c, hw), _ in
        GN_SD15_SITES] + [("group_norm", SD15_B1, (1, 1280, 256, None))])
 # the energy's latent gradient through the full SD1.5 IP UNet (beside
@@ -649,6 +672,50 @@ ENERGY_FP32_RATIO, ENERGY_FP32_COS = 1.75, 0.985
 # Euler-Ancestral steps at 1024 px, every one guided: guidance_steps 25)
 GUIDED_TURN, XL_GUIDED, XL_GUIDED_STEPS = "sd15_512_turn_guided", \
     "sdxl_1024_ip_guided", 10
+# row 9, the cross-attention kernel: (model, (B, Sq, H, d, IP keys), calls
+# per UNet evaluation of that model), 77 text keys.  SD1.5's 16 cross-
+# attentions (5 at each of 64², 32², 16², one at 8²; d 40, 80, 160, 160);
+# its character pass's IP UNet, which captures 4 (the mid block's and 3 at
+# 16²); SDXL's 70 (10 at 64², 60 at 32²); the 768-px final pass, its IP
+# UNet's 16 (5 at each of 96², 48², 24², one at 12²) and its ControlNet's 7
+# (2, 2, 2, 1), where 576 and 144 queries leave a partial q tile; and the
+# cells' character batches: the serve8 wave's 12 characters under CFG
+# (batch 24) and the SDXL wave's 6 (batch 12, 4 captured: 3 at 64², the mid
+# block's at 32²)
+SERVE8_B24, SERVE4_B12 = "sd15_story_char_b24", "sdxl_story_char_b12"
+CROSS_SHAPES = [
+    (SD15, (2, 4096, 8, 40, 0), 5), (SD15, (2, 1024, 8, 80, 0), 5),
+    (SD15, (2, 256, 8, 160, 0), 5), (SD15, (2, 64, 8, 160, 0), 1),
+    (CHAR, (2, 4096, 8, 40, 4), 5), (CHAR, (2, 1024, 8, 80, 4), 5),
+    (CHAR, (2, 256, 8, 160, 4), 2),
+    (SDXL, (2, 4096, 10, 64, 0), 10), (SDXL, (2, 1024, 20, 64, 0), 60),
+    (FINAL_768, (2, 9216, 8, 40, 4), 5), (FINAL_768, (2, 2304, 8, 80, 4), 5),
+    (FINAL_768, (2, 576, 8, 160, 4), 5), (FINAL_768, (2, 144, 8, 160, 4), 1),
+    (FINAL_768, (2, 9216, 8, 40, 0), 2), (FINAL_768, (2, 2304, 8, 80, 0), 2),
+    (FINAL_768, (2, 576, 8, 160, 0), 2), (FINAL_768, (2, 144, 8, 160, 0), 1),
+    (SERVE8_B24, (24, 4096, 8, 40, 4), 5),
+    (SERVE8_B24, (24, 1024, 8, 80, 4), 5),
+    (SERVE8_B24, (24, 256, 8, 160, 4), 2),
+    (SERVE4_B12, (12, 4096, 10, 64, 4), 7),
+    (SERVE4_B12, (12, 1024, 20, 64, 4), 59)]
+# the SD1.5 IP UNet's cross-attention sites (Sq, d) at 512 px, each with the
+# IP keys and (the ControlNet's) without, at the waves' other batches
+CROSS_SD15_SITES = ((4096, 40), (1024, 80), (256, 160), (64, 160))
+# its gate against the plain chain (both bf16 out, from the same bf16 inputs;
+# cross_gate): the two differ by summation order only, so an element differs
+# only where an fp32 sum falls across a bf16 rounding step, by one step of
+# each of its up to three rounded terms, and seldom: the largest difference
+# within 2^-6·max|ref|, the mean within 2^-14·mean|ref|, and at least 99 % of
+# the elements bit-equal. A padded key left in the softmax moves every element
+# by a fraction of a percent and fails the mean; P rounded to one bf16 term
+# (the kernel's lo term dropped; cross_plain_p_bf16, checked at every shape)
+# fails the mean and the bit-equal share. Readings on an H100 80GB HBM3 at 700
+# W (this script's row-9 shapes and wave batches): the kernel's mean 1.9e-6 to
+# 3.1e-6·mean|ref|, 99.76 to 99.86 % bit-equal; the bf16-P fault's 1.6e-3 to
+# 1.9e-3 (which a bound of 2^-10 would pass), 59 to 62 %. The card tests
+# (tests/test_torch_port_cuda.py) hold the kernel to this gate too.
+CROSS_MAX_BOUND, CROSS_MEAN_BOUND = 2.0 ** -6, 2.0 ** -14
+CROSS_SAME_BOUND = 0.99
 # kernel -> (module, its launch counter)
 COUNTERS = {"flash_attention": (fa, "launches"),
             "flash_attention_long": (fa, "launches_long"),
@@ -657,7 +724,8 @@ COUNTERS = {"flash_attention": (fa, "launches"),
             "ff_geglu": (gg, "ff_launches"),
             "geglu_matmul": (gg, "geglu_launches"),
             "group_norm": (gn, "launches"),
-            "quant_matmul": (qm, "launches")}
+            "quant_matmul": (qm, "launches"),
+            "cross_attention": (attn_ops, "launches_cross")}
 
 
 def log(*a):
@@ -894,8 +962,10 @@ def host_us_phase(gen) -> dict:
     shape each (level 0: B2 S4096 H8 d40, M8192 D320 K1280),
     geglu_matmul at SDXL's M2048 K5120 N1280, quant_matmul at the W8A8
     UNet's most frequent shape (M8192 K320 N320) and an M = 2 one (M2
-    K1280 N1280, split K), and group_norm at SD1.5's 8²×1280 (the plan
-    memoised): 200 calls enqueued back to back, timed on the
+    K1280 N1280, split K), group_norm at SD1.5's 8²×1280 (the plan
+    memoised), and the cross-attention kernel at the IP UNet's level 0
+    (77 + 4 keys, a 0-dim scale) beside the plain chain it replaced:
+    200 calls enqueued back to back, timed on the
     host clock before the synchronise (the device runs behind, so this is
     the wrapper's own cost: checks, the planner, tensor maps, workspace
     and the ctypes launch)."""
@@ -912,6 +982,9 @@ def host_us_phase(gen) -> dict:
                              randn(gen, n, scale=0.1))
     xg = randn(gen, 2, 1280, 8, 8)
     wg1, bg1 = randn(gen, 1280, scale=0.2) + 1, randn(gen, 1280, scale=0.1)
+    ck, cv = (randn(gen, 2, 77, 8, 40) for _ in range(2))
+    cki, cvi = (randn(gen, 2, 4, 8, 40) for _ in range(2))
+    cs = torch.tensor(0.4, device="cuda")
     out = {}
     for name, fn in (("flash_attention B2 S4096 H8 d40",
                       lambda: fa.flash_attention(q, k, v, route="packed")),
@@ -925,7 +998,13 @@ def host_us_phase(gen) -> dict:
                       lambda: qm.quant_matmul(*qargs[(2, 1280, 1280)])),
                      ("group_norm B2 C1280 HW64",
                       lambda: gn.fused_group_norm(xg, wg1, bg1,
-                                                  act="silu"))):
+                                                  act="silu")),
+                     ("cross_attention B2 S4096 H8 d40 IP 4",
+                      lambda: attn_ops.cross_attention(q, ck, cv, cki, cvi,
+                                                       cs)),
+                     ("cross_attention's plain chain B2 S4096 H8 d40 IP 4",
+                      lambda: attn_ops.cross_attention_plain(
+                          q, ck, cv, cki, cvi, cs))):
         fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1028,6 +1107,108 @@ def gn_phase(gen) -> dict:
     return rec
 
 
+def cross_inputs(gen, b: int, sq: int, h: int, d: int, si: int) -> tuple:
+    """q, k, v (77 text keys), k_ip, v_ip and a [B] IP scale of 0.4 and 0
+    in turns (the last three None without IP keys)."""
+    q = randn(gen, b, sq, h, d)
+    k, v = (randn(gen, b, 77, h, d) for _ in range(2))
+    if not si:
+        return q, k, v, None, None, None
+    k_ip, v_ip = (randn(gen, b, si, h, d) for _ in range(2))
+    return q, k, v, k_ip, v_ip, torch.tensor([0.4, 0.0] * (b // 2),
+                                             device="cuda")
+
+
+def cross_plain_p_bf16(q, k, v, k_ip, v_ip, scale):
+    """The plain chain with P rounded to one bf16 term before P·V: the
+    kernel with the lo term of its hi + lo split dropped (a planted fault
+    that CROSS_*_BOUND must refuse)."""
+    def branch(k, v):
+        p = attn_ops.attention_probs(q, k).bfloat16().float()
+        return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+    out = branch(k, v)
+    if k_ip is None:
+        return out
+    return out + scale.view(-1, 1, 1, 1).to(out.dtype) * branch(k_ip, v_ip)
+
+
+def cross_gate(out, ref) -> dict:
+    """|out - ref| (max, mean), the bit-equal share and their bounds."""
+    ref = ref.float()
+    diff = (out.float() - ref).abs()
+    g = dict(err=diff.max().item(), mean=diff.mean().item(),
+             same=(diff == 0).float().mean().item(),
+             max_bound=CROSS_MAX_BOUND * ref.abs().max().item(),
+             mean_bound=CROSS_MEAN_BOUND * ref.abs().mean().item())
+    g["ok"] = (g["err"] <= g["max_bound"] and g["mean"] <= g["mean_bound"]
+               and g["same"] >= CROSS_SAME_BOUND)
+    return g
+
+
+def cross_check(args, what: str) -> dict:
+    """One launch of the kernel on ``args`` within CROSS_*_BOUND of the
+    plain chain, and the planted bf16-P fault outside them."""
+    out = attn_ops.cross_attention(*args)
+    torch.cuda.synchronize()
+    ref = attn_ops.cross_attention_plain(*args)
+    g = cross_gate(out, ref)
+    fault = cross_gate(cross_plain_p_bf16(*args), ref)
+    log(f"  {what}: max_abs_err {g['err']:.3e} (bound {g['max_bound']:.3e}), "
+        f"mean {g['mean']:.3e} (bound {g['mean_bound']:.3e}), bit-equal "
+        f"share {g['same']:.4f} (bound {CROSS_SAME_BOUND}); P as one bf16 "
+        f"term: mean {fault['mean']:.3e}, bit-equal {fault['same']:.4f}  "
+        f"{'ok' if g['ok'] and not fault['ok'] else 'FAIL'}")
+    if not g["ok"]:
+        raise SystemExit(f"{what}: kernel disagrees with its plain version")
+    if fault["ok"]:
+        raise SystemExit(f"{what}: the bounds pass P as one bf16 term")
+    g["fault_mean"], g["fault_same"] = fault["mean"], fault["same"]
+    return g
+
+
+def cross_phase(gen) -> list:
+    """Row 9 at CROSS_SHAPES: one launch per shape checked against the
+    plain chain (``cross_attention_plain``) within CROSS_*_BOUND, with a
+    [B] IP scale of 0.4 and 0 in turns, and the planted bf16-P fault
+    refused; then timed beside the plain chain and, as a yardstick, SDPA
+    on each branch (BHSD copies made beforehand) plus the scaled sum."""
+    rows = []
+    for model, (b, sq, h, d, si), calls in CROSS_SHAPES:
+        args = cross_inputs(gen, b, sq, h, d, si)
+        q, k, v, k_ip, v_ip, scale = args
+        plan = attn_ops.cross_plan(b, sq, h, d)
+        g = cross_check(args, f"cross {model} B={b} Sq={sq} H={h} d={d} "
+                              f"IP keys {si}, plan {json.dumps(plan)}")
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        if si:
+            kit, vit = (x.transpose(1, 2).contiguous() for x in (k_ip, v_ip))
+            s4 = scale.view(-1, 1, 1, 1).to(q.dtype)
+
+            def library():
+                return (F.scaled_dot_product_attention(qt, kt, vt)
+                        + s4 * F.scaled_dot_product_attention(qt, kit, vit))
+        else:
+            def library():
+                return F.scaled_dot_product_attention(qt, kt, vt)
+        rows.append(_row(
+            model, (b, sq, h, d, si), calls, g["err"],
+            attn_ops.cross_flops(b, sq, h, d, 77, si),
+            attn_ops.cross_min_bytes(b, sq, h, d, 77, si),
+            lambda: attn_ops.cross_attention(*args),
+            lambda: attn_ops.cross_attention_plain(*args), library, 3))
+        rows[-1].update(plan=plan, mean_abs_err=g["mean"],
+                        bit_equal_share=g["same"],
+                        bf16_p_mean_abs_err=g["fault_mean"],
+                        bf16_p_bit_equal_share=g["fault_same"])
+        log(f"    kernel at {100 * rows[-1]['bound_ms'] / rows[-1]['ms']:.1f} "
+            f"% of its bound; plain chain {rows[-1]['plain_ms'] / rows[-1]['ms']:.1f}x "
+            f"the kernel")
+        del q, k, v, k_ip, v_ip, qt, kt, vt, args
+        torch.cuda.empty_cache()
+    return rows
+
+
 def qmm_phase(gen) -> dict:
     """quant_matmul at every shape of the W8A8 UNet and a ragged one,
     with a bias (every call of the path but to_q/to_k/to_v has one; the
@@ -1127,7 +1308,9 @@ def _record(name, source, replaces, tpu_function, rows) -> dict:
             "are mesh_path's tp ranks'; sd15_512_gligen: the GLIGEN "
             "fusers' FF of one SD1.5 evaluation, whose launches are "
             "gligen_path's DDIM loop; sdxl_1024_w8a8: the W8A8 SDXL UNet, "
-            "whose launches are w8a8_xl_path's request",
+            "whose launches are w8a8_xl_path's request; sd15_story_char_b24 "
+            "and sdxl_story_char_b12: the benchmark cells' character "
+            "batches (row 9), whose launches the cells count",
         per_model=per_model, shapes=rows)
 
 
@@ -1143,7 +1326,7 @@ FLASH_COUNTERS = {attr: name for name, (mod, attr) in COUNTERS.items()
 
 def eval_launches(ucfg, side: int, batch: int, shallow: bool = False,
                   encoder_only: bool = False, cache_level: int = 1,
-                  tp: int = 1, gligen: bool = False):
+                  tp: int = 1, gligen: bool = False, captured: int = 0):
     """Kernel launches of one evaluation of a UNet (``encoder_only``: a
     ControlNet, its encoder and mid block) of config ``ucfg`` on a
     ``side``² latent at ``batch`` rows, derived from the layers' routing
@@ -1164,7 +1347,12 @@ def eval_launches(ucfg, side: int, batch: int, shallow: bool = False,
     ``gligen``: a UNet with GLIGEN fusers, called with ``objs``: each
     transformer layer's fuser adds its FF's ``geglu_matmul`` where
     ``gg.supported`` takes the shape (a float FF without ``fused_ff``, in
-    a quantized UNet too) and no flash (its attention is the plain one)."""
+    a quantized UNet too) and no flash (its attention is the plain one).
+    Every transformer layer's cross-attention launches the cross-attention
+    kernel where ``ops.attention`` has an instance for its head dim and
+    holds its IP tokens (a bf16 UNet), but for ``captured`` of them: the
+    layers whose probabilities the evaluation returns (a character pass's
+    ``capture_keys``), which keep the plain route."""
     got = collections.Counter()
     boc, n, lpb = ucfg.block_out_channels, len(ucfg.block_out_channels), \
         ucfg.layers_per_block
@@ -1196,6 +1384,10 @@ def eval_launches(ucfg, side: int, batch: int, shallow: bool = False,
                 if ucfg.flash_attention else None
             if route is not None:
                 got[FLASH_COUNTERS[fa.COUNTERS[route]]] += 1
+            if (ucfg.dtype == "bfloat16"
+                    and head_dim in attn_ops.CROSS_HEAD_DIMS
+                    and ucfg.ip_num_tokens <= attn_ops.CROSS_MAX_IP_KEYS):
+                got["cross_attention"] += 1
             m, k = batch * hw, 4 * ch // tp
             if gligen and gg.supported(m, k, ch):
                 got["geglu_matmul"] += 1
@@ -1226,6 +1418,8 @@ def eval_launches(ucfg, side: int, batch: int, shallow: bool = False,
         resnet(boc[-1], boc[-1], n - 1)
     if encoder_only:
         return got
+    if captured:
+        got["cross_attention"] -= captured
     h_ch = boc[min(cache_level, n - 1)] if shallow else boc[-1]
     for idx in range(n - levels if shallow else 0, n):
         i = n - 1 - idx
@@ -1256,10 +1450,12 @@ def step_plan(steps: int, sampler: str = "ddim", cutoff=None,
     return [(i < cut, i % dc == 0, i % cn == 0) for i in range(steps)]
 
 
-def request_want(ucfg, side: int, plan, cn_cfg=None) -> dict:
+def request_want(ucfg, side: int, plan, cn_cfg=None,
+                 captured: int = 0) -> dict:
     """Launches of one request: its UNet evaluations by kind (CFG or
     cond-only, full or shallow) and, with ``cn_cfg``, the ControlNet
-    forwards of its plan, each kind's launches from eval_launches."""
+    forwards of its plan, each kind's launches from eval_launches; each
+    full UNet evaluation captures ``captured`` layers' probabilities."""
     kinds = collections.Counter()
     for cfg_on, full, cn in plan:
         b = 2 if cfg_on else 1
@@ -1269,7 +1465,9 @@ def request_want(ucfg, side: int, plan, cn_cfg=None) -> dict:
     total = collections.Counter()
     for (what, b, shallow), k in kinds.items():
         per = eval_launches(cn_cfg if what == "controlnet" else ucfg, side, b,
-                            shallow, encoder_only=what == "controlnet")
+                            shallow, encoder_only=what == "controlnet",
+                            captured=0 if shallow or what == "controlnet"
+                            else captured)
         for name, v in per.items():
             total[name] += k * v
     return counts(**total)
@@ -1285,9 +1483,11 @@ def derivation_check() -> None:
     try:
         want = {
             SD15: (eval_launches(sd.unet, 64, 2),
-                   dict(flash_attention=10, ff_geglu=16, group_norm=61)),
+                   dict(flash_attention=10, ff_geglu=16, group_norm=61,
+                        cross_attention=CROSS_PER_EVAL[SD15])),
             SDXL: (eval_launches(xl.unet, 128, 2),
-                   dict(flash_attention=70, geglu_matmul=70, group_norm=42))}
+                   dict(flash_attention=70, geglu_matmul=70, group_norm=42,
+                        cross_attention=CROSS_PER_EVAL[SDXL]))}
         for model, px in ((CHAR, 64), (CHAR_768, 96)):
             want[model] = (eval_launches(sd.unet, px, 2),
                            dict(PER_EVAL[model], group_norm=GN_PER_EVAL[model]))
@@ -1304,7 +1504,8 @@ def derivation_check() -> None:
         prev_q, qz.FUSED_MODE = qz.FUSED_MODE, "1"
         try:
             q = dataclasses.replace(sd.unet, quantized=True)
-            w8 = dict(flash_attention=10, group_norm=61)
+            w8 = dict(flash_attention=10, group_norm=61,
+                      cross_attention=CROSS_PER_EVAL[SD15])
             want[W8A8] = (eval_launches(q, 64, 2),
                           dict(w8, quant_matmul=QMM_PER_EVAL))
             want[CHAR_W8A8] = (eval_launches(path_cfg(CHAR_W8A8)[0], 64, 2),
@@ -1315,7 +1516,8 @@ def derivation_check() -> None:
                 eval_launches(dataclasses.replace(xl.unet, quantized=True),
                               128, 2),
                 dict(flash_attention=70, group_norm=42,
-                     quant_matmul=QMM_XL_PER_EVAL))
+                     quant_matmul=QMM_XL_PER_EVAL,
+                     cross_attention=CROSS_PER_EVAL[SDXL]))
         finally:
             qz.FUSED_MODE = prev_q
         # GLIGEN with objs: SD1.5's sites and one geglu_matmul per fuser
@@ -1325,6 +1527,24 @@ def derivation_check() -> None:
             **ref)]
         for model, (got, _) in want.items():
             log(f"  derived launches per {model} evaluation: {dict(got)}")
+        # row 9 where an evaluation captures maps: a character pass's IP
+        # UNet less its captured layers, and the ControlNet
+        cross = {
+            CHAR: (eval_launches(path_cfg(CHAR)[0], 64, 2,
+                                 captured=captured_layers(CHAR)),
+                   CROSS_PER_EVAL[SD15] - len(sd.guidance.attn_keys)),
+            XL_CHAR: (eval_launches(path_cfg(XL_CHAR)[0], 128, 2,
+                                    captured=captured_layers(XL_CHAR)),
+                      CROSS_PER_EVAL[SDXL] - len(xl.guidance.attn_keys)),
+            "controlnet": (eval_launches(sd.controlnet.unet, 64, 2,
+                                         encoder_only=True),
+                           CROSS_PER_EVAL["controlnet"])}
+        for what, (got, n) in cross.items():
+            log(f"  cross_attention launches per {what} evaluation"
+                f"{' capturing its maps' if what != 'controlnet' else ''}: "
+                f"{got['cross_attention']} (want {n})")
+            if got["cross_attention"] != n:
+                bad.append(f"{what} (cross_attention)")
         for name, ucfg, px in (("SD1.5 512 px", sd.unet, 64),
                                ("ControlNet 512 px", sd.controlnet.unet, 64),
                                ("SDXL 1024 px", xl.unet, 128)):
@@ -1430,7 +1650,8 @@ def sd15_path(records, profiling: bool) -> dict:
     pipe = sd.Text2Img(bundle, num_steps=SD15_STEPS)
     want = counts(flash_attention=10 * SD15_STEPS,
                   ff_geglu=16 * SD15_STEPS,
-                  group_norm=gn_want(SD15, SD15_STEPS))
+                  group_norm=gn_want(SD15, SD15_STEPS),
+                  cross_attention=CROSS_PER_EVAL[SD15] * SD15_STEPS)
     seconds = run_requests(SD15, pipe, PROMPTS, want, 512, records)
     peak = torch.cuda.max_memory_allocated()
     log(f"  seconds per request {seconds}; peak memory "
@@ -1585,7 +1806,8 @@ def w8a8_path(records, profiling: bool, float_eps, sd15: dict) -> dict:
         want = counts(flash_attention=10 * SD15_STEPS,
                       group_norm=gn_want(SD15, SD15_STEPS),
                       quant_matmul=QMM_PER_EVAL * SD15_STEPS if mode == "1"
-                      else 0)
+                      else 0,
+                      cross_attention=CROSS_PER_EVAL[SD15] * SD15_STEPS)
         seconds[mode] = run_requests(W8A8, pipe, prompts, want, 512,
                                      records)
     qz.FUSED_MODE = "1"
@@ -1596,7 +1818,8 @@ def w8a8_path(records, profiling: bool, float_eps, sd15: dict) -> dict:
             switch_rel[env] = unet_reference_phase(bundle, 5e-2)[0]
             want = counts(**{counter: 10 * SD15_STEPS},
                           group_norm=gn_want(SD15, SD15_STEPS),
-                          quant_matmul=QMM_PER_EVAL * SD15_STEPS)
+                          quant_matmul=QMM_PER_EVAL * SD15_STEPS,
+                          cross_attention=CROSS_PER_EVAL[SD15] * SD15_STEPS)
             seconds[env] = run_requests(W8A8, pipe, PROMPTS[:1], want, 512,
                                         records)
     peak = torch.cuda.max_memory_allocated()
@@ -1625,7 +1848,8 @@ def sdxl_path(records, profiling: bool) -> dict:
     def want():
         return counts(flash_attention=70 * SDXL_STEPS,
                       geglu_matmul=70 * SDXL_STEPS,
-                      group_norm=gn_want(SDXL, SDXL_STEPS))
+                      group_norm=gn_want(SDXL, SDXL_STEPS),
+                      cross_attention=CROSS_PER_EVAL[SDXL] * SDXL_STEPS)
 
     seconds = run_requests(SDXL, pipe, PROMPTS[:2], want(), 1024, records)
     peak = torch.cuda.max_memory_allocated()
@@ -1891,14 +2115,30 @@ def path_cfg(model: str):
     return ucfg, side, cn
 
 
-def path_want(model: str, steps: int = SD15_STEPS, **knobs) -> dict:
+def captured_layers(model: str) -> int:
+    """The layers whose probabilities each full evaluation of a path
+    captures: a character pass's reference maps (its config's
+    ``guidance.attn_keys``; the guidance energy reads the same), none in a
+    final pass."""
+    if model not in (CHAR, CHAR_768, CHAR_W8A8, XL_CHAR):
+        return 0
+    cfg = sdxl_config() if model == XL_CHAR else sd15_config()
+    return len(cfg.guidance.attn_keys)
+
+
+def path_want(model: str, steps: int = SD15_STEPS, captured=None,
+              **knobs) -> dict:
     """Launches of one request of a character or final path (the final
     pass's ControlNet forwards included) under the step plan of
-    ``knobs`` (step_plan), from request_want."""
+    ``knobs`` (step_plan), from request_want; a character request
+    captures its maps (``captured_layers``) unless ``captured`` says how
+    many layers it captures."""
     ucfg, side, cn = path_cfg(model)
     if cn is None:
         knobs.pop("cn_interval", None)
-    return request_want(ucfg, side, step_plan(steps, **knobs), cn)
+    if captured is None:
+        captured = captured_layers(model)
+    return request_want(ucfg, side, step_plan(steps, **knobs), cn, captured)
 
 
 def character_request(bundle, run, image, i: int, scale: float,
@@ -2109,7 +2349,8 @@ def xl_path(records) -> dict:
     pipe = sdxl.Text2ImgXL(bundle, num_steps=SDXL_STEPS)
     want = counts(flash_attention=70 * SDXL_STEPS,
                   geglu_matmul=70 * SDXL_STEPS,
-                  group_norm=gn_want(SDXL, SDXL_STEPS))
+                  group_norm=gn_want(SDXL, SDXL_STEPS),
+                  cross_attention=CROSS_PER_EVAL[SDXL] * SDXL_STEPS)
     # the hinted request, and the same request without the hint, in turns
     seconds = collections.defaultdict(list)
     for i, hinted in enumerate((True, False, False, True)):
@@ -2405,7 +2646,9 @@ def back_half(bundle, records, char_model: str, model: str,
             flash = PER_EVAL[model]["flash_attention_long"]
             want = counts(**{counter: flash * SD15_STEPS},
                           ff_geglu=PER_EVAL[model]["ff_geglu"] * SD15_STEPS,
-                          group_norm=gn_want(model, SD15_STEPS))
+                          group_norm=gn_want(model, SD15_STEPS),
+                          cross_attention=PER_EVAL[model]["cross_attention"]
+                          * SD15_STEPS)
             switched[env] = dict(kernels_vs_plain_rel=rels_sw,
                                  final_request=final_request(
                                      bundle, run, composed, frozen_mask,
@@ -2522,7 +2765,8 @@ def packed_route_phase(bundle) -> dict:
     x, t, ctx, cond = final_inputs(bundle, px + 2)
     want = counts(flash_attention=PER_EVAL[FINAL]["flash_attention"],
                   ff_geglu=PER_EVAL[FINAL]["ff_geglu"],
-                  group_norm=gn_want(FINAL, 1))
+                  group_norm=gn_want(FINAL, 1),
+                  cross_attention=PER_EVAL[FINAL]["cross_attention"])
     with flash_switches(BSHD_NATIVE=True), torch.no_grad():
         reset_counts()
         down, mid = bundle.controlnet(x, t, ctx[:, :text_len], cond)
@@ -3810,7 +4054,7 @@ def _golden_phase(root: str, records) -> dict:
                 want = request_want(cfg.unet, side, step_plan(steps))
             else:
                 want = path_want(CHAR if kind == "character_ip" else FINAL,
-                                 steps)
+                                 steps, captured=0)
             reset_counts()
             t = time.perf_counter()
             r = GD.run_case(bundle, case)
@@ -3999,6 +4243,12 @@ def _grad_inputs(gen, name: str, shape) -> tuple:
         m, k, n = shape
         ins = [randn(gen, m, 2 * k), randn(gen, n, k, scale=k ** -0.5)]
         return gg.geglu_matmul, gg.geglu_matmul_plain, ins, [True, False]
+    if name == "cross_attention":
+        b, sq, h, d, si = shape
+        ins = [randn(gen, b, n, h, d) for n in (sq, 77, 77, si, si)]
+        return (lambda *a: attn_ops.cross_attention(*a, ip_scale=0.4),
+                lambda *a: attn_ops.cross_attention_plain(*a, ip_scale=0.4),
+                ins, [True] + [False] * 4)
     b, c, hw, act = shape
     side = int(hw ** 0.5)
     ins = [randn(gen, b, c, side, side),
@@ -4107,9 +4357,11 @@ def passes_of(calls) -> list:
 
 def guided_iter_want(model: str) -> dict:
     """Launches of one guidance iteration of a character or final path:
-    one full cond-only evaluation of its IP UNet (no ControlNet)."""
+    one full cond-only evaluation of its IP UNet (no ControlNet), whose
+    energy reads the maps of the character pass's captured layers."""
     ucfg, side, _ = path_cfg(model)
-    return counts(**eval_launches(ucfg, side, 1))
+    return counts(**eval_launches(ucfg, side, 1,
+                                  captured=captured_layers(model)))
 
 
 def guided_inputs(n_obj: int, cfg, device="cuda", refs=None):
@@ -4371,9 +4623,9 @@ def batch_shapes_phase(gen) -> dict:
     """The kernels at the other batches of the dialogue waves
     (WAVE_BATCHES: batch 4 for two characters or two final passes, 8 for
     four characters), at every site of the SD1.5 IP UNet (the ControlNet's
-    sites are among them) that routes to a kernel, each against its plain
-    version within the bound of the timed shapes (batch 6 is timed with
-    the others).  Returns the count of shapes checked per kernel."""
+    sites are among them; its cross-attention takes no IP keys) that
+    routes to a kernel, each against its plain version within the bound of
+    the timed shapes (batch 6 is timed with the others).  Returns the count of shapes checked per kernel."""
     ucfg = path_cfg(CHAR)[0]
     checked = collections.Counter()
     for b in WAVE_BATCHES:
@@ -4413,6 +4665,10 @@ def batch_shapes_phase(gen) -> dict:
             check((out.float() - ref).abs().max().item(),
                   ref.abs().max().item(), f"group_norm B={b} C={c} HW={hw}")
             checked["group_norm"] += 1
+        for (sq, d), si in itertools.product(CROSS_SD15_SITES, (4, 0)):
+            cross_check(cross_inputs(gen, b, sq, 8, d, si),
+                        f"cross B={b} Sq={sq} d={d} IP keys {si}")
+            checked["cross_attention"] += 1
         torch.cuda.empty_cache()
     log(f"  shapes checked at batches {WAVE_BATCHES}: {dict(checked)}")
     return dict(checked)
@@ -4423,7 +4679,8 @@ def batch_want(model: str, batch: int, steps: int = SD15_STEPS) -> dict:
     throughout, so UNet evaluations at 2·batch rows): the character runner
     (CHAR) or the final runner with its ControlNet (FINAL)."""
     ucfg, side, cn = path_cfg(model)
-    per = eval_launches(ucfg, side, 2 * batch)
+    per = eval_launches(ucfg, side, 2 * batch,
+                        captured=captured_layers(model))
     if cn is not None:
         per += eval_launches(cn, side, 2 * batch, encoder_only=True)
     return counts(**{k: v * steps for k, v in per.items()})
@@ -4500,13 +4757,14 @@ def batched_eval_phase(bundle, records) -> dict:
         torch.cuda.synchronize()
         got = read_counts()
         add_launches(records, CHAR_B6, got)
-        want = counts(**eval_launches(path_cfg(CHAR)[0], 64, 2 * n))
+        want = counts(**eval_launches(path_cfg(CHAR)[0], 64, 2 * n,
+                                      captured=len(keys)))
         reset_counts()
         twos = [batch2(i) for i in range(n)]
         torch.cuda.synchronize()
         got2 = read_counts()
         want2 = counts(**{k: n * v for k, v in eval_launches(
-            path_cfg(CHAR)[0], 64, 2).items()})
+            path_cfg(CHAR)[0], 64, 2, captured=len(keys)).items()})
         # the planted fault: one 0-dim scale, the hits', for every row
         sep_control = apart(batch6(scales[0]), twos)
         with plain_path():
@@ -5808,7 +6066,10 @@ def mesh_path(records) -> dict:
         swapped = _rel(torch.cat([dp["latents"][2:], dp["latents"][:2]]),
                        half_char["latents"])
         want = collections.Counter()
-        for per, n in ((eval_launches(ip_cfg, side, 4), 2 * MESH_STEPS),
+        for per, n in ((eval_launches(ip_cfg, side, 4,
+                                      captured=captured_layers(CHAR)),
+                        MESH_STEPS),
+                       (eval_launches(ip_cfg, side, 4), MESH_STEPS),
                        (eval_launches(cn_cfg, side, 4, encoder_only=True),
                         MESH_STEPS),
                        (eval_launches(ip_cfg, side, 2), 1)):
@@ -5992,7 +6253,12 @@ def main() -> int:
                 "theatergen_tpu/ops/flash_attention.py:633",
                 "flash_attention (_flash_attention_impl)",
                 flash_phase(gen, FLASH_COPY_SHAPES, "copy")),
-        ff_phase(gen), geglu_phase(gen), gn_phase(gen), qmm_phase(gen)]
+        ff_phase(gen), geglu_phase(gen), gn_phase(gen), qmm_phase(gen),
+        _record("cross_attention", "csrc/cross_attention.cu",
+                "none (XLA fused these shapes on the TPU)",
+                "multi_head_attention, decoupled_attention "
+                "(theatergen_tpu/ops/attention.py, left to XLA)",
+                cross_phase(gen))]
     sp_shards = sp_shards_phase(gen)
     log(f"[check] the kernels at the dialogue waves' other batches "
         f"{WAVE_BATCHES}")

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from theatergen_tpu_torch.models import layers as tl
+from theatergen_tpu_torch.ops import attention as tat
 from theatergen_tpu_torch.ops import flash_attention as tfa
 from theatergen_tpu_torch.ops import geglu_matmul as tgg
 from theatergen_tpu_torch.ops import groupnorm as tgn
@@ -213,16 +214,17 @@ def test_geglu_kernel_every_cluster_width_ragged_rows_on_card(monkeypatch, n,
 
 @pytest.mark.cuda
 def test_plain_path_launches_nothing():
-    """An SDXL-shaped transformer block in bf16 on the card launches flash
-    and geglu_matmul once each, and inside plain_path() no kernel at all
-    (counters unchanged)."""
+    """An SDXL-shaped transformer block in bf16 on the card launches flash,
+    geglu_matmul and the cross-attention kernel once each, and inside
+    plain_path() no kernel at all (counters unchanged)."""
     dev = _card()
     block = tl.BasicTransformerBlock(640, 10, 64, 2048).to(dev, torch.bfloat16)
     x = torch.randn(2, 4096, 640, device=dev, dtype=torch.bfloat16)
     ctx = torch.randn(2, 77, 2048, device=dev, dtype=torch.bfloat16)
 
     def counts():
-        return tfa.launches, tgg.ff_launches, tgg.geglu_launches
+        return (tfa.launches, tgg.ff_launches, tgg.geglu_launches,
+                tat.launches_cross)
 
     before = counts()
     with torch.no_grad():
@@ -231,7 +233,7 @@ def test_plain_path_launches_nothing():
         with tl.plain_path():
             plain = block(x, ctx)
     torch.cuda.synchronize()
-    assert mid == (before[0] + 1, before[1], before[2] + 1)
+    assert mid == (before[0] + 1, before[1], before[2] + 1, before[3] + 1)
     assert counts() == mid
     rel = (fast.float() - plain.float()).abs().max() / plain.float().abs().max()
     assert rel <= 2e-2
@@ -1263,3 +1265,208 @@ def test_group_norm_scale_and_bias_gradients_at_the_training_batch_on_card(
            (0.1 * torch.randn(c, device=dev, generator=g)).bfloat16()]
     _grad_gate(tgn.fused_group_norm, tgn.fused_group_norm_plain, ins,
                [True] * 3, lambda: tgn.launches, act=act)
+
+
+# ---------------------------------------------------------------------------
+# the cross-attention kernel (csrc/cross_attention.cu, row 9)
+# ---------------------------------------------------------------------------
+
+# the cells' cross-attention calls, (B, Sq, H, d, IP keys): SD1.5's IP UNet
+# at batch 24 (12 characters under CFG) at its three levels, SDXL's at
+# batch 12, with IP keys (the XL IP UNet) and without (its base UNet)
+CROSS_SHAPES = [(24, 4096, 8, 40, 4), (24, 1024, 8, 80, 4),
+                (24, 256, 8, 160, 4), (12, 4096, 10, 64, 4),
+                (12, 1024, 20, 64, 4), (12, 4096, 10, 64, 0),
+                (12, 1024, 20, 64, 0)]
+# The kernel against the plain version on the card (both bf16 out, from the
+# same bf16 inputs) is held to chip_smoke.py's row-9 gate, cross_gate
+# (CROSS_*_BOUND there, with their reasons and readings).
+
+
+def _cross_inputs(b, sq, h, d, si, seed):
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(*shape, device=dev, generator=g,
+                           dtype=torch.bfloat16)
+
+    q, k, v = r(b, sq, h, d), r(b, 77, h, d), r(b, 77, h, d)
+    k_ip, v_ip = (r(b, si, h, d), r(b, si, h, d)) if si else (None, None)
+    scale = torch.tensor([0.4, 0.0] * (b // 2), device=dev)
+    return q, k, v, k_ip, v_ip, scale
+
+
+def _cross_within(out, ref):
+    """(max and mean |out - ref|, within chip_smoke.cross_gate's bounds,
+    the bit-equal share)."""
+    g = _chip_smoke().cross_gate(out, ref)
+    return g["err"], g["mean"], g["ok"], g["same"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,h,d,si", CROSS_SHAPES)
+def test_cross_kernel_matches_plain_at_the_cells_shapes(b, sq, h, d, si):
+    """One launch at each of the cells' shapes, 77 text keys and 4 IP keys
+    with a [B] scale mixing 0.4 and 0 (DB hits and misses), within the
+    bounds above of the plain chain; the output is [B, Sq, H, d]
+    contiguous, so the reshape before to_out is a view."""
+    q, k, v, k_ip, v_ip, scale = _cross_inputs(b, sq, h, d, si, sq + d + si)
+    n0 = tat.launches_cross
+    out = tat.cross_attention(q, k, v, k_ip, v_ip, scale)
+    torch.cuda.synchronize()
+    assert tat.launches_cross == n0 + 1
+    assert out.shape == (b, sq, h, d) and out.is_contiguous()
+    ref = tat.cross_attention_plain(q, k, v, k_ip, v_ip, scale)
+    mx, mean, ok, same = _cross_within(out, ref)
+    assert ok, (mx, mean, same)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["ip_dropped", "scale_swapped",
+                                   "key78_unmasked", "p_one_bf16"])
+def test_cross_bound_catches_planted_faults(fault):
+    """What the bound above must refuse, at SD1.5's level 1 (B24 Sq1024
+    d80): the IP branch dropped (the text-only launch), one row's scale
+    swapped with its neighbour's, key 78 left in the softmax (78 keys,
+    the last a zero key and value, as the padded key arrives), and P as
+    one bf16 term (the plain version so rounded: the precision the hi + lo
+    split keeps)."""
+    q, k, v, k_ip, v_ip, scale = _cross_inputs(24, 1024, 8, 80, 4, 7)
+    ref = tat.cross_attention_plain(q, k, v, k_ip, v_ip, scale)
+    if fault == "ip_dropped":
+        out = tat.cross_attention(q, k, v)
+    elif fault == "scale_swapped":
+        swapped = scale.clone()
+        swapped[[0, 1]] = scale[[1, 0]]
+        out = tat.cross_attention(q, k, v, k_ip, v_ip, swapped)
+    elif fault == "key78_unmasked":
+        pad = torch.zeros_like(k[:, :1])
+        out = tat.cross_attention(q, torch.cat([k, pad], 1),
+                                  torch.cat([v, pad], 1), k_ip, v_ip, scale)
+    else:
+        out = _chip_smoke().cross_plain_p_bf16(q, k, v, k_ip, v_ip, scale)
+    assert not _cross_within(out, ref)[2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", ["float", "zero_dim_cuda", "zero_dim_cpu",
+                                   "one_element", "per_row"])
+def test_cross_kernel_takes_every_scale_form(scale):
+    """A float, a 0-dim CUDA or CPU tensor, a [1] and a [B] tensor as the
+    IP scale, each within the bounds of the plain version."""
+    q, k, v, k_ip, v_ip, per_row = _cross_inputs(4, 1024, 8, 40, 4, 11)
+    s = {"float": 0.4, "zero_dim_cuda": torch.tensor(0.4, device="cuda"),
+         "zero_dim_cpu": torch.tensor(0.4),
+         "one_element": torch.tensor([0.4], device="cuda"),
+         "per_row": per_row}[scale]
+    out = tat.cross_attention(q, k, v, k_ip, v_ip, s)
+    ref = tat.cross_attention_plain(q, k, v, k_ip, v_ip, s)
+    mx, mean, ok, same = _cross_within(out, ref)
+    assert ok, (mx, mean, same)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sk,si,sq", [(80, 16, 100), (128, 1, 256),
+                                      (1, 0, 130)])
+def test_cross_kernel_key_counts_and_a_ragged_q_tail(sk, si, sq):
+    """The padded-key edges (80 and 128 text keys, 16 and 1 IP keys, a
+    single text key) and a q tail the 128-row tile does not divide."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(sk + si)
+
+    def r(*shape):
+        return torch.randn(*shape, device=dev, generator=g,
+                           dtype=torch.bfloat16)
+
+    q, k, v = r(2, sq, 8, 64), r(2, sk, 8, 64), r(2, sk, 8, 64)
+    k_ip, v_ip = (r(2, si, 8, 64), r(2, si, 8, 64)) if si else (None, None)
+    out = tat.cross_attention(q, k, v, k_ip, v_ip, 0.4)
+    ref = tat.cross_attention_plain(q, k, v, k_ip, v_ip, 0.4)
+    mx, mean, ok, same = _cross_within(out, ref)
+    assert ok, (mx, mean, same)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,si", [(144, 4), (576, 0), (64, 4)])
+def test_cross_kernel_ragged_q_tail_at_d160(sq, si):
+    """The d = 160 instance with a q tail the 128-row tile does not
+    divide: SD1.5 at 768 px (levels 2 and 3, 576 and 144 queries) and at
+    512 px (the mid block's 64), with and without IP keys."""
+    q, k, v, k_ip, v_ip, scale = _cross_inputs(2, sq, 8, 160, si, sq + si)
+    out = tat.cross_attention(q, k, v, k_ip, v_ip, scale)
+    ref = tat.cross_attention_plain(q, k, v, k_ip, v_ip, scale)
+    mx, mean, ok, same = _cross_within(out, ref)
+    assert ok, (mx, mean, same)
+
+
+@pytest.mark.cuda
+def test_cross_attention_layer_routes_on_card():
+    """A bf16 CrossAttention with IP tokens on the card: a call with a
+    context launches the kernel once, one that asks for the probabilities
+    (a captured layer) and a self-attention call launch none of it, and
+    plain_path() none either; the routed output within the bounds of the
+    plain route's."""
+    dev = _card()
+    attn = tl.CrossAttention(320, 8, 40, context_dim=768,
+                             ip_tokens=4).to(dev, torch.bfloat16)
+    x = torch.randn(2, 4096, 320, device=dev, dtype=torch.bfloat16)
+    ctx = torch.randn(2, 81, 768, device=dev, dtype=torch.bfloat16)
+    scale = torch.tensor(0.4, device=dev)
+    n0 = tat.launches_cross
+    with torch.no_grad():
+        fast = attn(x, ctx, ip_scale=scale)
+        assert tat.launches_cross == n0 + 1
+        attn(x, ctx, ip_scale=scale, return_probs=True)
+        tl.CrossAttention(320, 8, 40).to(dev, torch.bfloat16)(x)
+        with tl.plain_path():
+            plain = attn(x, ctx, ip_scale=scale)
+    torch.cuda.synchronize()
+    assert tat.launches_cross == n0 + 1
+    rel = (fast.float() - plain.float()).abs().max() / plain.float().abs().max()
+    assert rel <= 2e-2
+
+
+@pytest.mark.cuda
+def test_cross_wrapper_refuses_what_the_kernel_does_not_take():
+    """Too many text or IP keys, a head dim without an instance, fp32 or
+    a scale of the wrong shape raise; CPU tensors run the plain version."""
+    dev = _card()
+    q = torch.randn(2, 256, 8, 40, device=dev, dtype=torch.bfloat16)
+    k = torch.randn(2, 77, 8, 40, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        tat.cross_attention(q, torch.cat([k, k], 1)[:, :129],
+                            torch.cat([k, k], 1)[:, :129])
+    with pytest.raises(ValueError):
+        tat.cross_attention(q, k, k, torch.cat([k] * 2, 1)[:, :17],
+                            torch.cat([k] * 2, 1)[:, :17], 0.4)
+    with pytest.raises(ValueError):
+        tat.cross_attention(q[..., :32], k[..., :32], k[..., :32])
+    with pytest.raises(TypeError):
+        tat.cross_attention(q.float(), k.float(), k.float())
+    with pytest.raises(ValueError):
+        tat.cross_attention(q, k, k, k[:, :4], k[:, :4],
+                            torch.ones(3, device=dev))
+    n0 = tat.launches_cross
+    out = tat.cross_attention(q.cpu(), k.cpu(), k.cpu(), k[:, :4].cpu(),
+                              k[:, :4].cpu(), 0.4)
+    assert tat.launches_cross == n0 and out.device.type == "cpu"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,d,ip", [(4096, 40, True), (1024, 80, True),
+                                    (1024, 64, False)])
+def test_cross_gradient_is_the_plain_version_on_card(s, d, ip):
+    """The guided UNet's batch-1 cross-attention under autograd: one
+    launch forward, none backward, the gradients of q, k, v (and k_ip,
+    v_ip) bit for bit the plain version's."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(39)
+    ins = [torch.randn(1, s, 8, d, device=dev, generator=g,
+                       dtype=torch.bfloat16)]
+    ins += [torch.randn(1, n, 8, d, device=dev, generator=g,
+                        dtype=torch.bfloat16)
+            for n in ((77, 77, 4, 4) if ip else (77, 77))]
+    _grad_gate(tat.cross_attention, tat.cross_attention_plain, ins,
+               [True] * len(ins), lambda: tat.launches_cross,
+               **(dict(ip_scale=0.4) if ip else {}))

@@ -35,6 +35,7 @@ from theatergen_tpu_torch import config as tcfg
 from theatergen_tpu_torch import theater as tth
 from theatergen_tpu_torch.models.controlnet import ControlNet as TControlNet
 from theatergen_tpu_torch.models.unet import UNet2DCondition as TUNet
+from theatergen_tpu_torch.ops import attention as tat
 from theatergen_tpu_torch.ops import flash_attention as tfa
 from theatergen_tpu_torch.ops import geglu_matmul as tgg
 from theatergen_tpu_torch.ops import geometry as TG
@@ -679,18 +680,19 @@ def test_controlnet_bundle_keeps_the_other_weights():
 # GroupNorms at 96²×640 and 96²×960 (three in the UNet's up path) pass the
 # TPU gate's size limit
 FINAL_SITES = {
-    512: {"unet": dict(flash=10, flash_long=0, ff=16, gn=61),
-          "controlnet": dict(flash=4, flash_long=0, ff=7, gn=27)},
-    768: {"unet": dict(flash=0, flash_long=5, ff=15, gn=58),
-          "controlnet": dict(flash=0, flash_long=2, ff=6, gn=27)},
+    512: {"unet": dict(flash=10, flash_long=0, ff=16, gn=61, cross=16),
+          "controlnet": dict(flash=4, flash_long=0, ff=7, gn=27, cross=7)},
+    768: {"unet": dict(flash=0, flash_long=5, ff=15, gn=58, cross=16),
+          "controlnet": dict(flash=0, flash_long=2, ff=6, gn=27, cross=7)},
 }
 
 
 def test_final_pass_kernel_sites(monkeypatch):
     """The full-size SD1.5 IP UNet and ControlNet in bf16 on the meta
     device, with the GroupNorm switch at "1": the flash (short and long
-    route), ff_matmul and group_norm calls of one evaluation at 512 and
-    768 px (chip_smoke.py gates its requests on these counts)."""
+    route), ff_matmul, group_norm and cross-attention calls of one
+    evaluation at 512 and 768 px (chip_smoke.py gates its requests on
+    these counts)."""
     monkeypatch.setattr(tgn, "FUSED_MODE", "1")
     calls = collections.Counter()
     real = (tfa.flash_attention, tgg.ff_matmul, tgn.fused_group_norm)
@@ -702,6 +704,9 @@ def test_final_pass_kernel_sites(monkeypatch):
                         or real[1](*a))
     monkeypatch.setattr(tgn, "fused_group_norm", lambda *a, **k: calls.update(
         ["gn"]) or real[2](*a, **k))
+    real_cross = tat.cross_attention
+    monkeypatch.setattr(tat, "cross_attention", lambda *a: calls.update(
+        ["cross"]) or real_cross(*a))
     cfg = tcfg.sd15_config()
     with torch.device("meta"):
         unet = TUNet(dataclasses.replace(cfg.unet, ip_num_tokens=4)).to(

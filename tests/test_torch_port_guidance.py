@@ -32,6 +32,7 @@ from theatergen_tpu.pipelines import guidance as jguid
 from theatergen_tpu_torch import config as tcfg
 from theatergen_tpu_torch import theater as tth
 from theatergen_tpu_torch.cli import generate as tgen
+from theatergen_tpu_torch.ops import attention as tat
 from theatergen_tpu_torch.ops import flash_attention as tfa
 from theatergen_tpu_torch.ops import geglu_matmul as tgg
 from theatergen_tpu_torch.ops import groupnorm as tgn
@@ -707,10 +708,19 @@ def test_chip_smoke_guided_iteration_launches_are_the_sites(monkeypatch):
                                    x.shape[2] * x.shape[3], act)))
         return real[3](x, *a, act=act, **k)
 
+    real_cross = tat.cross_attention
+
+    def cross(q, k, v, k_ip=None, v_ip=None, ip_scale=1.0):
+        calls["cross_attention"] += 1
+        shapes.add(("cross_attention", tuple(q.shape) + (
+            0 if k_ip is None else k_ip.shape[1],)))
+        return real_cross(q, k, v, k_ip, v_ip, ip_scale)
+
     monkeypatch.setattr(tfa, "flash_attention", flash)
     monkeypatch.setattr(tgg, "ff_matmul", ff)
     monkeypatch.setattr(tgg, "geglu_matmul", geglu)
     monkeypatch.setattr(tgn, "fused_group_norm", norm)
+    monkeypatch.setattr(tat, "cross_attention", cross)
     for model, cfg in ((cs.CHAR, tcfg.sd15_config()),
                        (cs.XL_CHAR, tcfg.sdxl_config())):
         ucfg, side, _ = cs.path_cfg(model)

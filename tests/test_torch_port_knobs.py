@@ -383,6 +383,7 @@ def test_chip_smoke_derived_launches_are_the_sites(monkeypatch):
     (FF_SHAPES, GN_SHAPES) are the cond-only evaluation's sites."""
     from theatergen_tpu_torch.models.controlnet import ControlNet as TCN
     from theatergen_tpu_torch.models.unet import UNet2DCondition as TUNet
+    from theatergen_tpu_torch.ops import attention as tat
     from theatergen_tpu_torch.ops import flash_attention as tfa
     from theatergen_tpu_torch.ops import geglu_matmul as tgg
     from theatergen_tpu_torch.ops import groupnorm as tgn
@@ -411,10 +412,17 @@ def test_chip_smoke_derived_launches_are_the_sites(monkeypatch):
         gn_shapes[(x.shape[0], x.shape[1], x.shape[2] * x.shape[3])] += 1
         return real[3](x, *a, **k)
 
+    real_cross = tat.cross_attention
+
+    def cross(*a, **k):
+        calls["cross_attention"] += 1
+        return real_cross(*a, **k)
+
     monkeypatch.setattr(tfa, "flash_attention", flash)
     monkeypatch.setattr(tgg, "ff_matmul", ff)
     monkeypatch.setattr(tgg, "geglu_matmul", geglu)
     monkeypatch.setattr(tgn, "fused_group_norm", norm)
+    monkeypatch.setattr(tat, "cross_attention", cross)
     sd, xl = tcfg.sd15_config(), tcfg.sdxl_config()
 
     def site_counts(fn):

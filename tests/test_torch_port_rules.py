@@ -102,9 +102,9 @@ def test_seeded_init_is_deterministic():
 def test_kernel_sources_and_targets():
     """Every kernel builds from csrc/ into build/torch_kernels/ under a
     name that changes with its source."""
-    assert _build.kernel_names() == ["ff_geglu", "flash_attention",
-                                     "geglu_matmul", "group_norm",
-                                     "quant_matmul"]
+    assert _build.kernel_names() == ["cross_attention", "ff_geglu",
+                                     "flash_attention", "geglu_matmul",
+                                     "group_norm", "quant_matmul"]
     for name in _build.kernel_names():
         t = _build._target(name)
         assert t.parent == ROOT / "build" / "torch_kernels"
@@ -115,6 +115,7 @@ def test_kernel_sources_and_targets():
 def test_wrappers_take_the_plain_version_only_on_cpu(monkeypatch):
     """CPU tensors never reach the kernel library (nor nvcc)."""
     from theatergen_tpu_torch.models.layers import QuantLinear
+    from theatergen_tpu_torch.ops import attention as attn_ops
     from theatergen_tpu_torch.ops import flash_attention as fa
     from theatergen_tpu_torch.ops import geglu_matmul as gg
     from theatergen_tpu_torch.ops import groupnorm as gn
@@ -127,6 +128,9 @@ def test_wrappers_take_the_plain_version_only_on_cpu(monkeypatch):
     monkeypatch.setattr(_build, "library", boom)
     q = torch.randn(1, 1024, 2, 40, dtype=torch.bfloat16)
     assert fa.flash_attention(q, q, q).shape == q.shape
+    k = torch.randn(1, 77, 2, 40, dtype=torch.bfloat16)
+    assert attn_ops.cross_attention(q, k, k, k[:, :4], k[:, :4],
+                                    0.4).shape == q.shape
     x = torch.randn(4, 320, dtype=torch.bfloat16)
     w1 = torch.randn(2560, 320, dtype=torch.bfloat16)
     out = gg.ff_matmul(x, w1, torch.zeros(2560, dtype=torch.bfloat16),

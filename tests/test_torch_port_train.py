@@ -436,6 +436,7 @@ def test_chip_smoke_train_launches_are_the_sites(monkeypatch):
     GroupNorm switch "1") are those, and the TRAIN rows of FLASH_SHAPES
     and FF_SHAPES are their flash and FF sites, with their counts."""
     from theatergen_tpu_torch import config as tcfg
+    from theatergen_tpu_torch.ops import attention as tat
     from theatergen_tpu_torch.ops import flash_attention as tfa
     from theatergen_tpu_torch.ops import geglu_matmul as tgg
     from theatergen_tpu_torch.ops import groupnorm as tgn
@@ -470,10 +471,17 @@ def test_chip_smoke_train_launches_are_the_sites(monkeypatch):
         count("group_norm")
         return real[3](x, *a, **k)
 
+    real_cross = tat.cross_attention
+
+    def cross(*a, **k):
+        count("cross_attention")
+        return real_cross(*a, **k)
+
     monkeypatch.setattr(tfa, "flash_attention", flash)
     monkeypatch.setattr(tgg, "ff_matmul", ff)
     monkeypatch.setattr(tgg, "geglu_matmul", geglu)
     monkeypatch.setattr(tgn, "fused_group_norm", norm)
+    monkeypatch.setattr(tat, "cross_attention", cross)
     cfg = tcfg.sd15_config()
     ucfg = dataclasses.replace(cfg.unet,
                                ip_num_tokens=cfg.ip_adapter.num_tokens)
@@ -492,7 +500,7 @@ def test_chip_smoke_train_launches_are_the_sites(monkeypatch):
     assert cs.counts(**calls) == cs.counts(**cs.eval_launches(
         ucfg, side, cs.TRAIN_BATCH))
     assert calls["flash_attention"] == 10 and calls["ff_geglu"] == 16
-    assert calls["group_norm"] == 61
+    assert calls["group_norm"] == 61 and calls["cross_attention"] == 16
     want = {("flash", s): n for m, s, n in cs.FLASH_SHAPES if m == cs.TRAIN}
     want.update({("ff", s): n for m, s, n in cs.FF_SHAPES if m == cs.TRAIN})
     assert len(want) == 6 and shapes == want

@@ -243,7 +243,8 @@ def test_chip_smoke_sdxl_w8a8_shapes_and_launches(sdxl_qmm_calls):
     """chip_smoke.py's W8A8 SDXL constants against the meta forward: its
     kernel rows are every (M, K, N) of one evaluation with its calls, 719
     in all, and eval_launches derives QMM_XL_PER_EVAL quant_matmul
-    launches (with SDXL's flash and GroupNorm sites) at route "1"."""
+    launches (with SDXL's flash, GroupNorm and cross-attention sites) at
+    route "1"."""
     cs = _chip_smoke()
     rows = {shape: calls for model, shape, calls in cs.QMM_SHAPES
             if model == cs.W8A8_XL}
@@ -256,7 +257,7 @@ def test_chip_smoke_sdxl_w8a8_shapes_and_launches(sdxl_qmm_calls):
     finally:
         TQ.FUSED_MODE, cs.gn.FUSED_MODE = prev_q, prev_gn
     assert dict(got) == dict(flash_attention=70, group_norm=42,
-                             quant_matmul=719)
+                             quant_matmul=719, cross_attention=70)
 
 
 @pytest.mark.parametrize("slots", [66, 132, 264])

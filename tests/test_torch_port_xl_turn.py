@@ -503,6 +503,7 @@ def test_chip_smoke_xl_and_w8a8_launches_are_the_sites(monkeypatch):
     models make on the meta device; derivation_check holds both to its
     constants."""
     from theatergen_tpu_torch.models.unet import UNet2DCondition as TUNet
+    from theatergen_tpu_torch.ops import attention as tat
     from theatergen_tpu_torch.ops import flash_attention as tfa
     from theatergen_tpu_torch.ops import geglu_matmul as tgg
     from theatergen_tpu_torch.ops import groupnorm as tgn
@@ -532,7 +533,8 @@ def test_chip_smoke_xl_and_w8a8_launches_are_the_sites(monkeypatch):
             (tfa, "flash_attention", "flash", real[0]),
             (tgg, "ff_matmul", "ff_geglu", real[1]),
             (tgg, "geglu_matmul", "geglu_matmul", real[2]),
-            (tgn, "fused_group_norm", "group_norm", real[3])):
+            (tgn, "fused_group_norm", "group_norm", real[3]),
+            (tat, "cross_attention", "cross_attention", tat.cross_attention)):
         monkeypatch.setattr(mod, attr, counted(name, fn))
     monkeypatch.setattr(tqm, "quant_matmul", qmm)
 

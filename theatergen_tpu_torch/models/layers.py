@@ -426,16 +426,19 @@ class CrossAttention(nn.Module):
     JAX package's flash switches; a quantized layer skips the packed
     route, as there) takes ``ops.flash_attention`` on that route, which
     raises on the card for a head dim it has no kernel instance for;
-    every other call, and every call inside :func:`plain_path`, takes
-    ``ops.attention.multi_head_attention``.
+    every other self-attention, and every call inside :func:`plain_path`,
+    takes ``ops.attention.multi_head_attention``.
 
     With ``ip_tokens > 0`` the last ``ip_tokens`` rows of a context are
     image tokens with their own ``to_k_ip``/``to_v_ip`` projections, and
     the call is ``ops.attention.decoupled_attention`` scaled by
-    ``ip_scale`` (the JAX package's ``layers.py:346-362``).  With
-    ``return_probs`` the call returns ``(out, probs [B, H, Lq, Lk])``, the
-    probabilities of the (text) context, and never takes the flash
-    kernel."""
+    ``ip_scale`` (the JAX package's ``layers.py:346-362``).  A call with a
+    context that ``ops.attention.cross_routes`` takes (bf16, no
+    probabilities, the kernel's key counts and head dims) goes to
+    ``ops.attention.cross_attention`` instead, the text and IP branches in
+    one kernel launch on the card.  With ``return_probs`` the call returns
+    ``(out, probs [B, H, Lq, Lk])``, the probabilities of the (text)
+    context, and takes neither kernel."""
 
     def __init__(self, query_dim: int, heads: int, head_dim: int,
                  context_dim: Optional[int] = None, use_flash: bool = True,
@@ -469,17 +472,23 @@ class CrossAttention(nn.Module):
         ctx = x if context is None else context
         shape = (b, -1, self.heads, self.head_dim)
         q = self.to_q(x).view(shape)
+        k_ip = v_ip = None
         if self.ip_tokens and context is not None:
             text_len = ctx.shape[1] - self.ip_tokens
             text, image = ctx[:, :text_len], ctx[:, text_len:]
-            res = attn_ops.decoupled_attention(
-                q, self.to_k(text).view(shape), self.to_v(text).view(shape),
-                self.to_k_ip(image).view(shape),
-                self.to_v_ip(image).view(shape), ip_scale,
-                return_probs=return_probs)
+            k, v = self.to_k(text).view(shape), self.to_v(text).view(shape)
+            k_ip = self.to_k_ip(image).view(shape)
+            v_ip = self.to_v_ip(image).view(shape)
         else:
             k = self.to_k(ctx).view(shape)
             v = self.to_v(ctx).view(shape)
+        if (context is not None and _use_kernels and attn_ops.cross_routes(
+                q, k, k_ip, ip_scale, return_probs=return_probs)):
+            res = attn_ops.cross_attention(q, k, v, k_ip, v_ip, ip_scale)
+        elif k_ip is not None:
+            res = attn_ops.decoupled_attention(q, k, v, k_ip, v_ip, ip_scale,
+                                               return_probs=return_probs)
+        else:
             route = None
             if (context is None and self.use_flash and _use_kernels
                     and not return_probs and x.dtype == torch.bfloat16):
